@@ -2,22 +2,41 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's main path — the §5.3 FFNN scorer at the paper's
+Drives the port's two main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
-through ``TraServer`` on the ``jit`` executor — and holds every hand-written
-kernel of that path against its plain PyTorch version on the card:
+through ``TraServer`` on the ``jit`` executor, and gemma2-2b at full width
+(26 layers, d_model 2304, vocab 256000; random bf16 weights from seed 0)
+through the ``--dense-oracle`` prefill + greedy decode loop — and holds
+every hand-written kernel of those paths against its plain PyTorch version
+on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles the CUDA source of ``src/repro_torch/kernels/matmul``;
+2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
+   ``nvcc`` per library, all started together);
 3. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
    package's kernel tests, a ragged shape and the scorer's two products,
    and the split-K reduction pass (``splitk_reduce``) against
    ``splitk_reduce_ref`` at the partial sums of the scorer's second
    product, each with kernel / plain / library times and the bound;
-4. serve: 64 Poisson-arriving requests through ``TraServer`` with every
+4. flash: ``attention`` (the flash attention kernel) against
+   ``attention_ref`` at the JAX kernel tests' cases (f32 at 2e-4, bf16 at
+   3e-2), ragged lengths, ``sq < skv``, ``dv != d`` and gemma2-2b's two
+   layer shapes (B=2, S=8192, D=256, soft-cap 50: window 4096 and
+   global; bf16 at 6e-3, f32 at 2e-4), every case also within a limit on
+   each output row's error over that row's norm (bf16 1e-2, f32 1e-4);
+   timed at the gemma2 shapes in bf16 with the bound, and
+   ``scaled_dot_product_attention`` beside the kernel at the global shape
+   without soft-cap;
+5. serve: 64 Poisson-arriving requests through ``TraServer`` with every
    kernel launch count set to 0 just before and read just after; each
    response is checked against the scorer's per-request oracle;
-5. the kernels line, the ``nvidia-smi`` line, and the last line
+6. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
+   ``launch.serve.dense_generate`` with every launch count set to 0 just
+   before and read just after (26 flash launches); the prefill's and the first decode step's logits against the
+   same model with the plain attention, within ``0.02·(max|logit| + 1)``;
+   a profile by kernel of one prefill (26 flash launches) and of 8 decode
+   steps (none), so the main path's 26 were all its prefill's;
+7. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -38,18 +57,32 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.ffnn_paper import speech  # noqa: E402
 from repro_torch.core.cost import H100_SXM  # noqa: E402
 from repro_torch.core.plan import FusedJoinAgg, postorder  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref)
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref)
+from repro_torch.models.model import _window_for, group_size  # noqa: E402
 
 SEED = 0
 N_REQUESTS = 64
 ARRIVAL_RATE = 2000.0            # requests/s, Poisson
 BUCKETS = (1, 2, 4, 8)
+ARCH = "gemma2-2b"
+PROMPT_BATCH, PROMPT_LEN, GEN = 2, 8192, 32
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# At S=8192 an output is a softmax average over thousands of keys, ~0.02,
+# so 3e-2 would hold nothing there: the gemma2 shapes take a max-abs limit
+# of 3x the error read on the card (chip calls 3-5: 1.95e-3), and every
+# case the largest error of one output row over that row's norm.
+GEMMA2_BF16_ATOL = 6e-3
+ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 PEAK = {torch.float32: H100_SXM.peak_flops_f32,
         torch.bfloat16: H100_SXM.peak_flops}
 
@@ -110,6 +143,16 @@ def tolerance(k: int, dtype) -> tuple:
     return rtol, 1e-5 * math.sqrt(k)
 
 
+def reset_launches() -> None:
+    mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"matmul": mm_ops.LAUNCHES,
+            "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES,
+            "flash_attention": flash_ops.LAUNCHES}
+
+
 # ---------------------------------------------------------------- phases
 def phase_device(device) -> str:
     smi = subprocess.run(
@@ -124,11 +167,18 @@ def phase_device(device) -> str:
 
 
 def phase_build() -> None:
-    seconds = build.build("matmul")
-    usage = [ln.strip() for ln in build.BUILD_LOGS.get("matmul", "")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "library": "matmul", "seconds": seconds,
-          "ptxas": usage})
+    """Every kernel library at once: one ``nvcc`` each, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        seconds = dict(zip(build.SOURCES, pool.map(build.build,
+                                                   build.SOURCES)))
+    for name in build.SOURCES:
+        usage = [ln.strip() for ln in build.BUILD_LOGS.get(name, "")
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "library": name, "seconds": seconds[name],
+              "ptxas": usage})
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0})
 
 
 def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
@@ -249,10 +299,9 @@ def phase_serve(device) -> dict:
     arrivals = poisson_arrivals(rng, N_REQUESTS, ARRIVAL_RATE)
 
     # -- the main path: every launch count is 0 just before, read just after
-    mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = 0
+    reset_launches()
     report = open_loop(server, payloads, arrivals)
-    launches = {"matmul": mm_ops.LAUNCHES,
-                "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES}
+    launches = read_launches()
     # ---------------------------------------------------------------------
 
     dispatches = sum(server.dispatches.values())
@@ -264,7 +313,7 @@ def phase_serve(device) -> dict:
     # per dispatch: both products launch the tile kernel; the second,
     # (b x 100000) @ (100000 x 10), splits K and launches the reduction
     expected = {"matmul": 2 * dispatches,
-                "matmul_splitk_reduce": dispatches}
+                "matmul_splitk_reduce": dispatches, "flash_attention": 0}
     if launches != expected:
         fail(f"serve: launches {launches} for {dispatches} dispatches, "
              f"expected {expected}")
@@ -328,6 +377,368 @@ def dispatch_breakdown(server, scorer, device) -> dict:
             "w1_bytes": w1.numel() * w1.element_size()}
 
 
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: the work this input needs
+    (row i stands at key position i + skv - sq)."""
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(skv - 1, pos) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_times(b, hq, hkv, sq, skv, d, dv, dtype, causal,
+                      window) -> tuple:
+    """(bytes_ms, operations_ms) of one attention call on an H100 SXM: q,
+    k, v read once and the output written once at the HBM rate, against
+    2·(d + dv) operations per unmasked pair at the type's peak."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (b * hq * sq * d + b * hkv * skv * (d + dv)
+              + b * hq * sq * dv) * isz
+    flops = 2.0 * (d + dv) * b * hq * attention_pairs(sq, skv, causal,
+                                                      window)
+    return nbytes / H100_SXM.hbm_bw * 1e3, flops / PEAK[dtype] * 1e3
+
+
+def flash_errors(o, r, dtype, atol=None) -> dict:
+    """``o`` (the kernel's output) against ``r`` (the plain version's),
+    both f32: elementwise within ``atol + rtol·|r|`` (both ``FLASH_TOL``,
+    or ``atol`` alone when given), and each row's error within
+    ``ROW_REL_TOL`` of that row's norm.  ``fault`` says what failed, or is
+    None."""
+    rtol, atol = (FLASH_TOL[dtype],) * 2 if atol is None else (0.0, atol)
+    err = (o - r).abs()
+    # a fully masked row is 0 in both: 0 / tiny = 0
+    row_rel = ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+               ).max().item()
+    fault = None
+    if not bool(torch.isfinite(o).all()):
+        fault = "output not finite"
+    elif bool((err > atol + rtol * r.abs()).any()):
+        fault = f"max |err| {err.max().item()} over rtol={rtol} atol={atol}"
+    elif not row_rel <= ROW_REL_TOL[dtype]:
+        fault = (f"a row's error is {row_rel} of its norm, over "
+                 f"{ROW_REL_TOL[dtype]}")
+    return {"max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
+            "max_row_rel_err": row_rel, "row_rel_tol": ROW_REL_TOL[dtype],
+            "fault": fault}
+
+
+def flash_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
+               iters=0, atol=None) -> dict:
+    """The kernel against ``attention_ref`` on one input
+    (:func:`flash_errors`); timed (kernel, plain, bound) when ``iters`` >
+    0."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, dv)
+    out = flash_ops.attention(q, k, v, impl="kernel", **kw)
+    ref = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize(device)
+    name = f"attention b{b} h{hq}/{hkv} s{sq}/{skv} d{d}/{dv} {dtype} {kw}"
+    if tuple(out.shape) != (b, hq, sq, dv) or out.dtype != dtype:
+        fail(f"{name}: got {tuple(out.shape)} {out.dtype}")
+    o, r = out.float(), ref.float()
+    del out, ref
+    errs = flash_errors(o, r, dtype, atol)
+    fault = errs.pop("fault")
+    if fault is not None:
+        fail(f"{name}: {fault}")
+    row = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "skv": skv, "d": d,
+           "dv": dv, "dtype": str(dtype).split(".")[-1], **kw, **errs,
+           "max_abs_ref": r.abs().max().item(),
+           "mean_abs_ref": r.abs().mean().item()}
+    del o, r
+    if iters:
+        t_bytes, t_ops = flash_bound_times(b, hq, hkv, sq, skv, d, dv, dtype,
+                                           kw["causal"], kw["window"])
+        bnd, by = bound_of(t_bytes, t_ops)
+        row.update({
+            "kernel_ms": timed_ms(lambda: flash_ops.attention(
+                q, k, v, impl="kernel", **kw), device, iters, warmup=1),
+            "plain_ms": timed_ms(lambda: attention_ref(q, k, v, **kw),
+                                 device, max(1, iters // 2), warmup=1),
+            "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
+            "operations_ms": t_ops})
+    return row
+
+
+def gemma2_layer_kw(cfg, layer: int) -> dict:
+    """The attention settings of one layer, as the model hands them on."""
+    return {"causal": True,
+            "window": _window_for(cfg, layer % group_size(cfg)),
+            "softcap": cfg.attn_softcap}
+
+
+def phase_flash(device, gen) -> dict:
+    rows = []
+    # the JAX kernel tests' cases (tests/test_kernels.py:47-76)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((4, 4), (8, 2)):
+            for causal, window, softcap in ((True, 0, 0.0), (True, 64, 0.0),
+                                            (True, 0, 30.0),
+                                            (False, 0, 0.0)):
+                rows.append(flash_case(
+                    2, hq, hkv, 256, 256, 64, 64, dtype,
+                    {"causal": causal, "window": window, "softcap": softcap},
+                    device, gen))
+    # ragged lengths, sq < skv (ends aligned), dv != d
+    causal = {"causal": True, "window": 0, "softcap": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(flash_case(2, 8, 4, 200, 200, 64, 64, dtype, causal,
+                               device, gen))
+        rows.append(flash_case(2, 8, 4, 1000, 1000, 64, 64, dtype,
+                               {"causal": True, "window": 100,
+                                "softcap": 30.0}, device, gen))
+        rows.append(flash_case(2, 8, 4, 100, 300, 64, 64, dtype, causal,
+                               device, gen))
+        rows.append(flash_case(2, 8, 4, 200, 200, 192, 128, dtype, causal,
+                               device, gen))
+    for r in rows:
+        emit({"phase": "flash", **r})
+    # gemma2-2b's two layer shapes: bf16 as the model runs them, timed;
+    # f32 at the same shapes, untimed
+    cfg = get_config(ARCH)
+    dims = (PROMPT_BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT_LEN,
+            PROMPT_LEN, cfg.head_dim, cfg.head_dim)
+    shape = dims + (torch.bfloat16,)
+    layers = {}
+    for kind, layer in (("window", 0), ("global", 1)):
+        kw = gemma2_layer_kw(cfg, layer)
+        layers[kind] = flash_case(*shape, kw, device, gen, iters=4,
+                                  atol=GEMMA2_BF16_ATOL)
+        emit({"phase": "flash", "at": f"{ARCH} {kind} layer",
+              **layers[kind]})
+        rows.append(flash_case(*dims, torch.float32, kw, device, gen,
+                               atol=FLASH_TOL[torch.float32]))
+        emit({"phase": "flash", "at": f"{ARCH} {kind} layer, f32",
+              **rows[-1]})
+    # the library yardstick: one PyTorch call, global shape, no soft-cap
+    b, hq, hkv, s, _, d, dv, dt = shape
+    q = torch.randn((b, hq, s, d), generator=gen, device=device).to(dt)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dt)
+    v = torch.randn((b, hkv, s, dv), generator=gen, device=device).to(dt)
+    nocap = {"causal": True, "window": 0, "softcap": 0.0}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    ker_out = flash_ops.attention(q, k, v, impl="kernel", **nocap)
+    lib_err = (lib_out.float() - ker_out.float()).abs().max().item()
+    del lib_out, ker_out
+    library = {
+        "at": f"{ARCH} global layer shape, no soft-cap",
+        "library_call": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+        "library_ms": timed_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                            enable_gqa=True), device, 4,
+                               warmup=1),
+        "kernel_ms": timed_ms(lambda: flash_ops.attention(
+            q, k, v, impl="kernel", **nocap), device, 4, warmup=1),
+        "max_abs_diff": lib_err}
+    emit({"phase": "flash", **library})
+    return {"rows": rows, "layers": layers, "library": library}
+
+
+def device_profile(fn) -> dict:
+    """Device time of ``fn()`` by kernel (``torch.profiler``), grouped into
+    the flash kernel, the GEMMs (cuBLAS: projections, MLP, unembedding)
+    and the rest, beside the host-clock wall time of the profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3
+            launches += e.count
+    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        low = name.lower()
+        if "flash_attention_kernel" in low:
+            groups["flash_attention"] += ms
+        elif any(t in low for t in ("gemm", "nvjet", "sm90_xmma", "cutlass",
+                                    "cublas")):
+            groups["gemm"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "kernel_launches": launches,
+            "device_ms_by_group": groups,
+            "device_ms_total": busy,
+            "device_busy_share": busy / wall_ms if busy else None,
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def compare_with_plain(cfg, model, prompts, run) -> dict:
+    """The same model with the plain attention, fed the kernel run's
+    tokens: its prefill and first decode logits against the kernel run's
+    (within ``0.02·(max|logit| + 1)``, every logit finite), and the share
+    of greedy tokens on which the two agree."""
+    from repro_torch.models import decode_step, prefill
+    model.attn_impl = "plain"
+    with torch.inference_mode():
+        plain_logits, cache = prefill(cfg, model, {"tokens": prompts},
+                                      PROMPT_LEN + GEN)
+        first_token = run.prefill_logits.argmax(-1)
+        tok, agree, plain_first = first_token, 0, None
+        for t in range(GEN):
+            logits, cache = decode_step(cfg, model, cache, {"token": tok})
+            if plain_first is None:
+                plain_first = logits
+            want = run.tokens[:, t:t + 1].to(prompts.device)
+            agree += int((logits.argmax(-1) == want).sum())
+            tok = want
+    model.attn_impl = "auto"
+    checks = {}
+    for what, got, ref in (("prefill", run.prefill_logits, plain_logits),
+                           ("decode_step_1", run.first_decode_logits,
+                            plain_first)):
+        shape = (PROMPT_BATCH, 1, cfg.vocab_size)
+        if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+            fail(f"gemma2 {what}: logits of shape {tuple(got.shape)} / not "
+                 f"finite")
+        diff = (got - ref).abs().max().item()
+        bound = 0.02 * (ref.abs().max().item() + 1.0)
+        checks[what] = {"max_abs_diff_vs_plain": diff, "bound": bound}
+        if not diff <= bound:
+            fail(f"gemma2 {what}: logits differ from the plain-attention "
+                 f"run by {diff} > {bound}")
+    return {"checks": checks,
+            "first_token_agrees": bool(torch.equal(
+                first_token, plain_logits.argmax(-1))),
+            "greedy_tokens_agree_share": agree / (PROMPT_BATCH * GEN)}
+
+
+def gemma2_profiles(cfg, model, prompts) -> dict:
+    """One prefill, then 8 decode steps as ``dense_generate``'s loop takes
+    them, each under the profiler, with the flash launches of each: one
+    per layer in the prefill, none in decode."""
+    from repro_torch.models import decode_step, prefill
+    state = {}
+
+    def prefill_once():
+        state["logits"], state["cache"] = prefill(
+            cfg, model, {"tokens": prompts}, PROMPT_LEN + 8)
+
+    def decode_8_steps():
+        cache, tok = state["cache"], state["logits"].argmax(-1)
+        for _ in range(8):
+            logits, cache = decode_step(cfg, model, cache, {"token": tok})
+            tok = logits.argmax(-1)
+            tok.cpu()
+
+    with torch.inference_mode():
+        n0 = flash_ops.LAUNCHES
+        pre = device_profile(prefill_once)
+        n1 = flash_ops.LAUNCHES
+        dec = device_profile(decode_8_steps)
+        by_phase = {"prefill": n1 - n0,
+                    "decode_8_steps": flash_ops.LAUNCHES - n1}
+    if by_phase != {"prefill": cfg.n_layers, "decode_8_steps": 0}:
+        fail(f"gemma2: flash launches by phase {by_phase}; expected "
+             f"{cfg.n_layers} in a prefill, 0 in decode")
+    return {"launches_by_phase": by_phase, "profile_prefill": pre,
+            "profile_decode_8_steps": dec}
+
+
+def decode_step_bound_ms(cfg, model) -> float:
+    """The least time of the last decode step: every weight read once and
+    each layer's visible cache (PROMPT_LEN + GEN positions, or its window)
+    read once, at the HBM rate."""
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    seen = PROMPT_LEN + GEN
+    k_and_v = 2 * PROMPT_BATCH * cfg.n_kv_heads * cfg.head_dim \
+        * model.embed["w"].element_size()
+    cache_bytes = 0
+    for i in range(cfg.n_layers):
+        window = gemma2_layer_kw(cfg, i)["window"]
+        cache_bytes += k_and_v * (min(seen, window) if window else seen)
+    return (weight_bytes + cache_bytes) / H100_SXM.hbm_bw * 1e3
+
+
+def phase_gemma2(device) -> dict:
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import init_params
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (PROMPT_BATCH, PROMPT_LEN),
+                            generator=gen, device=device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    dense_generate(cfg, model, prompts[:, :256], 2)     # warm: CUDA/cuBLAS
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # -- the main path: every launch count is 0 just before, read just after
+    reset_launches()
+    run = dense_generate(cfg, model, prompts, GEN)
+    launches = read_launches()
+    # ---------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated(device)
+    # one per layer; gemma2_profiles shows a lone prefill makes them all
+    if launches != {"matmul": 0, "matmul_splitk_reduce": 0,
+                    "flash_attention": cfg.n_layers}:
+        fail(f"gemma2: launches {launches}; expected {cfg.n_layers} flash "
+             f"launches")
+    out = {"phase": "gemma2", "arch": ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": PROMPT_BATCH, "prompt_len": PROMPT_LEN, "gen": GEN,
+           "launches": launches,
+           "prefill_ms": run.prefill_s * 1e3,
+           "decode_tok_per_s": PROMPT_BATCH * GEN / run.decode_s,
+           "decode_ms_per_step": run.decode_s * 1e3 / GEN,
+           "decode_step_bytes_bound_ms": decode_step_bound_ms(cfg, model),
+           "max_memory_allocated_gb": peak / 1e9,
+           **compare_with_plain(cfg, model, prompts, run),
+           "setup_s": setup_s, **gemma2_profiles(cfg, model, prompts)}
+    emit(out)
+    return out
+
+
+def flash_entry(flash: dict, gemma2: dict) -> dict:
+    """The kernels line's flash attention entry: one launch at gemma2-2b's
+    global-layer shape, the window layer and the prefill's sum beside it."""
+    cfg = get_config(ARCH)
+    glob, win = flash["layers"]["global"], flash["layers"]["window"]
+    n_win = sum(gemma2_layer_kw(cfg, i)["window"] > 0
+                for i in range(cfg.n_layers))
+    n_glob = cfg.n_layers - n_win
+    lib = flash["library"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+        "function": "flash_attention_pallas",
+        "launches": gemma2["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in flash["rows"] + [glob, win]),
+        "ms": glob["kernel_ms"], "plain_ms": glob["plain_ms"],
+        "bound_ms": glob["bound_ms"], "bound_by": glob["bound_by"],
+        "library_ms": lib["library_ms"],
+        "kernel_no_softcap_ms": lib["kernel_ms"],
+        "library_call": lib["library_call"] + ", no soft-cap",
+        "window_layer": {k: win[k] for k in ("kernel_ms", "plain_ms",
+                                             "bound_ms", "bound_by")},
+        "prefill_sum": {k: n_glob * glob[k] + n_win * win[k]
+                        for k in ("kernel_ms", "plain_ms", "bound_ms")},
+        "at": f"one launch at the {ARCH} global-layer shape (B="
+              f"{PROMPT_BATCH}, Hq={cfg.n_heads}, Hkv={cfg.n_kv_heads}, "
+              f"S={PROMPT_LEN}, D={cfg.head_dim}, causal, soft-cap "
+              f"{cfg.attn_softcap}, bf16); library_ms and "
+              f"kernel_no_softcap_ms at that shape with no soft-cap (no "
+              f"single PyTorch call computes the soft-capped function); "
+              f"prefill_sum: {n_glob} global + {n_win} window launches"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -342,7 +753,9 @@ def main() -> int:
     cfg = speech(100_000)
     d_in, d_hidden, d_out = cfg.d_in, cfg.d_hidden, cfg.d_out
     rows, reduce_rows = phase_kernels(device, d_in, d_hidden, d_out, gen)
+    flash = phase_flash(device, gen)
     serve = phase_serve(device)
+    gemma2 = phase_gemma2(device)
 
     # per scorer dispatch at the largest bucket: the two products
     b = max(BUCKETS)
@@ -377,7 +790,7 @@ def main() -> int:
         "bound_ms": red["bound_ms"], "bound_by": red["bound_by"],
         "library_ms": red["library_ms"],
         "at": f"the {red['splits']} partial sums of ({b}x{d_hidden})@"
-              f"({d_hidden}x{d_out})"}]})
+              f"({d_hidden}x{d_out})"}, flash_entry(flash, gemma2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,13 @@ Mirrors ``repro``'s layout and public names (``repro/X/y.py`` ↔
 Entry points default to ``device="cuda"`` and raise without a card unless
 the caller passes ``device="cpu"``.
 
-This slice ports the serving path of the §5.3 FFNN scorer: the kernel
+Slice 1 ports the serving path of the §5.3 FFNN scorer: the kernel
 registry, tensor relations, plan IR, cost model, optimizer, ``Expr``
 frontend, ``Engine`` (``reference``/``jit``), ``TraServer`` with its load
 generator, and the blocked matmul as a hand-written CUDA kernel
-(:mod:`repro_torch.kernels.matmul`).  ``ROADMAP.md`` lists the slices
-still to come.
+(:mod:`repro_torch.kernels.matmul`).  Slice 2 ports the dense family of
+the model zoo (:mod:`repro_torch.models`, gemma2/qwen2/qwen2.5/minitron)
+served by ``launch.serve --dense-oracle``, with flash attention as a
+hand-written CUDA kernel (:mod:`repro_torch.kernels.flash_attention`).
+``ROADMAP.md`` lists the slices still to come.
 """

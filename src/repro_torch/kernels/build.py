@@ -28,6 +28,7 @@ BUILD_DIR = _ROOT / "_build"
 #: library name -> CUDA source, relative to this package
 SOURCES: Dict[str, Path] = {
     "matmul": _ROOT / "matmul" / "csrc" / "matmul.cu",
+    "flash_attention": _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

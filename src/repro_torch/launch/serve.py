@@ -1,23 +1,120 @@
-"""Serving launcher of the port: TraServer with continuous batching.
+"""Serving launcher of the port: TraServer with continuous batching, and the
+dense transformer prefill + decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --servable scorer \\
         --requests 40 --mode poisson --rate 50
+    PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
+        --arch gemma2-2b --batch 2 --prompt-len 8192 --gen 32
 
-Port of ``repro.launch.serve`` with the ``--servable scorer`` branch: the
-§5.3 FFNN scorer served through :class:`~repro_torch.serve.server.
-TraServer` (zero compile-cache misses after warmup), printing tokens/s and
-p50/p95/p99 of total / queue-wait / service latency.  The flags are the
-JAX launcher's, plus ``--device`` (default ``cuda``; without a card it
-fails — pass ``--device cpu`` to run on the CPU).  ``--servable``
-defaults to ``scorer`` here: ``--servable lm`` and
-``--dense-oracle`` exit with a "not ported yet" message until the decode
-(3) and model-zoo (8) slices, see ``ROADMAP.md``.
+Port of ``repro.launch.serve`` with two of its paths:
+
+* ``--servable scorer``: the §5.3 FFNN scorer served through
+  :class:`~repro_torch.serve.server.TraServer` (zero compile-cache misses
+  after warmup), printing tokens/s and p50/p95/p99 of total / queue-wait /
+  service latency;
+* ``--dense-oracle``: the model zoo's prefill + greedy KV-cache decode
+  loop (:func:`dense_generate`) over a dense-family arch (``--arch``,
+  default ``gemma2-2b``; ``--smoke`` for its narrow config), printing
+  prefill ms and decode tok/s.  Prompts come from a ``torch.Generator``
+  seeded with ``--seed``, weights from ``init_params(cfg, --seed)``.
+
+The flags are the JAX launcher's, plus ``--device`` (default ``cuda``;
+without a card it fails — pass ``--device cpu`` to run on the CPU).
+``--servable`` defaults to ``scorer`` here.  Not ported yet, each exits 2
+with a "not ported" message naming its slice (``ROADMAP.md``):
+``--servable lm`` (the decode slice), ``--dense-oracle`` for an arch
+outside the dense family, and ``--dense-oracle --mesh`` (the distributed
+slice).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import time
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class DenseRun:
+    """What :func:`dense_generate` did: the prefill's last-position logits
+    (B, 1, vocab) f32 (their argmax is the first decode step's token), the
+    first decode step's logits, the greedy tokens of every decode step
+    (B, gen) on the host, the seconds each phase took (host clock, device
+    synchronized)."""
+    prefill_logits: torch.Tensor
+    first_decode_logits: Optional[torch.Tensor]
+    tokens: torch.Tensor
+    prefill_s: float
+    decode_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dense_generate(cfg, model, prompts: torch.Tensor, gen: int) -> DenseRun:
+    """Prefill ``prompts`` (B, S) into a cache of ``S + gen`` positions,
+    then ``gen`` greedy decode steps, as ``repro.launch.serve``'s
+    ``--dense-oracle`` loop does."""
+    from repro_torch.models import decode_step, prefill
+    device = prompts.device
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        prefill_logits, cache = prefill(cfg, model, {"tokens": prompts},
+                                        prompts.shape[1] + gen)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        tok = prefill_logits.argmax(-1)
+        out = []
+        first_logits = None
+        t1 = time.perf_counter()
+        for _ in range(gen):
+            logits, cache = decode_step(cfg, model, cache, {"token": tok})
+            if first_logits is None:
+                first_logits = logits
+            tok = logits.argmax(-1)
+            out.append(tok.cpu())
+        _sync(device)
+        decode_s = time.perf_counter() - t1
+    tokens = torch.cat(out, dim=1) if out else torch.zeros(
+        (prompts.shape[0], 0), dtype=torch.long)
+    return DenseRun(prefill_logits, first_logits, tokens, prefill_s, decode_s)
+
+
+def _dense_oracle(args) -> int:
+    """Dense transformer prefill + decode loop (``--dense-oracle``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import init_params
+    if args.mesh:
+        print("[serve] --dense-oracle --mesh is not ported to repro_torch "
+              "yet: it comes with the distributed slice (ROADMAP A7)",
+              file=sys.stderr)
+        return 2
+    try:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    except NotImplementedError as exc:
+        print(f"[serve] --dense-oracle: {exc}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    model = init_params(cfg, args.seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    B, S = args.batch, args.prompt_len
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=device)
+    run = dense_generate(cfg, model, prompts, args.gen)
+    toks_s = B * args.gen / run.decode_s if args.gen else 0.0
+    print(f"[serve] {args.arch} on {device}: prefill({B}x{S}) "
+          f"{run.prefill_s * 1e3:.1f} ms, decode {args.gen} steps @ "
+          f"{toks_s:.1f} tok/s")
+    print(f"[serve] sample continuation (seq 0): "
+          f"{run.tokens[0].tolist()}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -62,10 +159,12 @@ def main(argv=None) -> int:
                     help="dense-oracle mesh, e.g. 2x2")
     args = ap.parse_args(argv)
 
-    if args.dense_oracle or args.servable == "lm":
-        what = "--dense-oracle" if args.dense_oracle else "--servable lm"
-        print(f"[serve] {what} is not ported to repro_torch yet (see "
-              f"ROADMAP.md); use --servable scorer", file=sys.stderr)
+    if args.dense_oracle:
+        return _dense_oracle(args)
+    if args.servable == "lm":
+        print("[serve] --servable lm is not ported to repro_torch yet: it "
+              "comes with the decode slice (ROADMAP A3); use --servable "
+              "scorer", file=sys.stderr)
         return 2
 
     import numpy as np

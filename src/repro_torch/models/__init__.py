@@ -1,0 +1,7 @@
+"""Model zoo of the port: the dense family (``repro.models`` counterpart)."""
+from repro_torch.models.model import (DenseLM, count_params, decode_step,
+                                      forward, init_cache, init_params,
+                                      prefill)
+
+__all__ = ["DenseLM", "count_params", "decode_step", "forward", "init_cache",
+           "init_params", "prefill"]

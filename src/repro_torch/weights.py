@@ -2,23 +2,34 @@
 
 The JAX package and the port draw random weights from different
 generators, so the same seed gives different numbers.  Parity between the
-two therefore goes through the weights themselves: the JAX side's
-parameters, as numpy arrays (``np.asarray(rel.data)`` for each weight
-relation), become the port's relations here, on the port's device.
+two therefore goes through the weights themselves, as numpy arrays:
 
-    jax_scorer = repro.serve.FFNNScorer(db=4, hb=4, seed=0)
-    arrays = {k: np.asarray(r.data) for k, r in jax_scorer.weights().items()}
-    scorer = repro_torch.serve.FFNNScorer.from_numpy(
-        arrays, db=4, hb=4, device="cpu")
+* the FFNN scorer's weight relations (``np.asarray(rel.data)`` each)
+  become the port's relations (:func:`relations_from_numpy`):
+
+      jax_scorer = repro.serve.FFNNScorer(db=4, hb=4, seed=0)
+      arrays = {k: np.asarray(r.data)
+                for k, r in jax_scorer.weights().items()}
+      scorer = repro_torch.serve.FFNNScorer.from_numpy(
+          arrays, db=4, hb=4, device="cpu")
+
+* a model zoo parameter tree (``repro.models.init_params``) becomes the
+  port's :class:`~repro_torch.models.model.DenseLM`
+  (:func:`model_from_numpy`):
+
+      params = repro.models.init_params(cfg, jax.random.PRNGKey(0))
+      tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+      model = model_from_numpy(cfg, tree, device="cpu")
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.tra import RelType, TensorRelation
+from repro_torch.device import DeviceLike, resolve_device
 
 
 def relations_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -40,3 +51,55 @@ def relations_from_numpy(arrays: Mapping[str, np.ndarray],
         data = torch.tensor(arr, dtype=rt.dtype)       # a copy
         out[name] = TensorRelation(data.to(device), rt)
     return out
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
+             ) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def model_from_numpy(cfg, tree: Mapping, device: DeviceLike = "cuda"):
+    """The port's model of ``cfg`` holding the JAX parameter tree ``tree``
+    (nested dicts of numpy arrays, as ``repro.models.init_params`` gives
+    them), copied onto ``device`` in the model's dtypes.
+
+    JAX stacks every ``params["blocks"]`` leaf as (G, group_size, …), so
+    layer ``g·group_size + i`` takes ``[g, i]``.  Exactly the model's
+    leaves: a missing or extra leaf, or one whose shape does not fit,
+    raises ``ValueError``."""
+    from repro_torch.models.model import DenseLM, group_size, n_scan_groups
+    dev = resolve_device(device)
+    model = DenseLM(cfg, None, "meta").to_empty(device=dev)
+    gsz, groups = group_size(cfg), n_scan_groups(cfg)
+    flat = _flatten(tree)
+    used = set()
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layer = int(parts[1])
+            path, index = ("blocks",) + tuple(parts[2:]), (layer // gsz,
+                                                            layer % gsz)
+            lead = (groups, gsz)
+        else:
+            path, index, lead = tuple(parts), (), ()
+        if path not in flat:
+            raise ValueError(f"parameter tree has no leaf {'/'.join(path)}")
+        arr = flat[path]
+        if arr.shape != lead + tuple(param.shape):
+            raise ValueError(f"leaf {'/'.join(path)} of shape {arr.shape} "
+                             f"does not fit {lead + tuple(param.shape)}")
+        used.add(path)
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(np.array(arr[index],
+                                                  dtype=np.float32)))
+    extra = sorted("/".join(p) for p in set(flat) - used)
+    if extra:
+        raise ValueError(f"parameter tree has leaves the model does not: "
+                         f"{extra}")
+    return model

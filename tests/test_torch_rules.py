@@ -4,8 +4,10 @@
     the JAX package ``repro`` (only ``repro_torch``);
 (b) without a card, entry points asked for no device raise instead of
     running on the CPU;
-(c) the matmul op asked for its kernel on a CPU tensor raises — there is
-    no silent fallback to the plain version.
+(c) the matmul and flash attention ops asked for their kernels on CPU
+    tensors raise — there is no silent fallback to the plain version;
+(d) the launcher's paths that are not ported yet exit 2 with a message,
+    and the ported ``--dense-oracle`` runs on the CPU when asked to.
 """
 import ast
 import pathlib
@@ -47,8 +49,10 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "tra.py", "server.py", "ops.py",
-            "chip_smoke.py"} <= names
+    assert {"engine.py", "tra.py", "server.py", "ops.py", "model.py",
+            "layers.py", "chip_smoke.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" \
+        / "ops.py" in PORT_FILES
 
 
 @pytest.fixture
@@ -94,11 +98,35 @@ def test_matmul_kernel_impl_on_cpu_raises():
         ops.matmul(torch.ones(2, 3), torch.ones(3, 4), impl="kernel")
 
 
+def test_flash_kernel_impl_on_cpu_raises():
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.ones(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.attention(q, q, q, impl="kernel")
+
+
 def test_unported_launcher_paths_exit_cleanly(capsys):
     from repro_torch.launch.serve import main
     assert main(["--servable", "lm"]) == 2
-    assert main(["--dense-oracle"]) == 2
+    assert main(["--dense-oracle", "--arch", "mamba2-130m"]) == 2
     assert "not ported" in capsys.readouterr().err
+    assert main(["--dense-oracle", "--mesh", "2x2"]) == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_dense_oracle_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch.serve import main
+    assert main(["--dense-oracle", "--arch", "gemma2-2b", "--smoke",
+                 "--device", "cpu", "--prompt-len", "16", "--gen", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "prefill(4x16)" in out and "decode 4 steps" in out
+
+
+def test_dense_oracle_without_device_raises(no_card):
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dense-oracle", "--arch", "gemma2-2b", "--smoke",
+              "--prompt-len", "16", "--gen", "4"])
 
 
 def test_chip_smoke_refuses_without_card(no_card):
