@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's two main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's three main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
-through ``TraServer`` on the ``jit`` executor, and gemma2-2b at full width
+through ``TraServer`` on the ``jit`` executor; gemma2-2b at full width
 (26 layers, d_model 2304, vocab 256000; random bf16 weights from seed 0)
-through the ``--dense-oracle`` prefill + greedy decode loop — and holds
-every hand-written kernel of those paths against its plain PyTorch version
-on the card:
+and mamba2-130m at full width (24 Mamba2 layers, d_model 768, 24 SSD heads
+of dim 64, state 128, chunk 128, vocab 50280; random bf16 weights from
+seed 0), each through the ``--dense-oracle`` prefill + greedy decode loop
+— and holds every hand-written kernel of those paths against its plain
+PyTorch version on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
@@ -36,7 +38,29 @@ on the card:
    same model with the plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-7. the kernels line, the ``nvidia-smi`` line, and the last line
+7. ssd: ``ssd_scan`` (the SSD scan kernel) against ``ssd_chunked_ref`` at
+   the JAX kernel tests' cases, ragged S, S < chunk, B and C read as
+   slices of one (B, S, 2N) tensor (as the model hands them over) and as
+   contiguous tensors, and mamba2-130m's layer shape (B=8, S=8192, H=24,
+   P=64, N=128, L=128) in bf16 and f32: max |err| within ``SSD_TOL`` of
+   the largest |output| and each output row's error within
+   ``SSD_ROW_TOL`` of that row's norm; timed at the layer shape in bf16
+   with the plain version and the bound;
+8. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
+   ``dense_generate`` with every launch count set to 0 just before and
+   read just after (24 SSD launches, no other); in a second prefill,
+   every layer's SSD call on its real inputs against the plain version,
+   within the ssd phase's limits; the same weights in f32 through the
+   kernel and through the plain SSD scan, prefill and first decode logits
+   within ``MAMBA2_F32_LOGIT_TOL``; the bf16 run's prefill and first
+   decode logits against the plain-SSD run's within ``BF16_FLOOR_FACTOR``
+   of the model's rounding floor, measured here as the distance between
+   the plain scan in half-size chunks and in full chunks (in bf16 the
+   logits move by more than ``0.02·(max|logit| + 1)`` when only the
+   rounding changes: 24 layers without post-norms add up the bf16 noise
+   of each); a profile by kernel of one prefill (24 SSD launches) and of
+   8 decode steps (none);
+9. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -68,6 +92,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 from repro_torch.models.model import _window_for, group_size  # noqa: E402
 
 SEED = 0
@@ -83,6 +109,27 @@ FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # case the largest error of one output row over that row's norm.
 GEMMA2_BF16_ATOL = 6e-3
 ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSM_ARCH = "mamba2-130m"
+SSM_BATCH = 8                    # x PROMPT_LEN tokens, GEN decode steps
+# An SSD output sums terms of either sign over the chunk and the carried
+# state (|C·B| ~ √N), so its rounding error scales with the largest output,
+# not with its own size.  At the mamba2-130m layer shape this script read,
+# on an H100 80GB HBM3 at 700 W, max |err| 1.2e-5·max|ref| and a row error
+# of 1.3e-4 of the row's norm in f32, one bf16 step (2^-9 of max|ref|) and
+# 3.1e-3 in bf16.  Limits: max |err| within SSD_TOL·max|ref| (f32 8x that, bf16 above
+# one step at the top output, 2^-7); row error within SSD_ROW_TOL (f32 8x,
+# bf16 3x).  tests/test_torch_ssd_scan.py shows they catch a chunk boundary
+# one step off, a dropped carried state and a decay 1% off.
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+# mamba2-130m end to end.  In f32 the kernel run's prefill and first decode
+# logits lay 1.2e-3 and 2.0e-3 from the plain-SSD run's (this script, H100
+# 80GB HBM3 at 700 W): the f32 limit is 10x the larger.  In bf16 this random
+# 24-layer model moves its logits by more than 0.02·(max|logit| + 1) when
+# only the rounding changes, so the bf16 run is held within
+# BF16_FLOOR_FACTOR of that rounding floor, measured in the same run.
+MAMBA2_F32_LOGIT_TOL = 2e-2
+BF16_FLOOR_FACTOR = 1.5
 PEAK = {torch.float32: H100_SXM.peak_flops_f32,
         torch.bfloat16: H100_SXM.peak_flops}
 
@@ -145,12 +192,14 @@ def tolerance(k: int, dtype) -> tuple:
 
 def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
+    ssd_ops.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     return {"matmul": mm_ops.LAUNCHES,
             "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES,
-            "flash_attention": flash_ops.LAUNCHES}
+            "flash_attention": flash_ops.LAUNCHES,
+            "ssd_scan": ssd_ops.LAUNCHES}
 
 
 # ---------------------------------------------------------------- phases
@@ -313,7 +362,8 @@ def phase_serve(device) -> dict:
     # per dispatch: both products launch the tile kernel; the second,
     # (b x 100000) @ (100000 x 10), splits K and launches the reduction
     expected = {"matmul": 2 * dispatches,
-                "matmul_splitk_reduce": dispatches, "flash_attention": 0}
+                "matmul_splitk_reduce": dispatches, "flash_attention": 0,
+                "ssd_scan": 0}
     if launches != expected:
         fail(f"serve: launches {launches} for {dispatches} dispatches, "
              f"expected {expected}")
@@ -539,8 +589,9 @@ def phase_flash(device, gen) -> dict:
 
 def device_profile(fn) -> dict:
     """Device time of ``fn()`` by kernel (``torch.profiler``), grouped into
-    the flash kernel, the GEMMs (cuBLAS: projections, MLP, unembedding)
-    and the rest, beside the host-clock wall time of the profiled call."""
+    the flash kernel, the SSD kernel, the GEMMs (cuBLAS: projections, MLP,
+    unembedding) and the rest, beside the host-clock wall time of the
+    profiled call."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -554,11 +605,14 @@ def device_profile(fn) -> dict:
             kernels[e.key] = kernels.get(e.key, 0.0) + \
                 e.self_device_time_total / 1e3
             launches += e.count
-    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
+              "other": 0.0}
     for name, ms in kernels.items():
         low = name.lower()
         if "flash_attention_kernel" in low:
             groups["flash_attention"] += ms
+        elif "ssd_scan_kernel" in low:
+            groups["ssd_scan"] += ms
         elif any(t in low for t in ("gemm", "nvjet", "sm90_xmma", "cutlass",
                                     "cublas")):
             groups["gemm"] += ms
@@ -573,16 +627,24 @@ def device_profile(fn) -> dict:
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def compare_with_plain(cfg, model, prompts, run) -> dict:
-    """The same model with the plain attention, fed the kernel run's
-    tokens: its prefill and first decode logits against the kernel run's
-    (within ``0.02·(max|logit| + 1)``, every logit finite), and the share
-    of greedy tokens on which the two agree."""
+def compare_with_plain(cfg, model, prompts, run, impl_attr="attn_impl",
+                       what_path="gemma2", limits=None) -> dict:
+    """The same model with the plain version of its kernel (``impl_attr``:
+    the attention or the SSD scan), fed the kernel run's tokens: its
+    prefill and first decode logits against the kernel run's (every logit
+    finite, and within ``limits[what]``, by default
+    ``0.02·(max|logit| + 1)``), the share of greedy tokens on which the
+    two agree, and the host-clock time of the plain run's prefill."""
     from repro_torch.models import decode_step, prefill
-    model.attn_impl = "plain"
+    batch = prompts.shape[0]
+    setattr(model, impl_attr, "plain")
     with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         plain_logits, cache = prefill(cfg, model, {"tokens": prompts},
-                                      PROMPT_LEN + GEN)
+                                      prompts.shape[1] + GEN)
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
         first_token = run.prefill_logits.argmax(-1)
         tok, agree, plain_first = first_token, 0, None
         for t in range(GEN):
@@ -592,37 +654,40 @@ def compare_with_plain(cfg, model, prompts, run) -> dict:
             want = run.tokens[:, t:t + 1].to(prompts.device)
             agree += int((logits.argmax(-1) == want).sum())
             tok = want
-    model.attn_impl = "auto"
+    setattr(model, impl_attr, "auto")
     checks = {}
     for what, got, ref in (("prefill", run.prefill_logits, plain_logits),
                            ("decode_step_1", run.first_decode_logits,
                             plain_first)):
-        shape = (PROMPT_BATCH, 1, cfg.vocab_size)
+        shape = (batch, 1, cfg.vocab_size)
         if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
-            fail(f"gemma2 {what}: logits of shape {tuple(got.shape)} / not "
-                 f"finite")
+            fail(f"{what_path} {what}: logits of shape {tuple(got.shape)} / "
+                 f"not finite")
         diff = (got - ref).abs().max().item()
-        bound = 0.02 * (ref.abs().max().item() + 1.0)
+        bound = (limits[what] if limits else
+                 0.02 * (ref.abs().max().item() + 1.0))
         checks[what] = {"max_abs_diff_vs_plain": diff, "bound": bound}
         if not diff <= bound:
-            fail(f"gemma2 {what}: logits differ from the plain-attention "
+            fail(f"{what_path} {what}: logits differ from the plain-kernel "
                  f"run by {diff} > {bound}")
     return {"checks": checks,
             "first_token_agrees": bool(torch.equal(
                 first_token, plain_logits.argmax(-1))),
-            "greedy_tokens_agree_share": agree / (PROMPT_BATCH * GEN)}
+            "greedy_tokens_agree_share": agree / (batch * GEN),
+            "plain_prefill_ms": plain_prefill_ms}
 
 
-def gemma2_profiles(cfg, model, prompts) -> dict:
+def path_profiles(cfg, model, prompts, ops, what_path="gemma2") -> dict:
     """One prefill, then 8 decode steps as ``dense_generate``'s loop takes
-    them, each under the profiler, with the flash launches of each: one
-    per layer in the prefill, none in decode."""
+    them, each under the profiler, with the launches of the path's kernel
+    (``ops.LAUNCHES``) in each: one per layer in the prefill, none in
+    decode."""
     from repro_torch.models import decode_step, prefill
     state = {}
 
     def prefill_once():
         state["logits"], state["cache"] = prefill(
-            cfg, model, {"tokens": prompts}, PROMPT_LEN + 8)
+            cfg, model, {"tokens": prompts}, prompts.shape[1] + 8)
 
     def decode_8_steps():
         cache, tok = state["cache"], state["logits"].argmax(-1)
@@ -632,14 +697,14 @@ def gemma2_profiles(cfg, model, prompts) -> dict:
             tok.cpu()
 
     with torch.inference_mode():
-        n0 = flash_ops.LAUNCHES
+        n0 = ops.LAUNCHES
         pre = device_profile(prefill_once)
-        n1 = flash_ops.LAUNCHES
+        n1 = ops.LAUNCHES
         dec = device_profile(decode_8_steps)
         by_phase = {"prefill": n1 - n0,
-                    "decode_8_steps": flash_ops.LAUNCHES - n1}
+                    "decode_8_steps": ops.LAUNCHES - n1}
     if by_phase != {"prefill": cfg.n_layers, "decode_8_steps": 0}:
-        fail(f"gemma2: flash launches by phase {by_phase}; expected "
+        fail(f"{what_path}: kernel launches by phase {by_phase}; expected "
              f"{cfg.n_layers} in a prefill, 0 in decode")
     return {"launches_by_phase": by_phase, "profile_prefill": pre,
             "profile_decode_8_steps": dec}
@@ -682,9 +747,9 @@ def phase_gemma2(device) -> dict:
     # ---------------------------------------------------------------------
 
     peak = torch.cuda.max_memory_allocated(device)
-    # one per layer; gemma2_profiles shows a lone prefill makes them all
+    # one per layer; path_profiles shows a lone prefill makes them all
     if launches != {"matmul": 0, "matmul_splitk_reduce": 0,
-                    "flash_attention": cfg.n_layers}:
+                    "flash_attention": cfg.n_layers, "ssd_scan": 0}:
         fail(f"gemma2: launches {launches}; expected {cfg.n_layers} flash "
              f"launches")
     out = {"phase": "gemma2", "arch": ARCH, "layers": cfg.n_layers,
@@ -698,14 +763,15 @@ def phase_gemma2(device) -> dict:
            "decode_step_bytes_bound_ms": decode_step_bound_ms(cfg, model),
            "max_memory_allocated_gb": peak / 1e9,
            **compare_with_plain(cfg, model, prompts, run),
-           "setup_s": setup_s, **gemma2_profiles(cfg, model, prompts)}
+           "setup_s": setup_s, **path_profiles(cfg, model, prompts,
+                                               flash_ops)}
     emit(out)
     return out
 
 
 def flash_entry(flash: dict, gemma2: dict) -> dict:
     """The kernels line's flash attention entry: one launch at gemma2-2b's
-    global-layer shape, the window layer and the prefill's sum beside it."""
+    global-layer shape, the window layer and a whole prefill beside it."""
     cfg = get_config(ARCH)
     glob, win = flash["layers"]["global"], flash["layers"]["window"]
     n_win = sum(gemma2_layer_kw(cfg, i)["window"] > 0
@@ -728,15 +794,333 @@ def flash_entry(flash: dict, gemma2: dict) -> dict:
         "library_call": lib["library_call"] + ", no soft-cap",
         "window_layer": {k: win[k] for k in ("kernel_ms", "plain_ms",
                                              "bound_ms", "bound_by")},
-        "prefill_sum": {k: n_glob * glob[k] + n_win * win[k]
-                        for k in ("kernel_ms", "plain_ms", "bound_ms")},
+        "prefill": {
+            "kernel_ms": gemma2["profile_prefill"]["device_ms_by_group"][
+                "flash_attention"],
+            "bound_ms": n_glob * glob["bound_ms"] + n_win * win["bound_ms"],
+            "prefill_ms": gemma2["prefill_ms"],
+            "plain_prefill_ms": gemma2["plain_prefill_ms"]},
         "at": f"one launch at the {ARCH} global-layer shape (B="
               f"{PROMPT_BATCH}, Hq={cfg.n_heads}, Hkv={cfg.n_kv_heads}, "
               f"S={PROMPT_LEN}, D={cfg.head_dim}, causal, soft-cap "
               f"{cfg.attn_softcap}, bf16); library_ms and "
               f"kernel_no_softcap_ms at that shape with no soft-cap (no "
               f"single PyTorch call computes the soft-capped function); "
-              f"prefill_sum: {n_glob} global + {n_win} window launches"}
+              f"prefill: the kernel's device time in a profiled prefill "
+              f"({n_glob} global + {n_win} window launches), their bound, "
+              f"and the prefill on the kernel and on the plain attention"}
+
+
+def ssd_inputs(b, s, h, p, n, dtype, device, gen, strided=True) -> tuple:
+    """x, dt, A, B, C as the JAX kernel tests draw them (x, B, C normal in
+    ``dtype``, dt = softplus(normal), A = -exp(normal), both f32); B and C
+    are the two halves of one (b, s, 2n) tensor, as the model hands them
+    over, unless ``strided`` is false."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = rnd(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    A = -torch.exp(rnd(h))
+    bcc = rnd(b, s, 2 * n).to(dtype)
+    bm, cm = bcc[..., :n], bcc[..., n:]
+    if not strided:
+        bm, cm = bm.contiguous(), cm.contiguous()
+    return x, dt, A, bm, cm
+
+
+def ssd_errors(o, r, dtype) -> dict:
+    """``o`` (the kernel's output) against ``r`` (the plain version's), both
+    f32: max |err| within ``SSD_TOL·max|r|``, and each (b, s, h) row's
+    error within ``SSD_ROW_TOL`` of that row's norm.  ``fault`` says what
+    failed, or is None."""
+    err = (o - r).abs()
+    atol = SSD_TOL[dtype] * r.abs().max().item()
+    row_rel = ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+               ).max().item()
+    fault = None
+    if not bool(torch.isfinite(o).all()):
+        fault = "output not finite"
+    elif not err.max().item() <= atol:
+        fault = f"max |err| {err.max().item()} over {atol}"
+    elif not row_rel <= SSD_ROW_TOL[dtype]:
+        fault = (f"a row's error is {row_rel} of its norm, over "
+                 f"{SSD_ROW_TOL[dtype]}")
+    return {"max_abs_err": err.max().item(), "atol": atol,
+            "max_row_rel_err": row_rel, "row_rel_tol": SSD_ROW_TOL[dtype],
+            "fault": fault}
+
+
+def ssd_bound_times(b, s, h, p, n, chunk, dtype) -> tuple:
+    """(bytes_ms, operations_ms) of one SSD scan on an H100 SXM: x, dt, B,
+    C read once and y written once at the HBM rate, against the unmasked
+    work at the type's peak: C·B over the lower triangle of each chunk
+    (once per batch row: B and C are shared by the heads), and per head
+    the decayed scores times x·dt, C·h and the state update."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * b * s * h * p * isz + b * s * h * 4 + 2 * b * s * n * isz \
+        + h * 4
+    lens = [min(chunk, s - s0) for s0 in range(0, s, chunk)]
+    pairs = sum(L * (L + 1) // 2 for L in lens)
+    flops = b * 2.0 * n * pairs + b * h * (2.0 * p * pairs
+                                           + 4.0 * s * n * p)
+    return nbytes / H100_SXM.hbm_bw * 1e3, flops / PEAK[dtype] * 1e3
+
+
+def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
+             strided=True) -> dict:
+    """The kernel against ``ssd_chunked_ref`` on one input
+    (:func:`ssd_errors`); timed (kernel, plain, bound) when ``iters`` >
+    0."""
+    x, dt, A, bm, cm = ssd_inputs(b, s, h, p, n, dtype, device, gen,
+                                  strided)
+    out = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk, impl="kernel")
+    ref = ssd_chunked_ref(x, dt, A, bm, cm, min(chunk, s))
+    torch.cuda.synchronize(device)
+    name = f"ssd_scan b{b} s{s} h{h} p{p} n{n} chunk{chunk} {dtype}"
+    if out.shape != x.shape or out.dtype != dtype:
+        fail(f"{name}: got {tuple(out.shape)} {out.dtype}")
+    o, r = out.float(), ref.float()
+    del out, ref
+    errs = ssd_errors(o, r, dtype)
+    fault = errs.pop("fault")
+    if fault is not None:
+        fail(f"{name}: {fault}")
+    row = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
+           "dtype": str(dtype).split(".")[-1], "bc_strided": strided, **errs,
+           "max_abs_ref": r.abs().max().item(),
+           "mean_abs_ref": r.abs().mean().item()}
+    del o, r
+    if iters:
+        t_bytes, t_ops = ssd_bound_times(b, s, h, p, n, chunk, dtype)
+        bnd, by = bound_of(t_bytes, t_ops)
+        row.update({
+            "kernel_ms": timed_ms(lambda: ssd_ops.ssd_scan(
+                x, dt, A, bm, cm, chunk=chunk, impl="kernel"), device, iters,
+                warmup=1),
+            "plain_ms": timed_ms(lambda: ssd_chunked_ref(x, dt, A, bm, cm,
+                                                         chunk),
+                                 device, max(1, iters // 2), warmup=1),
+            "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
+            "operations_ms": t_ops})
+    return row
+
+
+def phase_ssd(device, gen) -> dict:
+    rows = []
+    # the JAX kernel tests' cases (tests/test_kernels.py:107-139), ragged S,
+    # S < chunk, N and P that are not multiples of 4, contiguous B and C
+    cases = [(2, 64, 4, 16, 8, 16), (2, 128, 4, 16, 8, 32),
+             (2, 96, 4, 16, 8, 32), (1, 64, 2, 16, 8, 32),
+             (1, 128, 2, 16, 8, 64), (2, 200, 4, 16, 8, 64),
+             (2, 40, 3, 16, 8, 128), (1, 77, 2, 22, 13, 16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in cases:
+            rows.append(ssd_case(*c, dtype, device, gen))
+        rows.append(ssd_case(2, 300, 4, 64, 128, 128, dtype, device, gen,
+                             strided=False))
+    for r in rows:
+        emit({"phase": "ssd", **r})
+    # mamba2-130m's layer shape: bf16 as the model runs it, timed; f32 at
+    # the same shape, untimed
+    cfg = get_config(SSM_ARCH)
+    dims = (SSM_BATCH, PROMPT_LEN, cfg.ssm_heads, cfg.ssm_head_dim,
+            cfg.ssm_state, cfg.ssm_chunk)
+    layer = ssd_case(*dims, torch.bfloat16, device, gen, iters=4)
+    emit({"phase": "ssd", "at": f"{SSM_ARCH} layer", **layer})
+    rows.append(ssd_case(*dims, torch.float32, device, gen))
+    emit({"phase": "ssd", "at": f"{SSM_ARCH} layer, f32", **rows[-1]})
+    return {"rows": rows, "layer": layer}
+
+
+def ssm_decode_step_bound_ms(model) -> float:
+    """The least time of one mamba2 decode step: every weight read once
+    (the conv and SSM state caches are ~1% of that), at the HBM rate."""
+    return sum(p.numel() * p.element_size()
+               for p in model.parameters()) / H100_SXM.hbm_bw * 1e3
+
+
+def ssd_layer_checks(cfg, model, prompts) -> dict:
+    """One prefill in which every SSD call also runs the plain version on
+    the inputs the main path hands the kernel (each layer's real x, dt, A,
+    B, C): each layer's output within the SSD limits (:func:`ssd_errors`)."""
+    import repro_torch.models.layers as model_layers
+    from repro_torch.models import prefill
+    kernel_scan = model_layers.ssd_scan
+    rows = []
+
+    def checked(x, dt, A, Bm, Cm, *, chunk, impl):
+        y = kernel_scan(x, dt, A, Bm, Cm, chunk=chunk, impl=impl)
+        r = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk).float()
+        rows.append({**ssd_errors(y.float(), r, x.dtype),
+                     "max_abs_ref": r.abs().max().item()})
+        return y
+
+    model_layers.ssd_scan = checked
+    try:
+        with torch.inference_mode():
+            prefill(cfg, model, {"tokens": prompts}, prompts.shape[1] + 1)
+    finally:
+        model_layers.ssd_scan = kernel_scan
+    faults = [(i, r["fault"]) for i, r in enumerate(rows) if r["fault"]]
+    if len(rows) != cfg.n_layers or faults:
+        fail(f"mamba2: {len(rows)} SSD calls in a prefill; layers whose "
+             f"kernel output is off the plain version's: {faults}")
+    worst = max(rows, key=lambda r: r["max_row_rel_err"])
+    return {"layers_checked": len(rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_ref": max(r["max_abs_ref"] for r in rows),
+            "max_row_rel_err": worst["max_row_rel_err"],
+            "row_rel_tol": worst["row_rel_tol"]}
+
+
+def compare_f32_with_plain(cfg, model, prompts) -> dict:
+    """The model's weights in f32, through the SSD kernel and through its
+    plain version, on the same tokens: prefill and first decode logits
+    within ``MAMBA2_F32_LOGIT_TOL``.  The model's decay erases the carried
+    state within a chunk, so last-position logits cannot show a fault in
+    the carried state: :func:`ssd_layer_checks` holds every layer's
+    output instead."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import decode_step, prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = copy.deepcopy(model).float()
+    m32.cfg = cfg32
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("auto", "plain"):
+            m32.ssd_impl = impl
+            pre, cache = prefill(cfg32, m32, {"tokens": prompts},
+                                 prompts.shape[1] + 1)
+            tok = logits["auto"][0].argmax(-1) if logits else pre.argmax(-1)
+            step, _ = decode_step(cfg32, m32, cache, {"token": tok})
+            logits[impl] = (pre, step)
+            del cache
+    del m32
+    checks = {}
+    for i, what in enumerate(("prefill", "decode_step_1")):
+        got, ref = logits["auto"][i], logits["plain"][i]
+        if not bool(torch.isfinite(got).all()):
+            fail(f"mamba2 f32 {what}: logits not finite")
+        diff = (got - ref).abs().max().item()
+        bound = MAMBA2_F32_LOGIT_TOL
+        checks[what] = {"max_abs_diff_vs_plain": diff, "bound": bound}
+        if not diff <= bound:
+            fail(f"mamba2 f32 {what}: logits differ from the plain-SSD run "
+                 f"by {diff} > {bound}")
+    return checks
+
+
+def bf16_rounding_floor(cfg, model, prompts, first_token) -> dict:
+    """How far the bf16 model's prefill and first decode logits (the step
+    fed ``first_token``) move when only the rounding changes: the plain
+    SSD scan in chunks of ``ssm_chunk / 2`` against chunks of
+    ``ssm_chunk`` (the same function, summed in another order)."""
+    import dataclasses
+
+    from repro_torch.models import decode_step, prefill
+    half = dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2)
+    out = []
+    model.ssd_impl = "plain"
+    with torch.inference_mode():
+        for c in (cfg, half):
+            model.cfg = c
+            pre, cache = prefill(c, model, {"tokens": prompts},
+                                 prompts.shape[1] + 1)
+            step, _ = decode_step(c, model, cache, {"token": first_token})
+            out.append((pre, step))
+            del cache
+    model.cfg, model.ssd_impl = cfg, "auto"
+    return {what: (out[0][i] - out[1][i]).abs().max().item()
+            for i, what in enumerate(("prefill", "decode_step_1"))}
+
+
+def phase_mamba2(device) -> dict:
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import init_params
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (SSM_BATCH, PROMPT_LEN),
+                            generator=gen, device=device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    dense_generate(cfg, model, prompts[:, :256], 2)     # warm: CUDA/cuBLAS
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # -- the main path: every launch count is 0 just before, read just after
+    reset_launches()
+    run = dense_generate(cfg, model, prompts, GEN)
+    launches = read_launches()
+    # ---------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated(device)
+    # one per layer; path_profiles shows a lone prefill makes them all
+    if launches != {"matmul": 0, "matmul_splitk_reduce": 0,
+                    "flash_attention": 0, "ssd_scan": cfg.n_layers}:
+        fail(f"mamba2: launches {launches}; expected {cfg.n_layers} SSD "
+             f"launches and no other")
+    floor = bf16_rounding_floor(cfg, model, prompts,
+                                run.prefill_logits.argmax(-1))
+    out = {"phase": "mamba2", "arch": SSM_ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+           "ssd_heads": cfg.ssm_heads, "state": cfg.ssm_state,
+           "chunk": cfg.ssm_chunk, "vocab": cfg.vocab_size,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": SSM_BATCH, "prompt_len": PROMPT_LEN, "gen": GEN,
+           "launches": launches,
+           "prefill_ms": run.prefill_s * 1e3,
+           "decode_tok_per_s": SSM_BATCH * GEN / run.decode_s,
+           "decode_ms_per_step": run.decode_s * 1e3 / GEN,
+           "decode_step_bytes_bound_ms": ssm_decode_step_bound_ms(model),
+           "max_memory_allocated_gb": peak / 1e9,
+           # bf16, held against the model's own rounding floor: see
+           # phase 8 of the module docstring
+           "bf16_rounding_floor": floor,
+           "bf16_vs_plain_ssd": compare_with_plain(
+               cfg, model, prompts, run, "ssd_impl", "mamba2",
+               limits={k: BF16_FLOOR_FACTOR * v for k, v in floor.items()}),
+           "f32_vs_plain_ssd": compare_f32_with_plain(cfg, model, prompts),
+           "ssd_per_layer_vs_plain": ssd_layer_checks(cfg, model, prompts),
+           "setup_s": setup_s,
+           **path_profiles(cfg, model, prompts, ssd_ops, "mamba2")}
+    emit(out)
+    return out
+
+
+def ssd_entry(ssd: dict, mamba2: dict) -> dict:
+    """The kernels line's SSD scan entry: one launch at mamba2-130m's layer
+    shape, and a whole prefill."""
+    cfg = get_config(SSM_ARCH)
+    layer = ssd["layer"]
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:73",
+        "function": "ssd_scan_pallas",
+        "launches": mamba2["launches"]["ssd_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd["rows"] + [layer]),
+        "ms": layer["kernel_ms"], "plain_ms": layer["plain_ms"],
+        "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the chunked "
+                        "SSD scan",
+        "prefill": {
+            "kernel_ms": mamba2["profile_prefill"]["device_ms_by_group"][
+                "ssd_scan"],
+            "bound_ms": cfg.n_layers * layer["bound_ms"],
+            "prefill_ms": mamba2["prefill_ms"],
+            "plain_prefill_ms": mamba2["bf16_vs_plain_ssd"][
+                "plain_prefill_ms"]},
+        "at": f"one launch at the {SSM_ARCH} layer shape (B={SSM_BATCH}, "
+              f"S={PROMPT_LEN}, H={cfg.ssm_heads}, P={cfg.ssm_head_dim}, "
+              f"N={cfg.ssm_state}, L={cfg.ssm_chunk}, x/B/C bf16, dt/A "
+              f"f32); the bound counts C·B once per batch row and the "
+              f"causal half of each chunk; prefill: the kernel's device "
+              f"time in a profiled prefill ({cfg.n_layers} launches), their "
+              f"bound, and the prefill on the kernel and on the plain SSD"}
 
 
 def main() -> int:
@@ -756,6 +1140,8 @@ def main() -> int:
     flash = phase_flash(device, gen)
     serve = phase_serve(device)
     gemma2 = phase_gemma2(device)
+    ssd = phase_ssd(device, gen)
+    mamba2 = phase_mamba2(device)
 
     # per scorer dispatch at the largest bucket: the two products
     b = max(BUCKETS)
@@ -790,7 +1176,8 @@ def main() -> int:
         "bound_ms": red["bound_ms"], "bound_by": red["bound_by"],
         "library_ms": red["library_ms"],
         "at": f"the {red['splits']} partial sums of ({b}x{d_hidden})@"
-              f"({d_hidden}x{d_out})"}, flash_entry(flash, gemma2)]})
+              f"({d_hidden}x{d_out})"}, flash_entry(flash, gemma2),
+        ssd_entry(ssd, mamba2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

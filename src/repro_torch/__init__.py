@@ -14,5 +14,8 @@ generator, and the blocked matmul as a hand-written CUDA kernel
 the model zoo (:mod:`repro_torch.models`, gemma2/qwen2/qwen2.5/minitron)
 served by ``launch.serve --dense-oracle``, with flash attention as a
 hand-written CUDA kernel (:mod:`repro_torch.kernels.flash_attention`).
-``ROADMAP.md`` lists the slices still to come.
+Slice 3 ports the ssm family (mamba2-130m, Mamba2 blocks) through the same
+loop, with the chunked SSD scan as a hand-written CUDA kernel
+(:mod:`repro_torch.kernels.ssd_scan`).  ``ROADMAP.md`` lists the slices
+still to come.
 """

@@ -1,8 +1,8 @@
 """Configurations of the port: the paper's §5.3 FFNN configs
-(:mod:`.ffnn_paper`) and the dense family of the model zoo.
+(:mod:`.ffnn_paper`) and the dense and ssm families of the model zoo.
 
 ``get_config("gemma2-2b")`` / ``--arch`` as in ``repro.configs``.  The
-dense configs are copies of the JAX package's (same fields, same values).
+model configs are copies of the JAX package's (same fields, same values).
 Deviation: ``list_archs()`` lists only the ported archs; any other arch of
 the JAX registry raises ``NotImplementedError`` naming the slice that
 ports it (``ROADMAP.md``), an unknown one ``KeyError``.
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import gemma2_2b, minitron_4b, qwen2_5_14b, qwen2_7b
+from repro_torch.configs import (gemma2_2b, mamba2_130m, minitron_4b,
+                                 qwen2_5_14b, qwen2_7b)
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 _MODULES = {
@@ -19,15 +20,14 @@ _MODULES = {
     "qwen2-7b": qwen2_7b,
     "gemma2-2b": gemma2_2b,
     "minitron-4b": minitron_4b,
+    "mamba2-130m": mamba2_130m,
 }
 
 #: archs of the JAX registry that the port does not serve yet -> the slice
 #: that brings them (ROADMAP.md)
 UNPORTED: Dict[str, str] = {
-    "mamba2-130m": "the SSD-scan slice (ROADMAP B3: ssm family, Mamba2 "
-                   "layers)",
-    "zamba2-7b": "the hybrid slice after the SSD scan (ROADMAP A8: Mamba2 + "
-                 "shared attention blocks)",
+    "zamba2-7b": "the hybrid slice (ROADMAP A8.2: Mamba2 groups + shared "
+                 "attention blocks)",
     "llama4-scout-17b-a16e": "the MoE slice (ROADMAP A8)",
     "deepseek-v2-lite-16b": "the MoE/MLA slice (ROADMAP A8)",
     "musicgen-large": "the audio/vlm embedding-input slice (ROADMAP A8)",

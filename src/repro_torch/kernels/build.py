@@ -29,6 +29,7 @@ BUILD_DIR = _ROOT / "_build"
 SOURCES: Dict[str, Path] = {
     "matmul": _ROOT / "matmul" / "csrc" / "matmul.cu",
     "flash_attention": _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
+    "ssd_scan": _ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

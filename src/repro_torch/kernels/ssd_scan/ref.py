@@ -1,0 +1,87 @@
+"""Plain-torch SSD (Mamba2 state-space duality) scan: the kernel's plain
+versions.
+
+Per head, with ``x (B,S,H,P)``, ``dt (B,S,H)``, ``A (H,)`` negative decay
+rates and ``B/C (B,S,N)`` shared across heads:
+
+    h_t = exp(dt_t·A)·h_{t-1} + dt_t·(B_t ⊗ x_t)     h ∈ R^{N×P}
+    y_t = C_t · h_t
+
+* :func:`ssd_ref` — the sequential oracle, a port of
+  ``repro.kernels.ssd_scan.ref.ssd_ref``; it also returns the final state.
+* :func:`ssd_chunked_ref` — the chunked algorithm of the JAX op's
+  ``_ssd_chunked_jnp`` (``repro/kernels/ssd_scan/ops.py:18-62``) as a
+  Python loop over chunks in f32, output in ``x.dtype``.  It is the CPU
+  path of :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` and the
+  yardstick the CUDA kernel is held against on the card.  Deviation: a
+  last chunk shorter than ``chunk`` is taken as it is, where JAX pads it
+  with zeros; the zero rows add nothing to the rows before them, so the
+  result is the same.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor,
+            h0: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential recurrence → ``(y (B,S,H,P) in x.dtype, h_S (B,H,N,P)
+    f32)``."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    hs = h0.float() if h0 is not None else torch.zeros(
+        (b, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af[None, :])               # (b,h)
+        upd = torch.einsum("bn,bhp->bhnp", Bf[:, t],
+                           xf[:, t] * dtf[:, t, :, None])
+        hs = hs * decay[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], hs))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, h, p))
+    return y.to(x.dtype), hs
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """Chunked SSD forward → ``y (B,S,H,P)`` in ``x.dtype``; chunks of
+    ``chunk`` steps from position 0, the state carried between them."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    Af = A.float()
+    hstate = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, s, chunk):
+        sl = slice(s0, min(s0 + chunk, s))
+        xc, dtc = x[:, sl].float(), dt[:, sl].float()     # (b,L,h,p) (b,L,h)
+        bc, cc = Bm[:, sl].float(), Cm[:, sl].float()     # (b,L,n)
+        L = xc.shape[1]
+        a_cs = torch.cumsum(dtc * Af, dim=1)               # (b,L,h) inclusive
+        tri = torch.ones((L, L), dtype=torch.bool,
+                         device=x.device).tril()[None, :, :, None]
+        scores = torch.einsum("bin,bjn->bij", cc, bc)      # (b,L,L)
+        # decay from step j to step i (i >= j): exp(a_i - a_j); masked
+        # before the exp, so the upper triangle cannot overflow to inf
+        diff = torch.where(tri, a_cs[:, :, None, :] - a_cs[:, None, :, :],
+                           0.0)
+        m = torch.where(tri, torch.exp(diff), 0.0)         # (b,L,L,h)
+        xdt = xc * dtc[..., None]                          # (b,L,h,p)
+        y = torch.einsum("bijh,bjhp->bihp", scores[..., None] * m, xdt)
+        # the carried state's contribution
+        y = y + torch.exp(a_cs)[..., None] * torch.einsum(
+            "bin,bhnp->bihp", cc, hstate)
+        # S_c = Σ_j exp(a_L − a_j) dt_j B_j ⊗ x_j ;  h ← h exp(a_L) + S_c
+        wj = torch.exp(a_cs[:, -1:, :] - a_cs) * dtc       # (b,L,h)
+        s_c = torch.einsum("bjn,bjhp->bhnp", bc, xc * wj[..., None])
+        hstate = hstate * torch.exp(a_cs[:, -1, :])[..., None, None] + s_c
+        ys.append(y.to(x.dtype))
+    if not ys:
+        return torch.empty_like(x)
+    return torch.cat(ys, dim=1)

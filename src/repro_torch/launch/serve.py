@@ -1,10 +1,12 @@
 """Serving launcher of the port: TraServer with continuous batching, and the
-dense transformer prefill + decode loop.
+model zoo's prefill + decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --servable scorer \\
         --requests 40 --mode poisson --rate 50
     PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
         --arch gemma2-2b --batch 2 --prompt-len 8192 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
+        --arch mamba2-130m --batch 8 --prompt-len 8192 --gen 32
 
 Port of ``repro.launch.serve`` with two of its paths:
 
@@ -12,8 +14,9 @@ Port of ``repro.launch.serve`` with two of its paths:
   :class:`~repro_torch.serve.server.TraServer` (zero compile-cache misses
   after warmup), printing tokens/s and p50/p95/p99 of total / queue-wait /
   service latency;
-* ``--dense-oracle``: the model zoo's prefill + greedy KV-cache decode
-  loop (:func:`dense_generate`) over a dense-family arch (``--arch``,
+* ``--dense-oracle``: the model zoo's prefill + greedy decode loop
+  (:func:`dense_generate`) over a dense-family arch (KV cache) or the
+  ssm family's mamba2-130m (conv and SSM state caches) (``--arch``,
   default ``gemma2-2b``; ``--smoke`` for its narrow config), printing
   prefill ms and decode tok/s.  Prompts come from a ``torch.Generator``
   seeded with ``--seed``, weights from ``init_params(cfg, --seed)``.
@@ -23,8 +26,9 @@ without a card it fails — pass ``--device cpu`` to run on the CPU).
 ``--servable`` defaults to ``scorer`` here.  Not ported yet, each exits 2
 with a "not ported" message naming its slice (``ROADMAP.md``):
 ``--servable lm`` (the decode slice), ``--dense-oracle`` for an arch
-outside the dense family, and ``--dense-oracle --mesh`` (the distributed
-slice).
+outside the dense and ssm families (zamba2-7b: the hybrid slice; MoE,
+MLA and embedding-input archs), and ``--dense-oracle --mesh`` (the
+distributed slice).
 """
 from __future__ import annotations
 
@@ -87,7 +91,7 @@ def dense_generate(cfg, model, prompts: torch.Tensor, gen: int) -> DenseRun:
 
 
 def _dense_oracle(args) -> int:
-    """Dense transformer prefill + decode loop (``--dense-oracle``)."""
+    """Model zoo prefill + decode loop (``--dense-oracle``)."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import init_params

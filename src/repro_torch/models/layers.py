@@ -1,7 +1,9 @@
-"""Model layers of the dense family: RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Model layers of the dense and ssm families: RMSNorm, RoPE, GQA
+attention, SwiGLU and the Mamba2 block.
 
-Port of the dense part of ``repro.models.layers`` (``layers.py:42-206,
-330-343``), with the same names and conventions: parameters are
+Port of the dense and Mamba2 parts of ``repro.models.layers``
+(``layers.py:42-206, 330-343, 461-592``), with the same names and
+conventions: parameters are
 dictionaries of tensors (``p["wq"]``), weights are in ``cfg.dtype`` and
 norm scales in f32, activations keep the JAX layout ((B, S, d), caches
 (B, Smax, KV, hd)).  Deviations:
@@ -20,9 +22,16 @@ norm scales in f32, activations keep the JAX layout ((B, S, d), caches
   where JAX masks the whole capacity: the masked positions weigh exactly
   0, so the function is the same.  ``pos`` is a Python int.
 
-The projections, the decode attention (an einsum against the cache) and
+* ``mamba2_forward``/``mamba2_prefill`` take ``impl`` and hand it to
+  :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` in the same way;
+  ``mamba2_prefill`` left-pads its conv cache with zeros when the prompt
+  is shorter than the conv's ``W - 1`` taps (JAX's slice then comes out
+  short and its decode fails).
+
+The projections, the decode attention (an einsum against the cache), the
+depthwise causal conv (f32, as in JAX; no cuDNN), the SSD decode step and
 everything else here are plain torch, as the JAX package computes them
-outside Pallas.  MLA, MoE and Mamba2 layers belong to later slices.
+outside Pallas.  MLA and MoE layers belong to later slices.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.ssd_scan.ops import (ssd_decode_step,
+                                              ssd_final_state, ssd_scan)
 
 Params = Mapping[str, torch.Tensor]
 
@@ -209,3 +220,140 @@ def mlp_init(gen: Optional[torch.Generator], d: int, d_ff: int,
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+# ==========================================================================
+# Mamba2 block
+# ==========================================================================
+
+def mamba2_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                device=None) -> Dict[str, object]:
+    """The split projections (z / x / BC / dt) of the JAX package, its conv
+    taps, and ``a_log``, ``dt_bias``, ``d_skip`` and the norm in f32."""
+    dt = dtype_of(cfg.dtype)
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, h, W = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_conv_width
+
+    def taps(c):
+        return (torch.randn((W, c), generator=gen, dtype=torch.float32,
+                            device=device) / math.sqrt(W)).to(dt)
+    return {
+        "w_z": dense_init(gen, d, di, dt, device=device),
+        "w_x": dense_init(gen, d, di, dt, device=device),
+        "w_bc": dense_init(gen, d, 2 * g * n, dt, device=device),
+        "w_dt": dense_init(gen, d, h, dt, device=device),
+        "conv_wx": taps(di),
+        "conv_bx": torch.zeros((di,), dtype=dt, device=device),
+        "conv_wbc": taps(2 * g * n),
+        "conv_bbc": torch.zeros((2 * g * n,), dtype=dt, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
+                                          device=device)),
+        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=device),
+        "d_skip": torch.ones((h,), dtype=torch.float32, device=device),
+        "norm": rmsnorm_init(di, device),
+        "w_out": dense_init(gen, di, d, dt, device=device),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C) with taps (W, C), in f32."""
+    W, S = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    wf = w.float()
+    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    for i in range(W):
+        out += pad[:, i:i + S, :].float() * wf[i]
+    return (out + b.float()).to(xbc.dtype)
+
+
+def _mamba_proj(p: Params, x: torch.Tensor):
+    return x @ p["w_z"], x @ p["w_x"], x @ p["w_bc"], x @ p["w_dt"]
+
+
+def _mamba_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, impl: str,
+               final_state: bool):
+    """The full-sequence Mamba2 mixer: (output, projections, SSD inputs and
+    the final SSM state when ``final_state``)."""
+    B, S, _ = x.shape
+    di, gn, h, hp = (cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state,
+                     cfg.ssm_heads, cfg.ssm_head_dim)
+    z, xr, bc, dtr = _mamba_proj(p, x)
+    xc = F.silu(_causal_conv(xr, p["conv_wx"], p["conv_bx"]))
+    bcc = F.silu(_causal_conv(bc, p["conv_wbc"], p["conv_bbc"]))
+    xs = xc.reshape(B, S, h, hp)
+    Bm, Cm = bcc[..., :gn], bcc[..., gn:]         # read in place by strides
+    dt = F.softplus(dtr.float() + p["dt_bias"])
+    A = -torch.exp(p["a_log"])
+    y = ssd_scan(xs, dt, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S), impl=impl)
+    hfin = ssd_final_state(xs, dt, A, Bm, Cm) if final_state else None
+    y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
+    y = y.reshape(B, S, di) * F.silu(z)
+    y = rmsnorm(p["norm"], y, cfg.rms_eps)
+    return y @ p["w_out"], xr, bc, hfin
+
+
+def mamba2_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                   impl: str = "auto") -> torch.Tensor:
+    return _mamba_mix(p, cfg, x, impl, final_state=False)[0]
+
+
+def _conv_tail(t: torch.Tensor, W: int) -> torch.Tensor:
+    """The last ``W - 1`` positions of (B, S, C), zero-padded on the left
+    when S is shorter."""
+    if t.shape[1] < W - 1:
+        t = F.pad(t, (0, 0, W - 1 - t.shape[1], 0))
+    return t[:, t.shape[1] - (W - 1):, :]
+
+
+def mamba2_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                   impl: str = "auto"
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward that also returns the decode cache."""
+    out, xr, bc, hfin = _mamba_mix(p, cfg, x, impl, final_state=True)
+    W = cfg.ssm_conv_width
+    return out, {"conv_x": _conv_tail(xr, W), "conv_bc": _conv_tail(bc, W),
+                 "ssm": hfin}
+
+
+def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                      device=None) -> Dict[str, torch.Tensor]:
+    W = cfg.ssm_conv_width
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    return {
+        "conv_x": torch.zeros((batch, W - 1, cfg.d_inner), dtype=dtype,
+                              device=device),
+        "conv_bc": torch.zeros((batch, W - 1, 2 * gn), dtype=dtype,
+                               device=device),
+        "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state,
+                            cfg.ssm_head_dim), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba2_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """O(1) decode step: x (B, 1, d) → (output, new cache)."""
+    B = x.shape[0]
+    di, gn, h, hp = (cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state,
+                     cfg.ssm_heads, cfg.ssm_head_dim)
+    z, xr, bc, dtr = _mamba_proj(p, x)
+    hist_x = torch.cat([cache["conv_x"], xr], dim=1)          # (B, W, di)
+    hist_bc = torch.cat([cache["conv_bc"], bc], dim=1)
+    conv_x = (hist_x.float() * p["conv_wx"].float()).sum(1) \
+        + p["conv_bx"].float()
+    conv_bc = (hist_bc.float() * p["conv_wbc"].float()).sum(1) \
+        + p["conv_bbc"].float()
+    xt = F.silu(conv_x).to(x.dtype).reshape(B, h, hp)
+    bcc = F.silu(conv_bc).to(x.dtype)
+    Bt, Ct = bcc[:, :gn], bcc[:, gn:]
+    dt = F.softplus(dtr[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["a_log"])
+    y, hnew = ssd_decode_step(cache["ssm"], xt, dt, A, Bt, Ct)
+    y = y + xt * p["d_skip"][None, :, None].to(xt.dtype)
+    y = y.reshape(B, 1, di) * F.silu(z)
+    y = rmsnorm(p["norm"], y, cfg.rms_eps)
+    return y @ p["w_out"], {"conv_x": hist_x[:, 1:], "conv_bc": hist_bc[:, 1:],
+                            "ssm": hnew}

@@ -1,11 +1,14 @@
-"""Decoder LM of the dense family (gemma2, qwen2, qwen2.5, minitron).
+"""Decoder LM of the dense family (gemma2, qwen2, qwen2.5, minitron) and
+the ssm family (mamba2).
 
-Port of the dense path of ``repro.models.model`` (``model.py:60-192,
-234-290, 312-451``).  The weights live in :class:`DenseLM`, an
-``nn.Module`` whose parameter names mirror the JAX tree (``embed.w``,
-``blocks.<layer>.attn.wq``, ``final_norm.scale``, ``lm_head.w``); the
-module-level functions keep the JAX names and signatures and call its
-methods, with the module in the place of the JAX ``params`` tree:
+Port of the dense and ssm paths of ``repro.models.model``
+(``model.py:60-192, 234-290, 312-451``).  The weights live in
+:class:`DenseLM` (dense as in ``--dense-oracle``: one card, no sharding),
+an ``nn.Module`` whose parameter names mirror the JAX tree (``embed.w``,
+``blocks.<layer>.attn.wq``, ``blocks.<layer>.mix.norm.scale``,
+``final_norm.scale``, ``lm_head.w``); the module-level functions keep the
+JAX names and signatures and call its methods, with the module in the
+place of the JAX ``params`` tree:
 
 * :func:`forward`      — full sequence → logits (B, S, vocab) in f32
 * :func:`prefill`      — full sequence → (last-position logits, KV cache)
@@ -17,30 +20,33 @@ Deviations from the JAX module:
   loop over the layers; layer ``l`` takes the window of sub-layer
   ``l % group_size`` (gemma2: even layers local, odd layers global), as
   the scan does;
-* the cache is ``{"blocks": [{"k", "v"} per layer], "pos": int}`` (JAX
-  stacks it as (G, group_size, …)); :func:`decode_step` updates its
-  tensors in place and returns them under a new dict with ``pos + 1`` —
-  the cache handed in must not be used again;
-* ``unembed`` multiplies in the weights' dtype and casts the logits to
-  f32 (JAX asks its dot for an f32 result), so bf16 logits are rounded to
-  bf16 before the final soft-cap;
+* the cache is ``{"blocks": [per layer], "pos": int}`` (JAX stacks it as
+  (G, group_size, …)); a layer's entry is ``{"k", "v"}`` (dense) or
+  ``{"conv_x", "conv_bc", "ssm"}`` (ssm).  :func:`decode_step` updates
+  the dense tensors in place and returns them under a new dict with
+  ``pos + 1`` — the cache handed in must not be used again;
+* ``unembed`` gives f32 logits of the bf16 product, as JAX's dot with
+  ``preferred_element_type=float32`` does: on the card one
+  ``torch.mm(…, out_dtype=torch.float32)`` (f32 accumulation, no bf16
+  rounding of the logits), on the CPU — where ``aten::mm.dtype`` has no
+  kernel — the same product taken in f32;
 * no ``shard`` argument, remat policy or ``loss_fn``/``param_shapes``/
   ``cache_spec`` (training and the dry-run are later slices);
-* :attr:`DenseLM.attn_impl` (``"auto"``) is handed to every prefill
-  attention: ``"plain"`` runs the model with the kernel's plain version.
+* :attr:`DenseLM.attn_impl` and :attr:`DenseLM.ssd_impl` (``"auto"``)
+  are handed to every prefill attention and every SSD scan: ``"plain"``
+  runs the model with that kernel's plain version.
 
-MLA, MoE (and ``first_dense_layers``), the ssm and hybrid families and
-embedding inputs (audio, vlm) raise ``NotImplementedError`` naming the
-slice that ports them (``ROADMAP.md``).
+MLA, MoE (and ``first_dense_layers``), the hybrid family and embedding
+inputs (audio, vlm) raise ``NotImplementedError`` naming the slice that
+ports them (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -51,43 +57,72 @@ Cache = Dict[str, object]
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (Mamba2 layers) comes with "
-            f"the SSD-scan slice (ROADMAP B3)")
+            f"{cfg.name}: the hybrid family (Mamba2 groups + shared "
+            f"attention blocks) comes with the hybrid slice (ROADMAP A8.2)")
     if cfg.family == "moe" or cfg.n_experts or cfg.first_dense_layers:
         raise NotImplementedError(f"{cfg.name}: MoE blocks come with the MoE "
                                   f"slice (ROADMAP A8)")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA attention comes with the "
                                   f"MoE/MLA slice (ROADMAP A8)")
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
+    if cfg.family not in ("dense", "ssm") or cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} embedding inputs come with the "
             f"audio/vlm slice (ROADMAP A8)")
 
 
 # ==========================================================================
-# Block = attention + mlp, pre-norm residual
+# Block = (attention + mlp) | mamba, pre-norm residual
 # ==========================================================================
 
-def _params(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: ``p["w_z"]`` is a parameter,
+    ``p["norm"]`` a subtree, and the parameter names follow the keys
+    (``mix.norm.scale``)."""
+
+    def __init__(self, tree: Mapping[str, object]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
 
 
 def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
-                     device) -> nn.ModuleDict:
+                     device) -> ParamTree:
     d = cfg.d_model
-    p = {"ln1": _params(L.rmsnorm_init(d, device)),
-         "ln2": _params(L.rmsnorm_init(d, device)),
-         "attn": _params(L.gqa_init(gen, cfg, device)),
-         "mlp": _params(L.mlp_init(gen, d, cfg.d_ff, dtype_of(cfg.dtype),
-                                   device))}
+    p = {"ln1": L.rmsnorm_init(d, device), "ln2": L.rmsnorm_init(d, device),
+         "attn": L.gqa_init(gen, cfg, device),
+         "mlp": L.mlp_init(gen, d, cfg.d_ff, dtype_of(cfg.dtype), device)}
     if cfg.post_block_norm:
-        p["post_ln1"] = _params(L.rmsnorm_init(d, device))
-        p["post_ln2"] = _params(L.rmsnorm_init(d, device))
-    return nn.ModuleDict(p)
+        p["post_ln1"] = L.rmsnorm_init(d, device)
+        p["post_ln2"] = L.rmsnorm_init(d, device)
+    return ParamTree(p)
+
+
+def _mamba_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                      device) -> ParamTree:
+    return ParamTree({"ln": L.rmsnorm_init(cfg.d_model, device),
+                      "mix": L.mamba2_init(gen, cfg, device)})
+
+
+def _mamba_block(p, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+                 cache=None, impl: str = "auto"):
+    h = L.rmsnorm(p["ln"], x, cfg.rms_eps)
+    if mode == "train":
+        return x + L.mamba2_forward(p["mix"], cfg, h, impl=impl), None
+    if mode == "prefill":
+        y, c = L.mamba2_prefill(p["mix"], cfg, h, impl=impl)
+    else:
+        y, c = L.mamba2_decode(p["mix"], cfg, h, cache)
+    return x + y, c
 
 
 def _attn_block(p, cfg: ModelConfig, x: torch.Tensor, *, window: int,
@@ -148,7 +183,7 @@ def _window_for(cfg: ModelConfig, idx_in_group: int) -> int:
 # ==========================================================================
 
 class DenseLM(nn.Module):
-    """The weights of a dense-family LM and its three entry points.
+    """The weights of a dense- or ssm-family LM and its three entry points.
 
     ``gen`` draws the random weights on ``device`` (``None`` with
     ``device="meta"`` builds shapes only: :func:`count_params`,
@@ -161,22 +196,33 @@ class DenseLM(nn.Module):
         n_scan_groups(cfg)
         self.cfg = cfg
         self.attn_impl = "auto"
+        self.ssd_impl = "auto"
         dt = dtype_of(cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
-        self.embed = _params({"w": (torch.randn(
+        self.embed = ParamTree({"w": (torch.randn(
             (V, d), generator=gen, dtype=torch.float32, device=device)
             * (d ** -0.5)).to(dt)})
-        self.blocks = nn.ModuleList([_attn_block_init(gen, cfg, device)
+        block_init = _mamba_block_init if cfg.family == "ssm" \
+            else _attn_block_init
+        self.blocks = nn.ModuleList([block_init(gen, cfg, device)
                                      for _ in range(cfg.n_layers)])
-        self.final_norm = _params(L.rmsnorm_init(d, device))
+        self.final_norm = ParamTree(L.rmsnorm_init(d, device))
         if not cfg.tie_embeddings:
-            self.lm_head = _params({"w": L.dense_init(gen, d, V, dt,
-                                                      device=device)})
+            self.lm_head = ParamTree({"w": L.dense_init(gen, d, V, dt,
+                                                        device=device)})
 
-    def _layers(self):
-        gsz = group_size(self.cfg)
-        for i, blk in enumerate(self.blocks):
-            yield blk, _window_for(self.cfg, i % gsz)
+    def _block(self, i: int, x: torch.Tensor, mode: str, cache=None,
+               pos: Optional[int] = None):
+        """Layer ``i`` in ``mode``; ``cache`` is the cache length in prefill
+        mode, as in JAX.  Returns (x, new_cache_or_None)."""
+        cfg, blk = self.cfg, self.blocks[i]
+        if cfg.family == "ssm":
+            return _mamba_block(blk, cfg, x, mode=mode, cache=cache,
+                                impl=self.ssd_impl)
+        return _attn_block(blk, cfg, x,
+                           window=_window_for(cfg, i % group_size(cfg)),
+                           mode=mode, cache=cache, pos=pos,
+                           impl=self.attn_impl)
 
     def embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed["w"][tokens]
@@ -187,10 +233,13 @@ class DenseLM(nn.Module):
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = L.rmsnorm(self.final_norm, x, cfg.rms_eps)
-        if cfg.tie_embeddings:
-            logits = F.linear(x, self.embed["w"]).float()
+        w = self.embed["w"].t() if cfg.tie_embeddings else self.lm_head["w"]
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cuda":
+            logits = torch.mm(x2, w, out_dtype=torch.float32)
         else:
-            logits = (x @ self.lm_head["w"]).float()
+            logits = x2.float() @ w.float()
+        logits = logits.reshape(*x.shape[:-1], w.shape[1])
         if cfg.logit_softcap > 0.0:
             logits = cfg.logit_softcap * torch.tanh(
                 logits / cfg.logit_softcap)
@@ -198,19 +247,16 @@ class DenseLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed_in(tokens)
-        for blk, window in self._layers():
-            x, _ = _attn_block(blk, self.cfg, x, window=window, mode="train",
-                               impl=self.attn_impl)
+        for i in range(len(self.blocks)):
+            x, _ = self._block(i, x, "train")
         return self.unembed(x)
 
     def prefill(self, tokens: torch.Tensor,
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
         x = self.embed_in(tokens)
         blocks: List[Dict[str, torch.Tensor]] = []
-        for blk, window in self._layers():
-            x, c = _attn_block(blk, self.cfg, x, window=window,
-                               mode="prefill", cache=cache_len,
-                               impl=self.attn_impl)
+        for i in range(len(self.blocks)):
+            x, c = self._block(i, x, "prefill", cache=cache_len)
             blocks.append(c)
         logits = self.unembed(x[:, -1:, :])
         return logits, {"blocks": blocks, "pos": tokens.shape[1]}
@@ -219,10 +265,11 @@ class DenseLM(nn.Module):
                     token: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         x = self.embed_in(token)
         pos = cache["pos"]
-        for (blk, window), c in zip(self._layers(), cache["blocks"]):
-            x, _ = _attn_block(blk, self.cfg, x, window=window,
-                               mode="decode", cache=c, pos=pos)
-        return self.unembed(x), {"blocks": cache["blocks"], "pos": pos + 1}
+        blocks = []
+        for i, c in enumerate(cache["blocks"]):
+            x, nc = self._block(i, x, "decode", cache=c, pos=pos)
+            blocks.append(nc)
+        return self.unembed(x), {"blocks": blocks, "pos": pos + 1}
 
 
 # ==========================================================================
@@ -281,6 +328,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     _check_dense(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.kv_cache_dtype or cfg.dtype)
+    if cfg.family == "ssm":
+        return {"blocks": [L.mamba2_init_cache(cfg, batch, dt, dev)
+                           for _ in range(cfg.n_layers)], "pos": 0}
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"blocks": [{"k": torch.zeros(shape, dtype=dt, device=dev),
                         "v": torch.zeros(shape, dtype=dt, device=dev)}

@@ -13,9 +13,9 @@ two therefore goes through the weights themselves, as numpy arrays:
       scorer = repro_torch.serve.FFNNScorer.from_numpy(
           arrays, db=4, hb=4, device="cpu")
 
-* a model zoo parameter tree (``repro.models.init_params``) becomes the
-  port's :class:`~repro_torch.models.model.DenseLM`
-  (:func:`model_from_numpy`):
+* a model zoo parameter tree (``repro.models.init_params``) of the dense
+  or ssm family becomes the port's
+  :class:`~repro_torch.models.model.DenseLM` (:func:`model_from_numpy`):
 
       params = repro.models.init_params(cfg, jax.random.PRNGKey(0))
       tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
@@ -70,7 +70,8 @@ def model_from_numpy(cfg, tree: Mapping, device: DeviceLike = "cuda"):
     them), copied onto ``device`` in the model's dtypes.
 
     JAX stacks every ``params["blocks"]`` leaf as (G, group_size, …), so
-    layer ``g·group_size + i`` takes ``[g, i]``.  Exactly the model's
+    layer ``g·group_size + i`` takes ``[g, i]`` (``blocks/attn/wq`` of the
+    dense family, ``blocks/mix/norm/scale`` of the ssm family).  Exactly the model's
     leaves: a missing or extra leaf, or one whose shape does not fit,
     raises ``ValueError``."""
     from repro_torch.models.model import DenseLM, group_size, n_scan_groups

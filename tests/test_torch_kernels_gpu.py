@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marked ``gpu``).
 
-The matmul tile kernel, the split-K reduction and the flash attention
-kernel have no CPU mode, so these tests skip without a CUDA device.
+The matmul tile kernel, the split-K reduction, the flash attention kernel
+and the SSD scan kernel have no CPU mode, so these tests skip without a
+CUDA device.
 With a card they run with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -14,8 +15,13 @@ terms), atol 1e-5·√K; bf16 at 2e-2.  Flash attention (``attention_ref``)
 at the cases of ``tests/test_kernels.py:47-76`` (f32 at 2e-4, bf16 at
 3e-2, as there), ragged lengths, ``sq < skv``, ``dv != d``, head dim 256
 and strided inputs; and the smoke-width dense models through the kernel
-against the same models with the plain attention (f32, 1e-4).  This file imports neither JAX nor the JAX package,
-so it runs where only PyTorch is installed.
+against the same models with the plain attention (f32, 1e-4).  The SSD
+scan (``ssd_chunked_ref``) at the cases of ``tests/test_kernels.py:107-139``,
+ragged S, S < chunk and mamba2-130m's layer dims, within 1e-4 (f32) or
+1e-2 (bf16) of the largest |output|; B and C read in place as slices of
+one tensor; and mamba2-smoke through the kernel against the same model
+with the plain SSD scan (f32, 1e-4).  This file imports neither JAX nor
+the JAX package, so it runs where only PyTorch is installed.
 """
 import numpy as np
 import pytest
@@ -27,6 +33,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul import ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 
 SHAPES = [(128, 128, 128), (256, 512, 128), (384, 256, 640), (100, 70, 50),
           (8, 1600, 4000), (8, 100000, 10), (1, 100000, 10)]
@@ -277,3 +285,156 @@ def test_dense_model_through_the_kernel_on_card(cuda, arch):
                                logits.cpu().numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(run.first_decode_logits.cpu().numpy(),
                                step.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ SSD scan
+SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}     # of the largest |output|
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, device, seed=0):
+    """x, dt, A, B, C as the JAX kernel tests draw them: x, B, C normal in
+    ``dtype``; dt = softplus(normal) and A = -exp(normal) in f32."""
+    r = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+
+    def f32(shape):
+        return torch.tensor(r.standard_normal(shape), dtype=torch.float32)
+    x, bm, cm = f32((b, s, h, p)), f32((b, s, n)), f32((b, s, n))
+    dt = torch.nn.functional.softplus(f32((b, s, h)))
+    A = -torch.exp(f32((h,)))
+    return (x.to(device, dt_), dt.to(device), A.to(device), bm.to(device, dt_),
+            cm.to(device, dt_))
+
+
+def _ssd_check(x, dt, A, bm, cm, chunk, dtype):
+    before = ssd_ops.LAUNCHES
+    got = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk, impl="kernel")
+    want = ssd_chunked_ref(x, dt, A, bm, cm, min(chunk, x.shape[1]))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    # the outputs sum terms of either sign (|C·B| ~ √N): the limit scales
+    # with the largest output, as chip_smoke.py's does
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    tol = SSD_TOL[dtype] * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 16, 8, 16), (2, 128, 4, 16, 8, 32), (2, 96, 4, 16, 8, 32),
+    (1, 64, 2, 16, 8, 32), (1, 128, 2, 16, 8, 64),
+    (2, 200, 4, 16, 8, 64), (2, 40, 3, 16, 8, 128), (1, 77, 2, 24, 12, 16),
+    (1, 300, 24, 64, 128, 128), (2, 520, 4, 64, 128, 128)],
+    ids=["jax-64/16", "jax-128/32", "jax-96/32", "pallas-64/32",
+         "pallas-128/64", "ragged200/64", "s<chunk", "ragged-odd-dims",
+         "mamba2-layer-s300", "mamba2-dims-s520"])
+def test_ssd_kernel_matches_plain_on_card(cuda, dtype, b, s, h, p, n, chunk):
+    """The JAX kernel tests' cases (``tests/test_kernels.py:107-139``),
+    ragged S (the last chunk masked in the kernel), S < chunk, N and P
+    that are not multiples of 4 or 8, and mamba2-130m's layer dims (P=64,
+    N=128, L=128) at a short S."""
+    _ssd_check(*_ssd_inputs(b, s, h, p, n, dtype, cuda), chunk, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+def test_ssd_kernel_reads_strided_b_c_in_place_on_card(cuda, dtype):
+    """The model hands over B and C as slices of one (B, S, 2N) tensor and
+    x as a reshape: read in place, the same result as contiguous copies."""
+    x, dt, A, bm, cm = _ssd_inputs(2, 260, 4, 64, 128, dtype, cuda, seed=5)
+    bcc = torch.cat([bm, cm], dim=-1)
+    bv, cv = bcc[..., :128], bcc[..., 128:]
+    assert not bv.is_contiguous() and not cv.is_contiguous()
+    got = ssd_ops.ssd_scan(x, dt, A, bv, cv, chunk=128)
+    want = ssd_ops.ssd_scan(x, dt, A, bv.contiguous(), cv.contiguous(),
+                            chunk=128)
+    np.testing.assert_array_equal(got.float().cpu().numpy(),
+                                  want.float().cpu().numpy())
+    _ssd_check(x, dt, A, bv, cv, 128, dtype)
+    # a transposed x: (B, H, S, P) storage read as (B, S, H, P)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    np.testing.assert_array_equal(
+        ssd_ops.ssd_scan(xt, dt, A, bv, cv, chunk=128).float().cpu().numpy(),
+        got.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_ssd_auto_on_card_launches_the_kernel(cuda):
+    x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 8, "bfloat16", cuda)
+    before = ssd_ops.LAUNCHES
+    y = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=32)
+    assert ssd_ops.LAUNCHES == before + 1
+    # a bf16 dt and A are cast to f32 first: the same launch
+    y16 = ssd_ops.ssd_scan(x, dt.bfloat16().float(), A, bm, cm, chunk=32)
+    assert torch.equal(ssd_ops.ssd_scan(x, dt.bfloat16(), A, bm, cm,
+                                        chunk=32), y16)
+    assert y.dtype == torch.bfloat16
+    before = ssd_ops.LAUNCHES            # refused calls launch nothing
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_ops.ssd_scan(x, dt.cpu(), A, bm, cm, chunk=32)
+    with pytest.raises(ValueError, match="chunks up to 128"):
+        ssd_ops.ssd_scan(*_ssd_inputs(1, 512, 2, 16, 8, "float32", cuda),
+                         chunk=256)
+    with pytest.raises(ValueError, match="states up to 128"):
+        ssd_ops.ssd_scan(*_ssd_inputs(1, 64, 2, 16, 160, "float32", cuda),
+                         chunk=32)
+    with pytest.raises(ValueError, match="head dims up to 64"):
+        ssd_ops.ssd_scan(*_ssd_inputs(1, 64, 2, 96, 8, "float32", cuda),
+                         chunk=32)
+    assert ssd_ops.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_mamba2_through_the_kernel_on_card(cuda):
+    """mamba2-smoke in f32 on the card, a 300-token prompt in chunks of 16
+    (the last one short): one SSD launch per layer in the prefill, none in
+    decode, logits within 1e-4 of the same model with the plain SSD scan;
+    the ``--dense-oracle`` loop runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = dataclasses.replace(get_config("mamba2-130m", smoke=True),
+                              dtype="float32")
+    model = init_params(cfg, 0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(1))
+    before = ssd_ops.LAUNCHES
+    run = dense_generate(cfg, model, prompts, 3)
+    assert ssd_ops.LAUNCHES == before + cfg.n_layers
+    with torch.inference_mode():
+        _, cache = prefill(cfg, model, {"tokens": prompts}, 303)
+        assert ssd_ops.LAUNCHES == before + 2 * cfg.n_layers
+        decode_step(cfg, model, cache,
+                    {"token": run.prefill_logits.argmax(-1)})
+    assert ssd_ops.LAUNCHES == before + 2 * cfg.n_layers
+    model.ssd_impl = "plain"
+    with torch.inference_mode():
+        logits, cache = prefill(cfg, model, {"tokens": prompts}, 303)
+        step, _ = decode_step(cfg, model, cache,
+                              {"token": run.prefill_logits.argmax(-1)})
+    assert ssd_ops.LAUNCHES == before + 2 * cfg.n_layers
+    np.testing.assert_allclose(run.prefill_logits.cpu().numpy(),
+                               logits.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(run.first_decode_logits.cpu().numpy(),
+                               step.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_unembed_f32_logits_on_card(cuda):
+    """``torch.mm(…, out_dtype=float32)`` of the bf16 unembedding gives the
+    f32 product of the bf16 values, as the CPU path computes it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("mamba2-130m", smoke=True)
+    model = init_params(cfg, 0, device=cuda)
+    x = torch.randn((2, 5, cfg.d_model), device=cuda).bfloat16()
+    got = model.unembed(x)
+    assert got.dtype == torch.float32
+    model_cpu = model.to("cpu")
+    want = model_cpu.unembed(x.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -4,8 +4,9 @@
     the JAX package ``repro`` (only ``repro_torch``);
 (b) without a card, entry points asked for no device raise instead of
     running on the CPU;
-(c) the matmul and flash attention ops asked for their kernels on CPU
-    tensors raise — there is no silent fallback to the plain version;
+(c) the matmul, flash attention and SSD scan ops asked for their kernels
+    on CPU tensors raise — there is no silent fallback to the plain
+    version;
 (d) the launcher's paths that are not ported yet exit 2 with a message,
     and the ported ``--dense-oracle`` runs on the CPU when asked to.
 """
@@ -51,8 +52,9 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "tra.py", "server.py", "ops.py", "model.py",
             "layers.py", "chip_smoke.py"} <= names
-    assert ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" \
-        / "ops.py" in PORT_FILES
+    for kernel in ("flash_attention", "ssd_scan"):
+        assert ROOT / "src" / "repro_torch" / "kernels" / kernel \
+            / "ops.py" in PORT_FILES
 
 
 @pytest.fixture
@@ -108,7 +110,7 @@ def test_flash_kernel_impl_on_cpu_raises():
 def test_unported_launcher_paths_exit_cleanly(capsys):
     from repro_torch.launch.serve import main
     assert main(["--servable", "lm"]) == 2
-    assert main(["--dense-oracle", "--arch", "mamba2-130m"]) == 2
+    assert main(["--dense-oracle", "--arch", "zamba2-7b"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert main(["--dense-oracle", "--mesh", "2x2"]) == 2
     assert "not ported" in capsys.readouterr().err
@@ -120,6 +122,24 @@ def test_dense_oracle_runs_on_cpu_when_asked(capsys):
                  "--device", "cpu", "--prompt-len", "16", "--gen", "4"]) == 0
     out = capsys.readouterr().out
     assert "prefill(4x16)" in out and "decode 4 steps" in out
+
+
+def test_dense_oracle_runs_mamba2_on_cpu_when_asked(capsys):
+    from repro_torch.launch.serve import main
+    assert main(["--dense-oracle", "--arch", "mamba2-130m", "--smoke",
+                 "--device", "cpu", "--prompt-len", "40", "--gen", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "mamba2-130m on cpu: prefill(4x40)" in out
+    assert "decode 3 steps" in out
+
+
+def test_ssd_kernel_impl_on_cpu_raises():
+    from repro_torch.kernels.ssd_scan import ops
+    x = torch.ones(1, 8, 2, 4)
+    bc = torch.ones(1, 8, 3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.ssd_scan(x, torch.ones(1, 8, 2), -torch.ones(2), bc, bc,
+                     impl="kernel")
 
 
 def test_dense_oracle_without_device_raises(no_card):
