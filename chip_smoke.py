@@ -14,28 +14,35 @@ PyTorch version on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
-   ``nvcc`` per library, all started together);
+   ``nvcc`` per source, all started together), and counts the ``HGMMA``
+   instructions (``wgmma``) in the flash library's SASS: none fails;
 3. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
    package's kernel tests, a ragged shape and the scorer's two products,
    and the split-K reduction pass (``splitk_reduce``) against
    ``splitk_reduce_ref`` at the partial sums of the scorer's second
    product, each with kernel / plain / library times and the bound;
-4. flash: ``attention`` (the flash attention kernel) against
-   ``attention_ref`` at the JAX kernel tests' cases (f32 at 2e-4, bf16 at
-   3e-2), ragged lengths, ``sq < skv``, ``dv != d`` and gemma2-2b's two
-   layer shapes (B=2, S=8192, D=256, soft-cap 50: window 4096 and
-   global; bf16 at 6e-3, f32 at 2e-4), every case also within a limit on
-   each output row's error over that row's norm (bf16 1e-2, f32 1e-4);
-   timed at the gemma2 shapes in bf16 with the bound, and
-   ``scaled_dot_product_attention`` beside the kernel at the global shape
-   without soft-cap;
+4. flash: ``attention`` against ``attention_ref`` at the JAX kernel
+   tests' cases (f32 at 2e-4, bf16 at 3e-2), ragged lengths, ``sq <
+   skv``, ``dv != d`` and gemma2-2b's two layer shapes (B=2, S=8192,
+   D=256, soft-cap 50: window 4096 and global; bf16 at 6e-3, f32 at
+   2e-4), every case also within a limit on each output row's error over
+   that row's norm (bf16 1e-2, f32 1e-4); every bf16 case through the
+   tensor-core kernel (``TC_LAUNCHES``), every f32 case through the FFMA
+   kernel (``FFMA_LAUNCHES``); at gemma2's head shape (8 seeds, S=256)
+   the bf16 kernel's outputs that differ from the correctly rounded f64
+   attention within ``FLASH_ROUNDING_FACTOR`` times the plain f32
+   version's count; timed at the gemma2 shapes in bf16 and at the global
+   shape in f32, with the bound, and ``scaled_dot_product_attention``
+   beside each kernel at the global shape without soft-cap;
 5. serve: 64 Poisson-arriving requests through ``TraServer`` with every
    kernel launch count set to 0 just before and read just after; each
    response is checked against the scorer's per-request oracle;
 6. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
-   before and read just after (26 flash launches); the prefill's and the first decode step's logits against the
-   same model with the plain attention, within ``0.02·(max|logit| + 1)``;
+   before and read just after (26 launches of the tensor-core flash
+   kernel, none of the FFMA kernel, no copy of q, k or v); the prefill's
+   and the first decode step's logits against the same model with the
+   plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
 7. ssd: ``ssd_scan`` (the SSD scan kernel) against ``ssd_chunked_ref`` at
@@ -109,6 +116,13 @@ FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # case the largest error of one output row over that row's norm.
 GEMMA2_BF16_ATOL = 6e-3
 ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The bf16 tensor-core kernel must round like an f32 computation: at
+# gemma2's head shape (first 256 rows, where outputs reach 1 and more) the
+# outputs that differ from the correctly rounded f64 attention may number
+# at most FLASH_ROUNDING_FACTOR times the plain f32 version's.  In a
+# plain-torch model of the kernel's arithmetic, P in one or two bf16 terms
+# fails this and three pass (tests/test_torch_flash_attention.py).
+FLASH_ROUNDING_FACTOR = 2.0
 SSM_ARCH = "mamba2-130m"
 SSM_BATCH = 8                    # x PROMPT_LEN tokens, GEN decode steps
 # An SSD output sums terms of either sign over the chunk and the carried
@@ -192,14 +206,25 @@ def tolerance(k: int, dtype) -> tuple:
 
 def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
+    flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
     ssd_ops.LAUNCHES = 0
 
 
 def read_launches() -> dict:
+    """Every kernel's launch count (``flash_attention`` is the sum of its
+    two kernels'), and the copies of q, k, v the flash op made."""
     return {"matmul": mm_ops.LAUNCHES,
             "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES,
             "flash_attention": flash_ops.LAUNCHES,
+            "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
+            "flash_attention_ffma": flash_ops.FFMA_LAUNCHES,
+            "flash_copies": flash_ops.COPIES,
             "ssd_scan": ssd_ops.LAUNCHES}
+
+
+def launches_of(**nonzero) -> dict:
+    """The counts a path should read: 0 but where given."""
+    return {**{name: 0 for name in read_launches()}, **nonzero}
 
 
 # ---------------------------------------------------------------- phases
@@ -216,7 +241,8 @@ def phase_device(device) -> str:
 
 
 def phase_build() -> None:
-    """Every kernel library at once: one ``nvcc`` each, in parallel."""
+    """Every kernel library at once, each source by its own ``nvcc``, all
+    in parallel; then the ``HGMMA`` count of the flash library."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SOURCES)) as pool:
@@ -227,7 +253,11 @@ def phase_build() -> None:
                  .splitlines() if "registers" in ln or "spill" in ln]
         emit({"phase": "build", "library": name, "seconds": seconds[name],
               "ptxas": usage})
-    emit({"phase": "build", "wall_s": time.perf_counter() - t0})
+    hgmma = build.sass_count("flash_attention", "HGMMA")
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          "flash_attention_hgmma": hgmma})
+    if hgmma == 0:
+        fail("build: no HGMMA instruction in the flash library's SASS")
 
 
 def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
@@ -361,9 +391,8 @@ def phase_serve(device) -> dict:
              f"after warmup")
     # per dispatch: both products launch the tile kernel; the second,
     # (b x 100000) @ (100000 x 10), splits K and launches the reduction
-    expected = {"matmul": 2 * dispatches,
-                "matmul_splitk_reduce": dispatches, "flash_attention": 0,
-                "ssd_scan": 0}
+    expected = launches_of(matmul=2 * dispatches,
+                           matmul_splitk_reduce=dispatches)
     if launches != expected:
         fail(f"serve: launches {launches} for {dispatches} dispatches, "
              f"expected {expected}")
@@ -481,10 +510,15 @@ def flash_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
     q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, dv)
+    before = (flash_ops.TC_LAUNCHES, flash_ops.FFMA_LAUNCHES)
     out = flash_ops.attention(q, k, v, impl="kernel", **kw)
+    routed = (flash_ops.TC_LAUNCHES - before[0],
+              flash_ops.FFMA_LAUNCHES - before[1])
     ref = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize(device)
     name = f"attention b{b} h{hq}/{hkv} s{sq}/{skv} d{d}/{dv} {dtype} {kw}"
+    if routed != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
+        fail(f"{name}: (tensor-core, FFMA) launches {routed}")
     if tuple(out.shape) != (b, hq, sq, dv) or out.dtype != dtype:
         fail(f"{name}: got {tuple(out.shape)} {out.dtype}")
     o, r = out.float(), ref.float()
@@ -494,7 +528,8 @@ def flash_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
     if fault is not None:
         fail(f"{name}: {fault}")
     row = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "skv": skv, "d": d,
-           "dv": dv, "dtype": str(dtype).split(".")[-1], **kw, **errs,
+           "dv": dv, "dtype": str(dtype).split(".")[-1],
+           "kernel": "wgmma" if routed[0] else "ffma", **kw, **errs,
            "max_abs_ref": r.abs().max().item(),
            "mean_abs_ref": r.abs().mean().item()}
     del o, r
@@ -546,24 +581,97 @@ def phase_flash(device, gen) -> dict:
     for r in rows:
         emit({"phase": "flash", **r})
     # gemma2-2b's two layer shapes: bf16 as the model runs them, timed;
-    # f32 at the same shapes, untimed
+    # f32 at the same shapes, the global one timed (the FFMA kernel's row)
     cfg = get_config(ARCH)
     dims = (PROMPT_BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT_LEN,
             PROMPT_LEN, cfg.head_dim, cfg.head_dim)
-    shape = dims + (torch.bfloat16,)
     layers = {}
     for kind, layer in (("window", 0), ("global", 1)):
         kw = gemma2_layer_kw(cfg, layer)
-        layers[kind] = flash_case(*shape, kw, device, gen, iters=4,
-                                  atol=GEMMA2_BF16_ATOL)
+        layers[kind] = flash_case(*dims, torch.bfloat16, kw, device, gen,
+                                  iters=4, atol=GEMMA2_BF16_ATOL)
         emit({"phase": "flash", "at": f"{ARCH} {kind} layer",
               **layers[kind]})
         rows.append(flash_case(*dims, torch.float32, kw, device, gen,
+                               iters=2 if kind == "global" else 0,
                                atol=FLASH_TOL[torch.float32]))
         emit({"phase": "flash", "at": f"{ARCH} {kind} layer, f32",
               **rows[-1]})
-    # the library yardstick: one PyTorch call, global shape, no soft-cap
-    b, hq, hkv, s, _, d, dv, dt = shape
+        if kind == "global":
+            layers["global_f32"] = rows[-1]
+    library = {dt: flash_library_case(*dims, dt, device, gen)
+               for dt in (torch.bfloat16, torch.float32)}
+    for row in library.values():
+        emit({"phase": "flash", **row})
+    rounding = flash_rounding(cfg, device)
+    emit({"phase": "flash", **rounding})
+    return {"rows": rows, "layers": layers, "library": library,
+            "rounding": rounding}
+
+
+def exact_attention(q, k, v, *, causal, window, softcap, scale=None):
+    """``attention_ref``'s function computed in f64: the yardstick that
+    both the kernel and the plain version round from."""
+    group = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(),
+                     k.double().repeat_interleave(group, 1)) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None] \
+        + (k.shape[2] - q.shape[2])
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones_like(s[0, 0], dtype=torch.bool)
+    if causal:
+        mask &= rows >= cols
+    if window > 0:
+        mask &= rows - cols < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1).nan_to_num(0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.double().repeat_interleave(group, 1))
+
+
+def rounded_off(o, exact) -> int:
+    """How many of ``o``'s elements differ from ``exact`` rounded to
+    ``o``'s type."""
+    return int((o != exact.to(o.dtype)).sum())
+
+
+def flash_rounding(cfg, device, seeds: int = 8, s: int = 256) -> dict:
+    """The bf16 kernel's rounding against the plain f32 version's, at
+    gemma2-2b's head shape and soft-cap, causal, over the first ``s`` rows
+    (``seeds`` draws): elements that differ from the correctly rounded
+    f64 attention, within ``FLASH_ROUNDING_FACTOR`` of the plain count.
+    (How often a fresh draw takes the kernel past ``GEMMA2_BF16_ATOL``:
+    ``tools/flash_gate_census.py``.)"""
+    kw = gemma2_layer_kw(cfg, 1)
+    shapes = ((PROMPT_BATCH, cfg.n_heads, s, cfg.head_dim),
+              (PROMPT_BATCH, cfg.n_kv_heads, s, cfg.head_dim),
+              (PROMPT_BATCH, cfg.n_kv_heads, s, cfg.head_dim))
+    kernel_off = plain_off = 0
+    for i in range(seeds):
+        g = torch.Generator(device=device).manual_seed(SEED + i)
+        q, k, v = (torch.randn(sh, generator=g, device=device).bfloat16()
+                   for sh in shapes)
+        exact = exact_attention(q, k, v, **kw)
+        kernel_off += rounded_off(
+            flash_ops.attention(q, k, v, impl="kernel", **kw), exact)
+        plain_off += rounded_off(attention_ref(q, k, v, **kw), exact)
+    ratio = kernel_off / max(plain_off, 1)
+    if not ratio <= FLASH_ROUNDING_FACTOR:
+        fail(f"flash rounding: the bf16 kernel's outputs differ from the "
+             f"exact ones {kernel_off} times, the plain version's "
+             f"{plain_off}: {ratio:.2f}x > {FLASH_ROUNDING_FACTOR}")
+    return {"at": f"{ARCH} head shape, first {s} rows, {seeds} seeds",
+            "outputs": seeds * PROMPT_BATCH * cfg.n_heads * s * cfg.head_dim,
+            "off_exact": {"wgmma": kernel_off, "plain": plain_off},
+            "ratio": ratio, "limit": FLASH_ROUNDING_FACTOR}
+
+
+def flash_library_case(b, hq, hkv, s, _, d, dv, dt, device, gen) -> dict:
+    """The library yardstick: one PyTorch call computing the same function
+    at the global shape without soft-cap (no single call applies the
+    soft-cap), timed beside the kernel that ``dt`` routes to."""
     q = torch.randn((b, hq, s, d), generator=gen, device=device).to(dt)
     k = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dt)
     v = torch.randn((b, hkv, s, dv), generator=gen, device=device).to(dt)
@@ -573,18 +681,19 @@ def phase_flash(device, gen) -> dict:
     ker_out = flash_ops.attention(q, k, v, impl="kernel", **nocap)
     lib_err = (lib_out.float() - ker_out.float()).abs().max().item()
     del lib_out, ker_out
-    library = {
+    iters = 4 if dt == torch.bfloat16 else 2
+    return {
         "at": f"{ARCH} global layer shape, no soft-cap",
+        "dtype": str(dt).split(".")[-1],
+        "kernel": "wgmma" if dt == torch.bfloat16 else "ffma",
         "library_call": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)",
         "library_ms": timed_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                            enable_gqa=True), device, 4,
+                                            enable_gqa=True), device, iters,
                                warmup=1),
         "kernel_ms": timed_ms(lambda: flash_ops.attention(
-            q, k, v, impl="kernel", **nocap), device, 4, warmup=1),
+            q, k, v, impl="kernel", **nocap), device, iters, warmup=1),
         "max_abs_diff": lib_err}
-    emit({"phase": "flash", **library})
-    return {"rows": rows, "layers": layers, "library": library}
 
 
 def device_profile(fn) -> dict:
@@ -747,11 +856,12 @@ def phase_gemma2(device) -> dict:
     # ---------------------------------------------------------------------
 
     peak = torch.cuda.max_memory_allocated(device)
-    # one per layer; path_profiles shows a lone prefill makes them all
-    if launches != {"matmul": 0, "matmul_splitk_reduce": 0,
-                    "flash_attention": cfg.n_layers, "ssd_scan": 0}:
-        fail(f"gemma2: launches {launches}; expected {cfg.n_layers} flash "
-             f"launches")
+    # one per layer, all on the tensor-core kernel and with no copy of q, k
+    # or v; path_profiles shows a lone prefill makes them all
+    expected = launches_of(flash_attention=cfg.n_layers,
+                           flash_attention_wgmma=cfg.n_layers)
+    if launches != expected:
+        fail(f"gemma2: launches {launches}; expected {expected}")
     out = {"phase": "gemma2", "arch": ARCH, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": sum(p.numel() for p in model.parameters()),
@@ -769,24 +879,36 @@ def phase_gemma2(device) -> dict:
     return out
 
 
-def flash_entry(flash: dict, gemma2: dict) -> dict:
-    """The kernels line's flash attention entry: one launch at gemma2-2b's
-    global-layer shape, the window layer and a whole prefill beside it."""
+FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc/"
+
+
+def flash_entries(flash: dict, gemma2: dict) -> list:
+    """The kernels line's two flash attention entries.  The tensor-core
+    kernel (bf16, the main path): one launch at gemma2-2b's global-layer
+    shape, the window layer and a whole prefill beside it.  The FFMA
+    kernel (f32 only, off the main path): one launch at the global shape
+    in f32."""
     cfg = get_config(ARCH)
     glob, win = flash["layers"]["global"], flash["layers"]["window"]
+    g32 = flash["layers"]["global_f32"]
     n_win = sum(gemma2_layer_kw(cfg, i)["window"] > 0
                 for i in range(cfg.n_layers))
     n_glob = cfg.n_layers - n_win
-    lib = flash["library"]
-    return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-        "function": "flash_attention_pallas",
-        "launches": gemma2["launches"]["flash_attention"],
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in flash["rows"] + [glob, win]),
+    lib, lib32 = (flash["library"][dt]
+                  for dt in (torch.bfloat16, torch.float32))
+    rows = {kind: [r for r in flash["rows"] + [glob, win]
+                   if r["kernel"] == kind] for kind in ("wgmma", "ffma")}
+    shape = (f"B={PROMPT_BATCH}, Hq={cfg.n_heads}, Hkv={cfg.n_kv_heads}, "
+             f"S={PROMPT_LEN}, D={cfg.head_dim}, causal, soft-cap "
+             f"{cfg.attn_softcap}")
+    common = {"route": "cuda",
+              "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+              "function": "flash_attention_pallas"}
+    return [{
+        "name": "flash_attention_wgmma", **common,
+        "source": FLASH_CSRC + "flash_attention_wgmma.cu",
+        "launches": gemma2["launches"]["flash_attention_wgmma"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows["wgmma"]),
         "ms": glob["kernel_ms"], "plain_ms": glob["plain_ms"],
         "bound_ms": glob["bound_ms"], "bound_by": glob["bound_by"],
         "library_ms": lib["library_ms"],
@@ -800,15 +922,26 @@ def flash_entry(flash: dict, gemma2: dict) -> dict:
             "bound_ms": n_glob * glob["bound_ms"] + n_win * win["bound_ms"],
             "prefill_ms": gemma2["prefill_ms"],
             "plain_prefill_ms": gemma2["plain_prefill_ms"]},
-        "at": f"one launch at the {ARCH} global-layer shape (B="
-              f"{PROMPT_BATCH}, Hq={cfg.n_heads}, Hkv={cfg.n_kv_heads}, "
-              f"S={PROMPT_LEN}, D={cfg.head_dim}, causal, soft-cap "
-              f"{cfg.attn_softcap}, bf16); library_ms and "
-              f"kernel_no_softcap_ms at that shape with no soft-cap (no "
-              f"single PyTorch call computes the soft-capped function); "
-              f"prefill: the kernel's device time in a profiled prefill "
-              f"({n_glob} global + {n_win} window launches), their bound, "
-              f"and the prefill on the kernel and on the plain attention"}
+        "at": f"bf16, the main path: one launch at the {ARCH} global-layer "
+              f"shape ({shape}); library_ms and kernel_no_softcap_ms at "
+              f"that shape with no soft-cap (no single PyTorch call "
+              f"computes the soft-capped function); prefill: the kernel's "
+              f"device time in a profiled prefill ({n_glob} global + "
+              f"{n_win} window launches), their bound, and the prefill on "
+              f"the kernel and on the plain attention"}, {
+        "name": "flash_attention_ffma", **common,
+        "source": FLASH_CSRC + "flash_attention.cu",
+        "launches": gemma2["launches"]["flash_attention_ffma"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows["ffma"]),
+        "ms": g32["kernel_ms"], "plain_ms": g32["plain_ms"],
+        "bound_ms": g32["bound_ms"], "bound_by": g32["bound_by"],
+        "library_ms": lib32["library_ms"],
+        "kernel_no_softcap_ms": lib32["kernel_ms"],
+        "library_call": lib32["library_call"] + ", f32, no soft-cap",
+        "at": f"f32 only, off the main path (0 launches there): one launch "
+              f"at the {ARCH} global-layer shape in f32 ({shape}); the "
+              f"bound at the f32 FFMA peak; library_ms and "
+              f"kernel_no_softcap_ms at that shape with no soft-cap"}]
 
 
 def ssd_inputs(b, s, h, p, n, dtype, device, gen, strided=True) -> tuple:
@@ -1058,8 +1191,7 @@ def phase_mamba2(device) -> dict:
 
     peak = torch.cuda.max_memory_allocated(device)
     # one per layer; path_profiles shows a lone prefill makes them all
-    if launches != {"matmul": 0, "matmul_splitk_reduce": 0,
-                    "flash_attention": 0, "ssd_scan": cfg.n_layers}:
+    if launches != launches_of(ssd_scan=cfg.n_layers):
         fail(f"mamba2: launches {launches}; expected {cfg.n_layers} SSD "
              f"launches and no other")
     floor = bf16_rounding_floor(cfg, model, prompts,
@@ -1162,6 +1294,7 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in per_dispatch),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": sum(r["library_ms"] for r in per_dispatch),
+        "library_call": "torch.matmul, each product",
         "at": f"one scorer dispatch at bucket {b}: "
               f"({b}x{d_in})@({d_in}x{d_hidden}) + "
               f"({b}x{d_hidden})@({d_hidden}x{d_out}), each a whole "
@@ -1174,9 +1307,9 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in reduce_rows),
         "ms": red["kernel_ms"], "plain_ms": red["plain_ms"],
         "bound_ms": red["bound_ms"], "bound_by": red["bound_by"],
-        "library_ms": red["library_ms"],
+        "library_ms": red["library_ms"], "library_call": "sum(0)",
         "at": f"the {red['splits']} partial sums of ({b}x{d_hidden})@"
-              f"({d_hidden}x{d_out})"}, flash_entry(flash, gemma2),
+              f"({d_hidden}x{d_out})"}, *flash_entries(flash, gemma2),
         ssd_entry(ssd, mamba2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

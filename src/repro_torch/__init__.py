@@ -16,6 +16,8 @@ served by ``launch.serve --dense-oracle``, with flash attention as a
 hand-written CUDA kernel (:mod:`repro_torch.kernels.flash_attention`).
 Slice 3 ports the ssm family (mamba2-130m, Mamba2 blocks) through the same
 loop, with the chunked SSD scan as a hand-written CUDA kernel
-(:mod:`repro_torch.kernels.ssd_scan`).  ``ROADMAP.md`` lists the slices
+(:mod:`repro_torch.kernels.ssd_scan`).  Slice 4 rebuilds the bf16 flash
+attention on Hopper's tensor cores (``wgmma`` and a TMA ring); f32
+attention stays on the FFMA kernel.  ``ROADMAP.md`` lists the slices
 still to come.
 """

@@ -2,10 +2,12 @@
 
 Every kernel source under ``kernels/<name>/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface and
-loaded with :mod:`ctypes`.  The build runs at first use, from the sources in
-the package, into ``kernels/_build/`` (git-ignored).  A library's file name
-carries a digest of its source, so an edited source is rebuilt and a built
-one is reused.
+loaded with :mod:`ctypes`.  A library may have several sources: each is
+compiled to an object by its own ``nvcc``, all started together, and the
+objects are linked into the library.  The build runs at first use, from
+the sources in the package, into ``kernels/_build/`` (git-ignored).  A
+library's file name carries a digest of its sources, so an edited source
+is rebuilt and a built one is reused.
 
 Nothing here runs at import time: the CPU tests import every module and
 have no ``nvcc``.
@@ -15,25 +17,29 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Tuple
 
 _ROOT = Path(__file__).resolve().parent
 BUILD_DIR = _ROOT / "_build"
 
-#: library name -> CUDA source, relative to this package
-SOURCES: Dict[str, Path] = {
-    "matmul": _ROOT / "matmul" / "csrc" / "matmul.cu",
-    "flash_attention": _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
-    "ssd_scan": _ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",
+#: library name -> its CUDA sources
+SOURCES: Dict[str, Tuple[Path, ...]] = {
+    "matmul": (_ROOT / "matmul" / "csrc" / "matmul.cu",),
+    "flash_attention": (
+        _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
+        _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu"),
+    "ssd_scan": (_ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -62,14 +68,20 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for src in SOURCES[name]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _run(cmd) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
 
 
 def build(name: str) -> float:
     """Compile the named library unless it is built already; the seconds
-    ``nvcc`` took (0 when it was found built).  The compiler's output goes
+    the build took (0 when it was found built).  The compiler's output goes
     to :data:`BUILD_LOGS`.  Raises :class:`KernelBuildError` with that
     output when ``nvcc`` fails."""
     out = library_path(name)
@@ -77,17 +89,39 @@ def build(name: str) -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            for src in SOURCES[name]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCES[name])], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    BUILD_LOGS[name] = proc.stdout
-    if proc.returncode != 0:
+    with ThreadPoolExecutor(len(objs)) as pool:
+        procs = list(pool.map(
+            lambda so: _run([nvcc, *NVCC_FLAGS, "-c", "-o", str(so[1]),
+                             str(so[0])]), zip(SOURCES[name], objs)))
+    if all(p.returncode == 0 for p in procs):
+        procs.append(_run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                           *map(str, objs)]))
+    BUILD_LOGS[name] = "".join(p.stdout for p in procs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [p for p in procs if p.returncode != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(f"kernel build failed: {name} (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
+                               f"{failed[0].returncode}):\n"
+                               f"{BUILD_LOGS[name]}")
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` (e.g. ``HGMMA``) the built
+    library's SASS holds (``cuobjdump -sass``, of the CUDA toolkit)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    proc = _run([str(tool), "-sass", str(library_path(name))])
+    if proc.returncode != 0:
+        raise KernelBuildError(f"cuobjdump failed on {name}:\n{proc.stdout}")
+    word = re.compile(rf"\b{re.escape(opcode)}\b")
+    return sum(bool(word.search(line)) for line in proc.stdout.splitlines())
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
-// Flash attention forward for Hopper (sm_90a): O = softmax(mask(cap(s·QKᵀ)))·V.
+// Flash attention forward for Hopper (sm_90a) in f32: O = softmax(mask(cap(s·QKᵀ)))·V.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
-// flash_attention_pallas (_flash_kernel).  Same function: q (B,Hq,Sq,D),
-// k (B,Hkv,Skv,D), v (B,Hkv,Skv,Dv) in f32 or bf16, computed in f32 with an
+// Replaces, for f32 q, k, v, the TPU kernel src/repro/kernels/flash_attention/
+// kernel.py::flash_attention_pallas (_flash_kernel); bf16 runs the tensor-core
+// kernel of flash_attention_wgmma.cu.  Same function: q (B,Hq,Sq,D),
+// k (B,Hkv,Skv,D), v (B,Hkv,Skv,Dv) in f32, computed with an
 // online softmax; query head h reads KV head h / (Hq/Hkv) (GQA by index, no
 // copy); per score: scale, then the tanh soft-cap, then the mask — causal
 // with the ends aligned (row i stands at key position i + Skv - Sq, as
@@ -18,10 +19,9 @@
 //
 // What bounds it: at the gemma2-2b prefill (B=2, Hq=8, Hkv=4, S=8192,
 // D=Dv=256) the work is ~5.5e11 FLOP per global layer against ~67 MB of
-// I/O, so arithmetic bounds it.  This first version does that arithmetic
-// as f32 FFMA on CUDA cores, not on tensor cores (wgmma), so it runs well
-// below the bf16 bound; it is the simple, right version that a later PR
-// rebuilds on wgmma and TMA.
+// I/O, so arithmetic bounds it: 8.2 ms at the f32 FFMA peak.  It runs that
+// arithmetic as true f32 FFMA on CUDA cores, which the f32 limits of 2e-4
+// need (bf16 and TF32 tensor cores round coarser).
 //
 // Design: one CTA of 256 threads per (64-row query block, head, batch).  The
 // Q tile, one 64-row K tile and one 64-row V tile sit in shared memory as
@@ -38,31 +38,16 @@
 // ctypes): the caller owns every allocation and the stream; one call
 // launches one kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
-
-enum DType { kF32 = 0, kBF16 = 1 };
 
 constexpr int BQ = 64;          // query rows per CTA
 constexpr int BKV = 64;         // keys per tile
 constexpr int THREADS = 256;    // 16 x 16 thread grid
 constexpr int PSTR = BKV + 4;   // row stride of the probability tile
 constexpr int MAX_DIM = 256;    // largest D and Dv
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;
@@ -90,27 +75,26 @@ __host__ __device__ inline int smem_floats(int qk_stride) {
   return BQ * qk_stride + BKV * qk_stride + BKV * DVT + BQ * PSTR;
 }
 
-// Row r of a (rows x cols) tile from global memory into shared memory as f32,
-// zero past `valid_cols` and for rows past `valid_rows`; one warp a row.
-template <typename T>
+// Row r of a (rows x cols) tile from global memory into shared memory, zero
+// past `valid_cols` and for rows past `valid_rows`; one warp a row.
 __device__ __forceinline__ void load_rows(float* dst, int dst_stride, int cols,
-                                          const T* src, long long s_row,
+                                          const float* src, long long s_row,
                                           long long s_col, int rows, int valid_rows,
                                           int valid_cols, int warp, int lane) {
   for (int r = warp; r < rows; r += THREADS / 32) {
     float* out = dst + r * dst_stride;
     if (r < valid_rows) {
-      const T* in = src + r * s_row;
+      const float* in = src + r * s_row;
 #pragma unroll 4
       for (int c = lane; c < cols; c += 32)
-        out[c] = c < valid_cols ? to_f32(in[c * s_col]) : 0.f;
+        out[c] = c < valid_cols ? in[c * s_col] : 0.f;
     } else {
       for (int c = lane; c < cols; c += 32) out[c] = 0.f;
     }
   }
 }
 
-template <typename T, int DVT>
+template <int DVT>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(const Params p) {
   constexpr int NC = DVT / 16;               // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -130,10 +114,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(const Param
   const int nrows = min(BQ, p.sq - q0);
   const int off = p.skv - p.sq;              // row i stands at key position i + off
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_b + h * p.q_h;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_b + hk * p.k_h;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_b + hk * p.v_h;
-  T* og = static_cast<T*>(p.o) + b * p.o_b + h * p.o_h;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_b + h * p.q_h;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_b + hk * p.k_h;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_b + hk * p.v_h;
+  float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h;
 
   // keys this block can see: [kv_lo, kv_hi), kv_lo on a tile boundary
   int kv_hi = p.skv;
@@ -142,7 +126,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(const Param
   if (p.window > 0) kv_lo = max(0, q0 + off - p.window + 1);
   kv_lo = (kv_lo / BKV) * BKV;
 
-  load_rows<T>(Qs, str, p.dr, qg + q0 * p.q_s, p.q_s, p.q_d, BQ, nrows, p.d, warp,
+  load_rows(Qs, str, p.dr, qg + q0 * p.q_s, p.q_s, p.q_d, BQ, nrows, p.d, warp,
                lane);
 
   float m_i[4], l_i[4], acc[4][NC];
@@ -156,9 +140,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(const Param
 
   for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += BKV) {
     const int kvalid = min(BKV, p.skv - kv0);
-    load_rows<T>(Ks, str, p.dr, kg + kv0 * p.k_s, p.k_s, p.k_d, BKV, kvalid, p.d,
+    load_rows(Ks, str, p.dr, kg + kv0 * p.k_s, p.k_s, p.k_d, BKV, kvalid, p.d,
                  warp, lane);
-    load_rows<T>(Vs, DVT, DVT, vg + kv0 * p.v_s, p.v_s, p.v_d, BKV, kvalid, p.dv,
+    load_rows(Vs, DVT, DVT, vg + kv0 * p.v_s, p.v_s, p.v_d, BKV, kvalid, p.dv,
                  warp, lane);
     __syncthreads();
 
@@ -260,42 +244,41 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(const Param
     const int r = ty * 4 + i;
     if (r >= nrows) continue;
     const float l = l_i[i] == 0.f ? 1.f : l_i[i];
-    T* orow = og + (q0 + r) * p.o_s;
+    float* orow = og + (q0 + r) * p.o_s;
 #pragma unroll
     for (int jj = 0; jj < DVT / 64; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = tx * 4 + 64 * jj + e;
-        if (col < p.dv) orow[col * p.o_d] = from_f32<T>(acc[i][jj * 4 + e] / l);
+        if (col < p.dv) orow[col * p.o_d] = acc[i][jj * 4 + e] / l;
       }
   }
 }
 
-template <typename T, int DVT>
+template <int DVT>
 int launch(const Params& p, int batch, int hq, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(smem_floats<DVT>(p.qk_stride)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DVT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DVT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq + BQ - 1) / BQ, hq, batch);
-  flash_attention_kernel<T, DVT><<<grid, THREADS, smem, stream>>>(p);
+  flash_attention_kernel<DVT><<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_dv(const Params& p, int batch, int hq, cudaStream_t stream) {
-  if (p.dv <= 64) return launch<T, 64>(p, batch, hq, stream);
-  if (p.dv <= 128) return launch<T, 128>(p, batch, hq, stream);
-  return launch<T, 256>(p, batch, hq, stream);
+  if (p.dv <= 64) return launch<64>(p, batch, hq, stream);
+  if (p.dv <= 128) return launch<128>(p, batch, hq, stream);
+  return launch<256>(p, batch, hq, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueue attention on `stream`.  q, k, v, o are device arrays of `dtype`
-// (0 f32, 1 bf16) addressed by element strides: q[b][h][s][d] at
+// Enqueue f32 attention on `stream`.  q, k, v, o are f32 device arrays
+// addressed by element strides: q[b][h][s][d] at
 // b*qs[0] + h*qs[1] + s*qs[2] + d*qs[3], likewise k, v (KV heads) and o
 // (Hq heads, Dv columns).  Requires 1 <= d, dv <= 256, hq % hkv == 0,
 // sq, skv >= 1, batch and hq < 65536.  `window` <= 0 means no window,
@@ -306,7 +289,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                           const long long* vs, const long long* os, int batch,
                           int hq, int hkv, int sq, int skv, int d, int dv,
                           int causal, int window, float softcap, float scale,
-                          int dtype, void* stream) {
+                          void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || d < 1 ||
       dv < 1 || d > MAX_DIM || dv > MAX_DIM || batch > 65535 || hq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -322,9 +305,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
   p.dr = (d + 3) / 4 * 4;
   p.qk_stride = qk_stride_for(p.dr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch_dv<float>(p, batch, hq, s);
-  if (dtype == kBF16) return dispatch_dv<__nv_bfloat16>(p, batch, hq, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_dv(p, batch, hq, s);
 }
 
 const char* repro_flash_error_string(int code) {

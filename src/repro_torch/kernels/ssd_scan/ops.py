@@ -19,9 +19,13 @@ of the chunk; here the kernel masks the last partial chunk itself and the
 plain version takes it short, so nothing is padded or copied — the chunk
 boundaries are JAX's, from position 0.  B and C are read by strides, so
 the model's slices of one (B, S, 2N) tensor go in as they are.  The
-kernel takes chunks up to :data:`MAX_CHUNK`, states up to
-:data:`MAX_STATE` and head dims up to :data:`MAX_HEAD_DIM`, and raises
-beyond them; a bf16 ``dt`` or ``A`` is cast to f32 first.
+kernel takes states up to :data:`MAX_STATE` and head dims up to
+:data:`MAX_HEAD_DIM`, and raises beyond them; a bf16 ``dt`` or ``A`` is
+cast to f32 first.  A stated deviation: the kernel's chunks are at most
+:data:`MAX_CHUNK` (128) rows, so a larger requested chunk — JAX's
+default of 256 among them — runs as the kernel at chunk 128.  The
+chunked scan is the same recurrence at any chunk length (the state
+carried across a boundary is exact); only the rounding order differs.
 
 :func:`ssd_final_state` and :func:`ssd_decode_step` are plain torch, as
 they are jnp in JAX (no Pallas kernel).
@@ -104,11 +108,11 @@ def _launch(x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
                          f"{A.device}, {Bm.device}, {Cm.device}")
     b, s, h, p = x.shape
     n = Bm.shape[2]
-    if chunk > MAX_CHUNK or n > MAX_STATE or p > MAX_HEAD_DIM:
-        raise ValueError(f"the SSD scan kernel takes chunks up to "
-                         f"{MAX_CHUNK}, states up to {MAX_STATE} and head "
-                         f"dims up to {MAX_HEAD_DIM}, got chunk={chunk}, "
-                         f"N={n}, P={p}")
+    if n > MAX_STATE or p > MAX_HEAD_DIM:
+        raise ValueError(f"the SSD scan kernel takes states up to "
+                         f"{MAX_STATE} and head dims up to {MAX_HEAD_DIM}, "
+                         f"got N={n}, P={p}")
+    chunk = min(chunk, MAX_CHUNK)          # the same scan, other rounding
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid")
     dt, A = dt.float(), A.float()          # no copy when already f32
@@ -137,7 +141,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              impl: str = "auto") -> torch.Tensor:
     """SSD forward over a full sequence: ``x (B,S,H,P)``, ``dt (B,S,H)``,
     ``A (H,)``, ``B/C (B,S,N)`` → ``y (B,S,H,P)`` in ``x.dtype``, in chunks
-    of ``min(chunk, S)`` steps."""
+    of ``min(chunk, S)`` steps (the kernel's at most :data:`MAX_CHUNK`)."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
     _check(x, dt, A, Bm, Cm)

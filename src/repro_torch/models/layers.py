@@ -15,7 +15,8 @@ norm scales in f32, activations keep the JAX layout ((B, S, d), caches
   distributed slice's, ROADMAP A7);
 * ``gqa_attention``/``gqa_prefill`` take ``impl`` and hand it to
   :func:`repro_torch.kernels.flash_attention.ops.attention`: ``"auto"``
-  runs the CUDA kernel for CUDA tensors, ``"plain"`` its plain version;
+  runs a CUDA kernel for CUDA tensors (bf16 on the tensor cores, f32 on
+  FFMA), ``"plain"`` its plain version;
 * ``gqa_decode`` writes the new key/value into the cache in place and
   returns the same cache (JAX builds a new one), and attends over the
   cached positions only (``[pos - window + 1, pos]``, or ``[0, pos]``)

@@ -3,9 +3,17 @@
 The same numpy inputs, drawn from a seeded generator, go to the JAX
 package and to its port; results come back as numpy for comparison.  The
 port runs on the CPU here (``device="cpu"``): its kernels' plain versions.
+
+Importing this module bounds torch to one intra-op thread in the test
+process.  The suite runs in several xdist workers at once; each worker's
+torch would otherwise start a pool as wide as the machine, and the
+oversubscribed cores starve the wall-clock tests of the reference that
+share the run.  The port's CPU tests take about as long on one thread.
 """
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 

@@ -13,14 +13,18 @@ holding each kernel against its plain version.  The matmul
 (1e-4 at K = 100000, where the summation orders differ over many more
 terms), atol 1e-5·√K; bf16 at 2e-2.  Flash attention (``attention_ref``)
 at the cases of ``tests/test_kernels.py:47-76`` (f32 at 2e-4, bf16 at
-3e-2, as there), ragged lengths, ``sq < skv``, ``dv != d``, head dim 256
-and strided inputs; and the smoke-width dense models through the kernel
-against the same models with the plain attention (f32, 1e-4).  The SSD
-scan (``ssd_chunked_ref``) at the cases of ``tests/test_kernels.py:107-139``,
-ragged S, S < chunk and mamba2-130m's layer dims, within 1e-4 (f32) or
-1e-2 (bf16) of the largest |output|; B and C read in place as slices of
-one tensor; and mamba2-smoke through the kernel against the same model
-with the plain SSD scan (f32, 1e-4).  This file imports neither JAX nor
+3e-2, as there), ragged lengths, ``sq < skv``, ``dv != d``, head dim 256,
+strided inputs and a gemma2-shaped case at S = 2048 — every bf16 case
+through the tensor-core kernel, every f32 case through the FFMA kernel,
+which the launch counters show; copies only of layouts TMA cannot read;
+and the smoke-width dense models through the kernel against the same
+models with the plain attention (f32, 1e-4).  The SSD scan
+(``ssd_chunked_ref``) at the cases of ``tests/test_kernels.py:107-139``,
+ragged S, S < chunk, mamba2-130m's layer dims and the default chunk of
+256 (run as the kernel's 128), within 1e-4 (f32) or 1e-2 (bf16) of the
+largest |output|; B and C read in place as slices of one tensor; and
+mamba2-smoke through the kernel against the same model with the plain
+SSD scan (f32, 1e-4).  This file imports neither JAX nor
 the JAX package, so it runs where only PyTorch is installed.
 """
 import numpy as np
@@ -202,6 +206,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, hq, hkv, causal,
     (37, 300, 32, 32, dict(causal=True, window=50, softcap=0.0)),
     (300, 100, 64, 64, dict(causal=True, window=0, softcap=0.0)),
     (130, 130, 24, 16, dict(causal=True, window=0, softcap=0.0)),
+    (130, 130, 20, 12, dict(causal=True, window=0, softcap=0.0)),
     (200, 200, 192, 128, dict(causal=True, window=0, softcap=0.0)),
     (300, 300, 256, 256, dict(causal=True, window=128, softcap=50.0)),
     (300, 300, 256, 256, dict(causal=False, window=0, softcap=0.0)),
@@ -210,7 +215,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, hq, hkv, causal,
 def test_flash_kernel_ragged_and_dims_on_card(cuda, dtype, sq, skv, d, dv,
                                               kw):
     """Ragged lengths, ``sq < skv`` (ends aligned), ``sq > skv`` (leading
-    rows fully masked: 0), ``dv != d`` and head dim 256."""
+    rows fully masked: 0), ``dv != d``, head dim 256, and rows of 40 and
+    24 bytes, which TMA cannot step (bf16: copied first)."""
     q, k, v = _qkv(2, 8, 4, sq, skv, d, dv, dtype, cuda, seed=1)
     _flash_check(q, k, v, dtype, **kw)
 
@@ -250,6 +256,58 @@ def test_flash_auto_on_card_launches_the_kernel(cuda):
     with pytest.raises(ValueError, match="head dims"):
         flash_ops.attention(*_qkv(1, 2, 2, 8, 8, 320, 320, "float32", cuda))
     assert flash_ops.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_flash_routes_by_dtype_on_card(cuda):
+    """bf16 goes to the tensor-core kernel, f32 to the FFMA kernel; every
+    launch also counts in ``LAUNCHES``."""
+    counts = ("LAUNCHES", "TC_LAUNCHES", "FFMA_LAUNCHES")
+    for dtype, kernel in (("bfloat16", "TC_LAUNCHES"),
+                          ("float32", "FFMA_LAUNCHES")):
+        before = {c: getattr(flash_ops, c) for c in counts}
+        flash_ops.attention(*_qkv(1, 4, 2, 100, 100, 64, 64, dtype, cuda))
+        after = {c: getattr(flash_ops, c) - before[c] for c in counts}
+        assert after == {"LAUNCHES": 1, kernel: 1,
+                         ({*counts} - {"LAUNCHES", kernel}).pop(): 0}
+
+
+@pytest.mark.gpu
+def test_flash_copies_only_layouts_tma_cannot_read_on_card(cuda):
+    """The model's ``transpose(1, 2)`` views go to TMA in place (no copy);
+    a bf16 input whose last dim is strided is copied once, with the same
+    result as a contiguous input."""
+    r = np.random.default_rng(4)
+    x = [torch.tensor(r.standard_normal((2, 200, h, 128)),
+                      device=cuda).bfloat16() for h in (8, 4, 4)]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    before = flash_ops.COPIES
+    got = flash_ops.attention(q, k, v, window=50, softcap=30.0)
+    assert flash_ops.COPIES == before
+    want = flash_ops.attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), window=50, softcap=30.0)
+    assert torch.equal(got, want)
+    q2 = q[..., ::2]                       # last dim strided
+    assert flash_ops.tma_map(q2.shape, q2.stride(), q2.data_ptr(),
+                             flash_ops.Q_ROWS) is None
+    got = flash_ops.attention(q2, k[..., :64], v)
+    assert flash_ops.COPIES == before + 1
+    assert torch.equal(got, flash_ops.attention(q2.contiguous(), k[..., :64],
+                                                v))
+    assert flash_ops.COPIES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1024, 0])
+def test_flash_kernel_gemma2_shaped_on_card(cuda, window):
+    """gemma2-2b's attention (8/4 heads of dim 256, soft-cap 50) at S = 2048,
+    in bf16 through the tensor-core kernel: a 1024-token window (the even
+    layers' kind) and global."""
+    q, k, v = _qkv(1, 8, 4, 2048, 2048, 256, 256, "bfloat16", cuda, seed=5)
+    before = flash_ops.TC_LAUNCHES
+    _flash_check(q, k, v, "bfloat16", causal=True, window=window,
+                 softcap=50.0)
+    assert flash_ops.TC_LAUNCHES == before + 1
 
 
 @pytest.mark.gpu
@@ -340,6 +398,21 @@ def test_ssd_kernel_matches_plain_on_card(cuda, dtype, b, s, h, p, n, chunk):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+def test_ssd_kernel_default_chunk_on_card(cuda, dtype):
+    """``ssd_scan``'s default chunk of 256 (JAX's) at S = 1024 runs on the
+    card, as the kernel at chunk 128, against the plain version at chunk
+    256: max |err| within ``SSD_TOL`` of the largest output and each row's
+    error within ``chip_smoke.py``'s ``SSD_ROW_TOL`` of its norm."""
+    x, dt, A, bm, cm = _ssd_inputs(2, 1024, 4, 64, 128, dtype, cuda, seed=6)
+    _ssd_check(x, dt, A, bm, cm, 256, dtype)
+    got = ssd_ops.ssd_scan(x, dt, A, bm, cm).float()
+    want = ssd_chunked_ref(x, dt, A, bm, cm, 256).float()
+    row = ((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30))
+    assert row.max().item() <= {"float32": 1e-3, "bfloat16": 1e-2}[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
 def test_ssd_kernel_reads_strided_b_c_in_place_on_card(cuda, dtype):
     """The model hands over B and C as slices of one (B, S, 2N) tensor and
     x as a reshape: read in place, the same result as contiguous copies."""
@@ -371,12 +444,13 @@ def test_ssd_auto_on_card_launches_the_kernel(cuda):
     assert torch.equal(ssd_ops.ssd_scan(x, dt.bfloat16(), A, bm, cm,
                                         chunk=32), y16)
     assert y.dtype == torch.bfloat16
+    # a chunk above the kernel's 128 runs as the kernel at chunk 128
+    big = _ssd_inputs(1, 512, 2, 16, 8, "float32", cuda)
+    assert torch.equal(ssd_ops.ssd_scan(*big, chunk=256),
+                       ssd_ops.ssd_scan(*big, chunk=128))
     before = ssd_ops.LAUNCHES            # refused calls launch nothing
     with pytest.raises(ValueError, match="CUDA device"):
         ssd_ops.ssd_scan(x, dt.cpu(), A, bm, cm, chunk=32)
-    with pytest.raises(ValueError, match="chunks up to 128"):
-        ssd_ops.ssd_scan(*_ssd_inputs(1, 512, 2, 16, 8, "float32", cuda),
-                         chunk=256)
     with pytest.raises(ValueError, match="states up to 128"):
         ssd_ops.ssd_scan(*_ssd_inputs(1, 64, 2, 16, 160, "float32", cuda),
                          chunk=32)

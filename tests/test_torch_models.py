@@ -187,7 +187,9 @@ def _mamba2_layer_pair(seed=12):
 def test_mamba2_prefill_and_decode_match_jax(s):
     """One chunk, a ragged three (16 + 16 + 8), and a prompt shorter than
     the conv's taps (JAX's cache slice comes out short there, so only the
-    output is compared; the port pads its conv cache with zeros)."""
+    output is compared; the port pads its conv cache with zeros, and
+    :func:`test_mamba2_decode_after_a_prompt_shorter_than_the_conv` holds
+    the decode after it)."""
     jc, tc, p, tp = _mamba2_layer_pair()
     r = rng(13)
     x = normal(r, (B, s, jc.d_model))
@@ -211,6 +213,43 @@ def test_mamba2_prefill_and_decode_match_jax(s):
         to, tcache = TL.mamba2_decode(tp, tc, torch.from_numpy(xt), tcache)
         np.testing.assert_allclose(as_np(to), as_np(jo), rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_mamba2_decode_after_a_prompt_shorter_than_the_conv():
+    """A 2-token prompt (shorter than the conv's 3 cached taps: the port
+    pads its conv cache with zeros, JAX's slice comes out short), then 3
+    decode steps: the 5 outputs against JAX's full-sequence
+    ``mamba2_forward`` on the 5 tokens, at 1e-4 in f32."""
+    jc, tc, p, tp = _mamba2_layer_pair()
+    x = normal(rng(16), (B, 5, jc.d_model))
+    want = as_np(JL.mamba2_forward(p, jc, jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    out, cache = TL.mamba2_prefill(tp, tc, xt[:, :2])
+    outs = [out]
+    for t in range(2, 5):
+        out, cache = TL.mamba2_decode(tp, tc, xt[:, t:t + 1], cache)
+        outs.append(out)
+    np.testing.assert_allclose(as_np(torch.cat(outs, dim=1)), want,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_mamba2_model_decode_after_a_prompt_shorter_than_the_conv():
+    """mamba2-smoke: prefill on 2 tokens, then 3 decode steps fed the
+    next tokens; each step's logits against ``repro.models.forward`` on
+    the 5 tokens, at 1e-4 in f32."""
+    jc, jparams, tc, model = _models("mamba2-130m", "float32")
+    tokens, _ = _tokens(jc, seed=17, s=5)
+    want = as_np(jmodels.forward(jc, jparams,
+                                 {"tokens": jnp.asarray(tokens)}))
+    tt = torch.from_numpy(tokens).long()
+    logits, cache = TM.prefill(tc, model, {"tokens": tt[:, :2]}, 5)
+    got = [logits]
+    for t in range(2, 5):
+        logits, cache = TM.decode_step(tc, model, cache,
+                                       {"token": tt[:, t:t + 1]})
+        got.append(logits)
+    np.testing.assert_allclose(as_np(torch.cat(got, dim=1)), want[:, 1:],
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_mamba2_init_matches_jax_shapes_and_dtypes():

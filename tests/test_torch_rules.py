@@ -1,7 +1,7 @@
 """The port's standing rules, checked on the CPU.
 
-(a) ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-    the JAX package ``repro`` (only ``repro_torch``);
+(a) ``src/repro_torch``, ``chip_smoke.py`` and ``tools/`` import neither
+    ``jax`` nor the JAX package ``repro`` (only ``repro_torch``);
 (b) without a card, entry points asked for no device raise instead of
     running on the CPU;
 (c) the matmul, flash attention and SSD scan ops asked for their kernels
@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _forbidden(module: str) -> bool:

@@ -139,6 +139,21 @@ def test_plain_impl_is_the_chunked_plain_version():
                                   as_np(ssd_chunked_ref(*ts, 40)))
 
 
+@pytest.mark.parametrize("s", [512, 1000])
+def test_chunk_256_and_128_are_the_same_scan(s):
+    """The kernel runs a requested chunk of 256 (JAX's default) at its
+    chunk of 128: the plain version in the two chunkings agrees within
+    1e-5 of the largest |output| in f32 — the same recurrence, summed in
+    another order.  (An output sums terms of either sign, and the chunk's
+    decay exp(a_i − a_j) is taken from a cumsum that grows with the chunk,
+    so the rounding scales with the largest output, as the smoke's SSD
+    limits do.)"""
+    _, ts = _inputs(2, s, 4, 16, 8, seed=6)
+    a = as_np(ops.ssd_scan(*ts, chunk=256, impl="plain"))
+    b = as_np(ops.ssd_scan(*ts, chunk=128, impl="plain"))
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+
+
 def test_kernel_impl_on_cpu_raises_and_counts_nothing():
     """No silent fallback: CPU tensors never reach the plain version when
     the kernel is asked for, and nothing is counted."""
