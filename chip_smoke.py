@@ -15,12 +15,20 @@ PyTorch version on the card:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
    ``nvcc`` per source, all started together), and counts the ``HGMMA``
-   instructions (``wgmma``) in the flash library's SASS: none fails;
+   instructions (``wgmma``) in the flash library's SASS and the ``UTMALDG``
+   (TMA loads) in the matmul library's: none fails;
 3. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
-   package's kernel tests, a ragged shape and the scorer's two products,
-   and the split-K reduction pass (``splitk_reduce``) against
-   ``splitk_reduce_ref`` at the partial sums of the scorer's second
-   product, each with kernel / plain / library times and the bound;
+   package's kernel tests, a ragged shape and the scorer's two products
+   (f32 with at most 16 rows through the skinny kernel, the rest through
+   the tile kernel; the scorer's products also through the tile kernel, as
+   the parent tree ran them), and the split-K reduction pass
+   (``splitk_reduce``) against ``splitk_reduce_ref`` at the partial sums of
+   the scorer's second product, each with kernel / plain / library times
+   and the bound; then the skinny kernel on blocked views read in place
+   (a scorer-shaped W1, blocks with ragged edges, W2's 40-byte rows: no
+   copy) and on an operand off 16 bytes (one copy), and its split-K fold
+   bit-equal to ``splitk_reduce_ref`` on its own partial tiles (drawn from
+   a generator of their own, so the flash phase draws what it drew);
 4. flash: ``attention`` against ``attention_ref`` at the JAX kernel
    tests' cases (f32 at 2e-4, bf16 at 3e-2), ragged lengths, ``sq <
    skv``, ``dv != d`` and gemma2-2b's two layer shapes (B=2, S=8192,
@@ -35,8 +43,13 @@ PyTorch version on the card:
    shape in f32, with the bound, and ``scaled_dot_product_attention``
    beside each kernel at the global shape without soft-cap;
 5. serve: 64 Poisson-arriving requests through ``TraServer`` with every
-   kernel launch count set to 0 just before and read just after; each
-   response is checked against the scorer's per-request oracle;
+   kernel launch count set to 0 just before and read just after (per
+   dispatch 2 launches of the skinny kernel, 1 of them folding, and no
+   tile kernel, reduction or copy); each response is checked against the
+   scorer's per-request oracle; one bucket-8 dispatch timed whole, the W1
+   copy the parent tree made, and each product at bucket 8 timed in place
+   as the engine calls it, beside ``torch.matmul`` on the copied 2-D
+   operands, the tile kernel there (the parent's path) and the bound;
 6. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
    before and read just after (26 launches of the tensor-core flash
@@ -157,6 +170,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def tile_kernel(a, b):
+    """f32 ``a @ b`` (2-D) on the tile kernel and its split-K pass, whatever
+    the op's route: the products the skinny kernel took over, timed and
+    checked on the kernel it replaced."""
+    return mm_ops._launch_tile(a, b, a.shape[0], a.shape[1], b.shape[1],
+                               torch.float32)
+
+
 def timed_ms(fn, device, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
     events)."""
@@ -171,6 +192,23 @@ def timed_ms(fn, device, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_per_call(fn, calls: int = 10) -> float:
+    """Device time of one ``fn()``: the kernels it launches, summed over
+    ``calls`` calls under ``torch.profiler`` and divided by them.  Beside
+    ``timed_ms``, which a call whose host work outlasts its kernels reads
+    as the host's time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / calls
 
 
 def bound_times(m: int, k: int, n: int, dtype) -> tuple:
@@ -206,14 +244,19 @@ def tolerance(k: int, dtype) -> tuple:
 
 def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
+    mm_ops.SKINNY_LAUNCHES = mm_ops.FOLDS = mm_ops.COPIES = 0
     flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
     ssd_ops.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     """Every kernel's launch count (``flash_attention`` is the sum of its
-    two kernels'), and the copies of q, k, v the flash op made."""
-    return {"matmul": mm_ops.LAUNCHES,
+    two kernels'), the skinny matmul launches that folded a split-K sum,
+    and the copies of operands the matmul and flash ops made."""
+    return {"matmul_skinny": mm_ops.SKINNY_LAUNCHES,
+            "matmul_fold": mm_ops.FOLDS,
+            "matmul_copies": mm_ops.COPIES,
+            "matmul": mm_ops.LAUNCHES,
             "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES,
             "flash_attention": flash_ops.LAUNCHES,
             "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
@@ -242,7 +285,8 @@ def phase_device(device) -> str:
 
 def phase_build() -> None:
     """Every kernel library at once, each source by its own ``nvcc``, all
-    in parallel; then the ``HGMMA`` count of the flash library."""
+    in parallel; then the ``HGMMA`` count of the flash library and the
+    ``UTMALDG`` count of the matmul library."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SOURCES)) as pool:
@@ -254,10 +298,13 @@ def phase_build() -> None:
         emit({"phase": "build", "library": name, "seconds": seconds[name],
               "ptxas": usage})
     hgmma = build.sass_count("flash_attention", "HGMMA")
+    utmaldg = build.sass_count("matmul", "UTMALDG")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "flash_attention_hgmma": hgmma})
+          "flash_attention_hgmma": hgmma, "matmul_utmaldg": utmaldg})
     if hgmma == 0:
         fail("build: no HGMMA instruction in the flash library's SASS")
+    if utmaldg == 0:
+        fail("build: no UTMALDG (TMA load) in the matmul library's SASS")
 
 
 def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
@@ -279,16 +326,28 @@ def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
     t_bytes, t_ops = bound_times(m, k, n, dtype)
     bnd, by = bound_of(t_bytes, t_ops)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return {"m": m, "k": k, "n": n, "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
-            "kernel_ms": timed_ms(lambda: mm_ops.matmul(a, b, impl="kernel"),
-                                  device, iters),
-            "plain_ms": timed_ms(lambda: matmul_ref(a, b), device, iters),
-            "library_ms": timed_ms(lambda: torch.matmul(a, b), device,
-                                   iters),
-            "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
-            "operations_ms": t_ops,
-            "splits": mm_ops.plan_launch(m, n, k, sms)[1]}
+    route = mm_ops.route(a, b, "kernel")
+    row = {"m": m, "k": k, "n": n, "dtype": str(dtype).split(".")[-1],
+           "route": route,
+           "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
+           "kernel_ms": timed_ms(lambda: mm_ops.matmul(a, b, impl="kernel"),
+                                 device, iters),
+           "plain_ms": timed_ms(lambda: matmul_ref(a, b), device, iters),
+           "library_ms": timed_ms(lambda: torch.matmul(a, b), device,
+                                  iters),
+           "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
+           "operations_ms": t_ops,
+           "tile_splits": mm_ops.plan_launch(m, n, k, sms)[1]}
+    if route == "skinny":
+        # the products the skinny kernel took over, on the tile kernel
+        tile = tile_kernel(a, b).float()
+        terr = (tile - r).abs()
+        if not bool(torch.isfinite(tile).all()) or bool(
+                (terr > atol + rtol * r.abs()).any()):
+            fail(f"matmul tile kernel {m}x{k}x{n}: max |err| "
+                 f"{terr.max().item()} over rtol={rtol} atol={atol}")
+        row["tile_max_abs_err"] = terr.max().item()
+    return row
 
 
 def reduce_case(m, k, n, device, gen, iters) -> dict:
@@ -345,6 +404,91 @@ def phase_kernels(device, d_in, d_hidden, d_out, gen) -> tuple:
     return rows, reduce_rows
 
 
+def blocked_case(m, blocks, device, gen) -> dict:
+    """The skinny kernel on the (r0·r1, c0·c1) matrix held as the permuted
+    view (r0, r1, c0, c1) of a (r0, c0, r1, c1) tensor — how the engine
+    hands over a blocked relation — against ``matmul_ref`` on the same
+    values made contiguous: read in place, with no copy."""
+    r0, r1, c0, c1 = blocks
+    k = r0 * r1
+    w = torch.randn((r0, c0, r1, c1), generator=gen, device=device)
+    view = w.permute(0, 2, 1, 3)
+    a = torch.randn((m, k), generator=gen, device=device)
+    dense = view.reshape(k, c0 * c1)
+    before = (mm_ops.SKINNY_LAUNCHES, mm_ops.COPIES)
+    out = mm_ops.matmul(a, view, b_rows=2)
+    ref = matmul_ref(a, dense)
+    torch.cuda.synchronize(device)
+    launched = mm_ops.SKINNY_LAUNCHES - before[0]
+    copies = mm_ops.COPIES - before[1]
+    rtol, atol = tolerance(k, torch.float32)
+    err = (out - ref).abs()
+    if launched != 1 or copies != 0 or not bool(torch.isfinite(out).all()) \
+            or bool((err > atol + rtol * ref.abs()).any()):
+        fail(f"skinny matmul on the view {blocks}, m={m}: {launched} "
+             f"launches, {copies} copies, max |err| {err.max().item()} "
+             f"over rtol={rtol} atol={atol}")
+    return {"case": "blocked view in place", "m": m, "view": list(blocks),
+            "copies": copies, "max_abs_err": err.max().item(),
+            "rtol": rtol, "atol": atol}
+
+
+def copied_case(device, gen) -> dict:
+    """An operand that starts off a 16-byte boundary: copied once,
+    counted, and the product still right."""
+    base = torch.randn(1600 * 1000 + 1, generator=gen, device=device)
+    b = base[1:].view(1600, 1000)
+    a = torch.randn((8, 1600), generator=gen, device=device)
+    before = mm_ops.COPIES
+    out = mm_ops.matmul(a, b)
+    ref = matmul_ref(a, b)
+    torch.cuda.synchronize(device)
+    rtol, atol = tolerance(1600, torch.float32)
+    err = (out - ref).abs()
+    if mm_ops.COPIES - before != 1 or bool(
+            (err > atol + rtol * ref.abs()).any()):
+        fail(f"skinny matmul, B off 16 bytes: {mm_ops.COPIES - before} "
+             f"copies (1 expected), max |err| {err.max().item()}")
+    return {"case": "B off 16 bytes, copied", "m": 8, "k": 1600, "n": 1000,
+            "copies": mm_ops.COPIES - before,
+            "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol}
+
+
+def fold_case(m, k, n, device, gen) -> dict:
+    """The skinny kernel's fold against ``splitk_reduce_ref`` on the
+    partial tiles the same launch wrote: equal to the bit."""
+    a = torch.randn((m, k), generator=gen, device=device)
+    b = torch.randn((k, n), generator=gen, device=device)
+    out, partials = mm_ops._launch_skinny(a, b, 1, 1, m, k, n, torch.float32,
+                                          keep_partials=True)
+    torch.cuda.synchronize(device)
+    if partials is None:
+        fail(f"skinny matmul {m}x{k}x{n}: K was not split")
+    ref = splitk_reduce_ref(partials)
+    err = (out - ref).abs().max().item()
+    if not torch.equal(out, ref):
+        fail(f"skinny fold {m}x{k}x{n}: differs from splitk_reduce_ref of "
+             f"its {partials.shape[0]} partial tiles by {err}")
+    return {"case": "fold vs splitk_reduce_ref of its partials", "m": m,
+            "k": k, "n": n, "splits": partials.shape[0],
+            "max_abs_err": err, "rtol": 0.0, "atol": 0.0}
+
+
+def phase_skinny(device, d_in, d_hidden, d_out) -> list:
+    """The skinny kernel's own cases, from a generator of their own."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    rows = [blocked_case(8, (4, d_in // 4, 10, 1000), device, gen),
+            blocked_case(3, (3, 100, 5, 1000), device, gen),
+            blocked_case(8, (10, d_hidden // 10, 1, d_out), device, gen),
+            copied_case(device, gen)]
+    for b in (1, 8):
+        rows.append(fold_case(b, d_hidden, d_out, device, gen))
+    rows.append(fold_case(8, d_in, 4000, device, gen))
+    for row in rows:
+        emit({"phase": "kernel", "name": "matmul_skinny", **row})
+    return rows
+
+
 def make_scorer(device):
     from repro_torch.serve import FFNNScorer
     cfg = speech(100_000)
@@ -389,10 +533,12 @@ def phase_serve(device) -> dict:
     if server.cache_misses_since_warmup != 0:
         fail(f"serve: {server.cache_misses_since_warmup} cache misses "
              f"after warmup")
-    # per dispatch: both products launch the tile kernel; the second,
-    # (b x 100000) @ (100000 x 10), splits K and launches the reduction
-    expected = launches_of(matmul=2 * dispatches,
-                           matmul_splitk_reduce=dispatches)
+    # per dispatch: both products launch the skinny kernel, reading the
+    # blocked weights in place; the second, (b x 100000) @ (100000 x 10),
+    # splits K and folds the partial sums in its own launch: no tile
+    # kernel, no separate reduction, no copy
+    expected = launches_of(matmul_skinny=2 * dispatches,
+                           matmul_fold=dispatches)
     if launches != expected:
         fail(f"serve: launches {launches} for {dispatches} dispatches, "
              f"expected {expected}")
@@ -428,8 +574,12 @@ def phase_serve(device) -> dict:
 
 
 def dispatch_breakdown(server, scorer, device) -> dict:
-    """One bucket-8 dispatch timed whole (host clock, synchronized), and
-    the copy that arranges the blocked W1 into the kernel's 2-D operand."""
+    """One bucket-8 dispatch timed whole (host clock, synchronized); the
+    copy that arranged the blocked W1 into a 2-D operand on the parent tree
+    (the path no longer makes it); and each of the dispatch's two products
+    timed as the engine calls the matmul op — the same views of the
+    relations' tensors — beside ``torch.matmul`` and the tile kernel (the
+    parent's path) on the copied 2-D operands, and the bound."""
     bucket = max(scorer.buckets)
     compiled = server.engine.compile(scorer.program(bucket))
     rng = np.random.default_rng(SEED + 1)
@@ -452,8 +602,58 @@ def dispatch_breakdown(server, scorer, device) -> dict:
     copy_ms = timed_ms(lambda: w1.permute(0, 2, 1, 3).reshape(db * bd,
                                                              hb * bh),
                        device, iters=10)
+
+    # the operands the engine hands the matmul op in one dispatch
+    calls, real = [], mm_ops.matmul
+
+    def spy(a, b, **kw):
+        calls.append((a, b, kw))
+        return real(a, b, **kw)
+
+    mm_ops.matmul = spy
+    try:
+        dispatch()
+    finally:
+        mm_ops.matmul = real
+    if len(calls) != 2:
+        fail(f"dispatch_breakdown: {len(calls)} matmul calls, expected 2")
+    products = []
+    for (a, b, kw), name in zip(calls, ("first", "second")):
+        m = math.prod(a.shape[:kw["a_rows"]])
+        k = math.prod(a.shape[kw["a_rows"]:])
+        n = math.prod(b.shape[kw["b_rows"]:])
+        a2, b2 = a.reshape(m, k).contiguous(), b.reshape(k, n).contiguous()
+        before = mm_ops.COPIES
+        out = mm_ops.matmul(a, b, **kw)
+        ref = matmul_ref(a2, b2)
+        tile = tile_kernel(a2, b2)
+        torch.cuda.synchronize(device)
+        rtol, atol = tolerance(k, torch.float32)
+        for what, o in (("in place", out), ("tile kernel", tile)):
+            err = (o - ref).abs()
+            if bool((err > atol + rtol * ref.abs()).any()):
+                fail(f"{name} product {what}: max |err| {err.max().item()}")
+        if mm_ops.COPIES != before:
+            fail(f"{name} product: the matmul op copied an operand")
+        t_bytes, t_ops = bound_times(m, k, n, torch.float32)
+        bnd, by = bound_of(t_bytes, t_ops)
+        timed = {"in_place": lambda: mm_ops.matmul(a, b, **kw),
+                 "torch_matmul_on_copy": lambda: torch.matmul(a2, b2),
+                 "tile_kernel_on_copy": lambda: tile_kernel(a2, b2),
+                 "plain": lambda: matmul_ref(a2, b2)}
+        products.append({
+            "product": name, "m": m, "k": k, "n": n,
+            "b_view": {"shape": list(b.shape), "strides": list(b.stride())},
+            **{f"{what}_ms": timed_ms(fn, device, iters=20)
+               for what, fn in timed.items()},
+            **{f"{what}_device_ms": device_ms_per_call(fn)
+               for what, fn in timed.items()},
+            "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
+            "operations_ms": t_ops,
+            "max_abs_err": (out - ref).abs().max().item()})
     return {"dispatch_b8_host_ms": host_ms, "w1_permute_copy_ms": copy_ms,
-            "w1_bytes": w1.numel() * w1.element_size()}
+            "w1_bytes": w1.numel() * w1.element_size(),
+            "products_b8": products}
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -1255,6 +1455,93 @@ def ssd_entry(ssd: dict, mamba2: dict) -> dict:
               f"bound, and the prefill on the kernel and on the plain SSD"}
 
 
+MATMUL_CU = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
+
+
+def matmul_entries(rows, reduce_rows, skinny, serve) -> list:
+    """The kernels line's four matmul entries, at one scorer dispatch at
+    bucket 8: the skinny kernel (the main path: both products, read in
+    place as the engine calls them), its fold (inside the second product's
+    launch), the tile kernel and its split-K pass (off the main path now:
+    timed at the same two products on the copied 2-D operands, the
+    parent tree's path)."""
+    first, second = serve["products_b8"]
+    b = first["m"]
+    both = (first, second)
+    bnd, by = bound_of(sum(p["bytes_ms"] for p in both),
+                       sum(p["operations_ms"] for p in both))
+    red = next(r for r in reduce_rows if r["m"] == b)
+    folds = [r for r in skinny if r["case"].startswith("fold")]
+    shapes = (f"({b}x{first['k']})@({first['k']}x{first['n']}) + "
+              f"({b}x{second['k']})@({second['k']}x{second['n']})")
+    common = {"route": "cuda", "source": MATMUL_CU,
+              "replaces": "src/repro/kernels/matmul/kernel.py:39"}
+    return [{
+        "name": "matmul_skinny", **common, "function": "matmul_pallas",
+        "launches": serve["launches"]["matmul_skinny"],
+        "max_abs_err": max([p["max_abs_err"] for p in both]
+                           + [r["max_abs_err"] for r in skinny
+                              if not r["case"].startswith("fold")]
+                           + [r["max_abs_err"] for r in rows
+                              if r["route"] == "skinny"]),
+        "ms": sum(p["in_place_device_ms"] for p in both),
+        "plain_ms": sum(p["plain_device_ms"] for p in both),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": sum(p["torch_matmul_on_copy_device_ms"] for p in both),
+        "library_call": "torch.matmul on each product's copied 2-D operands",
+        "events_ms": sum(p["in_place_ms"] for p in both),
+        "library_events_ms": sum(p["torch_matmul_on_copy_ms"] for p in both),
+        "first_product_ms": first["in_place_device_ms"],
+        "first_product_library_ms": first["torch_matmul_on_copy_device_ms"],
+        "first_product_bound_ms": first["bound_ms"],
+        "at": f"one scorer dispatch at bucket {b}, f32: {shapes}, each "
+              f"product read in place as the engine calls it (W1 as the "
+              f"blocked view {first['b_view']['shape']}); the second's time "
+              f"includes its fold; ms, plain_ms, library_ms: device time "
+              f"(torch.profiler); *events_ms: CUDA events over back-to-back "
+              f"calls, host work included"}, {
+        "name": "matmul_skinny_fold", **common,
+        "function": "matmul_pallas (its f32 accumulation over the K grid)",
+        "launches": serve["launches"]["matmul_fold"],
+        "max_abs_err": max(r["max_abs_err"] for r in folds),
+        "ms": second["in_place_device_ms"],
+        "plain_ms": second["plain_device_ms"],
+        "bound_ms": second["bound_ms"], "bound_by": second["bound_by"],
+        "library_ms": second["torch_matmul_on_copy_device_ms"],
+        "library_call": "torch.matmul on the copied 2-D operands",
+        "events_ms": second["in_place_ms"],
+        "library_events_ms": second["torch_matmul_on_copy_ms"],
+        "at": f"the fold runs inside matmul_skinny's launch for "
+              f"({b}x{second['k']})@({second['k']}x{second['n']}): ms is "
+              f"that whole launch's device time, fold included; "
+              f"max_abs_err is the fold against splitk_reduce_ref of its "
+              f"own partial tiles"}, {
+        "name": "matmul", **common, "function": "matmul_pallas",
+        "launches": serve["launches"]["matmul"],
+        "max_abs_err": max([r.get("tile_max_abs_err", r["max_abs_err"])
+                            for r in rows]),
+        "ms": sum(p["tile_kernel_on_copy_device_ms"] for p in both),
+        "plain_ms": sum(p["plain_device_ms"] for p in both),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": sum(p["torch_matmul_on_copy_device_ms"] for p in both),
+        "library_call": "torch.matmul, each product",
+        "events_ms": sum(p["tile_kernel_on_copy_ms"] for p in both),
+        "at": f"matmul_tile_kernel (bf16, or more than 16 rows; off the "
+              f"main path): the same dispatch's products {shapes} on the "
+              f"copied 2-D operands, as the parent tree ran them; the "
+              f"second's time includes its split-K pass; device times"}, {
+        "name": "matmul_splitk_reduce", **common,
+        "function": "matmul_pallas (its f32 accumulation over the K grid)",
+        "launches": serve["launches"]["matmul_splitk_reduce"],
+        "max_abs_err": max(r["max_abs_err"] for r in reduce_rows),
+        "ms": red["kernel_ms"], "plain_ms": red["plain_ms"],
+        "bound_ms": red["bound_ms"], "bound_by": red["bound_by"],
+        "library_ms": red["library_ms"], "library_call": "sum(0)",
+        "at": f"the tile kernel's split-K pass (off the main path): the "
+              f"{red['splits']} partial sums of ({b}x{red['of_product_k']})"
+              f"@({red['of_product_k']}x{red['n']})"}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1269,48 +1556,15 @@ def main() -> int:
     cfg = speech(100_000)
     d_in, d_hidden, d_out = cfg.d_in, cfg.d_hidden, cfg.d_out
     rows, reduce_rows = phase_kernels(device, d_in, d_hidden, d_out, gen)
+    skinny = phase_skinny(device, d_in, d_hidden, d_out)
     flash = phase_flash(device, gen)
     serve = phase_serve(device)
     gemma2 = phase_gemma2(device)
     ssd = phase_ssd(device, gen)
     mamba2 = phase_mamba2(device)
-
-    # per scorer dispatch at the largest bucket: the two products
-    b = max(BUCKETS)
-    per_dispatch = [r for r in rows if r["m"] == b
-                    and (r["k"], r["n"]) in ((d_in, d_hidden),
-                                             (d_hidden, d_out))]
-    bnd, by = bound_of(sum(r["bytes_ms"] for r in per_dispatch),
-                       sum(r["operations_ms"] for r in per_dispatch))
-    red = next(r for r in reduce_rows if r["m"] == b)
-    source = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
-    replaces = "src/repro/kernels/matmul/kernel.py:39"
-    emit({"kernels": [{
-        "name": "matmul", "route": "cuda", "source": source,
-        "replaces": replaces, "function": "matmul_pallas",
-        "launches": serve["launches"]["matmul"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["kernel_ms"] for r in per_dispatch),
-        "plain_ms": sum(r["plain_ms"] for r in per_dispatch),
-        "bound_ms": bnd, "bound_by": by,
-        "library_ms": sum(r["library_ms"] for r in per_dispatch),
-        "library_call": "torch.matmul, each product",
-        "at": f"one scorer dispatch at bucket {b}: "
-              f"({b}x{d_in})@({d_in}x{d_hidden}) + "
-              f"({b}x{d_hidden})@({d_hidden}x{d_out}), each a whole "
-              f"matmul() call; the second's time includes its split-K "
-              f"reduction (matmul_splitk_reduce)"}, {
-        "name": "matmul_splitk_reduce", "route": "cuda", "source": source,
-        "replaces": replaces, "function": "matmul_pallas (its f32 "
-                                          "accumulation over the K grid)",
-        "launches": serve["launches"]["matmul_splitk_reduce"],
-        "max_abs_err": max(r["max_abs_err"] for r in reduce_rows),
-        "ms": red["kernel_ms"], "plain_ms": red["plain_ms"],
-        "bound_ms": red["bound_ms"], "bound_by": red["bound_by"],
-        "library_ms": red["library_ms"], "library_call": "sum(0)",
-        "at": f"the {red['splits']} partial sums of ({b}x{d_hidden})@"
-              f"({d_hidden}x{d_out})"}, *flash_entries(flash, gemma2),
-        ssd_entry(ssd, mamba2)]})
+    emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve),
+                      *flash_entries(flash, gemma2),
+                      ssd_entry(ssd, mamba2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

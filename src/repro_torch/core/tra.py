@@ -433,10 +433,19 @@ def _fused_matmul_2d(g: _JoinGeometry, left: TensorRelation,
     joined: the whole expression is exactly ``(I·m, K·c) @ (K·c, J·n)`` —
     the paper's claim that the TRA plan *is* the hand-tuned contraction.
     Dispatches through :func:`repro_torch.kernels.matmul.ops.matmul`
-    (``impl="auto"``): the hand-written CUDA kernel for CUDA operands, its
-    plain version for CPU ones.  Arranging the blocked operands into 2-D
-    copies them whenever the key/bound interleave is a real permutation
-    (the scorer's ``W1``, for one).
+    (``impl="auto"``): a hand-written CUDA kernel for CUDA operands, its
+    plain version for CPU ones.
+
+    Deviation from ``repro.core.tra._fused_matmul_2d``, which transposes
+    each blocked operand and reshapes it into a 2-D copy
+    (``src/repro/core/tra.py:411``): here each operand goes to the matmul
+    op as a permuted view of the relation's own tensor, its leading axes
+    the rows (``a_rows`` / ``b_rows``), and the op decides what to copy.
+    On the card the f32 kernel reads such a view in place when its rows
+    and its columns each merge at most two strided axes — the scorer's
+    blocked ``W1``, ``(db, hb, bd, bh)`` read as the (db·bd, hb·bh)
+    matrix, is not copied; on the CPU the plain version gets the same
+    views.
     """
     from repro_torch.kernels.matmul.ops import matmul as matmul_op
 
@@ -445,20 +454,16 @@ def _fused_matmul_2d(g: _JoinGeometry, left: TensorRelation,
     kept_r = [ax for ax in range(kl, g.k_out)]
     m, c = left.bound
     _, n = right.bound
-    # left: (f_out_l ++ (m, c)) → (kept_l..., m, joined..., c) → 2-D
+    # left: (f_out_l ++ (m, c)) → (kept_l..., m | joined..., c)
     lperm = kept_l + [kl] + list(jkl) + [kl + 1]
-    L2 = g.ldata.permute(lperm).reshape(
-        math.prod(g.f_out_l[ax] for ax in kept_l) * m,
-        math.prod(g.f_out_l[ax] for ax in jkl) * c)
-    # right: covered-axis order → (joined in jkl order..., c, kept_r..., n)
+    # right: covered-axis order → (joined in jkl order..., c | kept_r..., n)
     pos = {ax: i for i, ax in enumerate(g.covered)}
     nb = len(g.covered)
     rperm = [pos[ax] for ax in jkl] + [nb] \
         + [pos[ax] for ax in kept_r] + [nb + 1]
-    R2 = g.rdata_t.permute(rperm).reshape(
-        math.prod(g.f_out_l[ax] for ax in jkl) * c,
-        math.prod(g.out_key_shape[ax] for ax in kept_r) * n)
-    out2 = matmul_op(L2.contiguous(), R2.contiguous(), impl="auto")
+    out2 = matmul_op(g.ldata.permute(lperm), g.rdata_t.permute(rperm),
+                     impl="auto", a_rows=len(kept_l) + 1,
+                     b_rows=len(jkl) + 1)
     # back to blocks: (kept_l..., m, kept_r..., n) → gb order ++ (m, n)
     out = out2.reshape(tuple(g.f_out_l[ax] for ax in kept_l) + (m,)
                        + tuple(g.out_key_shape[ax] for ax in kept_r) + (n,))

@@ -4,38 +4,100 @@
 // (_matmul_kernel): the Sigma∘Join contraction that tra._fused_matmul_2d
 // collapses an unmasked (matMul, matAdd) pair into.  Same function:
 // A (M,K) and B (K,N) in f32 or bf16, summed in f32, written in f32 or bf16.
+// Three kernels, routed by ops.py::route:
 //
-// What bounds it at the FFNN scorer's shapes (speech-100k, bucket b <= 8):
-//   * (b x 1600) @ (1600 x 100000): reading B (640 MB of f32) is the whole
-//     cost; the arithmetic is 2*b*1600*100000 <= 2.6 GFLOP.  The design keeps
-//     many blocks in flight (one 8 x 128 output tile each, ~800 blocks), each
-//     streaming its B column strip once through shared memory, so the card's
-//     memory rate, not its FMA rate, is the limit.
-//   * (b x 100000) @ (100000 x 10): 4 MB of B and one output tile.  One block
-//     per tile would run a 100000-long serial loop on one SM, so the K range
-//     is split across blocks (split-K).  The partial sums go to a workspace
-//     and a second kernel, splitk_reduce_kernel, adds them in a fixed order:
-//     deterministic, no float atomics, so served results are bit-identical
-//     from run to run.  At this size the two launches themselves are most of
-//     the time.
+// * matmul_skinny_kernel: f32 with M <= 16 — the FFNN scorer's buckets, the
+//   main path.  Below.
+// * matmul_tile_kernel: bf16, or M > 16.  One output tile per block, BK-deep
+//   tiles of A and B staged in shared memory as f32 through registers (B as
+//   float4 where the layout allows), each thread owning a TM x TN register
+//   tile, FFMA in true f32; ragged edges masked in the kernel.  Contiguous
+//   row-major operands only.
+// * splitk_reduce_kernel: the tile kernel's second pass when it splits K —
+//   the partial sums added in split order (deterministic, no float atomics).
 //
-// Design: one output tile per block, BK-deep tiles of A and B staged in
-// shared memory as f32, each thread owning a TM x TN register tile and
-// accumulating with FFMA (true f32, never TF32).  The next tile is fetched
-// into registers (B as float4 where the layout allows) while the current one
-// is multiplied, so loads overlap the arithmetic.  Ragged edges are masked
-// in the kernel, so the caller never pads or copies an operand.  TMA, wgmma
-// and a deeper shared-memory pipeline are left for later work.
+// matmul_skinny_kernel.  What bounds it at the scorer's shapes (speech-100k,
+// bucket b <= 8): (b x 1600) @ (1600 x 100000) reads 640 MB of f32 B for
+// 2*b*1600*100000 <= 2.6 GFLOP, so the card's memory rate is the whole
+// bound; (b x 100000) @ (100000 x 10) moves 7 MB into one (b x 10) tile, so
+// its K must spread over the card, and launches and the cross-block sum are
+// most of its time.  Design:
+//   * Operands are read where they lie.  The host (ops.py::plan_operands)
+//     describes each as four strided axes — rows (R0, R1), columns (C0, C1)
+//     — and builds a 4-D TMA tensor map of it ordered by stride: the
+//     scorer's blocked W1, (db, bd, hb, bh) viewed out of (db, hb, bd, bh),
+//     goes in place.  A box never crosses a block edge: the K loop walks
+//     K blocks, and columns or rows past a block's extent come back as
+//     zeros (TMA fills each dimension at its own extent), which masks ragged
+//     edges with no pad.  B rows whose pitch is not a multiple of 16 bytes
+//     (the scorer's W2, 10 f32 columns) are read g rows to a TMA row.
+//   * A persistent grid (as many blocks as fit, each walking work items of
+//     one column tile x one K split) with warp specialisation: a producer
+//     warp, one elected thread, streams B tiles through a 4-stage ring of
+//     shared-memory buffers (full/empty mbarriers, expect_tx), while four
+//     consumer warps multiply.  So B streams once from device memory with
+//     up to 64 KB in flight per SM, and an item's epilogue overlaps the next
+//     item's loads.
+//   * A's K slice (b x K f32, the split's share of K) is loaded by TMA into
+//     shared memory once and stays there: once per block when K is not split.
+//   * FFMA in true f32 (never TF32).  Wide tiles (128 columns): each consumer
+//     thread owns 4 columns x all rows and a quarter of each 32-row B tile,
+//     reading B as float4 and A as broadcast float4 along K; narrow tiles
+//     (N <= 32, one tile): threads split a 128-row B tile by column and row.
+//     The four (or more) row groups are added in a fixed order.
+//   * Split-K folded into the kernel: each split writes its f32 partial tile
+//     to a workspace, then takes an integer ticket for its column tile
+//     (atomicAdd on an int; no float atomics).  The block that draws the
+//     last ticket adds the partials in split order — bit-equal to
+//     ref.splitk_reduce_ref on the same partials, so served results are
+//     bit-identical from run to run — writes C, and sets the ticket back to
+//     0.  So every launch leaves its ticket buffer zeroed for the next launch
+//     on its stream; ops.py keeps one buffer per stream, so two launches in
+//     flight on different streams never share one.
+//   * Every mbarrier wait traps after ~10 s of clock instead of hanging.
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): the caller owns every allocation and the stream.  Each entry point
 // launches one kernel, so the caller counts every launch: repro_matmul the
-// tile kernel, repro_splitk_reduce the reduction pass.
+// tile kernel, repro_splitk_reduce the reduction pass, repro_matmul_skinny
+// the skinny kernel.  cuTensorMapEncodeTiled is reached through
+// cudaGetDriverEntryPoint, so the library does not link libcuda.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// One operand of the skinny kernel as a 4-D tensor map: dims[0] the
+// contiguous axis, then the other three in the order of their strides
+// (strides in bytes of dims 1-3), the box one copy brings, and perm: the map
+// dim (1-3) of the first logical axis in bits 0-1 and of the second in bits
+// 2-3 (the third takes the dim left).  Logical axes: for A (row within a row
+// block, K block, row block), for B (row within a K block, column block, K
+// block).
+struct MmMapSpec {
+  long long dims[4];
+  long long strides[3];
+  int box[4];
+  int perm;
+};
+
+// The skinny kernel's launch plan (ops.py::plan_skinny builds it).
+struct SkinnyArgs {
+  int m, n;            // C is m x n, contiguous row-major
+  int mp;              // rows padded to 4, 8 or 16
+  int wide;            // 1: 128-column tiles; 0: one narrow tile of all N
+  int tc;              // columns of a tile in shared memory (the B tile's pitch)
+  int g;               // B rows per TMA row (narrow tiles of a short pitch), else 1
+  int n1;              // columns per column block (of B and of C)
+  int ntpb, ntiles;    // column tiles per column block, and in all
+  int ktpb, ktiles;    // K tiles per K block, and in all
+  int kts, splits;     // K tiles per split, and splits
+  int a_r0, a_r1;      // A's rows: a_r0 blocks of a_r1 rows (m = a_r0 * a_r1)
+  int a_perm, b_perm;  // MmMapSpec::perm of A's and of B's map
+  int out_bf16;        // C in bf16 (1) or f32 (0)
+};
 
 namespace {
 
@@ -225,6 +287,400 @@ int dispatch_config(int config, const void* a, const void* b, void* c, float* ws
   }
 }
 
+
+// ---------------------------------------------------------------- skinny
+
+constexpr int SK_CONSUMERS = 128;                 // four consumer warps
+constexpr int SK_THREADS = SK_CONSUMERS + 32;     // and one producer warp
+constexpr int SK_STAGES = 4;                      // B tiles in the ring
+constexpr int SK_WIDE_COLS = 128;                 // columns of a wide tile
+constexpr int SK_MAX_SMEM = 232448;               // a block's shared memory on sm_90
+constexpr int kEncodeError = 1000;                // + CUresult of cuTensorMapEncodeTiled
+
+__host__ __device__ constexpr int sk_bk(bool wide) { return wide ? 32 : 128; }
+
+// Byte offsets into a block's 128-byte aligned shared memory: the B ring,
+// A's K slice (kts tiles of mp x BK), the row groups' sums, then the
+// mbarriers and the fold's flag.  The fold stages partial tiles over A's
+// slice and the sums (a .. bars).
+struct SkLayout {
+  int stage, a, a_tile, red, bars, total;
+};
+
+__host__ __device__ inline SkLayout sk_layout(const SkinnyArgs& s) {
+  const int bk = sk_bk(s.wide != 0);
+  const int groups = s.wide ? SK_CONSUMERS / 32 : SK_CONSUMERS / s.tc;
+  SkLayout l;
+  l.stage = bk * s.tc * 4;
+  l.a = SK_STAGES * l.stage;
+  l.a_tile = s.mp * bk * 4;
+  l.red = l.a + s.kts * l.a_tile;
+  l.bars = l.red + (groups * s.mp * s.tc * 4 + 127) / 128 * 128;
+  l.total = l.bars + 128 + 128;                   // barriers and flag; alignment slack
+  return l;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of `bar` with this parity.  A copy that never lands (a
+// tensor map that does not fit the expected bytes) traps after ~10 s of
+// clock instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > 20000000000ll) __trap();
+  }
+}
+
+// The four consumer warps only: the producer warp never joins.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SK_CONSUMERS) : "memory");
+}
+
+// One box of a 4-D tensor map into shared memory, completion to `bar`: c0
+// along the contiguous dim, x1..x3 along the logical axes placed by perm.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                          int x1, int x2, int x3, int perm) {
+  const int d1 = perm & 3, d2 = (perm >> 2) & 3;
+  const int c1 = d1 == 1 ? x1 : (d2 == 1 ? x2 : x3);
+  const int c2 = d1 == 2 ? x1 : (d2 == 2 ? x2 : x3);
+  const int c3 = d1 == 3 ? x1 : (d2 == 3 ? x2 : x3);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+__device__ __forceinline__ void store_out(void* c, long long i, float v, int out_bf16) {
+  if (out_bf16) {
+    static_cast<__nv_bfloat16*>(c)[i] = __float2bfloat16(v);
+  } else {
+    static_cast<float*>(c)[i] = v;
+  }
+}
+
+struct SkParams {
+  void* c;
+  float* ws;         // partial tiles [tile][split][mp][tc], f32 (splits > 1)
+  int* tickets;      // one per column tile: 0 at launch, 0 again at exit
+  SkinnyArgs s;
+};
+
+// C = A @ B in f32 for M <= MP.  Work item i is column tile i / splits over
+// K split i % splits; block b walks items b, b + gridDim.x, ...
+template <int MP, bool WIDE>
+__global__ void __launch_bounds__(SK_THREADS, 1)
+    matmul_skinny_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap tb, const SkParams p) {
+  constexpr int BK = sk_bk(WIDE);
+  const SkinnyArgs& s = p.s;
+  const SkLayout l = sk_layout(s);
+  extern __shared__ uint8_t sk_smem[];
+  uint8_t* base = sk_smem + ((128u - (smem_u32(sk_smem) & 127u)) & 127u);
+  const uint32_t base_s = smem_u32(base);
+  const uint32_t full0 = base_s + l.bars;         // full[st] at full0 + 8 st
+  const uint32_t empty0 = full0 + 8 * SK_STAGES;  // empty[st] at empty0 + 8 st
+  const uint32_t a_full = empty0 + 8 * SK_STAGES;
+  const uint32_t a_empty = a_full + 8;
+  volatile int* last = reinterpret_cast<volatile int*>(base + l.bars + 16 * SK_STAGES + 16);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tc = WIDE ? SK_WIDE_COLS : s.tc;
+  const int items = s.ntiles * s.splits;
+
+  if (tid == 0) {
+    for (int st = 0; st < SK_STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, SK_CONSUMERS / 32);
+    }
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, SK_CONSUMERS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == SK_CONSUMERS / 32) {
+    // Producer: one thread issues every copy.  A's slice whenever the split
+    // changes (once per block without split-K), after the consumers have
+    // released the last one; then the item's B tiles into the ring, each
+    // stage once the consumers have released its last use.
+    if (lane != 0) return;
+    int q = 0, a_loads = 0, resident = -1;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int split = item % s.splits, tile = item / s.splits;
+      const int kt0 = split * s.kts, nt = min(s.kts, s.ktiles - kt0);
+      if (s.splits > 1 || split != resident) {
+        if (a_loads > 0) mbar_wait(a_empty, (a_loads - 1) & 1);
+        mbar_expect_tx(a_full, static_cast<uint32_t>(nt * s.a_r0 * s.a_r1 * BK * 4));
+        for (int j = 0; j < nt; ++j) {
+          const int kt = kt0 + j, kb = kt / s.ktpb, k1 = (kt % s.ktpb) * BK;
+          for (int r0 = 0; r0 < s.a_r0; ++r0)
+            tma_load4(base_s + l.a + j * l.a_tile + r0 * s.a_r1 * BK * 4, &ta, a_full, k1, 0, kb,
+                      r0, s.a_perm);
+        }
+        ++a_loads;
+        resident = split;
+      }
+      const int c0 = tile / s.ntpb, col0 = (tile % s.ntpb) * tc;
+      for (int j = 0; j < nt; ++j, ++q) {
+        const int st = q % SK_STAGES, use = q / SK_STAGES;
+        if (use > 0) mbar_wait(empty0 + 8 * st, (use - 1) & 1);
+        mbar_expect_tx(full0 + 8 * st, static_cast<uint32_t>(l.stage));
+        const int kt = kt0 + j, kb = kt / s.ktpb, k1 = (kt % s.ktpb) * BK;
+        tma_load4(base_s + st * l.stage, &tb, full0 + 8 * st, col0, k1 / s.g, c0, kb, s.b_perm);
+      }
+    }
+    return;
+  }
+
+  // Consumers.  Wide: warp w takes rows 8w .. 8w + 7 of each 32-row B tile,
+  // lane l columns 4l .. 4l + 3, all MP rows of A.  Narrow: thread t takes
+  // column t % tc and rows t / tc + i * groups of each 128-row tile.
+  const int groups = WIDE ? SK_CONSUMERS / 32 : SK_CONSUMERS / tc;
+  const int grp = WIDE ? warp : tid / tc;
+  const int col = WIDE ? lane * 4 : tid % tc;
+  const int per = MP * tc;                        // values of one partial tile
+  float* red = reinterpret_cast<float*>(base + l.red);
+  int q = 0, a_uses = 0, resident = -1;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int split = item % s.splits, tile = item / s.splits;
+    const int kt0 = split * s.kts, nt = min(s.kts, s.ktiles - kt0);
+    if (s.splits > 1 || split != resident) {
+      mbar_wait(a_full, a_uses & 1);
+      ++a_uses;
+      resident = split;
+    }
+    float acc[MP][4];
+#pragma unroll
+    for (int r = 0; r < MP; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+    for (int j = 0; j < nt; ++j, ++q) {
+      const int st = q % SK_STAGES;
+      mbar_wait(full0 + 8 * st, (q / SK_STAGES) & 1);
+      const float* bt = reinterpret_cast<const float*>(base + st * l.stage);
+      const float* at = reinterpret_cast<const float*>(base + l.a + j * l.a_tile);
+      if constexpr (WIDE) {
+#pragma unroll
+        for (int kk = 0; kk < 8; kk += 4) {
+          const int k = warp * 8 + kk;
+          float4 b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            b[i] = *reinterpret_cast<const float4*>(bt + (k + i) * SK_WIDE_COLS + col);
+#pragma unroll
+          for (int r = 0; r < MP; ++r) {
+            const float4 a = *reinterpret_cast<const float4*>(at + r * BK + k);
+            fma4(acc[r], a.x, b[0]);
+            fma4(acc[r], a.y, b[1]);
+            fma4(acc[r], a.z, b[2]);
+            fma4(acc[r], a.w, b[3]);
+          }
+        }
+      } else if (grp < groups) {
+        for (int k = grp; k < BK; k += groups) {
+          const float b = bt[k * tc + col];
+#pragma unroll
+          for (int r = 0; r < MP; ++r) acc[r][0] = fmaf(at[r * BK + k], b, acc[r][0]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+
+    // The row groups' sums, added in group order.
+    if (WIDE || grp < groups) {
+#pragma unroll
+      for (int r = 0; r < MP; ++r) {
+        float* dst = red + (grp * MP + r) * tc + col;
+        if constexpr (WIDE) {
+          *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        } else {
+          *dst = acc[r][0];
+        }
+      }
+    }
+    consumers_sync();
+    const int c0 = tile / s.ntpb, col0 = (tile % s.ntpb) * tc;
+    float* part = p.ws + (static_cast<long long>(tile) * s.splits + split) * per;
+    for (int o = tid; o < per; o += SK_CONSUMERS) {
+      float v = red[o];
+      for (int gi = 1; gi < groups; ++gi) v += red[gi * per + o];
+      const int r = o / tc, lc = col0 + o % tc;
+      if (s.splits > 1) {
+        part[o] = v;
+      } else if (r < s.m && lc < s.n1) {
+        store_out(p.c, static_cast<long long>(r) * s.n + static_cast<long long>(c0) * s.n1 + lc, v,
+                  s.out_bf16);
+      }
+    }
+    if (s.splits == 1) {
+      consumers_sync();                           // the sums are read before reuse
+      continue;
+    }
+
+    // The fold: the block that draws the tile's last ticket adds every
+    // split's partial tile, in split order, into C.
+    __threadfence();
+    consumers_sync();
+    if (tid == 0) *last = atomicAdd(p.tickets + tile, 1) == s.splits - 1;
+    consumers_sync();
+    if (*last) {
+      __threadfence();
+      const float* blk = p.ws + static_cast<long long>(tile) * s.splits * per;
+      float* stage = reinterpret_cast<float*>(base + l.a);
+      const int cap = (l.bars - l.a) / (per * 4);  // partial tiles staged at once
+      float sum[MP];
+#pragma unroll
+      for (int i = 0; i < MP; ++i) sum[i] = 0.f;
+      for (int z0 = 0; z0 < s.splits; z0 += cap) {
+        const int zc = min(cap, s.splits - z0);
+        const float4* src = reinterpret_cast<const float4*>(blk + static_cast<long long>(z0) * per);
+        float4* dst = reinterpret_cast<float4*>(stage);
+        const int n4 = zc * per / 4;
+        for (int e0 = tid; e0 < n4; e0 += 8 * SK_CONSUMERS) {
+          float4 v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * SK_CONSUMERS;
+            if (e < n4) v[u] = __ldcg(src + e);
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * SK_CONSUMERS;
+            if (e < n4) dst[e] = v[u];
+          }
+        }
+        consumers_sync();
+#pragma unroll
+        for (int i = 0; i < MP; ++i) {
+          const int o = tid + i * SK_CONSUMERS;
+          if (o < per)
+            for (int z = 0; z < zc; ++z) sum[i] += stage[z * per + o];
+        }
+        consumers_sync();
+      }
+#pragma unroll
+      for (int i = 0; i < MP; ++i) {
+        const int o = tid + i * SK_CONSUMERS;
+        const int r = o / tc, lc = col0 + o % tc;
+        if (o < per && r < s.m && lc < s.n1)
+          store_out(p.c, static_cast<long long>(r) * s.n + static_cast<long long>(c0) * s.n1 + lc,
+                    sum[i], s.out_bf16);
+      }
+      if (tid == 0) p.tickets[tile] = 0;
+    }
+    consumers_sync();                             // A's slice and the stage are free
+    if (lane == 0) mbar_arrive(a_empty);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// 0, or kEncodeError + the CUresult of a refused map.  f32, no swizzle,
+// out-of-bounds elements read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, const MmMapSpec& m) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], elem_strides[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = static_cast<cuuint64_t>(m.dims[i]);
+    box[i] = static_cast<cuuint32_t>(m.box[i]);
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(m.strides[i]);
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+typedef void (*SkinnyKernel)(CUtensorMap, CUtensorMap, SkParams);
+
+template <int MP>
+SkinnyKernel skinny_kernel(bool wide) {
+  return wide ? matmul_skinny_kernel<MP, true> : matmul_skinny_kernel<MP, false>;
+}
+
+// Blocks of 160 threads that fit on one SM at this shared memory, per
+// kernel instance (cached: the occupancy query costs host time).
+int blocks_per_sm(SkinnyKernel fn, int index, int smem) {
+  static int cached_smem[6] = {-1, -1, -1, -1, -1, -1};
+  static int cached_blocks[6];
+  static int max_smem_set[6] = {0, 0, 0, 0, 0, 0};
+  if (cached_smem[index] == smem) return cached_blocks[index];
+  if (smem > max_smem_set[index]) {
+    cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    max_smem_set[index] = smem;
+  }
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, reinterpret_cast<const void*>(fn), SK_THREADS, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cached_smem[index] = smem;
+  cached_blocks[index] = blocks;
+  return blocks;
+}
+
 }  // namespace
 
 extern "C" {
@@ -286,7 +742,74 @@ int repro_splitk_reduce(const void* partial, void* c, long long mn, int splits,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// Enqueue C = A @ B on `stream` through the skinny kernel: f32 A and B read
+// in place through their tensor maps, C an m x n contiguous array in f32 or
+// bf16.  desc holds, flat, A's and B's MmMapSpec (dims, strides, box, perm:
+// 12 values each; ops.py's plan_operands builds them) and the SkinnyArgs
+// (18 values, in their order; ops.py's plan_skinny).  With splits > 1, ws
+// holds ntiles * splits * mp * tc floats and tickets ntiles ints, all 0 (the
+// kernel leaves them 0).  Returns 0 when the kernel was launched, else a
+// cudaError_t, or kEncodeError + the CUresult of a refused tensor map.
+int repro_matmul_skinny(const void* a, const void* b, void* c, void* ws, void* tickets,
+                        const long long* desc, void* stream) {
+  MmMapSpec maps[2];
+  for (int i = 0; i < 2; ++i) {
+    const long long* d = desc + 12 * i;
+    for (int j = 0; j < 4; ++j) maps[i].dims[j] = d[j];
+    for (int j = 0; j < 3; ++j) maps[i].strides[j] = d[4 + j];
+    for (int j = 0; j < 4; ++j) maps[i].box[j] = static_cast<int>(d[7 + j]);
+    maps[i].perm = static_cast<int>(d[11]);
+  }
+  SkinnyArgs s;
+  int* fields = &s.m;
+  static_assert(sizeof(SkinnyArgs) == 18 * sizeof(int), "SkinnyArgs: 18 ints");
+  for (int j = 0; j < 18; ++j) fields[j] = static_cast<int>(desc[24 + j]);
+  const MmMapSpec* am = &maps[0];
+  const MmMapSpec* bm = &maps[1];
+  const bool shapes_ok = s.m >= 1 && s.m <= s.mp && (s.mp == 4 || s.mp == 8 || s.mp == 16) &&
+                         s.n >= 1 && s.tc >= 1 && s.g >= 1 && s.ntiles >= 1 && s.ktiles >= 1 &&
+                         s.kts >= 1 && s.splits >= 1 && (s.splits - 1) * s.kts < s.ktiles &&
+                         s.a_r0 * s.a_r1 == s.m &&
+                         (s.wide ? s.tc == SK_WIDE_COLS : s.tc <= 32 && s.ntiles == 1);
+  if (!shapes_ok || (s.splits > 1 && (ws == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = sk_layout(s).total;
+  if (smem > SK_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  int rc = make_map(&ta, a, *am);
+  if (rc == 0) rc = make_map(&tb, b, *bm);
+  if (rc != 0) return rc;
+  const int index = (s.mp == 4 ? 0 : s.mp == 8 ? 2 : 4) + (s.wide ? 1 : 0);
+  SkinnyKernel fn = s.mp == 4 ? skinny_kernel<4>(s.wide != 0)
+                  : s.mp == 8 ? skinny_kernel<8>(s.wide != 0)
+                              : skinny_kernel<16>(s.wide != 0);
+  const int per_sm = blocks_per_sm(fn, index, smem);
+  if (per_sm < 0) return -per_sm;
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static int sm_count[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64 && sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long items = static_cast<long long>(s.ntiles) * s.splits;
+  const long long room = static_cast<long long>(per_sm) * (dev < 64 ? sm_count[dev] : 132);
+  const unsigned grid = static_cast<unsigned>(items < room ? items : room);
+  SkParams p;
+  p.c = c;
+  p.ws = static_cast<float*>(ws);
+  p.tickets = static_cast<int*>(tickets);
+  p.s = s;
+  fn<<<grid, SK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(ta, tb, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 const char* repro_cuda_error_string(int code) {
+  if (code >= kEncodeError)
+    return "cuTensorMapEncodeTiled refused the tensor map (code - 1000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,31 +1,57 @@
-"""Public matmul op: the hand-written CUDA kernel or its plain version.
+"""Public matmul op: the hand-written CUDA kernels or their plain version.
 
 Counterpart of ``repro.kernels.matmul.ops.matmul``.  ``impl`` selects:
 
 * ``"auto"`` (the main path): the plain version (:mod:`.ref`) for a CPU
-  tensor, the CUDA kernel (``csrc/matmul.cu``) for a CUDA tensor;
-* ``"kernel"``: always the CUDA kernel — a CPU tensor raises;
+  tensor, a CUDA kernel for a CUDA tensor;
+* ``"kernel"``: always a CUDA kernel — a CPU tensor raises;
 * ``"plain"``: always the plain version (tests and the chip smoke run only).
 
-A CUDA tensor never falls back to the plain version: the kernel builds and
-launches, or the call raises.  A product whose output has too few tiles for
-the card splits K across blocks (:func:`plan_launch`); its partial sums are
-then added by a second kernel, launched by :func:`splitk_reduce`.  Deviations from the JAX op: no
-``block_m/n/k`` or ``interpret`` arguments, and no padding — the kernel
-masks ragged edges itself, so no operand is copied (the JAX wrapper pads
-both operands to block multiples, which at the scorer's width would copy
-the 640 MB weight on every dispatch).  ``out_dtype`` is exposed as in
-``matmul_ref``.
+A CUDA call goes by type and rows (:func:`route`), both in
+``csrc/matmul.cu``:
 
-:data:`LAUNCHES` counts launches of the tile kernel (one per :func:`matmul`
-call that reaches it) and :data:`REDUCE_LAUNCHES` those of the split-K
-reduction, so a run can show that its main path went through both.
+* f32 with at most :data:`SKINNY_MAX_M` rows (the FFNN scorer's buckets,
+  the main path) → ``matmul_skinny_kernel``.  It reads each operand in
+  place through a 4-D TMA tensor map: an operand is given as a view whose
+  rows and columns each merge at most two strided axes
+  (:func:`blocked_view`), such as the scorer's blocked W1, ``(db, hb, bd,
+  bh)`` viewed as ``(db, bd, hb, bh)``, which the kernel reads as the
+  (db·bd, hb·bh) matrix without the copy a reshape would make.  A layout
+  it cannot read — a base off 16 bytes, a stride that is not a multiple of
+  16 bytes, more than two merged axes on a side, or a K blocking that the
+  other operand does not share — is copied once into one it can
+  (:func:`plan_operands`; :data:`COPIES` counts those copies).  Its split-K
+  sum is folded into the same launch: the last block of each column tile
+  adds the splits' partial tiles in split order, as
+  :func:`.ref.splitk_reduce_ref` does (:data:`FOLDS` counts the launches
+  that folded).
+* bf16, or more rows → ``matmul_tile_kernel`` on contiguous row-major
+  operands (any other layout is copied first and counted in
+  :data:`COPIES`); when its output has too few tiles for the card it
+  splits K across blocks (:func:`plan_launch`) and a second kernel,
+  ``splitk_reduce_kernel``, adds the partial sums (:func:`splitk_reduce`).
+
+A CUDA tensor never falls back to the plain version: the kernel builds and
+launches, or the call raises.  Deviations from the JAX op: no
+``block_m/n/k`` or ``interpret`` arguments and no padding — the kernels
+mask ragged edges themselves (the JAX wrapper pads both operands to block
+multiples, which at the scorer's width would copy the 640 MB weight on
+every dispatch); ``out_dtype`` is exposed as in ``matmul_ref``; and an
+operand may be an N-D view whose leading ``a_rows`` / ``b_rows`` axes are
+its rows and the rest its columns, so that the engine hands over a blocked
+relation's own tensor (the JAX engine transposes and reshapes it into a
+2-D copy first).
+
+Launch counters, one per ``__global__`` kernel, so a run can show that its
+main path went through them: :data:`SKINNY_LAUNCHES`, :data:`LAUNCHES`
+(the tile kernel) and :data:`REDUCE_LAUNCHES` (its split-K pass).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+import struct
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,44 +61,348 @@ from repro_torch.kernels.matmul.ref import matmul_ref, splitk_reduce_ref
 LAUNCHES = 0
 #: split-K reduction launches made by :func:`splitk_reduce` in this process
 REDUCE_LAUNCHES = 0
+#: skinny-kernel launches made by :func:`matmul` in this process
+SKINNY_LAUNCHES = 0
+#: skinny-kernel launches that split K and folded the partial sums
+FOLDS = 0
+#: operands copied into a layout the kernels read
+COPIES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: tile configuration id -> (BM, BN, BK), as instantiated in csrc/matmul.cu
 TILE_CONFIGS = {0: (8, 128, 32), 1: (64, 64, 16)}
 
+#: the skinny kernel takes f32 products of at most this many rows
+SKINNY_MAX_M = 16
+#: its ring of B tiles, and its tiles: wide (128 columns, 32 rows of K) or
+#: narrow (all N <= NARROW_MAX_COLS columns, 128 rows of K)
+SKINNY_STAGES = 4
+WIDE_COLS, WIDE_BK = 128, 32
+NARROW_MAX_COLS, NARROW_BK = 32, 128
+#: shared memory for A's K slice (a split is cut to fit), and a block's
+#: shared memory on sm_90
+A_SLICE_BYTES = 120 * 1024
+MAX_SMEM = 232448
+#: a split takes at least this many K tiles
+MIN_SPLIT_TILES = 2
+
 _lib_handle: Optional[ctypes.CDLL] = None
+#: the skinny kernel's flat launch descriptor: two maps and its arguments
+_DESC = struct.Struct("42q")
 _SM_COUNTS: Dict[int, int] = {}
+#: the skinny kernel's fold tickets, one zeroed buffer per (device, stream)
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 class KernelLaunchError(RuntimeError):
     """The CUDA runtime refused a launch (``cudaGetLastError() != 0``)."""
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        from repro_torch.kernels.build import load
-        lib = load("matmul")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                     i32, i32, i32, i32, ptr]
-        lib.repro_matmul.restype = i32
-        lib.repro_splitk_reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i32,
-                                            i32, ptr]
-        lib.repro_splitk_reduce.restype = i32
-        lib.repro_cuda_error_string.argtypes = [i32]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+# ------------------------------------------------------- operand layouts
+class Blocked(NamedTuple):
+    """A 2-D operand as four strided axes: rows ``(r0, r1)`` and columns
+    ``(c0, c1)``, element ``(i, j)`` at ``(i // r1)·s_r0 + (i % r1)·s_r1 +
+    (j // c1)·s_c0 + (j % c1)·s_c1`` elements from the base."""
+    shape: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int, int]
+
+    @property
+    def rows(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def cols(self) -> int:
+        return self.shape[2] * self.shape[3]
+
+    def split_rows(self, r0: int, r1: int) -> "Blocked":
+        """The same matrix with its single row axis cut into (r0, r1)."""
+        s = self.strides[1]
+        return Blocked((r0, r1) + self.shape[2:], (r1 * s, s) + self.strides[2:])
+
+    def split_cols(self, c0: int, c1: int) -> "Blocked":
+        """The same matrix with its single column axis cut into (c0, c1)."""
+        s = self.strides[3]
+        return Blocked(self.shape[:2] + (c0, c1), self.strides[:2] + (c1 * s, s))
+
+
+def _merge(axes: Sequence[Tuple[int, int]]) -> Optional[list]:
+    """Axes (length, stride), outermost first, with length-1 axes dropped
+    and neighbours merged where one steps over the other; padded to two
+    with length-1 axes.  None when more than two remain."""
+    out: list = []
+    for n, st in axes:
+        if n == 1:
+            continue
+        if out and out[-1][1] == n * st:
+            out[-1] = (out[-1][0] * n, st)
+        else:
+            out.append((n, st))
+    if len(out) > 2:
+        return None
+    while len(out) < 2:
+        n, st = out[0] if out else (1, 1)
+        out.insert(0, (1, n * st))
+    return out
+
+
+def blocked_view(shape: Sequence[int], strides: Sequence[int],
+                 rows: int) -> Optional[Blocked]:
+    """An N-D view whose leading ``rows`` axes are a matrix's rows and the
+    rest its columns, as a :class:`Blocked`; None when a side merges into
+    more than two axes."""
+    axes = list(zip(shape, strides))
+    r, c = _merge(axes[:rows]), _merge(axes[rows:])
+    if r is None or c is None:
+        return None
+    return Blocked((r[0][0], r[1][0], c[0][0], c[1][0]),
+                   (r[0][1], r[1][1], c[0][1], c[1][1]))
+
+
+class TmaMap(NamedTuple):
+    """A 4-D f32 tensor map: ``dims`` = (the contiguous axis, then three
+    logical axes in the order of their strides), ``strides`` the bytes
+    between steps of dims 1-3, ``box`` the tile one copy brings, ``perm``
+    the map dim (1-3) of the first logical axis in bits 0-1 and of the
+    second in bits 2-3."""
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    perm: int
+
+    def spec(self) -> tuple:
+        """``MmMapSpec`` of ``csrc/matmul.cu``, flat: 12 values."""
+        return self.dims + self.strides + self.box + (self.perm,)
+
+
+def _tma_map(inner: int, axes: Sequence[Tuple[int, int]], data_ptr: int,
+             box0: int, box1: int, itemsize: int = 4) -> Optional[TmaMap]:
+    """The map of a tensor with a contiguous axis of ``inner`` elements and
+    three logical axes ``(length, element stride)``, boxed ``box0`` along
+    the contiguous axis and ``box1`` along the first logical axis; None
+    when TMA cannot read it (a base off 16 bytes, a stride of an axis
+    longer than 1 that is not a positive multiple of 16 bytes, or axes that
+    overlap once ordered by stride)."""
+    if data_ptr % 16:
+        return None
+    stepped = sorted((st, i) for i, (n, st) in enumerate(axes) if n > 1)
+    extent = inner * itemsize
+    for st, i in stepped:
+        if st <= 0 or st * itemsize % 16 or st * itemsize < extent:
+            return None
+        extent = st * itemsize * axes[i][0]
+    order = [i for _, i in stepped] + [i for i, (n, _) in enumerate(axes)
+                                       if n == 1]
+    step = -(-inner * itemsize // 16) * 16
+    dims, byte_strides = [inner], []
+    for i in order:
+        n, st = axes[i]
+        if n > 1:
+            step = st * itemsize
+        byte_strides.append(step)
+        dims.append(n)
+        step *= n
+    box = [box0, 1, 1, 1]
+    box[1 + order.index(0)] = box1
+    perm = (1 + order.index(0)) | (1 + order.index(1)) << 2
+    return TmaMap(tuple(dims), tuple(byte_strides), tuple(box), perm)
+
+
+class BPlan(NamedTuple):
+    """How the skinny kernel reads B: its map, the tile kind (``wide``:
+    128-column tiles of 32 K rows; narrow: one tile of all columns, 128 K
+    rows), the tile's pitch ``tc`` in shared memory and ``g``, the B rows
+    one TMA row holds."""
+    map: TmaMap
+    wide: bool
+    tc: int
+    g: int
+
+    @property
+    def bk(self) -> int:
+        return WIDE_BK if self.wide else NARROW_BK
+
+
+def b_map(b: Blocked, data_ptr: int) -> Optional[BPlan]:
+    """The skinny kernel's reading of B (logical axes: row within a K
+    block, column block, K block); None when it needs a copy.  Narrow rows
+    whose pitch is not a multiple of 16 bytes (the scorer's W2, 10 f32
+    columns) are read ``g`` packed rows to a TMA row."""
+    (r0, r1, c0, c1), (s_r0, s_r1, s_c0, s_c1) = b.shape, b.strides
+    if c1 > 1 and s_c1 != 1:
+        return None
+    if c0 > 1 or c1 > NARROW_MAX_COLS:
+        m = _tma_map(c1, [(r1, s_r1), (c0, s_c0), (r0, s_r0)], data_ptr,
+                     WIDE_COLS, WIDE_BK)
+        return None if m is None else BPlan(m, True, WIDE_COLS, 1)
+    if r1 == 1 or s_r1 * 4 % 16 == 0:
+        tc = -(-c1 // 4) * 4
+        m = _tma_map(c1, [(r1, s_r1), (c0, s_c0), (r0, s_r0)], data_ptr, tc,
+                     NARROW_BK)
+        return None if m is None else BPlan(m, False, tc, 1)
+    g = 16 // math.gcd(c1 * 4, 16)
+    if s_r1 != c1 or r1 % g:                 # rows not packed, or ragged
+        return None
+    m = _tma_map(g * c1, [(r1 // g, g * c1), (c0, s_c0), (r0, s_r0)],
+                 data_ptr, g * c1, NARROW_BK // g)
+    return None if m is None else BPlan(m, False, c1, g)
+
+
+def a_map(a: Blocked, data_ptr: int, bk: int) -> Optional[TmaMap]:
+    """The skinny kernel's reading of A (logical axes: row within a row
+    block, K block, row block; a box is ``bk`` columns of one row block);
+    None when it needs a copy."""
+    (r0, r1, c0, c1), (s_r0, s_r1, s_c0, s_c1) = a.shape, a.strides
+    if c1 > 1 and s_c1 != 1:
+        return None
+    return _tma_map(c1, [(r1, s_r1), (c0, s_c0), (r0, s_r0)], data_ptr, bk,
+                    r1)
+
+
+def _k_pairs(a: Blocked, b: Blocked):
+    """A and B cut to one K blocking — A's columns (c0, c1) equal to B's
+    rows (r0, r1) — in the ways their layouts allow."""
+    if a.shape[2:] == b.shape[:2]:
+        yield a, b
+    if b.shape[0] == 1 and a.shape[2] > 1:
+        yield a, b.split_rows(*a.shape[2:])
+    if a.shape[2] == 1 and b.shape[0] > 1:
+        yield a.split_cols(*b.shape[:2]), b
+
+
+class OperandPlan(NamedTuple):
+    """The skinny kernel's reading of one call, or what to copy first:
+    ``copy_b`` (B's own layout is unreadable), else ``copy_a`` (A's, or no
+    K blocking both share)."""
+    copy_a: bool = False
+    copy_b: bool = False
+    a: Optional[Blocked] = None
+    b: Optional[Blocked] = None
+    a_map: Optional[TmaMap] = None
+    b_plan: Optional[BPlan] = None
+
+
+def plan_operands(a_view: Tuple, b_view: Tuple) -> OperandPlan:
+    """The skinny kernel's plan for operands given as ``(shape, strides,
+    data_ptr, rows)``: both read in place, or which to copy."""
+    bv = blocked_view(b_view[0], b_view[1], b_view[3])
+    if bv is None:
+        return OperandPlan(copy_b=True)
+    av = blocked_view(a_view[0], a_view[1], a_view[3])
+    tried = None
+    for a2, b2 in (_k_pairs(av, bv) if av is not None else ()):
+        bp = b_map(b2, b_view[2])
+        if b2 is bv:
+            tried = bp
+        am = bp and a_map(a2, a_view[2], bp.bk)
+        if am is not None:
+            return OperandPlan(a=a2, b=b2, a_map=am, b_plan=bp)
+    if (tried or b_map(bv, b_view[2])) is None:
+        return OperandPlan(copy_b=True)
+    return OperandPlan(copy_a=True, b=bv)
+
+
+def _padded_copy(src: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``src`` as values of ``shape`` in a fresh buffer whose last axis is
+    padded to a multiple of 4 f32 (16 bytes): a view of that shape."""
+    pad = -(-shape[-1] // 4) * 4
+    buf = torch.empty(tuple(shape[:-1]) + (pad,), dtype=src.dtype,
+                      device=src.device)
+    view = buf[..., :shape[-1]]
+    view.copy_(src.reshape(shape))
+    return view
+
+
+class SkinnyPlan(NamedTuple):
+    """The skinny kernel's launch plan (its first 15 fields are those of
+    ``SkinnyArgs`` in ``csrc/matmul.cu``, then a block's shared memory):
+    ``mp`` rows padded to 4, 8 or 16; K in ``ktiles`` tiles (``ktpb`` per K
+    block), cut into ``splits`` of ``kts`` tiles; N in ``ntiles`` column
+    tiles (``ntpb`` per column block of ``n1`` columns)."""
+    m: int
+    n: int
+    mp: int
+    wide: bool
+    tc: int
+    g: int
+    n1: int
+    ntpb: int
+    ntiles: int
+    ktpb: int
+    ktiles: int
+    kts: int
+    splits: int
+    a_r0: int
+    a_r1: int
+    smem: int
+
+
+def skinny_smem(wide: bool, tc: int, mp: int, kts: int) -> int:
+    """Shared memory of one block, as ``sk_layout`` in ``csrc/matmul.cu``
+    lays it out: the B ring, A's slice, the row groups' sums, barriers."""
+    bk = WIDE_BK if wide else NARROW_BK
+    groups = 4 if wide else 128 // tc
+    red = -(-groups * mp * tc * 4 // 128) * 128
+    return SKINNY_STAGES * bk * tc * 4 + kts * mp * bk * 4 + red + 256
+
+
+def plan_skinny(a: Blocked, b: Blocked, bp: BPlan,
+                num_sms: int) -> SkinnyPlan:
+    """Tiles and splits for A and B in one K blocking: K is split only as
+    far as A's slice must fit in shared memory, or the card needs more
+    work items than the output has column tiles."""
+    m, n = a.rows, b.cols
+    mp = 4 if m <= 4 else 8 if m <= 8 else 16
+    k0, k1, n0, n1 = b.shape
+    ktpb = -(-k1 // bp.bk)
+    ktiles = k0 * ktpb
+    ntpb = -(-n1 // bp.tc) if bp.wide else 1
+    ntiles = n0 * ntpb
+    kts_max = max(1, A_SLICE_BYTES // (mp * bp.bk * 4))
+    want = min(-(-num_sms // ntiles), -(-ktiles // MIN_SPLIT_TILES))
+    splits = max(-(-ktiles // kts_max), want, 1)
+    kts = -(-ktiles // splits)
+    splits = -(-ktiles // kts)
+    return SkinnyPlan(m, n, mp, bp.wide, bp.tc, bp.g, n1, ntpb, ntiles,
+                      ktpb, ktiles, kts, splits, a.shape[0], a.shape[1],
+                      skinny_smem(bp.wide, bp.tc, mp, kts))
+
+
+# ---------------------------------------------------------------- routing
+def _dims(t: torch.Tensor, rows: Optional[int], name: str) -> Tuple[int, int]:
+    """(rows, columns) of the matrix an operand stands for."""
+    if rows is None:
+        if t.dim() != 2:
+            raise ValueError(f"matmul takes 2-D operands, or N-D views with "
+                             f"{name}_rows, got {name} {tuple(t.shape)}")
+        rows = 1
+    if not 1 <= rows < t.dim():
+        raise ValueError(f"{name}_rows must be in [1, {t.dim()}), got {rows}")
+    return math.prod(t.shape[:rows]), math.prod(t.shape[rows:])
+
+
+def route(a: torch.Tensor, b: torch.Tensor, impl: str = "auto",
+          a_rows: Optional[int] = None) -> str:
+    """Where :func:`matmul` sends a call: ``"plain"``, ``"skinny"`` (f32
+    with at most :data:`SKINNY_MAX_M` rows) or ``"tile"``."""
+    return _route(a, b, impl, _dims(a, a_rows, "a")[0])
+
+
+def _route(a: torch.Tensor, b: torch.Tensor, impl: str, m: int) -> str:
+    if impl == "plain" or (impl == "auto" and a.device.type == "cpu"
+                           and b.device.type == "cpu"):
+        return "plain"
+    return ("skinny" if a.dtype == torch.float32 and m <= SKINNY_MAX_M
+            else "tile")
 
 
 def plan_launch(m: int, n: int, k: int, num_sms: int) -> Tuple[int, int, int]:
-    """``(config, splits, kchunk)`` for an ``(m, k) @ (k, n)`` product.
+    """``(config, splits, kchunk)`` of the tile kernel for an ``(m, k) @
+    (k, n)`` product.
 
-    Skinny ``a`` (m <= 16, the scorer's buckets) takes 8 x 128 tiles, larger
-    products 64 x 64.  When the output has fewer tiles than two per SM, K is
-    split across blocks (each split at least four BK steps deep) and
+    Skinny ``a`` (m <= 16) takes 8 x 128 tiles, larger products 64 x 64.
+    When the output has fewer tiles than two per SM, K is split across
+    blocks (each split at least four BK steps deep) and
     :func:`splitk_reduce` adds the partial sums in split order —
     deterministic.
     """
@@ -89,11 +419,11 @@ def plan_launch(m: int, n: int, k: int, num_sms: int) -> Tuple[int, int, int]:
     return config, splits, kchunk
 
 
-def _check(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.dtype:
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"matmul takes 2-D operands, got {tuple(a.shape)} "
-                         f"x {tuple(b.shape)}")
-    if a.shape[1] != b.shape[0]:
+def _check(a: torch.Tensor, b: torch.Tensor, out_dtype, a_rows,
+           b_rows) -> Tuple[torch.dtype, int, int, int]:
+    m, k = _dims(a, a_rows, "a")
+    kb, n = _dims(b, b_rows, "b")
+    if k != kb:
         raise ValueError(f"contraction mismatch {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
@@ -102,7 +432,29 @@ def _check(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.dtype:
     out_dtype = out_dtype or a.dtype
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"out_dtype must be f32 or bf16, got {out_dtype}")
-    return out_dtype
+    return out_dtype, m, k, n
+
+
+# ---------------------------------------------------------------- launches
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        from repro_torch.kernels.build import load
+        lib = load("matmul")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                     i32, i32, i32, i32, ptr]
+        lib.repro_matmul.restype = i32
+        lib.repro_splitk_reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i32,
+                                            i32, ptr]
+        lib.repro_splitk_reduce.restype = i32
+        lib.repro_matmul_skinny.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ctypes.c_char_p, ptr]
+        lib.repro_matmul_skinny.restype = i32
+        lib.repro_cuda_error_string.argtypes = [i32]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
 
 
 def _sm_count(device: torch.device) -> int:
@@ -120,21 +472,110 @@ def _raise_on(rc: int, what: str) -> None:
         raise KernelLaunchError(f"{what}: CUDA error {rc}: {msg}")
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    global LAUNCHES
+def _on_one_card(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"the matmul kernel takes operands on one CUDA "
+        raise ValueError(f"the matmul kernels take operands on one CUDA "
                          f"device, got {a.device} and {b.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("the matmul kernel takes contiguous row-major "
-                         "operands")
-    m, k = a.shape
-    n = b.shape[1]
+
+
+def _tickets(device: torch.device, stream: int, ntiles: int) -> torch.Tensor:
+    """The zeroed fold tickets of this stream, at least ``ntiles`` of them.
+    Each launch leaves its tickets zeroed again, so launches in order on
+    one stream share the buffer; a stream of its own gets a buffer of its
+    own."""
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < ntiles:
+        buf = torch.zeros(max(ntiles, 1024), dtype=torch.int32,
+                          device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
+def _skinny_operands(a, b, a_rows, b_rows, m, k, n):
+    """A and B as the skinny kernel reads them, copying (and counting)
+    what it cannot read in place; their :class:`OperandPlan`."""
+    global COPIES
+    plan = plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
+                         (b.shape, b.stride(), b.data_ptr(), b_rows))
+    if plan.copy_b:
+        bv = blocked_view(b.shape, b.stride(), b_rows)
+        shape = bv.shape if bv is not None else (1, k, 1, n)
+        b, b_rows = _padded_copy(b, shape), 2
+        COPIES += 1
+        plan = plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
+                             (b.shape, b.stride(), b.data_ptr(), b_rows))
+    if plan.copy_a:
+        k0, k1 = plan.b.shape[:2]
+        a, a_rows = _padded_copy(a, (1, m, k0, k1)), 2
+        COPIES += 1
+        plan = plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
+                             (b.shape, b.stride(), b.data_ptr(), b_rows))
+    if plan.copy_a or plan.copy_b:
+        raise RuntimeError(f"matmul: no readable layout after the copies "
+                           f"({plan})")
+    return a, b, plan
+
+
+def _launch_skinny(a, b, a_rows, b_rows, m, k, n, out_dtype,
+                   keep_partials: bool = False):
+    global SKINNY_LAUNCHES, FOLDS
+    a, b, op = _skinny_operands(a, b, a_rows, b_rows, m, k, n)
+    sp = plan_skinny(op.a, op.b, op.b_plan, _sm_count(a.device))
+    if sp.smem > MAX_SMEM:
+        raise ValueError(f"matmul: the skinny kernel's plan takes "
+                         f"{sp.smem} bytes of shared memory")
+    device = a.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out = torch.empty((m, n), dtype=out_dtype, device=device)
+    ws = tickets = None
+    if sp.splits > 1:
+        ws = torch.empty(sp.ntiles * sp.splits * sp.mp * sp.tc,
+                         dtype=torch.float32, device=device)
+        tickets = _tickets(device, stream, sp.ntiles)
+    desc = (op.a_map.spec() + op.b_plan.map.spec() + sp[:15]
+            + (op.a_map.perm, op.b_plan.map.perm,
+               int(out_dtype == torch.bfloat16)))
+    with torch.cuda.device(device):
+        rc = _lib().repro_matmul_skinny(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            _DESC.pack(*desc), stream)
+    _raise_on(rc, f"skinny matmul kernel launch failed ({m}x{k} @ {k}x{n}, "
+                  f"{sp.splits} splits)")
+    SKINNY_LAUNCHES += 1
+    FOLDS += sp.splits > 1
+    if not keep_partials:
+        return out
+    return out, (None if ws is None else _partials(ws, sp))
+
+
+def _partials(ws: torch.Tensor, sp: SkinnyPlan) -> torch.Tensor:
+    """The workspace's partial tiles as ``(splits, m, n)``, the form
+    :func:`.ref.splitk_reduce_ref` adds."""
+    tiles = ws.view(sp.ntiles, sp.splits, sp.mp, sp.tc)
+    out = torch.empty((sp.splits, sp.m, sp.n), dtype=torch.float32,
+                      device=ws.device)
+    for t in range(sp.ntiles):
+        c0, j = divmod(t, sp.ntpb)
+        w = min(sp.tc, sp.n1 - j * sp.tc)
+        col = c0 * sp.n1 + j * sp.tc
+        out[:, :, col:col + w] = tiles[t, :, :sp.m, :w]
+    return out
+
+
+def _launch_tile(a: torch.Tensor, b: torch.Tensor, m: int, k: int, n: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    global LAUNCHES, COPIES
+    if not a.is_contiguous():
+        COPIES += 1
+    if not b.is_contiguous():
+        COPIES += 1
+    a = a.reshape(m, k).contiguous()
+    b = b.reshape(k, n).contiguous()
     if max(m, n, k) >= 2 ** 31:
         raise ValueError(f"matmul dims must be < 2**31, got {m}, {k}, {n}")
-    if m == 0 or n == 0 or k == 0:
-        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
     lib = _lib()
     config, splits, kchunk = plan_launch(m, n, k, _sm_count(a.device))
     bm = TILE_CONFIGS[config][0]
@@ -162,9 +603,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor,
 def splitk_reduce(partial: torch.Tensor, *, impl: str = "auto",
                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``partial`` (splits, m, n) f32 summed over its first axis in split
-    order: the second pass of a split-K :func:`matmul`.  ``impl`` is
-    ``"auto"`` (plain version for a CPU tensor, kernel for a CUDA tensor)
-    or ``"kernel"``, as in :func:`matmul`."""
+    order: the second pass of a split-K product on the tile kernel.
+    ``impl`` is ``"auto"`` (plain version for a CPU tensor, kernel for a
+    CUDA tensor) or ``"kernel"``, as in :func:`matmul`."""
     global REDUCE_LAUNCHES
     if impl not in ("auto", "kernel"):
         raise ValueError(f"impl must be auto or kernel, got {impl!r}")
@@ -193,12 +634,23 @@ def splitk_reduce(partial: torch.Tensor, *, impl: str = "auto",
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``a @ b`` for 2-D f32 or bf16 operands, summed in f32."""
+           out_dtype: Optional[torch.dtype] = None,
+           a_rows: Optional[int] = None,
+           b_rows: Optional[int] = None) -> torch.Tensor:
+    """``a @ b`` for f32 or bf16 operands, summed in f32.  An operand is a
+    2-D tensor, or an N-D view whose leading ``a_rows`` (``b_rows``) axes
+    are its rows: it stands for ``a.reshape(rows, -1)``."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
-    out_dtype = _check(a, b, out_dtype)
-    if impl == "plain" or (impl == "auto" and a.device.type == "cpu"
-                           and b.device.type == "cpu"):
-        return matmul_ref(a, b, out_dtype)
-    return _launch(a, b, out_dtype)
+    out_dtype, m, k, n = _check(a, b, out_dtype, a_rows, b_rows)
+    where = _route(a, b, impl, m)
+    if where == "plain":
+        return matmul_ref(a.reshape(m, k), b.reshape(k, n), out_dtype)
+    _on_one_card(a, b)
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
+    if where == "skinny":
+        return _launch_skinny(a, b, a_rows or 1, b_rows or 1, m, k, n,
+                              out_dtype)
+    return _launch_tile(a, b, m, k, n, out_dtype)
+

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card (marked ``gpu``).
 
-The matmul tile kernel, the split-K reduction, the flash attention kernel
-and the SSD scan kernel have no CPU mode, so these tests skip without a
-CUDA device.
+The matmul's skinny kernel, tile kernel and split-K reduction, the flash
+attention kernel and the SSD scan kernel have no CPU mode, so these tests
+skip without a CUDA device.
 With a card they run with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -11,7 +11,13 @@ holding each kernel against its plain version.  The matmul
 (``matmul_ref``) at the shapes of ``tests/test_kernels.py``, the ragged
 100×70×50 case and the scorer's two product shapes: f32 at rtol 1e-5
 (1e-4 at K = 100000, where the summation orders differ over many more
-terms), atol 1e-5·√K; bf16 at 2e-2.  Flash attention (``attention_ref``)
+terms), atol 1e-5·√K; bf16 at 2e-2 — f32 with at most 16 rows through the
+skinny kernel, the rest through the tile kernel, as the counters show; the
+skinny kernel on strided views read in place (the scorer's blocked W1,
+blocks with ragged edges, W2's 40-byte rows), copies only of layouts TMA
+cannot read, its split-K fold bit-equal to ``splitk_reduce_ref`` on its own
+partial tiles, and one scorer dispatch through the engine (2 skinny
+launches, no other, no copy).  Flash attention (``attention_ref``)
 at the cases of ``tests/test_kernels.py:47-76`` (f32 at 2e-4, bf16 at
 3e-2, as there), ragged lengths, ``sq < skv``, ``dv != d``, head dim 256,
 strided inputs and a gemma2-shaped case at S = 2048 — every bf16 case
@@ -61,19 +67,29 @@ def _operands(m, k, n, dtype, device, seed=2):
     return a.to(device=device, dtype=dt), b.to(device=device, dtype=dt)
 
 
+def _counts():
+    return (ops.SKINNY_LAUNCHES, ops.LAUNCHES, ops.REDUCE_LAUNCHES,
+            ops.FOLDS, ops.COPIES)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", SHAPES)
 @pytest.mark.parametrize("dtype", sorted(TOL))
 def test_kernel_matches_plain_on_card(cuda, m, k, n, dtype):
     a, b = _operands(m, k, n, dtype, cuda)
-    before, reduces = ops.LAUNCHES, ops.REDUCE_LAUNCHES
+    before = _counts()
     got = ops.matmul(a, b, impl="kernel")
     want = matmul_ref(a, b)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == before + 1
+    skinny, tile, reduces, _, copies = (x - y for x, y in zip(_counts(),
+                                                              before))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    split = ops.plan_launch(m, n, k, sms)[1] > 1
-    assert ops.REDUCE_LAUNCHES == reduces + split
+    if ops.route(a, b, "kernel") == "skinny":
+        assert (skinny, tile, reduces) == (1, 0, 0)
+    else:
+        split = ops.plan_launch(m, n, k, sms)[1] > 1
+        assert (skinny, tile, reduces) == (0, 1, int(split))
+    assert copies == 0
     assert got.dtype == a.dtype and tuple(got.shape) == (m, n)
     tol = TOL[dtype]
     rtol = 1e-4 if k >= 100000 and dtype == "float32" else tol
@@ -99,25 +115,48 @@ def test_out_dtype_on_card(cuda, out_dtype):
 
 @pytest.mark.gpu
 def test_unaligned_and_ragged_operands_on_card(cuda):
-    """A B that starts off a 16-byte boundary takes the scalar load path
-    (N = 128 would otherwise take float4 loads)."""
+    """A B that starts off a 16-byte boundary takes the tile kernel's
+    scalar load path (N = 128 would otherwise take float4 loads)."""
     base = torch.randn(64 * 128 + 1, device=cuda)
     b = base[1:].view(64, 128)                 # contiguous, 4-byte offset
     a = torch.randn(5, 64, device=cuda)
+    launches, copies = ops.LAUNCHES, ops.COPIES
+    got = ops._launch_tile(a, b, 5, 64, 128, torch.float32)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               matmul_ref(a, b).cpu().numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert (ops.LAUNCHES, ops.COPIES) == (launches + 1, copies)
+
+
+@pytest.mark.gpu
+def test_skinny_kernel_copies_an_unaligned_operand_once_on_card(cuda):
+    """The same B is out of TMA's reach: the skinny kernel's op copies it
+    once, and counts the copy."""
+    base = torch.randn(64 * 128 + 1, device=cuda)
+    b = base[1:].view(64, 128)
+    a = torch.randn(5, 64, device=cuda)
+    launches, copies = ops.SKINNY_LAUNCHES, ops.COPIES
     np.testing.assert_allclose(ops.matmul(a, b).cpu().numpy(),
                                matmul_ref(a, b).cpu().numpy(), rtol=1e-5,
                                atol=1e-4)
+    assert (ops.SKINNY_LAUNCHES, ops.COPIES) == (launches + 1, copies + 1)
 
 
 @pytest.mark.gpu
 def test_auto_on_card_launches_the_kernel(cuda):
     a = torch.randn(8, 64, device=cuda)
     b = torch.randn(64, 32, device=cuda)
-    before = ops.LAUNCHES
+    before = ops.SKINNY_LAUNCHES
     ops.matmul(a, b)
-    assert ops.LAUNCHES == before + 1
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.matmul(a, b.t().contiguous().t())
+    assert ops.SKINNY_LAUNCHES == before + 1
+    # a non-contiguous (column-major) B no longer raises: it is copied into
+    # a layout the kernel reads, and counted
+    copies = ops.COPIES
+    bt = b.t().contiguous().t()
+    np.testing.assert_allclose(ops.matmul(a, bt).cpu().numpy(),
+                               matmul_ref(a, b).cpu().numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert ops.COPIES == copies + 1
     with pytest.raises(ValueError, match="CUDA device"):
         ops.matmul(a, b.cpu())
 
@@ -125,24 +164,106 @@ def test_auto_on_card_launches_the_kernel(cuda):
 @pytest.mark.gpu
 def test_scorer_dispatch_launches_twice_on_card(cuda):
     """Through the engine: one speech-shaped scorer dispatch (narrow
-    hidden width) launches the kernel once per fused product."""
+    hidden width) launches the skinny kernel once per fused product, reads
+    the blocked W1 and W2 in place (no copy), and launches neither the tile
+    kernel nor a separate reduction: the split second product folds its
+    sum in its own launch."""
     from repro_torch.core import Engine
     from repro_torch.serve import FFNNScorer
     sc = FFNNScorer(db=4, hb=10, lb=1, bd=400, bh=100, bl=10, device=cuda)
     eng = Engine(executor="jit", device=cuda)
     payloads = [sc.random_payload(np.random.default_rng(i)) for i in range(3)]
-    before, reduces = ops.LAUNCHES, ops.REDUCE_LAUNCHES
+    before = _counts()
     out = eng.run(sc.program(4)["scores"], **sc.pack(payloads, 4),
                   **sc.weights())
-    assert ops.LAUNCHES == before + 2
-    # each product whose output has too few tiles splits K and reduces
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    split = sum(ops.plan_launch(4, n, k, sms)[1] > 1
-                for k, n in ((1600, 1000), (1000, 10)))
-    assert ops.REDUCE_LAUNCHES == reduces + split
+    skinny, tile, reduces, folds, copies = (x - y for x, y in
+                                            zip(_counts(), before))
+    assert (skinny, tile, reduces, copies) == (2, 0, 0, 0)
+    assert folds >= 1                       # (4 x 1000) @ (1000 x 10) splits
     got = out.data[:3].reshape(3, -1).cpu().numpy()
     for p, g in zip(payloads, got):
         np.testing.assert_allclose(g, sc.oracle(p), atol=1e-5)
+
+
+def _blocked(r0, r1, c0, c1, device, seed):
+    """A (r0·r1, c0·c1) matrix held as the permuted view (r0, r1, c0, c1)
+    of a (r0, c0, r1, c1) tensor, as the engine hands over a blocked
+    relation; and the same values as a contiguous 2-D tensor."""
+    r = np.random.default_rng(seed)
+    t = torch.tensor(r.standard_normal((r0, c0, r1, c1)),
+                     dtype=torch.float32, device=device)
+    view = t.permute(0, 2, 1, 3)
+    return view, view.reshape(r0 * r1, c0 * c1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,blocks", [
+    (8, (4, 400, 10, 1000)),      # the scorer's W1 at a narrow width
+    (3, (3, 100, 5, 1000)),       # ragged inside each block: 100 and 1000
+    (16, (2, 72, 3, 52)),         # 16 rows, blocks narrower than a tile
+    (1, (5, 33, 1, 300)),
+])
+def test_skinny_kernel_reads_blocked_views_in_place(cuda, m, blocks):
+    view, dense = _blocked(*blocks, cuda, seed=m)
+    k = blocks[0] * blocks[1]
+    a = torch.randn(m, k, device=cuda)
+    before = _counts()
+    got = ops.matmul(a, view, b_rows=2)
+    want = matmul_ref(a, dense)
+    torch.cuda.synchronize()
+    skinny, tile, _, _, copies = (x - y for x, y in zip(_counts(), before))
+    assert (skinny, tile, copies) == (1, 0, 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * k ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(8, 10), (8, 7), (8, 4), (16, 10),
+                                 (2, 32)])
+def test_skinny_kernel_reads_short_rows_in_place(cuda, m, n):
+    """A narrow B whose rows are not a multiple of 16 bytes (the scorer's
+    W2: 10 f32) is read a group of packed rows at a time, not copied."""
+    k = 4096
+    a = torch.randn(m, k, device=cuda)
+    b = torch.randn(k, n, device=cuda)
+    copies = ops.COPIES
+    got = ops.matmul(a, b)
+    assert ops.COPIES == copies
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               matmul_ref(a, b).cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * k ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 100000, 10), (1, 100000, 10),
+                                   (8, 1600, 4000), (16, 20000, 300)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_skinny_fold_is_splitk_reduce_ref_of_its_partials(cuda, m, k, n,
+                                                          out_dtype):
+    """The fold adds the splits' partial tiles in split order: its output
+    equals ``splitk_reduce_ref`` of the kernel's own partials to the bit."""
+    a, b = _operands(m, k, n, "float32", cuda, seed=5)
+    folds = ops.FOLDS
+    got, partials = ops._launch_skinny(a, b, 1, 1, m, k, n, out_dtype,
+                                       keep_partials=True)
+    assert partials is not None and partials.shape[1:] == (m, n)
+    assert ops.FOLDS == folds + 1
+    assert torch.equal(got, splitk_reduce_ref(partials, out_dtype))
+
+
+@pytest.mark.gpu
+def test_skinny_launches_on_two_streams_keep_their_own_tickets(cuda):
+    a, b = _operands(8, 100000, 10, "float32", cuda, seed=6)
+    want = ops.matmul(a, b)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for s in (s1, s2, s1, s2):
+        with torch.cuda.stream(s):
+            outs.append(ops.matmul(a, b))
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(o, want)
 
 
 @pytest.mark.gpu

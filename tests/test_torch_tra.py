@@ -115,6 +115,57 @@ def test_fused_2d_branch_is_taken_only_unmasked(monkeypatch):
     assert len(calls) == 1
 
 
+@pytest.mark.parametrize("bucket", [1, 8])
+def test_scorer_products_take_the_relations_own_tensors(bucket, monkeypatch):
+    """The scorer's two fused products with its blocking (db=4, hb=10,
+    lb=1) at narrow widths (bd=40, bh=100, bl=10), against
+    ``repro.core.tra.fused_join_agg`` at 1e-5.  ``_fused_matmul_2d`` hands
+    the matmul op views of the relations' own storage (W1 as the permuted
+    (db, bd, hb, bh) view), and the skinny kernel's plan reads every one in
+    place: no copy."""
+    from repro_torch.kernels.matmul import ops
+    seen = []
+    real = ops.matmul
+
+    def spy(a, b, **kw):
+        seen.append((a, b, kw))
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(ops, "matmul", spy)
+    r = rng(7)
+
+    def pair(key_shape, bound, fan_in=1):
+        # weights scaled by 1/sqrt(fan_in), as a layer's are
+        data = normal(r, key_shape + bound) / np.float32(fan_in ** 0.5)
+        return (jtra.TensorRelation(jnp.asarray(data),
+                                    jtra.RelType(key_shape, bound)),
+                ttra.TensorRelation(torch.from_numpy(data.copy()),
+                                    ttra.RelType(key_shape, bound)))
+
+    jx, tx = pair((bucket, 4), (1, 40))
+    jw1, tw1 = pair((4, 10), (40, 100), 160)
+    jw2, tw2 = pair((10, 1), (100, 10), 1000)
+    jmm, tmm = jkr.get_kernel("matMul"), tkr.get_kernel("matMul")
+    jadd, tadd = jkr.get_kernel("matAdd"), tkr.get_kernel("matAdd")
+    jh = jtra.fused_join_agg(jx, jw1, (1,), (0,), jmm, (0, 2), jadd)
+    th = ttra.fused_join_agg(tx, tw1, (1,), (0,), tmm, (0, 2), tadd)
+    assert_rel_close(jh, th, TOL)
+    want = jtra.fused_join_agg(jh, jw2, (1,), (0,), jmm, (0, 2), jadd)
+    got = ttra.fused_join_agg(th, tw2, (1,), (0,), tmm, (0, 2), tadd)
+    assert_rel_close(want, got, TOL)
+    (a1, b1, _), (a2, b2, _) = seen
+    assert a1.data_ptr() == tx.data.data_ptr()
+    assert b1.data_ptr() == tw1.data.data_ptr()
+    assert a2.data_ptr() == th.data.data_ptr()
+    assert b2.data_ptr() == tw2.data.data_ptr()
+    assert not b1.is_contiguous()       # W1 as (db, bd, hb, bh): a real view
+    for a, b, kw in seen:
+        plan = ops.plan_operands(
+            (a.shape, a.stride(), a.data_ptr(), kw["a_rows"]),
+            (b.shape, b.stride(), b.data_ptr(), kw["b_rows"]))
+        assert not (plan.copy_a or plan.copy_b)
+
+
 def test_chunked_lowering_not_ported():
     r = rng(5)
     _, tl = rel_pair(r, (3, 4), (2, 5))
