@@ -15,8 +15,8 @@ PyTorch version on the card:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
    ``nvcc`` per source, all started together), and counts the ``HGMMA``
-   instructions (``wgmma``) in the flash library's SASS and the ``UTMALDG``
-   (TMA loads) in the matmul library's: none fails;
+   instructions (``wgmma``) in the flash and SSD libraries' SASS and the
+   ``UTMALDG`` (TMA loads) in the matmul library's: none fails;
 3. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
    package's kernel tests, a ragged shape and the scorer's two products
    (f32 with at most 16 rows through the skinny kernel, the rest through
@@ -32,7 +32,8 @@ PyTorch version on the card:
 4. flash: ``attention`` against ``attention_ref`` at the JAX kernel
    tests' cases (f32 at 2e-4, bf16 at 3e-2), ragged lengths, ``sq <
    skv``, ``dv != d`` and gemma2-2b's two layer shapes (B=2, S=8192,
-   D=256, soft-cap 50: window 4096 and global; bf16 at 6e-3, f32 at
+   D=256, soft-cap 50: window 4096 and global; bf16 within half a bf16
+   step plus ``GEMMA2_BF16_DELTA`` of the exact f64 attention, f32 at
    2e-4), every case also within a limit on each output row's error over
    that row's norm (bf16 1e-2, f32 1e-4); every bf16 case through the
    tensor-core kernel (``TC_LAUNCHES``), every f32 case through the FFMA
@@ -58,21 +59,28 @@ PyTorch version on the card:
    plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-7. ssd: ``ssd_scan`` (the SSD scan kernel) against ``ssd_chunked_ref`` at
-   the JAX kernel tests' cases, ragged S, S < chunk, B and C read as
-   slices of one (B, S, 2N) tensor (as the model hands them over) and as
-   contiguous tensors, and mamba2-130m's layer shape (B=8, S=8192, H=24,
-   P=64, N=128, L=128) in bf16 and f32: max |err| within ``SSD_TOL`` of
-   the largest |output| and each output row's error within
-   ``SSD_ROW_TOL`` of that row's norm; timed at the layer shape in bf16
-   with the plain version and the bound;
+7. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` at the JAX kernel
+   tests' cases, ragged S, S < chunk, B and C read as slices of one (B, S,
+   2N) tensor (as the model hands them over) and as contiguous tensors,
+   and mamba2-130m's layer shape (B=8, S=8192, H=24, P=64, N=128, L=128) —
+   every bf16 case through the tensor-core kernel (``TC_LAUNCHES``), every
+   f32 case through the FFMA kernel (``FFMA_LAUNCHES``): max |err| within
+   ``SSD_TOL`` of the largest |output| and each output row's error within
+   ``SSD_ROW_TOL`` of that row's norm; at the layer shape in bf16 the
+   final state from the same launch within ``SSD_TOL`` of the largest |h|
+   of ``ssd_final_state`` and within ``SSD_STATE_TOL`` of the largest |h|
+   of the f64 state; timed at the layer shape, bf16 on the tensor-core
+   kernel and f32 on the FFMA one, with the plain version and the bound;
 8. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
-   read just after (24 SSD launches, no other); in a second prefill,
-   every layer's SSD call on its real inputs against the plain version,
-   within the ssd phase's limits; the same weights in f32 through the
-   kernel and through the plain SSD scan, prefill and first decode logits
-   within ``MAMBA2_F32_LOGIT_TOL``; the bf16 run's prefill and first
+   read just after (24 launches of the tensor-core SSD kernel, none of
+   the FFMA one, no cast, no other kernel); in a second prefill, every
+   layer's SSD call on its real inputs against the plain versions, y and
+   final state within the ssd phase's limits (beside them, not gated, the
+   FFMA kernel's row error on the same inputs); the same weights in f32
+   through the FFMA kernel (24 launches a prefill) and through the plain
+   SSD scan, prefill and first decode logits within
+   ``MAMBA2_F32_LOGIT_TOL``; the bf16 run's prefill and first
    decode logits against the plain-SSD run's within ``BF16_FLOOR_FACTOR``
    of the model's rounding floor, measured here as the distance between
    the plain scan in half-size chunks and in full chunks (in bf16 the
@@ -124,10 +132,23 @@ ARCH = "gemma2-2b"
 PROMPT_BATCH, PROMPT_LEN, GEN = 2, 8192, 32
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # At S=8192 an output is a softmax average over thousands of keys, ~0.02,
-# so 3e-2 would hold nothing there: the gemma2 shapes take a max-abs limit
-# of 3x the error read on the card (chip calls 3-5: 1.95e-3), and every
-# case the largest error of one output row over that row's norm.
-GEMMA2_BF16_ATOL = 6e-3
+# so 3e-2 would hold nothing there.  The gemma2 bf16 shapes are held to the
+# exact attention (f64) instead: every output within half a bf16 step of
+# the exact value, the step taken at the larger of the two magnitudes, plus
+# GEMMA2_BF16_DELTA, 3x the largest excess over half a step that the card
+# read at those shapes (tools/flash_gate_census.py on an H100: 1.85e-6 for
+# the wgmma kernel over 64 draws at S=256 and 8 at S=8192 of each layer
+# kind; 7.3e-7 for the f32 FFMA kernel).  A correct kernel rounds an f32
+# result that lies within a few 1e-6 of the exact value, so it may land on
+# either bf16 neighbour of a value near their midpoint, and this gate
+# passes both; a limit against the plain version's bf16 output (the former
+# GEMMA2_BF16_ATOL, 6e-3) failed correct kernels on some draws, one step
+# apart.  With delta below 6e-3 the new limit, half a step plus delta,
+# lies below the former one, 6e-3 plus the plain output's own half step,
+# at every magnitude.  Every case also keeps the limit on the largest
+# error of one output row over that row's norm.
+GEMMA2_BF16_DELTA = 5.6e-6
+GEMMA2_BF16_ATOL = 6e-3          # the former gate: tools/flash_gate_census.py
 ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # The bf16 tensor-core kernel must round like an f32 computation: at
 # gemma2's head shape (first 256 rows, where outputs reach 1 and more) the
@@ -149,6 +170,14 @@ SSM_BATCH = 8                    # x PROMPT_LEN tokens, GEN decode steps
 # one step off, a dropped carried state and a decay 1% off.
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+# The final state is f32 in both dtypes, and the decode starts from it.
+# ssd_final_state (JAX's op) is itself 7.4e-4 of max|h| off the f64 state
+# on mamba2-130m's real inputs (an f32 cumsum over 8192 steps), so besides
+# SSD_TOL against it the kernel's state is held to the f64 state: within
+# SSD_STATE_TOL of the largest |h|.  This script read 2.2e-6 at the layer
+# shape and 2.2e-5 on the real inputs (H100 80GB HBM3 at 700 W); a state
+# rounded to bf16 lies ~2e-3 off.
+SSD_STATE_TOL = 1e-4
 # mamba2-130m end to end.  In f32 the kernel run's prefill and first decode
 # logits lay 1.2e-3 and 2.0e-3 from the plain-SSD run's (this script, H100
 # 80GB HBM3 at 700 W): the f32 limit is 10x the larger.  In bf16 this random
@@ -246,13 +275,15 @@ def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
     mm_ops.SKINNY_LAUNCHES = mm_ops.FOLDS = mm_ops.COPIES = 0
     flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
-    ssd_ops.LAUNCHES = 0
+    ssd_ops.LAUNCHES = ssd_ops.TC_LAUNCHES = ssd_ops.FFMA_LAUNCHES = 0
+    ssd_ops.COPIES = 0
 
 
 def read_launches() -> dict:
-    """Every kernel's launch count (``flash_attention`` is the sum of its
-    two kernels'), the skinny matmul launches that folded a split-K sum,
-    and the copies of operands the matmul and flash ops made."""
+    """Every kernel's launch count (``flash_attention`` and ``ssd_scan``
+    are the sums of their two kernels'), the skinny matmul launches that
+    folded a split-K sum, and the copies of operands the matmul, flash and
+    SSD ops made."""
     return {"matmul_skinny": mm_ops.SKINNY_LAUNCHES,
             "matmul_fold": mm_ops.FOLDS,
             "matmul_copies": mm_ops.COPIES,
@@ -262,7 +293,10 @@ def read_launches() -> dict:
             "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
             "flash_attention_ffma": flash_ops.FFMA_LAUNCHES,
             "flash_copies": flash_ops.COPIES,
-            "ssd_scan": ssd_ops.LAUNCHES}
+            "ssd_scan": ssd_ops.LAUNCHES,
+            "ssd_scan_wgmma": ssd_ops.TC_LAUNCHES,
+            "ssd_scan_ffma": ssd_ops.FFMA_LAUNCHES,
+            "ssd_copies": ssd_ops.COPIES}
 
 
 def launches_of(**nonzero) -> dict:
@@ -285,8 +319,8 @@ def phase_device(device) -> str:
 
 def phase_build() -> None:
     """Every kernel library at once, each source by its own ``nvcc``, all
-    in parallel; then the ``HGMMA`` count of the flash library and the
-    ``UTMALDG`` count of the matmul library."""
+    in parallel; then the ``HGMMA`` counts of the flash and SSD libraries
+    and the ``UTMALDG`` count of the matmul library."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SOURCES)) as pool:
@@ -298,11 +332,15 @@ def phase_build() -> None:
         emit({"phase": "build", "library": name, "seconds": seconds[name],
               "ptxas": usage})
     hgmma = build.sass_count("flash_attention", "HGMMA")
+    ssd_hgmma = build.sass_count("ssd_scan", "HGMMA")
     utmaldg = build.sass_count("matmul", "UTMALDG")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "flash_attention_hgmma": hgmma, "matmul_utmaldg": utmaldg})
+          "flash_attention_hgmma": hgmma, "ssd_scan_hgmma": ssd_hgmma,
+          "matmul_utmaldg": utmaldg})
     if hgmma == 0:
         fail("build: no HGMMA instruction in the flash library's SASS")
+    if ssd_hgmma == 0:
+        fail("build: no HGMMA instruction in the SSD library's SASS")
     if utmaldg == 0:
         fail("build: no UTMALDG (TMA load) in the matmul library's SASS")
 
@@ -678,35 +716,63 @@ def flash_bound_times(b, hq, hkv, sq, skv, d, dv, dtype, causal,
     return nbytes / H100_SXM.hbm_bw * 1e3, flops / PEAK[dtype] * 1e3
 
 
-def flash_errors(o, r, dtype, atol=None) -> dict:
+def bf16_half_step(m: torch.Tensor) -> torch.Tensor:
+    """Half the spacing of bf16 numbers at magnitude ``m``, in f64:
+    2^(e-8) for |m| in [2^e, 2^(e+1)) (bf16 keeps 8 significant bits)."""
+    m = m.double().abs().clamp_min(2.0 ** -126)
+    _, e = torch.frexp(m)                 # m = f·2^e with f in [0.5, 1)
+    return torch.ldexp(torch.ones_like(m), e - 9)
+
+
+def exact_gate(o, exact, delta=GEMMA2_BF16_DELTA) -> dict:
+    """``o`` (a bf16 output, any float type) against ``exact`` (the f64
+    attention): the outputs further from the exact value than half a bf16
+    step at the larger of the two magnitudes plus ``delta``
+    (``crossings``), and the largest excess over half a step."""
+    o = o.double()
+    excess = (o - exact).abs() - bf16_half_step(torch.maximum(o.abs(),
+                                                              exact.abs()))
+    return {"crossings": int((excess > delta).sum()),
+            "max_excess_over_half_step": excess.max().item(),
+            "delta": delta}
+
+
+def flash_errors(o, r, dtype, atol=None, exact=None) -> dict:
     """``o`` (the kernel's output) against ``r`` (the plain version's),
     both f32: elementwise within ``atol + rtol·|r|`` (both ``FLASH_TOL``,
-    or ``atol`` alone when given), and each row's error within
-    ``ROW_REL_TOL`` of that row's norm.  ``fault`` says what failed, or is
-    None."""
+    or ``atol`` alone when given) — or, when ``exact`` (the f64 attention)
+    is given, within :func:`exact_gate` of it — and each row's error
+    within ``ROW_REL_TOL`` of that row's norm.  ``fault`` says what
+    failed, or is None."""
     rtol, atol = (FLASH_TOL[dtype],) * 2 if atol is None else (0.0, atol)
     err = (o - r).abs()
     # a fully masked row is 0 in both: 0 / tiny = 0
     row_rel = ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
                ).max().item()
+    gate = exact_gate(o, exact) if exact is not None else None
+    out = gate if gate else {"rtol": rtol, "atol": atol}
     fault = None
     if not bool(torch.isfinite(o).all()):
         fault = "output not finite"
-    elif bool((err > atol + rtol * r.abs()).any()):
+    elif gate and gate["crossings"]:
+        fault = (f"{gate['crossings']} outputs further than half a bf16 "
+                 f"step + {gate['delta']} from the exact attention (largest "
+                 f"excess {gate['max_excess_over_half_step']})")
+    elif not gate and bool((err > atol + rtol * r.abs()).any()):
         fault = f"max |err| {err.max().item()} over rtol={rtol} atol={atol}"
     elif not row_rel <= ROW_REL_TOL[dtype]:
         fault = (f"a row's error is {row_rel} of its norm, over "
                  f"{ROW_REL_TOL[dtype]}")
-    return {"max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
-            "max_row_rel_err": row_rel, "row_rel_tol": ROW_REL_TOL[dtype],
-            "fault": fault}
+    return {"max_abs_err": err.max().item(), **out, "max_row_rel_err": row_rel,
+            "row_rel_tol": ROW_REL_TOL[dtype], "fault": fault}
 
 
 def flash_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
-               iters=0, atol=None) -> dict:
+               iters=0, atol=None, exact=False) -> dict:
     """The kernel against ``attention_ref`` on one input
-    (:func:`flash_errors`); timed (kernel, plain, bound) when ``iters`` >
-    0."""
+    (:func:`flash_errors`; elementwise against the f64 attention of the
+    same inputs when ``exact``); timed (kernel, plain, bound) when
+    ``iters`` > 0."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
     q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, dv)
@@ -723,7 +789,9 @@ def flash_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
         fail(f"{name}: got {tuple(out.shape)} {out.dtype}")
     o, r = out.float(), ref.float()
     del out, ref
-    errs = flash_errors(o, r, dtype, atol)
+    ex = exact_attention(q, k, v, rows=512, **kw) if exact else None
+    errs = flash_errors(o, r, dtype, atol, ex)
+    del ex
     fault = errs.pop("fault")
     if fault is not None:
         fail(f"{name}: {fault}")
@@ -789,7 +857,7 @@ def phase_flash(device, gen) -> dict:
     for kind, layer in (("window", 0), ("global", 1)):
         kw = gemma2_layer_kw(cfg, layer)
         layers[kind] = flash_case(*dims, torch.bfloat16, kw, device, gen,
-                                  iters=4, atol=GEMMA2_BF16_ATOL)
+                                  iters=4, exact=True)
         emit({"phase": "flash", "at": f"{ARCH} {kind} layer",
               **layers[kind]})
         rows.append(flash_case(*dims, torch.float32, kw, device, gen,
@@ -809,26 +877,36 @@ def phase_flash(device, gen) -> dict:
             "rounding": rounding}
 
 
-def exact_attention(q, k, v, *, causal, window, softcap, scale=None):
+def exact_attention(q, k, v, *, causal, window, softcap, scale=None,
+                    rows=None):
     """``attention_ref``'s function computed in f64: the yardstick that
-    both the kernel and the plain version round from."""
+    both the kernel and the plain version round from.  Computed in blocks
+    of ``rows`` query rows (all at once when None), so that the f64 scores
+    of a long sequence stay within memory."""
     group = q.shape[1] // k.shape[1]
     scale = scale if scale is not None else q.shape[3] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.double(),
-                     k.double().repeat_interleave(group, 1)) * scale
-    if softcap > 0.0:
-        s = softcap * torch.tanh(s / softcap)
-    rows = torch.arange(q.shape[2], device=q.device)[:, None] \
-        + (k.shape[2] - q.shape[2])
+    kd = k.double().repeat_interleave(group, 1)
+    vd = v.double().repeat_interleave(group, 1)
     cols = torch.arange(k.shape[2], device=q.device)[None, :]
-    mask = torch.ones_like(s[0, 0], dtype=torch.bool)
-    if causal:
-        mask &= rows >= cols
-    if window > 0:
-        mask &= rows - cols < window
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1).nan_to_num(0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p,
-                        v.double().repeat_interleave(group, 1))
+    step = rows or q.shape[2]
+    out = []
+    for r0 in range(0, q.shape[2], step):
+        qb = q[:, :, r0:r0 + step].double()
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kd) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        pos = torch.arange(r0, r0 + qb.shape[2], device=q.device)[:, None] \
+            + (k.shape[2] - q.shape[2])
+        mask = torch.ones_like(s[0, 0], dtype=torch.bool)
+        if causal:
+            mask &= pos >= cols
+        if window > 0:
+            mask &= pos - cols < window
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")),
+                          -1).nan_to_num(0.0)
+        del s
+        out.append(torch.einsum("bhqk,bhkd->bhqd", p, vd))
+    return torch.cat(out, 2)
 
 
 def rounded_off(o, exact) -> int:
@@ -842,7 +920,7 @@ def flash_rounding(cfg, device, seeds: int = 8, s: int = 256) -> dict:
     gemma2-2b's head shape and soft-cap, causal, over the first ``s`` rows
     (``seeds`` draws): elements that differ from the correctly rounded
     f64 attention, within ``FLASH_ROUNDING_FACTOR`` of the plain count.
-    (How often a fresh draw takes the kernel past ``GEMMA2_BF16_ATOL``:
+    (How often a fresh draw takes a kernel past the gemma2 gate:
     ``tools/flash_gate_census.py``.)"""
     kw = gemma2_layer_kw(cfg, 1)
     shapes = ((PROMPT_BATCH, cfg.n_heads, s, cfg.head_dim),
@@ -1199,17 +1277,63 @@ def ssd_bound_times(b, s, h, p, n, chunk, dtype) -> tuple:
     return nbytes / H100_SXM.hbm_bw * 1e3, flops / PEAK[dtype] * 1e3
 
 
+def exact_final_state(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """``ssd_final_state``'s function in f64: the yardstick of both the
+    kernels' state and ``ssd_final_state``'s (an f32 cumsum over the whole
+    sequence, whose own rounding grows with S)."""
+    xd, dtd = x.double(), dt.double()
+    a = torch.cumsum(dtd * A.double()[None, None, :], dim=1)
+    w = torch.exp(a[:, -1:, :] - a) * dtd
+    return torch.einsum("bsn,bshp->bhnp", Bm.double(), xd * w[..., None])
+
+
+def ssd_state_errors(hk, x, dt, A, bm, cm, dtype) -> dict:
+    """The kernel's final state ``hk`` against ``ssd_final_state`` on the
+    same inputs, max |err| within ``SSD_TOL·max|h|``, and against the f64
+    state, within ``SSD_STATE_TOL`` of its largest |h|; beside them,
+    ``ssd_final_state``'s own distance to the f64 state.  ``fault`` says
+    what failed, or is None."""
+    href = ssd_ops.ssd_final_state(x, dt, A, bm, cm)
+    exact = exact_final_state(x, dt, A, bm, cm)
+    top = exact.abs().max().item()
+    err = (hk - href).abs().max().item()
+    atol = SSD_TOL[dtype] * href.abs().max().item()
+    rel = (hk.double() - exact).abs().max().item() / top
+    fault = None
+    if not bool(torch.isfinite(hk).all()):
+        fault = "final state not finite"
+    elif not err <= atol:
+        fault = f"final state: max |err| {err} over {atol}"
+    elif not rel <= SSD_STATE_TOL:
+        fault = (f"final state: {rel} of max|h| off the f64 state, over "
+                 f"{SSD_STATE_TOL}")
+    return {"state_max_abs_err": err, "state_atol": atol,
+            "state_vs_f64_rel": rel, "state_f64_tol": SSD_STATE_TOL,
+            "final_state_fn_vs_f64_rel":
+                (href.double() - exact).abs().max().item() / top,
+            "fault": fault}
+
+
 def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
-             strided=True) -> dict:
-    """The kernel against ``ssd_chunked_ref`` on one input
-    (:func:`ssd_errors`); timed (kernel, plain, bound) when ``iters`` >
-    0."""
+             strided=True, state=False) -> dict:
+    """The kernel that ``dtype`` routes to (bf16: the tensor-core kernel,
+    f32: the FFMA kernel) against ``ssd_chunked_ref`` on one input
+    (:func:`ssd_errors`); with ``state``, its final state from the same
+    launch against ``ssd_final_state`` (:func:`ssd_state_errors`); timed
+    (kernel, plain, bound) when ``iters`` > 0."""
     x, dt, A, bm, cm = ssd_inputs(b, s, h, p, n, dtype, device, gen,
                                   strided)
-    out = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk, impl="kernel")
+    before = (ssd_ops.TC_LAUNCHES, ssd_ops.FFMA_LAUNCHES)
+    out = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk, impl="kernel",
+                           return_final_state=state)
+    routed = (ssd_ops.TC_LAUNCHES - before[0],
+              ssd_ops.FFMA_LAUNCHES - before[1])
+    out, hk = out if state else (out, None)
     ref = ssd_chunked_ref(x, dt, A, bm, cm, min(chunk, s))
     torch.cuda.synchronize(device)
     name = f"ssd_scan b{b} s{s} h{h} p{p} n{n} chunk{chunk} {dtype}"
+    if routed != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
+        fail(f"{name}: (tensor-core, FFMA) launches {routed}")
     if out.shape != x.shape or out.dtype != dtype:
         fail(f"{name}: got {tuple(out.shape)} {out.dtype}")
     o, r = out.float(), ref.float()
@@ -1219,10 +1343,17 @@ def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
     if fault is not None:
         fail(f"{name}: {fault}")
     row = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
-           "dtype": str(dtype).split(".")[-1], "bc_strided": strided, **errs,
+           "dtype": str(dtype).split(".")[-1], "bc_strided": strided,
+           "kernel": "wgmma" if routed[0] else "ffma", **errs,
            "max_abs_ref": r.abs().max().item(),
            "mean_abs_ref": r.abs().mean().item()}
     del o, r
+    if state:
+        serr = ssd_state_errors(hk, x, dt, A, bm, cm, dtype)
+        if serr.pop("fault") is not None:
+            fail(f"{name}: final state off ssd_final_state: {serr}")
+        row.update(serr)
+        del hk
     if iters:
         t_bytes, t_ops = ssd_bound_times(b, s, h, p, n, chunk, dtype)
         bnd, by = bound_of(t_bytes, t_ops)
@@ -1241,7 +1372,8 @@ def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
 def phase_ssd(device, gen) -> dict:
     rows = []
     # the JAX kernel tests' cases (tests/test_kernels.py:107-139), ragged S,
-    # S < chunk, N and P that are not multiples of 4, contiguous B and C
+    # S < chunk, N and P that are not multiples of 4, contiguous B and C;
+    # bf16 through the tensor-core kernel, f32 through the FFMA kernel
     cases = [(2, 64, 4, 16, 8, 16), (2, 128, 4, 16, 8, 32),
              (2, 96, 4, 16, 8, 32), (1, 64, 2, 16, 8, 32),
              (1, 128, 2, 16, 8, 64), (2, 200, 4, 16, 8, 64),
@@ -1253,16 +1385,17 @@ def phase_ssd(device, gen) -> dict:
                              strided=False))
     for r in rows:
         emit({"phase": "ssd", **r})
-    # mamba2-130m's layer shape: bf16 as the model runs it, timed; f32 at
-    # the same shape, untimed
+    # mamba2-130m's layer shape: bf16 as the model runs it, timed, with its
+    # final state; f32 at the same shape through the FFMA kernel, timed
     cfg = get_config(SSM_ARCH)
     dims = (SSM_BATCH, PROMPT_LEN, cfg.ssm_heads, cfg.ssm_head_dim,
             cfg.ssm_state, cfg.ssm_chunk)
-    layer = ssd_case(*dims, torch.bfloat16, device, gen, iters=4)
+    layer = ssd_case(*dims, torch.bfloat16, device, gen, iters=4, state=True)
     emit({"phase": "ssd", "at": f"{SSM_ARCH} layer", **layer})
-    rows.append(ssd_case(*dims, torch.float32, device, gen))
-    emit({"phase": "ssd", "at": f"{SSM_ARCH} layer, f32", **rows[-1]})
-    return {"rows": rows, "layer": layer}
+    layer32 = ssd_case(*dims, torch.float32, device, gen, iters=2)
+    rows.append(layer32)
+    emit({"phase": "ssd", "at": f"{SSM_ARCH} layer, f32", **layer32})
+    return {"rows": rows, "layer": layer, "layer_f32": layer32}
 
 
 def ssm_decode_step_bound_ms(model) -> float:
@@ -1273,20 +1406,34 @@ def ssm_decode_step_bound_ms(model) -> float:
 
 
 def ssd_layer_checks(cfg, model, prompts) -> dict:
-    """One prefill in which every SSD call also runs the plain version on
+    """One prefill in which every SSD call also runs the plain versions on
     the inputs the main path hands the kernel (each layer's real x, dt, A,
-    B, C): each layer's output within the SSD limits (:func:`ssd_errors`)."""
+    B, C): each layer's output within the SSD limits (:func:`ssd_errors`)
+    and the final state from the same launch within them of
+    ``ssd_final_state`` (:func:`ssd_state_errors`).  Beside them, not
+    gated, the FFMA kernel's row error on the same inputs (cast to f32, an
+    exact cast, and its y rounded to their type), for the open question
+    of why the tensor-core kernel's is larger (PERF.md, section 7)."""
     import repro_torch.models.layers as model_layers
     from repro_torch.models import prefill
     kernel_scan = model_layers.ssd_scan
     rows = []
 
-    def checked(x, dt, A, Bm, Cm, *, chunk, impl):
-        y = kernel_scan(x, dt, A, Bm, Cm, chunk=chunk, impl=impl)
+    def checked(x, dt, A, Bm, Cm, *, chunk, impl, return_final_state=False):
+        y, hk = kernel_scan(x, dt, A, Bm, Cm, chunk=chunk, impl=impl,
+                            return_final_state=True)
         r = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk).float()
-        rows.append({**ssd_errors(y.float(), r, x.dtype),
-                     "max_abs_ref": r.abs().max().item()})
-        return y
+        errs = ssd_errors(y.float(), r, x.dtype)
+        serr = ssd_state_errors(hk, x, dt, A, Bm, Cm, x.dtype)
+        ffma = ssd_ops._launch(x.float(), dt, A, Bm.float(), Cm.float(),
+                               chunk, "ffma").to(x.dtype)
+        rows.append({**errs, **{k: v for k, v in serr.items()
+                                if k != "fault"},
+                     "fault": errs["fault"] or serr["fault"],
+                     "max_abs_ref": r.abs().max().item(),
+                     "ffma_max_row_rel_err": ssd_errors(
+                         ffma.float(), r, x.dtype)["max_row_rel_err"]})
+        return (y, hk) if return_final_state else y
 
     model_layers.ssd_scan = checked
     try:
@@ -1297,13 +1444,22 @@ def ssd_layer_checks(cfg, model, prompts) -> dict:
     faults = [(i, r["fault"]) for i, r in enumerate(rows) if r["fault"]]
     if len(rows) != cfg.n_layers or faults:
         fail(f"mamba2: {len(rows)} SSD calls in a prefill; layers whose "
-             f"kernel output is off the plain version's: {faults}")
+             f"kernel output or final state is off the plain versions': "
+             f"{faults}")
     worst = max(rows, key=lambda r: r["max_row_rel_err"])
     return {"layers_checked": len(rows),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_abs_ref": max(r["max_abs_ref"] for r in rows),
             "max_row_rel_err": worst["max_row_rel_err"],
-            "row_rel_tol": worst["row_rel_tol"]}
+            "row_rel_tol": worst["row_rel_tol"],
+            "ffma_max_row_rel_err": max(r["ffma_max_row_rel_err"]
+                                        for r in rows),
+            # the largest state error over its limit (SSD_TOL·max|h|)
+            "state_err_over_limit": max(r["state_max_abs_err"]
+                                        / r["state_atol"] for r in rows),
+            "state_vs_f64_rel": max(r["state_vs_f64_rel"] for r in rows),
+            "final_state_fn_vs_f64_rel": max(r["final_state_fn_vs_f64_rel"]
+                                             for r in rows)}
 
 
 def compare_f32_with_plain(cfg, model, prompts) -> dict:
@@ -1324,14 +1480,21 @@ def compare_f32_with_plain(cfg, model, prompts) -> dict:
     with torch.inference_mode():
         for impl in ("auto", "plain"):
             m32.ssd_impl = impl
+            before = (ssd_ops.TC_LAUNCHES, ssd_ops.FFMA_LAUNCHES)
             pre, cache = prefill(cfg32, m32, {"tokens": prompts},
                                  prompts.shape[1] + 1)
+            routed = (ssd_ops.TC_LAUNCHES - before[0],
+                      ssd_ops.FFMA_LAUNCHES - before[1])
+            want = (0, cfg.n_layers) if impl == "auto" else (0, 0)
+            if routed != want:
+                fail(f"mamba2 f32 {impl} prefill: (tensor-core, FFMA) SSD "
+                     f"launches {routed}, expected {want}")
             tok = logits["auto"][0].argmax(-1) if logits else pre.argmax(-1)
             step, _ = decode_step(cfg32, m32, cache, {"token": tok})
             logits[impl] = (pre, step)
             del cache
     del m32
-    checks = {}
+    checks = {"ffma_launches_per_prefill": cfg.n_layers}
     for i, what in enumerate(("prefill", "decode_step_1")):
         got, ref = logits["auto"][i], logits["plain"][i]
         if not bool(torch.isfinite(got).all()):
@@ -1390,10 +1553,12 @@ def phase_mamba2(device) -> dict:
     # ---------------------------------------------------------------------
 
     peak = torch.cuda.max_memory_allocated(device)
-    # one per layer; path_profiles shows a lone prefill makes them all
-    if launches != launches_of(ssd_scan=cfg.n_layers):
-        fail(f"mamba2: launches {launches}; expected {cfg.n_layers} SSD "
-             f"launches and no other")
+    # one per layer, all on the tensor-core kernel, none on the FFMA one
+    # and no copy; path_profiles shows a lone prefill makes them all
+    expected = launches_of(ssd_scan=cfg.n_layers,
+                           ssd_scan_wgmma=cfg.n_layers)
+    if launches != expected:
+        fail(f"mamba2: launches {launches}; expected {expected}")
     floor = bf16_rounding_floor(cfg, model, prompts,
                                 run.prefill_logits.argmax(-1))
     out = {"phase": "mamba2", "arch": SSM_ARCH, "layers": cfg.n_layers,
@@ -1422,23 +1587,33 @@ def phase_mamba2(device) -> dict:
     return out
 
 
-def ssd_entry(ssd: dict, mamba2: dict) -> dict:
-    """The kernels line's SSD scan entry: one launch at mamba2-130m's layer
-    shape, and a whole prefill."""
+SSD_CSRC = "src/repro_torch/kernels/ssd_scan/csrc/"
+
+
+def ssd_entries(ssd: dict, mamba2: dict) -> list:
+    """The kernels line's two SSD scan entries.  The tensor-core kernel
+    (bf16, the main path): one launch at mamba2-130m's layer shape and a
+    whole prefill.  The FFMA kernel (f32 only, off the main path): one
+    launch at the layer shape in f32."""
     cfg = get_config(SSM_ARCH)
-    layer = ssd["layer"]
-    return {
-        "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan/kernel.py:73",
-        "function": "ssd_scan_pallas",
-        "launches": mamba2["launches"]["ssd_scan"],
-        "max_abs_err": max(r["max_abs_err"] for r in ssd["rows"] + [layer]),
+    layer, layer32 = ssd["layer"], ssd["layer_f32"]
+    rows = {kind: [r for r in ssd["rows"] + [layer] if r["kernel"] == kind]
+            for kind in ("wgmma", "ffma")}
+    shape = (f"B={SSM_BATCH}, S={PROMPT_LEN}, H={cfg.ssm_heads}, "
+             f"P={cfg.ssm_head_dim}, N={cfg.ssm_state}, L={cfg.ssm_chunk}")
+    common = {"route": "cuda",
+              "replaces": "src/repro/kernels/ssd_scan/kernel.py:73",
+              "function": "ssd_scan_pallas", "library_ms": None,
+              "library_call": "none: no single PyTorch call computes the "
+                              "chunked SSD scan"}
+    return [{
+        "name": "ssd_scan_wgmma", **common,
+        "source": SSD_CSRC + "ssd_scan_wgmma.cu",
+        "launches": mamba2["launches"]["ssd_scan_wgmma"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows["wgmma"]),
         "ms": layer["kernel_ms"], "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
-        "library_ms": None,
-        "library_call": "none: no single PyTorch call computes the chunked "
-                        "SSD scan",
+        "state_vs_f64_rel": layer["state_vs_f64_rel"],
         "prefill": {
             "kernel_ms": mamba2["profile_prefill"]["device_ms_by_group"][
                 "ssd_scan"],
@@ -1446,13 +1621,22 @@ def ssd_entry(ssd: dict, mamba2: dict) -> dict:
             "prefill_ms": mamba2["prefill_ms"],
             "plain_prefill_ms": mamba2["bf16_vs_plain_ssd"][
                 "plain_prefill_ms"]},
-        "at": f"one launch at the {SSM_ARCH} layer shape (B={SSM_BATCH}, "
-              f"S={PROMPT_LEN}, H={cfg.ssm_heads}, P={cfg.ssm_head_dim}, "
-              f"N={cfg.ssm_state}, L={cfg.ssm_chunk}, x/B/C bf16, dt/A "
-              f"f32); the bound counts C·B once per batch row and the "
-              f"causal half of each chunk; prefill: the kernel's device "
-              f"time in a profiled prefill ({cfg.n_layers} launches), their "
-              f"bound, and the prefill on the kernel and on the plain SSD"}
+        "at": f"bf16, the main path: one launch at the {SSM_ARCH} layer "
+              f"shape ({shape}; dt/A f32), final state not asked; "
+              f"the bound counts C·B once per batch row and the causal half "
+              f"of each chunk; prefill: the kernel's device time in a "
+              f"profiled prefill ({cfg.n_layers} launches, each with its "
+              f"final state), their bound, and the prefill on the kernel "
+              f"and on the plain SSD"}, {
+        "name": "ssd_scan", **common,
+        "source": SSD_CSRC + "ssd_scan.cu",
+        "launches": mamba2["launches"]["ssd_scan_ffma"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows["ffma"]),
+        "ms": layer32["kernel_ms"], "plain_ms": layer32["plain_ms"],
+        "bound_ms": layer32["bound_ms"], "bound_by": layer32["bound_by"],
+        "at": f"ssd_scan_kernel, f32 only, off the main path (0 launches "
+              f"there): one launch at the {SSM_ARCH} layer shape in f32 "
+              f"({shape}), the bound at the f32 FFMA peak"}]
 
 
 MATMUL_CU = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
@@ -1564,7 +1748,7 @@ def main() -> int:
     mamba2 = phase_mamba2(device)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve),
                       *flash_entries(flash, gemma2),
-                      ssd_entry(ssd, mamba2)]})
+                      *ssd_entries(ssd, mamba2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

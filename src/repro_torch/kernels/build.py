@@ -35,7 +35,8 @@ SOURCES: Dict[str, Tuple[Path, ...]] = {
     "flash_attention": (
         _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
         _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu"),
-    "ssd_scan": (_ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",),
+    "ssd_scan": (_ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",
+                 _ROOT / "ssd_scan" / "csrc" / "ssd_scan_wgmma.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

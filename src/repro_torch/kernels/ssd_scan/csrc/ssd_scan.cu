@@ -1,10 +1,11 @@
-// Chunked SSD (Mamba2 state-space duality) forward for Hopper (sm_90a).
+// Chunked SSD (Mamba2 state-space duality) forward for Hopper (sm_90a), f32
+// FFMA on the CUDA cores.
 //
-// Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py::
-// ssd_scan_pallas (_ssd_kernel).  Same function: x (B,S,H,P), dt (B,S,H) f32,
-// A (H,) f32, B/C (B,S,N) shared across heads; x, B, C f32 or bf16, all math
-// in f32, y in x's type.  For a chunk of L steps with a = cumsum(dt·A)
-// (inclusive):
+// Replaces, for f32 x, B, C, the TPU kernel src/repro/kernels/ssd_scan/
+// kernel.py::ssd_scan_pallas (_ssd_kernel); bf16 runs the tensor-core kernel
+// of ssd_scan_wgmma.cu.  Same function: x (B,S,H,P), dt (B,S,H), A (H,),
+// B/C (B,S,N) shared across heads, all f32, all math in f32, y f32.  For a
+// chunk of L steps with a = cumsum(dt·A) (inclusive):
 //
 //   y_i = Σ_{j<=i} exp(a_i - a_j)·(C_i·B_j)·dt_j·x_j  +  exp(a_i)·C_i·h
 //   h  <- h·exp(a_L) + Σ_j exp(a_L - a_j)·dt_j·B_j ⊗ x_j        (h: N x P, f32)
@@ -14,14 +15,14 @@
 // the last partial chunk is masked here (rows past S read as 0, which is
 // what JAX's zero padding gives), so the wrapper never pads.  x, dt, B, C
 // and y are taken by strides: the model's B and C are slices of one
-// (B,S,2N) tensor, read in place.
+// (B,S,2N) tensor, read in place.  When asked, the launch also writes the
+// state after the last step (h_S, B x H x N x P, f32).
 //
 // What bounds it: at the mamba2-130m layer (B=8, S=8192, H=24, P=64, N=128,
-// L=128, bf16) one launch moves ~0.44 GB (x in, y out, B, C, dt) and needs
-// ~0.9e11 FLOP of unmasked work: bytes bound it near 0.13 ms on an H100.
-// This first version does its arithmetic as f32 FFMA on CUDA cores, not on
-// tensor cores, so it runs well above that bound; a later PR moves the
-// products to wgmma and splits the chunk loop across blocks.
+// L=128, f32) one launch moves ~0.88 GB (x in, y out, B, C, dt) and needs
+// ~0.9e11 FLOP of unmasked work: at the H100's f32 peak, ~1 ms.
+// It does its arithmetic as f32 FFMA on CUDA cores, which the f32 limits
+// need, so it runs well above that bound.
 //
 // Design: one CTA of 256 threads per (head, batch) walks the chunks in
 // order — the TPU grid's sequential chunk axis becomes this loop, and h
@@ -40,12 +41,9 @@
 // ctypes): the caller owns every allocation and the stream; one call
 // launches one kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-enum DType { kF32 = 0, kBF16 = 1 };
 
 constexpr int THREADS = 256;
 constexpr int ML = 128;          // largest chunk L
@@ -57,25 +55,14 @@ constexpr int BC_STR = MN + 4;   // row stride (floats) of the C and B tiles
 // C, B tiles; x·dt; h; one block of scores; a, exp(a), exp(a_L - a), dt
 constexpr int SMEM_FLOATS = 2 * ML * BC_STR + ML * MP + MN * MP + RB * ML + 4 * ML;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 struct Params {
-  const void* x;
+  const float* x;
   const float* dt;
   const float* A;
-  const void* B;
-  const void* C;
-  void* y;
+  const float* B;
+  const float* C;
+  float* y;
+  float* hout;                   // h_S (B,H,N,P) contiguous, or null
   long long x_b, x_s, x_h, x_p;  // element strides
   long long dt_b, dt_s, dt_h;
   long long a_h;
@@ -101,8 +88,8 @@ struct Tiles {
 // Rows r0 .. r0+31 of the chunk: scores at or below the diagonal, then y.
 // Thread (ty, tx), ty < 8, tx < 32: rows r0 + 4ty + i (i < 4); score columns
 // tx + 32k (k <= RBI); output columns 2tx, 2tx + 1.
-template <typename T, int RBI>
-__device__ __forceinline__ void row_block(const Params& p, const Tiles& t, T* yg, int s0,
+template <int RBI>
+__device__ __forceinline__ void row_block(const Params& p, const Tiles& t, float* yg, int s0,
                                           int valid, int tid) {
   constexpr int K = RBI + 1;
   constexpr int r0 = RBI * RB;
@@ -199,17 +186,16 @@ __device__ __forceinline__ void row_block(const Params& p, const Tiles& t, T* yg
     const int row = r0 + 4 * ty + i;
     if (row >= valid) continue;
     const float ea = t.ea[row];
-    T* yrow = yg + (s0 + row) * p.y_s;
+    float* yrow = yg + (s0 + row) * p.y_s;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = 2 * tx + e;
-      if (col < p.p) yrow[col * p.y_p] = from_f32<T>(yi[i][e] + ea * yc[i][e]);
+      if (col < p.p) yrow[col * p.y_p] = yi[i][e] + ea * yc[i][e];
     }
   }
   __syncthreads();                           // before the next block overwrites P
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   Tiles t;
@@ -226,11 +212,11 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int h = blockIdx.x, b = blockIdx.y;
-  const T* xg = static_cast<const T*>(p.x) + b * p.x_b + h * p.x_h;
+  const float* xg = p.x + b * p.x_b + h * p.x_h;
   const float* dtg = p.dt + b * p.dt_b + h * p.dt_h;
-  const T* bg = static_cast<const T*>(p.B) + b * p.b_b;
-  const T* cg = static_cast<const T*>(p.C) + b * p.c_b;
-  T* yg = static_cast<T*>(p.y) + b * p.y_b + h * p.y_h;
+  const float* bg = p.B + b * p.b_b;
+  const float* cg = p.C + b * p.c_b;
+  float* yg = p.y + b * p.y_b + h * p.y_h;
   const float A = p.A[h * p.a_h];
 
   for (int i = tid; i < MN * MP; i += THREADS) t.H[i] = 0.f;
@@ -279,8 +265,8 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(const Params p) {
       const int r = i / MN, c = i % MN;
       float cv = 0.f, bv = 0.f;
       if (r < valid && c < p.n) {
-        cv = to_f32(cg[(s0 + r) * p.c_s + c * p.c_n]);
-        bv = to_f32(bg[(s0 + r) * p.b_s + c * p.b_n]);
+        cv = cg[(s0 + r) * p.c_s + c * p.c_n];
+        bv = bg[(s0 + r) * p.b_s + c * p.b_n];
       }
       t.C[r * BC_STR + c] = cv;
       t.B[r * BC_STR + c] = bv;
@@ -289,16 +275,16 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(const Params p) {
     for (int i = tid; i < ML * MP; i += THREADS) {
       const int r = i / MP, c = i % MP;
       float v = 0.f;
-      if (r < valid && c < p.p) v = to_f32(xg[(s0 + r) * p.x_s + c * p.x_p]) * t.d[r];
+      if (r < valid && c < p.p) v = xg[(s0 + r) * p.x_s + c * p.x_p] * t.d[r];
       t.X[i] = v;
     }
     __syncthreads();
 
     // outputs, 32 rows at a time (row blocks past the chunk are skipped)
-    row_block<T, 0>(p, t, yg, s0, valid, tid);
-    if (RB < valid) row_block<T, 1>(p, t, yg, s0, valid, tid);
-    if (2 * RB < valid) row_block<T, 2>(p, t, yg, s0, valid, tid);
-    if (3 * RB < valid) row_block<T, 3>(p, t, yg, s0, valid, tid);
+    row_block<0>(p, t, yg, s0, valid, tid);
+    if (RB < valid) row_block<1>(p, t, yg, s0, valid, tid);
+    if (2 * RB < valid) row_block<2>(p, t, yg, s0, valid, tid);
+    if (3 * RB < valid) row_block<3>(p, t, yg, s0, valid, tid);
 
     // h <- h·exp(a_L) + Σ_j (B_j·exp(a_L - a_j)) ⊗ (x·dt)_j; thread (ty, tx),
     // ty, tx < 16, owns h rows 8ty .. 8ty+7, columns 4tx .. 4tx+3
@@ -336,17 +322,21 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(const Params p) {
       }
     }
   }
+  if (p.hout != nullptr) {
+    __syncthreads();
+    float* hg = p.hout + (static_cast<long long>(b) * gridDim.x + h) * p.n * p.p;
+    for (int i = tid; i < p.n * p.p; i += THREADS) hg[i] = t.H[(i / p.p) * MP + i % p.p];
+  }
 }
 
-template <typename T>
 int launch(const Params& p, int batch, int heads, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(SMEM_FLOATS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(heads, batch);
-  ssd_scan_kernel<T><<<grid, THREADS, smem, stream>>>(p);
+  ssd_scan_kernel<<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,26 +344,29 @@ int launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 
 extern "C" {
 
-// Enqueue the SSD scan on `stream`.  x (B,S,H,P), B and C (B,S,N) and y
-// (B,S,H,P) are device arrays of `dtype` (0 f32, 1 bf16); dt (B,S,H) and A
-// (H,) are f32.  All are addressed by element strides: x[b][s][h][p] at
+// Enqueue the f32 SSD scan on `stream`.  x (B,S,H,P), B and C (B,S,N), y
+// (B,S,H,P), dt (B,S,H) and A (H,) are f32 device arrays; hout, when not
+// null, a contiguous (B,H,N,P) f32 array that receives the state after the
+// last step.  All are addressed by element strides: x[b][s][h][p] at
 // b*xs[0] + s*xs[1] + h*xs[2] + p*xs[3], likewise dt, B, C, y; A[h] at
 // h*a_stride.  Requires 1 <= chunk <= 128, 1 <= n <= 128, 1 <= p <= 64,
 // seqlen >= 1, 1 <= batch < 65536, heads >= 1.  Returns cudaGetLastError()
 // of the launch as an int (0 = launched); faults during the run surface at
 // the next synchronize.
 int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
-                   const void* Cm, void* y, const long long* xs, const long long* dts,
+                   const void* Cm, void* y, void* hout, const long long* xs, const long long* dts,
                    long long a_stride, const long long* bs, const long long* cs,
                    const long long* ys, int batch, int seqlen, int heads, int head_dim,
-                   int state, int chunk, int dtype, void* stream) {
+                   int state, int chunk, void* stream) {
   if (batch < 1 || batch > 65535 || seqlen < 1 || heads < 1 || head_dim < 1 ||
       head_dim > MP || state < 1 || state > MN || chunk < 1 || chunk > ML) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.x = x; p.dt = static_cast<const float*>(dt); p.A = static_cast<const float*>(A);
-  p.B = Bm; p.C = Cm; p.y = y;
+  p.x = static_cast<const float*>(x); p.dt = static_cast<const float*>(dt);
+  p.A = static_cast<const float*>(A); p.B = static_cast<const float*>(Bm);
+  p.C = static_cast<const float*>(Cm); p.y = static_cast<float*>(y);
+  p.hout = static_cast<float*>(hout);
   p.x_b = xs[0]; p.x_s = xs[1]; p.x_h = xs[2]; p.x_p = xs[3];
   p.dt_b = dts[0]; p.dt_s = dts[1]; p.dt_h = dts[2];
   p.a_h = a_stride;
@@ -382,10 +375,7 @@ int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
   p.y_b = ys[0]; p.y_s = ys[1]; p.y_h = ys[2]; p.y_p = ys[3];
   p.seqlen = seqlen; p.p = head_dim; p.n = state; p.chunk = chunk;
   p.nr = (state + 3) / 4 * 4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch<float>(p, batch, heads, s);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(p, batch, heads, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(p, batch, heads, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_ssd_error_string(int code) {

@@ -1,37 +1,60 @@
-"""Public SSD op: the hand-written CUDA kernel or its plain version, and the
-O(1) decode step.
+"""Public SSD op: the hand-written CUDA kernels or their plain version,
+and the O(1) decode step.
 
 Counterpart of ``repro.kernels.ssd_scan.ops``.  :func:`ssd_scan`'s
 ``impl`` selects:
 
 * ``"auto"`` (the main path): the chunked plain version
-  (:func:`.ref.ssd_chunked_ref`) for CPU tensors, the CUDA kernel
-  (``csrc/ssd_scan.cu``) for CUDA tensors;
-* ``"kernel"``: always the CUDA kernel — a CPU tensor raises;
+  (:func:`.ref.ssd_chunked_ref`) for CPU tensors, a CUDA kernel for CUDA
+  tensors;
+* ``"kernel"``: always a CUDA kernel — a CPU tensor raises;
 * ``"plain"``: always the chunked plain version (tests and the chip smoke
   run only).
 
-A CUDA tensor never falls back to the plain version: the kernel builds and
-launches, or the call raises.  Deviations from the JAX op: no
-``interpret`` argument and no ``"jnp"``/``"ref"``/``"pallas"`` impls
-(:func:`.ref.ssd_ref` is the sequential oracle).  JAX pads S to a multiple
-of the chunk; here the kernel masks the last partial chunk itself and the
-plain version takes it short, so nothing is padded or copied — the chunk
-boundaries are JAX's, from position 0.  B and C are read by strides, so
-the model's slices of one (B, S, 2N) tensor go in as they are.  The
-kernel takes states up to :data:`MAX_STATE` and head dims up to
-:data:`MAX_HEAD_DIM`, and raises beyond them; a bf16 ``dt`` or ``A`` is
-cast to f32 first.  A stated deviation: the kernel's chunks are at most
-:data:`MAX_CHUNK` (128) rows, so a larger requested chunk — JAX's
-default of 256 among them — runs as the kernel at chunk 128.  The
-chunked scan is the same recurrence at any chunk length (the state
-carried across a boundary is exact); only the rounding order differs.
+A CUDA call goes by the type of x, B and C (:func:`route`), never by
+shape:
+
+* bf16 → ``csrc/ssd_scan_wgmma.cu`` (``ssd_scan_kernel_wgmma``), the
+  tensor-core kernel: all four products of a chunk on ``wgmma`` with f32
+  accumulators, C·Bᵀ once per two heads, each f32 operand (the decayed
+  scores, the carried state, x scaled by the state update's decay) as
+  three bf16 terms, so the products keep f32's precision;
+* f32 → ``csrc/ssd_scan.cu`` (``ssd_scan_kernel``, f32 only), f32 FFMA
+  on CUDA cores: the f32 limits (1e-4 of the largest output) are beyond
+  the tensor cores' bf16 operands.
+
+Both replace the TPU kernel ``src/repro/kernels/ssd_scan/kernel.py:73``
+(``ssd_scan_pallas``).  A CUDA tensor never falls back to the plain
+version or to the other kernel: the kernel builds and launches, or the
+call raises (:class:`KernelLaunchError` for a launch the CUDA runtime
+refuses).
+
+Deviations from the JAX op: no ``interpret`` argument and no
+``"jnp"``/``"ref"``/``"pallas"`` impls (:func:`.ref.ssd_ref` is the
+sequential oracle).  JAX pads S to a multiple of the chunk; here the
+kernels mask the last partial chunk themselves and the plain version
+takes it short, so nothing is padded or copied — the chunk boundaries are
+JAX's, from position 0.  x, B and C are read in place by strides, so the
+model's slices of one (B, S, 2N) tensor go in as they are.  The kernels
+take states up to :data:`MAX_STATE` and head dims up to
+:data:`MAX_HEAD_DIM`, and raise beyond them; a bf16 ``dt`` or ``A`` is
+cast to f32 first (:data:`COPIES` counts those casts).  The kernels'
+chunks are at most :data:`MAX_CHUNK` (128) rows, so a larger requested
+chunk — JAX's default of 256 among them — runs at chunk 128: the same
+recurrence (the state carried across a boundary is exact), only the
+rounding order differs.  ``return_final_state=True`` also returns the
+state after the last step, ``(B,H,N,P)`` f32, from the same launch (the
+plain version returns the state its scan carries); JAX computes it apart,
+with ``ssd_final_state`` (``src/repro/models/layers.py:532-544``), whose
+counterpart :func:`ssd_final_state` stays here as the plain reference
+for the state.
 
 :func:`ssd_final_state` and :func:`ssd_decode_step` are plain torch, as
 they are jnp in JAX (no Pallas kernel).
 
-:data:`LAUNCHES` counts launches of the kernel, so a run can show that its
-main path went through it.
+:data:`LAUNCHES` counts every kernel launch, :data:`TC_LAUNCHES` and
+:data:`FFMA_LAUNCHES` those of each kernel, so a run can show that its
+main path went through them.
 """
 from __future__ import annotations
 
@@ -42,21 +65,38 @@ import torch
 
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
-#: kernel launches made by :func:`ssd_scan` in this process
+#: kernel launches made by :func:`ssd_scan` in this process: every one,
+#: the tensor-core (bf16) kernel's and the FFMA (f32) kernel's
 LAUNCHES = 0
+TC_LAUNCHES = 0
+FFMA_LAUNCHES = 0
 
-#: largest chunk length, state dim N and head dim P the kernel takes
+#: casts of a bf16 ``dt`` or ``A`` to f32 before a launch
+COPIES = 0
+
+#: largest chunk length, state dim N and head dim P the kernels take
 MAX_CHUNK = 128
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _lib_handle: Optional[ctypes.CDLL] = None
 
 
 class KernelLaunchError(RuntimeError):
     """The CUDA runtime refused a launch (``cudaGetLastError() != 0``)."""
+
+
+def route(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+          Bm: torch.Tensor, Cm: torch.Tensor, impl: str = "auto") -> str:
+    """Where :func:`ssd_scan` sends a call: ``"plain"``, ``"tc"`` (bf16
+    x, B, C: the tensor-core kernel) or ``"ffma"`` (f32: the FFMA
+    kernel)."""
+    on_cpu = all(t.device.type == "cpu" for t in (x, dt, A, Bm, Cm))
+    if impl == "plain" or (impl == "auto" and on_cpu):
+        return "plain"
+    return "tc" if x.dtype == torch.bfloat16 else "ffma"
 
 
 def _lib() -> ctypes.CDLL:
@@ -66,10 +106,11 @@ def _lib() -> ctypes.CDLL:
         lib = load("ssd_scan")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         strides = ctypes.POINTER(ctypes.c_longlong)
-        lib.repro_ssd_scan.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, strides, strides, i64, strides,
-            strides, strides, i32, i32, i32, i32, i32, i32, i32, ptr]
-        lib.repro_ssd_scan.restype = i32
+        for fn in (lib.repro_ssd_scan, lib.repro_ssd_scan_tc):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, strides,
+                           strides, i64, strides, strides, strides, i32, i32,
+                           i32, i32, i32, i32, ptr]
+            fn.restype = i32
         lib.repro_ssd_error_string.argtypes = [i32]
         lib.repro_ssd_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -86,11 +127,11 @@ def _check(x, dt, A, Bm, Cm) -> None:
         raise ValueError(f"ssd_scan shapes do not fit: x {tuple(x.shape)}, "
                          f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(Bm.shape)}, C {tuple(Cm.shape)}")
-    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPE_CODES:
+    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan takes f32 or bf16 x, B, C of one type, "
                         f"got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
     for name, t in (("dt", dt), ("A", A)):
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in _DTYPES:
             raise TypeError(f"ssd_scan takes an f32 or bf16 {name}, got "
                             f"{t.dtype}")
 
@@ -99,13 +140,29 @@ def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * t.dim())(*t.stride())
 
 
-def _launch(x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
-    global LAUNCHES
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as f32: itself when it is, else a counted cast."""
+    global COPIES
+    if t.dtype == torch.float32:
+        return t
+    COPIES += 1
+    return t.float()
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int, kernel: str,
+            final_state: bool = False):
+    """One launch of the ``"tc"`` (bf16) or ``"ffma"`` (f32) kernel: ``y``,
+    or ``(y, h_S)`` with ``final_state``."""
+    global LAUNCHES, TC_LAUNCHES, FFMA_LAUNCHES
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (dt, A, Bm, Cm)):
         raise ValueError(f"the SSD scan kernel takes x, dt, A, B, C on one "
                          f"CUDA device, got {x.device}, {dt.device}, "
                          f"{A.device}, {Bm.device}, {Cm.device}")
+    if x.dtype != (torch.bfloat16 if kernel == "tc" else torch.float32):
+        takes = "tensor-core SSD kernel takes bf16" if kernel == "tc" \
+            else "FFMA SSD kernel takes f32"
+        raise TypeError(f"the {takes} x, B, C, got {x.dtype}")
     b, s, h, p = x.shape
     n = Bm.shape[2]
     if n > MAX_STATE or p > MAX_HEAD_DIM:
@@ -113,45 +170,55 @@ def _launch(x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:
                          f"{MAX_STATE} and head dims up to {MAX_HEAD_DIM}, "
                          f"got N={n}, P={p}")
     chunk = min(chunk, MAX_CHUNK)          # the same scan, other rounding
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid")
-    dt, A = dt.float(), A.float()          # no copy when already f32
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid")
+    dt, A = _f32(dt), _f32(A)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    hs = torch.zeros((b, h, n, p), dtype=torch.float32, device=dev) \
+        if final_state else None
     if y.numel() == 0:
-        return y
+        return (y, hs) if final_state else y
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         lib = _lib()
-        rc = lib.repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), _strides(x), _strides(dt),
-            A.stride(0), _strides(Bm), _strides(Cm), _strides(y), b, s, h,
-            p, n, chunk, _DTYPE_CODES[x.dtype], stream)
+        args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(),
+                hs.data_ptr() if final_state else None, _strides(x),
+                _strides(dt), A.stride(0), _strides(Bm), _strides(Cm),
+                _strides(y), b, s, h, p, n, chunk)
+        fn = lib.repro_ssd_scan_tc if kernel == "tc" else lib.repro_ssd_scan
+        rc = fn(*args, stream)
     if rc != 0:
         msg = lib.repro_ssd_error_string(rc).decode()
         raise KernelLaunchError(
-            f"SSD scan launch failed (x {tuple(x.shape)}, N {n}, chunk "
-            f"{chunk}, {x.dtype}): CUDA error {rc}: {msg}")
+            f"SSD scan launch failed ({kernel} kernel; x {tuple(x.shape)}, "
+            f"N {n}, chunk {chunk}, {x.dtype}): CUDA error {rc}: {msg}")
     LAUNCHES += 1
-    return y
+    if kernel == "tc":
+        TC_LAUNCHES += 1
+    else:
+        FFMA_LAUNCHES += 1
+    return (y, hs) if final_state else y
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
-             impl: str = "auto") -> torch.Tensor:
+             impl: str = "auto", return_final_state: bool = False):
     """SSD forward over a full sequence: ``x (B,S,H,P)``, ``dt (B,S,H)``,
     ``A (H,)``, ``B/C (B,S,N)`` → ``y (B,S,H,P)`` in ``x.dtype``, in chunks
-    of ``min(chunk, S)`` steps (the kernel's at most :data:`MAX_CHUNK`)."""
+    of ``min(chunk, S)`` steps (the kernels' at most :data:`MAX_CHUNK`).
+    With ``return_final_state``, ``(y, h_S)``: the state after the last
+    step, ``(B,H,N,P)`` f32, from the same launch."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
     _check(x, dt, A, Bm, Cm)
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     chunk = max(1, min(int(chunk), x.shape[1]))
-    on_cpu = all(t.device.type == "cpu" for t in (x, dt, A, Bm, Cm))
-    if impl == "plain" or (impl == "auto" and on_cpu):
-        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
-    return _launch(x, dt, A, Bm, Cm, chunk)
+    where = route(x, dt, A, Bm, Cm, impl)
+    if where == "plain":
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, return_final_state)
+    return _launch(x, dt, A, Bm, Cm, chunk, where, return_final_state)
 
 
 def ssd_final_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -13,10 +13,11 @@ rates and ``B/C (B,S,N)`` shared across heads:
   ``_ssd_chunked_jnp`` (``repro/kernels/ssd_scan/ops.py:18-62``) as a
   Python loop over chunks in f32, output in ``x.dtype``.  It is the CPU
   path of :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` and the
-  yardstick the CUDA kernel is held against on the card.  Deviation: a
+  yardstick the CUDA kernels are held against on the card.  Deviation: a
   last chunk shorter than ``chunk`` is taken as it is, where JAX pads it
   with zeros; the zero rows add nothing to the rows before them, so the
-  result is the same.
+  result is the same.  With ``final_state`` it also returns the state its
+  scan carries out of the last chunk, as the kernels do.
 """
 from __future__ import annotations
 
@@ -49,10 +50,12 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    Bm: torch.Tensor, Cm: torch.Tensor,
-                    chunk: int) -> torch.Tensor:
+                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                    final_state: bool = False):
     """Chunked SSD forward → ``y (B,S,H,P)`` in ``x.dtype``; chunks of
-    ``chunk`` steps from position 0, the state carried between them."""
+    ``chunk`` steps from position 0, the state carried between them.  With
+    ``final_state``, ``(y, h_S)``: the carried state after the last step,
+    ``(B,H,N,P)`` f32."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     Af = A.float()
@@ -82,6 +85,5 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         s_c = torch.einsum("bjn,bjhp->bhnp", bc, xc * wj[..., None])
         hstate = hstate * torch.exp(a_cs[:, -1, :])[..., None, None] + s_c
         ys.append(y.to(x.dtype))
-    if not ys:
-        return torch.empty_like(x)
-    return torch.cat(ys, dim=1)
+    y = torch.cat(ys, dim=1) if ys else torch.empty_like(x)
+    return (y, hstate) if final_state else y

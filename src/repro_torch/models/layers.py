@@ -27,7 +27,9 @@ norm scales in f32, activations keep the JAX layout ((B, S, d), caches
   :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` in the same way;
   ``mamba2_prefill`` left-pads its conv cache with zeros when the prompt
   is shorter than the conv's ``W - 1`` taps (JAX's slice then comes out
-  short and its decode fails).
+  short and its decode fails), and takes the final SSM state from the
+  scan's own launch (``return_final_state``) where JAX recomputes it with
+  ``ssd_final_state``.
 
 The projections, the decode attention (an einsum against the cache), the
 depthwise causal conv (f32, as in JAX; no cuDNN), the SSD decode step and
@@ -44,8 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.kernels.ssd_scan.ops import (ssd_decode_step,
-                                              ssd_final_state, ssd_scan)
+from repro_torch.kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 
 Params = Mapping[str, torch.Tensor]
 
@@ -287,8 +288,9 @@ def _mamba_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, impl: str,
     Bm, Cm = bcc[..., :gn], bcc[..., gn:]         # read in place by strides
     dt = F.softplus(dtr.float() + p["dt_bias"])
     A = -torch.exp(p["a_log"])
-    y = ssd_scan(xs, dt, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S), impl=impl)
-    hfin = ssd_final_state(xs, dt, A, Bm, Cm) if final_state else None
+    y = ssd_scan(xs, dt, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S), impl=impl,
+                 return_final_state=final_state)
+    y, hfin = y if final_state else (y, None)
     y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
     y = y.reshape(B, S, di) * F.silu(z)
     y = rmsnorm(p["norm"], y, cfg.rms_eps)

@@ -10,6 +10,10 @@ torch would otherwise start a pool as wide as the machine, and the
 oversubscribed cores starve the wall-clock tests of the reference that
 share the run.  The port's CPU tests take about as long on one thread.
 """
+import functools
+import importlib.util
+import pathlib
+
 import numpy as np
 import torch
 
@@ -66,3 +70,36 @@ def scorer_program(mod, b, db, hb, lb, bd, bh, bl):
     w1 = mod.input("scorer.W1", (db, hb), (bd, bh))
     w2 = mod.input("scorer.W2", (hb, lb), (bh, bl))
     return ((x @ w1).map("relu") @ w2).map("sigmoid")
+
+
+def ssd_pair(b, s, h, p, n, dtype="float32", dt_dtype=None, seed=0):
+    """The same SSD scan inputs x, dt, A, B, C for JAX and the port, as
+    ``(jax arrays, torch tensors)``: x, B, C (and dt, as the JAX tests
+    round it) in ``dtype``; dt = softplus(normal), A = -exp(normal) in
+    f32."""
+    import jax.numpy as jnp
+    types = {"float32": (jnp.float32, torch.float32),
+             "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+    r = rng(seed)
+    jdt, tdt = types[dtype]
+    ddt = types[dt_dtype or "float32"]
+    x, bm, cm = normal(r, (b, s, h, p)), normal(r, (b, s, n)), \
+        normal(r, (b, s, n))
+    dt = np.logaddexp(normal(r, (b, s, h)), 0.0).astype(np.float32)
+    A = -np.exp(normal(r, (h,)))
+    js = [jnp.asarray(x, jdt), jnp.asarray(dt, ddt[0]), jnp.asarray(A),
+          jnp.asarray(bm, jdt), jnp.asarray(cm, jdt)]
+    ts = [torch.tensor(np.asarray(j.astype(jnp.float32))) for j in js]
+    ts = [ts[0].to(tdt), ts[1].to(ddt[1]), ts[2], ts[3].to(tdt),
+          ts[4].to(tdt)]
+    return js, ts
+
+
+@functools.lru_cache(maxsize=1)
+def chip_smoke():
+    """``chip_smoke.py`` as a module, for its limits and checks."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

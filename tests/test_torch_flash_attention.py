@@ -10,6 +10,8 @@ ROADMAP B2) — it is held against the JAX ``attention_ref`` at 1e-5, and
 so is head dim 256.  The CUDA kernel itself runs only on a card: its
 tests are in ``tests/test_torch_kernels_gpu.py``.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -131,6 +133,16 @@ def _chip_smoke():
     return mod
 
 
+@functools.lru_cache(maxsize=1)
+def _long_rows_exact():
+    """The f64 attention of the long-rows cases' bf16 inputs, computed
+    once for all their faults."""
+    _, (tq, tk, tv) = _qkv(1, 2, 1, 2048, 2048, 256, 256, "bfloat16", seed=3)
+    return _chip_smoke().exact_attention(tq, tk, tv, causal=True,
+                                         window=1024, softcap=50.0,
+                                         rows=512)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("fault", ["window-64", "window-1", "window+1",
                                    "window+64", "late-rows*1.02"])
@@ -153,10 +165,13 @@ def test_smoke_limits_catch_small_faults_at_long_rows(dtype, fault):
         got = want.clone()
         got[:, :, 1023:] *= 1.02
     tdt = DTYPES[dtype][1]
-    atol = smoke.GEMMA2_BF16_ATOL if tdt == torch.bfloat16 else None
+    # bf16 is held to the exact attention of the same inputs, as the smoke
+    # holds it at gemma2's shapes; f32 to the plain version within 2e-4
+    exact = _long_rows_exact() if tdt == torch.bfloat16 else None
     want, got = want.float(), got.float()
-    assert smoke.flash_errors(want, want, tdt, atol)["fault"] is None
-    assert smoke.flash_errors(got, want, tdt, atol)["fault"] is not None
+    assert smoke.flash_errors(want, want, tdt, None, exact)["fault"] is None
+    assert smoke.flash_errors(got, want, tdt, None, exact)["fault"] \
+        is not None
 
 
 # ------------------------------------------- the tensor-core kernel's plan
@@ -255,27 +270,23 @@ def test_three_bf16_terms_of_p_meet_the_smokes_flash_gates(terms, seed):
     """Why the kernel feeds P to its P·V product as three bf16 terms.  At
     gemma2's head shape (8/4 heads of dim 256, soft-cap 50, causal; the
     first 256 rows, where rows see few keys and outputs reach 1 and more)
-    the smoke holds the bf16 kernel (a) within ``GEMMA2_BF16_ATOL`` (6e-3)
-    of the plain version and (b) to at most ``FLASH_ROUNDING_FACTOR`` times
-    the plain version's count of outputs off the correctly rounded f64
-    attention.  One bf16 term moves outputs near 1 by a bf16 step (7.8e-3)
-    and fails both; two fail (b); three round like f32 and pass both.
-
-    Three terms pass (a) on every seed here, not by the draw: this model
-    sums its f32 products in torch's order on the CPU, as the plain
-    version does.  The kernel on the card sums Q·Kᵀ and P·V in the tensor
-    cores' order, which the model leaves out, and so lies past (a) on some
-    draws, as the f32 FFMA kernel does less often
-    (``tools/flash_gate_census.py`` counts how often)."""
+    the smoke holds the bf16 kernel (a) within half a bf16 step plus
+    ``GEMMA2_BF16_DELTA`` of the exact f64 attention (``exact_gate``) and
+    (b) to at most ``FLASH_ROUNDING_FACTOR`` times the plain version's
+    count of outputs off the correctly rounded f64 attention.  One bf16
+    term moves outputs near 1 by a bf16 step (7.8e-3) and fails both; two
+    fail (b); three round like f32 and pass both.  (How often the kernel
+    on the card, which sums in the tensor cores' order, crosses (a) on
+    fresh draws: ``tools/flash_gate_census.py``.)"""
     smoke = _chip_smoke()
     _, (tq, tk, tv) = _qkv(2, 8, 4, 256, 256, 256, 256, "bfloat16",
                            seed=seed)
     kw = {"causal": True, "window": 0, "softcap": 50.0}
     plain = port_ref(tq, tk, tv, **kw)
     got = _kernel_arithmetic(tq, tk, tv, terms, **kw)
-    fault = smoke.flash_errors(got.float(), plain.float(), torch.bfloat16,
-                               smoke.GEMMA2_BF16_ATOL)["fault"]
     exact = smoke.exact_attention(tq, tk, tv, **kw)
+    fault = smoke.flash_errors(got.float(), plain.float(), torch.bfloat16,
+                               None, exact)["fault"]
     ratio = smoke.rounded_off(got, exact) / smoke.rounded_off(plain, exact)
     if terms == 3:
         assert fault is None and ratio <= smoke.FLASH_ROUNDING_FACTOR
@@ -300,3 +311,64 @@ def test_gate_census_runs_the_plain_version_on_the_cpu():
     for kernel in ("wgmma", "ffma_f32"):
         assert got["over_atol"][kernel] == {
             "outputs": 0, "draws": 0, "draw_rate": 0.0, "max_abs_err": 0.0}
+        # the plain version rounds an f32 result: within the exact gate
+        gate = got["over_exact_gate"][kernel]
+        assert gate["outputs"] == 0 and gate["draws"] == 0
+        assert gate["max_excess_over_half_step"] <= \
+            _chip_smoke().GEMMA2_BF16_DELTA
+
+
+# ------------------------------------------------- the smoke's gemma2 gate
+def test_gemma2_gate_passes_either_neighbour_and_fails_two_steps_off():
+    """The smoke's bf16 gate at gemma2's shapes: an output rounded to the
+    bf16 neighbour on the far side of the exact value (a correct f32 sum
+    in another order, where the exact value lies near the midpoint)
+    passes; an output two bf16 steps off, or ``GEMMA2_BF16_DELTA`` past
+    half a step, fails (where two steps exceed half a step plus delta).
+    Over magnitudes 2^-8 .. 4."""
+    smoke = _chip_smoke()
+    delta = smoke.GEMMA2_BF16_DELTA
+    mags = torch.tensor([2.0 ** -8, 0.02, 0.3, 1.0, 1.37, 1.99, 2.5, 3.9],
+                        dtype=torch.float64)
+    lo = mags.bfloat16().double()                       # bf16 numbers
+    step = 2 * smoke.bf16_half_step(lo)
+    hi = lo + step                                      # their neighbours
+    # exact values just past the midpoint, towards hi: hi is nearest, lo is
+    # the far neighbour a different summation order may round to
+    exact = lo + step / 2 + step * 2.0 ** -12
+    assert torch.equal(exact.bfloat16().double(), hi)
+    for o in (hi, lo):
+        assert smoke.exact_gate(o, exact)["crossings"] == 0
+    # two steps off: 1.5 steps past half a step, more than delta wherever
+    # a step is (at every magnitude from 1/4 on, as delta <= 1e-3)
+    seen = 1.5 * step > delta
+    assert bool(seen[mags >= 0.25].all())
+    for o in (lo - step, hi + step):
+        assert smoke.exact_gate(o, exact)["crossings"] == int(seen.sum())
+    half = smoke.bf16_half_step(hi)
+    past = hi + half + 1.5 * delta                      # δ past half a step
+    assert smoke.exact_gate(past, hi)["crossings"] == len(mags)
+    assert smoke.exact_gate(hi + half + 0.5 * delta, hi)["crossings"] == 0
+    # the flash_errors fault follows the gate
+    o = torch.stack([lo, lo - step]).float()
+    ex = torch.stack([exact, exact])
+    assert smoke.flash_errors(o[:1], o[:1], torch.bfloat16, None,
+                              ex[:1])["fault"] is None
+    assert "half a bf16 step" in smoke.flash_errors(
+        o, o, torch.bfloat16, None, ex)["fault"]
+
+
+def test_gemma2_gate_is_tighter_than_the_former_one_at_every_magnitude():
+    """The former gate allowed ``GEMMA2_BF16_ATOL`` (6e-3) off the plain
+    version's bf16 output, itself up to half a step off the exact value;
+    the new one allows half a step plus ``GEMMA2_BF16_DELTA`` (at most
+    1e-3) off the exact value: below it at every magnitude in 2^-8 .. 4."""
+    smoke = _chip_smoke()
+    assert smoke.GEMMA2_BF16_DELTA <= 1e-3 < smoke.GEMMA2_BF16_ATOL
+    m = torch.logspace(-8, 2, 2001, base=2.0, dtype=torch.float64)
+    half = smoke.bf16_half_step(m)
+    new = half + smoke.GEMMA2_BF16_DELTA
+    old = smoke.GEMMA2_BF16_ATOL + half
+    assert bool((new < old).all())
+    # the half step doubles at each power of two: 2^-16 at 2^-8, 2^-6 at 4
+    assert half[0].item() == 2.0 ** -16 and half[-1].item() == 2.0 ** -6

@@ -28,10 +28,14 @@ models with the plain attention (f32, 1e-4).  The SSD scan
 (``ssd_chunked_ref``) at the cases of ``tests/test_kernels.py:107-139``,
 ragged S, S < chunk, mamba2-130m's layer dims and the default chunk of
 256 (run as the kernel's 128), within 1e-4 (f32) or 1e-2 (bf16) of the
-largest |output|; B and C read in place as slices of one tensor; and
-mamba2-smoke through the kernel against the same model with the plain
-SSD scan (f32, 1e-4).  This file imports neither JAX nor
-the JAX package, so it runs where only PyTorch is installed.
+largest |output| — every bf16 case through the tensor-core kernel, every
+f32 case through the FFMA kernel, which the launch counters show; B and C
+read in place as slices of one tensor; the final state of the same launch
+against ``ssd_final_state`` and the plain scan's carried state; and
+mamba2-smoke through the kernels against the same model with the plain
+SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  This file
+imports neither JAX nor the JAX package, so it runs where only PyTorch is
+installed.
 """
 import numpy as np
 import pytest
@@ -468,6 +472,7 @@ def test_dense_model_through_the_kernel_on_card(cuda, arch):
 
 # ------------------------------------------------------------------ SSD scan
 SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}     # of the largest |output|
+SSD_STATE_TOL = 1e-4          # chip_smoke.py's: of the f64 state's largest |h|
 
 
 def _ssd_inputs(b, s, h, p, n, dtype, device, seed=0):
@@ -485,12 +490,20 @@ def _ssd_inputs(b, s, h, p, n, dtype, device, seed=0):
             cm.to(device, dt_))
 
 
+def _ssd_counts():
+    return (ssd_ops.LAUNCHES, ssd_ops.TC_LAUNCHES, ssd_ops.FFMA_LAUNCHES,
+            ssd_ops.COPIES)
+
+
 def _ssd_check(x, dt, A, bm, cm, chunk, dtype):
-    before = ssd_ops.LAUNCHES
+    before = _ssd_counts()
     got = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk, impl="kernel")
     want = ssd_chunked_ref(x, dt, A, bm, cm, min(chunk, x.shape[1]))
     torch.cuda.synchronize()
-    assert ssd_ops.LAUNCHES == before + 1
+    # bf16 on the tensor-core kernel, f32 on the FFMA kernel, no cast
+    tc = dtype == "bfloat16"
+    assert _ssd_counts() == (before[0] + 1, before[1] + tc,
+                             before[2] + (not tc), before[3])
     assert got.dtype == x.dtype and got.shape == x.shape
     # the outputs sum terms of either sign (|C·B| ~ √N): the limit scales
     # with the largest output, as chip_smoke.py's does
@@ -579,6 +592,101 @@ def test_ssd_auto_on_card_launches_the_kernel(cuda):
         ssd_ops.ssd_scan(*_ssd_inputs(1, 64, 2, 96, 8, "float32", cuda),
                          chunk=32)
     assert ssd_ops.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 200, 4, 16, 8, 64), (2, 40, 3, 16, 8, 128), (1, 77, 2, 22, 13, 16),
+    (1, 300, 24, 64, 128, 128), (2, 1000, 3, 64, 128, 128)],
+    ids=["ragged200/64", "s<chunk", "ragged-odd-dims", "mamba2-layer-s300",
+         "odd-heads-s1000"])
+def test_ssd_final_state_on_card(cuda, dtype, b, s, h, p, n, chunk):
+    """``return_final_state``: the state after the last step, from the same
+    launch, within ``SSD_TOL`` of the largest |h| of ``ssd_final_state``
+    (the plain reference, JAX's op) and of the state the plain chunked
+    scan carries, and within ``SSD_STATE_TOL`` of the largest |h| of the
+    state in f64 (an f32 state's precision, in both dtypes); y is the
+    launch's y without the state, to the bit."""
+    x, dt, A, bm, cm = _ssd_inputs(b, s, h, p, n, dtype, cuda, seed=8)
+    before = _ssd_counts()
+    y, hk = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk, impl="kernel",
+                             return_final_state=True)
+    assert _ssd_counts()[0] == before[0] + 1
+    assert hk.dtype == torch.float32 and tuple(hk.shape) == (b, h, n, p)
+    assert torch.equal(y, ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=chunk))
+    _, carried = ssd_chunked_ref(x, dt, A, bm, cm, min(chunk, s),
+                                 final_state=True)
+    for want in (ssd_ops.ssd_final_state(x, dt, A, bm, cm), carried):
+        np.testing.assert_allclose(
+            hk.cpu().numpy(), want.cpu().numpy(), rtol=0,
+            atol=SSD_TOL[dtype] * want.abs().max().item())
+    a = torch.cumsum(dt.double() * A.double(), dim=1)
+    w = torch.exp(a[:, -1:] - a) * dt.double()
+    exact = torch.einsum("bsn,bshp->bhnp", bm.double(),
+                         x.double() * w[..., None])
+    np.testing.assert_allclose(
+        hk.double().cpu().numpy(), exact.cpu().numpy(), rtol=0,
+        atol=SSD_STATE_TOL * exact.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_ssd_routes_by_dtype_on_card(cuda):
+    """bf16 x, B, C launch the tensor-core kernel, f32 the FFMA kernel;
+    a bf16 dt is cast to f32 first, and the cast is counted; each kernel
+    refuses the other's type before it launches."""
+    x, dt, A, bm, cm = _ssd_inputs(1, 96, 2, 16, 8, "bfloat16", cuda)
+    before = _ssd_counts()
+    y = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=32)
+    assert _ssd_counts() == (before[0] + 1, before[1] + 1, before[2],
+                             before[3])
+    ssd_ops.ssd_scan(x, dt.bfloat16(), A, bm, cm, chunk=32)
+    assert _ssd_counts() == (before[0] + 2, before[1] + 2, before[2],
+                             before[3] + 1)
+    f32 = (x.float(), dt, A, bm.float(), cm.float())
+    ssd_ops.ssd_scan(*f32, chunk=32)
+    assert _ssd_counts()[2] == before[2] + 1
+    want = ssd_chunked_ref(x, dt, A, bm, cm, 32).float()
+    tol = SSD_TOL["bfloat16"] * want.abs().max().item()
+    assert (y.float() - want).abs().max().item() <= tol
+    counts = _ssd_counts()
+    with pytest.raises(TypeError, match="f32"):
+        ssd_ops._launch(x, dt, A, bm, cm, 32, "ffma")
+    with pytest.raises(TypeError, match="bf16"):
+        ssd_ops._launch(*f32, 32, "tc")
+    assert _ssd_counts() == counts
+
+
+@pytest.mark.gpu
+def test_mamba2_bf16_through_the_tensor_core_kernel_on_card(cuda):
+    """mamba2-smoke in bf16 on the card, a 300-token prompt in chunks of
+    16: one tensor-core SSD launch per layer in the prefill and none of
+    the FFMA kernel, none in decode, no cast; prefill and first decode
+    logits within 0.02·(max|logit| + 1) of the same model with the plain
+    SSD scan (tests/test_arch_smoke.py's bound)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config("mamba2-130m", smoke=True)
+    model = init_params(cfg, 0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(2))
+    logits = {}
+    for impl in ("auto", "plain"):
+        model.ssd_impl = impl
+        before = _ssd_counts()
+        with torch.inference_mode():
+            pre, cache = prefill(cfg, model, {"tokens": prompts}, 301)
+            mid = _ssd_counts()
+            step, _ = decode_step(cfg, model, cache,
+                                  {"token": pre.argmax(-1)})
+        n = cfg.n_layers if impl == "auto" else 0
+        assert mid == (before[0] + n, before[1] + n, before[2], before[3])
+        assert _ssd_counts() == mid
+        logits[impl] = (pre, step)
+    for got, want in zip(logits["auto"], logits["plain"]):
+        assert bool(torch.isfinite(got).all())
+        bound = 0.02 * (want.abs().max().item() + 1.0)
+        assert (got - want).abs().max().item() <= bound
 
 
 @pytest.mark.gpu

@@ -215,6 +215,30 @@ def test_mamba2_prefill_and_decode_match_jax(s):
                                    atol=1e-4)
 
 
+def test_mamba2_prefill_takes_its_state_from_the_scans_own_call(
+        monkeypatch):
+    """``mamba2_prefill`` asks its one ``ssd_scan`` call for the final
+    state (JAX calls ``ssd_final_state`` after the scan; the port no longer
+    does), and ``mamba2_forward`` does not ask; the state is the one
+    :func:`test_mamba2_prefill_and_decode_match_jax` holds against JAX."""
+    asked, real = [], TL.ssd_scan
+
+    def spy(*args, **kw):
+        asked.append(kw.get("return_final_state", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TL, "ssd_scan", spy)
+    jc, tc, _, tp = _mamba2_layer_pair()
+    x = torch.from_numpy(normal(rng(5), (B, 40, jc.d_model)))
+    _, cache = TL.mamba2_prefill(tp, tc, x)
+    TL.mamba2_forward(tp, tc, x)
+    assert asked == [True, False]
+    assert not hasattr(TL, "ssd_final_state")
+    assert cache["ssm"].dtype == torch.float32 and tuple(
+        cache["ssm"].shape) == (B, jc.ssm_heads, jc.ssm_state,
+                                jc.ssm_head_dim)
+
+
 def test_mamba2_decode_after_a_prompt_shorter_than_the_conv():
     """A 2-token prompt (shorter than the conv's 3 cached taps: the port
     pads its conv cache with zeros, JAX's slice comes out short), then 3

@@ -7,14 +7,13 @@ there), against the Pallas kernel run in interpret mode at the cases of
 ``:125-139`` (1e-3), and at a ragged S and S < chunk, where JAX pads and
 the port takes the last chunk short.  ``ssd_final_state`` and
 ``ssd_decode_step`` are held against JAX at 1e-4 (``:142-160``).  The
-CUDA kernel itself runs only on a card: its tests are in
-``tests/test_torch_kernels_gpu.py``.  The last test shows that the
-limits ``chip_smoke.py`` holds the kernel to at mamba2-130m's layer shape
-catch small faults there.
+CUDA kernels themselves run only on a card: their tests are in
+``tests/test_torch_kernels_gpu.py``; the route between them, the final
+state and the tensor-core kernel's arithmetic are CPU-tested in
+``tests/test_torch_ssd_tensor_cores.py``.  The last test shows that the
+limits ``chip_smoke.py`` holds the kernels to at mamba2-130m's layer
+shape catch small faults there.
 """
-import importlib.util
-import pathlib
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -30,36 +29,18 @@ from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_ref, ssd_ref)
-from _torch_helpers import as_np, normal, rng  # noqa: E402
+from _torch_helpers import (  # noqa: E402
+    as_np, chip_smoke, normal, rng, ssd_pair)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
-
-
-def _inputs(b, s, h, p, n, dtype="float32", dt_dtype=None, seed=0):
-    """The same x, dt, A, B, C for JAX and the port: x, B, C (and dt, as
-    the JAX tests round it) in ``dtype``; dt = softplus(normal), A =
-    -exp(normal) in f32."""
-    r = rng(seed)
-    jdt, tdt, _ = DTYPES[dtype]
-    x, bm, cm = normal(r, (b, s, h, p)), normal(r, (b, s, n)), \
-        normal(r, (b, s, n))
-    dt = np.logaddexp(normal(r, (b, s, h)), 0.0).astype(np.float32)
-    A = -np.exp(normal(r, (h,)))
-    js = [jnp.asarray(x, jdt), jnp.asarray(dt, DTYPES[dt_dtype or "float32"]
-                                           [0]),
-          jnp.asarray(A), jnp.asarray(bm, jdt), jnp.asarray(cm, jdt)]
-    ts = [torch.tensor(np.asarray(j.astype(jnp.float32))) for j in js]
-    ts = [ts[0].to(tdt), ts[1].to(DTYPES[dt_dtype or "float32"][1]), ts[2],
-          ts[3].to(tdt), ts[4].to(tdt)]
-    return js, ts
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32), (96, 32)])
 def test_plain_path_matches_jax_chunked_and_ref(s, chunk, dtype):
     """``tests/test_kernels.py:107-123``: dt in the inputs' dtype too."""
-    js, ts = _inputs(2, s, 4, 16, 8, dtype, dt_dtype=dtype)
+    js, ts = ssd_pair(2, s, 4, 16, 8, dtype, dt_dtype=dtype)
     before = ops.LAUNCHES
     got = ops.ssd_scan(*ts, chunk=chunk)            # CPU tensors → plain
     assert ops.LAUNCHES == before
@@ -74,7 +55,7 @@ def test_plain_path_matches_jax_chunked_and_ref(s, chunk, dtype):
 @pytest.mark.parametrize("s,chunk", [(64, 32), (128, 64)])
 def test_plain_path_matches_pallas_interpret(s, chunk):
     """``tests/test_kernels.py:125-139``."""
-    js, ts = _inputs(1, s, 2, 16, 8)
+    js, ts = ssd_pair(1, s, 2, 16, 8)
     want = ssd_scan_pallas(*js, chunk=chunk, interpret=True)
     got = ops.ssd_scan(*ts, chunk=chunk)
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=1e-3,
@@ -87,7 +68,7 @@ def test_plain_path_matches_pallas_interpret(s, chunk):
 def test_ragged_s_matches_jax_padding(s, chunk):
     """JAX pads S to a multiple of the chunk; the port's last chunk is
     short.  The chunk boundaries are the same, so is the result."""
-    js, ts = _inputs(2, s, 3, 16, 8, seed=1)
+    js, ts = ssd_pair(2, s, 3, 16, 8, seed=1)
     got = ops.ssd_scan(*ts, chunk=chunk)
     np.testing.assert_allclose(
         as_np(got), as_np(jax_ssd_scan(*js, chunk=chunk, impl="jnp")),
@@ -97,7 +78,7 @@ def test_ragged_s_matches_jax_padding(s, chunk):
 
 
 def test_sequential_oracle_matches_jax():
-    js, ts = _inputs(2, 50, 3, 8, 8, seed=2)
+    js, ts = ssd_pair(2, 50, 3, 8, 8, seed=2)
     h0 = normal(rng(3), (2, 3, 8, 8))
     jy, jh = jax_ssd_ref(*js, h0=jnp.asarray(h0))
     ty, th = ssd_ref(*ts, h0=torch.from_numpy(h0))
@@ -109,7 +90,7 @@ def test_final_state_and_decode_match_jax():
     """``tests/test_kernels.py:142-160``: the prefill state then four
     recurrent steps, against JAX's and against the full scan."""
     b, s, h, p, n = 2, 32, 4, 8, 8
-    js, ts = _inputs(b, s + 4, h, p, n, seed=4)
+    js, ts = ssd_pair(b, s + 4, h, p, n, seed=4)
     jh = jax_final_state(*[a[:, :s] if a.ndim > 1 else a for a in js])
     th = ops.ssd_final_state(*[a[:, :s] if a.dim() > 1 else a for a in ts])
     np.testing.assert_allclose(as_np(th), as_np(jh), rtol=1e-4, atol=1e-4)
@@ -130,7 +111,7 @@ def test_final_state_and_decode_match_jax():
 
 
 def test_plain_impl_is_the_chunked_plain_version():
-    _, ts = _inputs(1, 40, 2, 8, 8)
+    _, ts = ssd_pair(1, 40, 2, 8, 8)
     np.testing.assert_array_equal(
         as_np(ops.ssd_scan(*ts, chunk=16, impl="plain")),
         as_np(ssd_chunked_ref(*ts, 16)))
@@ -148,7 +129,7 @@ def test_chunk_256_and_128_are_the_same_scan(s):
     decay exp(a_i − a_j) is taken from a cumsum that grows with the chunk,
     so the rounding scales with the largest output, as the smoke's SSD
     limits do.)"""
-    _, ts = _inputs(2, s, 4, 16, 8, seed=6)
+    _, ts = ssd_pair(2, s, 4, 16, 8, seed=6)
     a = as_np(ops.ssd_scan(*ts, chunk=256, impl="plain"))
     b = as_np(ops.ssd_scan(*ts, chunk=128, impl="plain"))
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
@@ -157,15 +138,20 @@ def test_chunk_256_and_128_are_the_same_scan(s):
 def test_kernel_impl_on_cpu_raises_and_counts_nothing():
     """No silent fallback: CPU tensors never reach the plain version when
     the kernel is asked for, and nothing is counted."""
-    _, ts = _inputs(1, 16, 2, 8, 8)
-    before = ops.LAUNCHES
+    _, ts = ssd_pair(1, 16, 2, 8, 8)
+    before = (ops.LAUNCHES, ops.TC_LAUNCHES, ops.FFMA_LAUNCHES, ops.COPIES)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.ssd_scan(*ts, impl="kernel")
-    assert ops.LAUNCHES == before
+    x, dt, A, bm, cm = ts
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.ssd_scan(x.bfloat16(), dt.bfloat16(), A, bm.bfloat16(),
+                     cm.bfloat16(), impl="kernel", return_final_state=True)
+    assert (ops.LAUNCHES, ops.TC_LAUNCHES, ops.FFMA_LAUNCHES,
+            ops.COPIES) == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    _, (x, dt, A, bm, cm) = _inputs(1, 16, 2, 8, 8)
+    _, (x, dt, A, bm, cm) = ssd_pair(1, 16, 2, 8, 8)
     with pytest.raises(ValueError, match=r"x \(B,S,H,P\)"):
         ops.ssd_scan(x[0], dt, A, bm, cm)
     with pytest.raises(ValueError, match="do not fit"):
@@ -183,14 +169,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 # ---------------------------------------------- chip_smoke.py's SSD limits
-def _chip_smoke():
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _faulty_chunked(x, dt, A, Bm, Cm, chunk, fault):
     """The chunked algorithm with one fault, standing in for a faulty
     kernel: the chunk's last step left out of the carried state (a chunk
@@ -234,7 +212,7 @@ def test_smoke_limits_catch_small_faults_at_the_layer_shape(dtype, fault):
     smoke's own inputs: the fault-free stand-in passes them, each fault
     fails them (a decay 1% off moves outputs by ~0.4% of the largest, less
     than the bf16 max-abs limit: the row limit catches it)."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     tdt = DTYPES[dtype][1]
     gen = torch.Generator().manual_seed(0)
     x, dt, A, bm, cm = smoke.ssd_inputs(1, 1024, 24, 64, 128, tdt, "cpu",

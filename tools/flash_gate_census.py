@@ -1,17 +1,20 @@
-"""How often the smoke's bf16 flash gate at gemma2's shapes is crossed.
+"""How often the smoke's bf16 flash gates at gemma2's shapes are crossed.
 
     python3 tools/flash_gate_census.py                      # on a card
     python3 tools/flash_gate_census.py --seq 8192 --draws 8
 
-``chip_smoke.py`` holds the bf16 flash kernel within ``GEMMA2_BF16_ATOL``
-(6e-3) of the plain version at gemma2-2b's layer shapes, on one draw of
-inputs.  Two f32 computations that sum in different orders round an output
-in [1, 2) to neighbouring bf16 numbers now and then, 7.8e-3 apart, so
-whether that gate holds depends on the draw.  This script draws fresh
-inputs at gemma2-2b's head shape (B=2, 8 query and 4 KV heads of dim 256,
-soft-cap 50, causal; ``--seq`` rows, each layer kind) and counts, per
-kernel, the outputs further than the limit from the plain version and the
-draws that hold one:
+``chip_smoke.py`` holds the bf16 flash kernel at gemma2-2b's layer shapes,
+on one draw of inputs, to the exact (f64) attention: every output within
+half a bf16 step of the exact value plus ``GEMMA2_BF16_DELTA``
+(``exact_gate``).  It used to hold it within ``GEMMA2_BF16_ATOL`` (6e-3)
+of the plain version's bf16 output; two f32 computations that sum in
+different orders round an output in [1, 2) to neighbouring bf16 numbers
+now and then, 7.8e-3 apart, so whether that gate held depended on the
+draw.  This script draws fresh inputs at gemma2-2b's head shape (B=2, 8
+query and 4 KV heads of dim 256, soft-cap 50, causal; ``--seq`` rows, each
+layer kind) and counts, per kernel and per gate, the outputs past the
+limit and the draws that hold one, with the largest excess over half a
+step that sets ``GEMMA2_BF16_DELTA``:
 
 * ``wgmma``: the bf16 tensor-core kernel, as the main path runs it;
 * ``ffma_f32``: the f32 FFMA kernel on the same inputs in f32, its output
@@ -22,8 +25,8 @@ default ``--seq 256`` covers the rows where outputs reach 1 and more at a
 small cost per draw; ``--seq 8192`` runs the smoke's gated shape itself.
 Prints one JSON object per layer kind (only the global one when ``--seq``
 is within the window).  ``--device cpu`` runs the plain version in the
-kernels' place, as ``ops.attention`` does for a CPU tensor (both counts
-are then 0).
+kernels' place, as ``ops.attention`` does for a CPU tensor (the former
+gate's counts are then 0).
 """
 import argparse
 import importlib.util
@@ -53,13 +56,17 @@ def census(smoke, draws: int, seq: int, layer: int, device: str,
     shapes = ((smoke.PROMPT_BATCH, cfg.n_heads, seq, cfg.head_dim),
               (smoke.PROMPT_BATCH, cfg.n_kv_heads, seq, cfg.head_dim),
               (smoke.PROMPT_BATCH, cfg.n_kv_heads, seq, cfg.head_dim))
-    over = {"wgmma": [0, 0], "ffma_f32": [0, 0]}       # outputs, draws
-    worst = {"wgmma": 0.0, "ffma_f32": 0.0}
+    kernels = ("wgmma", "ffma_f32")
+    over = {k: [0, 0] for k in kernels}             # outputs, draws
+    crossed = {k: [0, 0] for k in kernels}
+    worst = {k: 0.0 for k in kernels}
+    excess = {k: float("-inf") for k in kernels}
     for i in range(draws):
         g = torch.Generator(device=device).manual_seed(seed + i)
         q, k, v = (torch.randn(sh, generator=g, device=device).bfloat16()
                    for sh in shapes)
         plain = attention_ref(q, k, v, **kw).float()
+        exact = smoke.exact_attention(q, k, v, rows=512, **kw)
         before = (flash_ops.TC_LAUNCHES, flash_ops.FFMA_LAUNCHES)
         outs = {"wgmma": flash_ops.attention(q, k, v, **kw),
                 "ffma_f32": flash_ops.attention(
@@ -74,15 +81,26 @@ def census(smoke, draws: int, seq: int, layer: int, device: str,
             over[name][0] += n
             over[name][1] += n > 0
             worst[name] = max(worst[name], err.max().item())
-        del plain, outs
+            gate = smoke.exact_gate(o, exact)
+            crossed[name][0] += gate["crossings"]
+            crossed[name][1] += gate["crossings"] > 0
+            excess[name] = max(excess[name],
+                               gate["max_excess_over_half_step"])
+        del plain, exact, outs
     return {"at": f"{smoke.ARCH} layer {layer}, {kw}, seq {seq}",
             "draws": draws, "first_seed": seed, "atol": atol,
+            "delta": smoke.GEMMA2_BF16_DELTA,
             "outputs_per_draw": shapes[0][0] * shapes[0][1] * seq
             * cfg.head_dim,
             "over_atol": {name: {"outputs": n, "draws": d,
                                  "draw_rate": d / draws,
                                  "max_abs_err": worst[name]}
-                          for name, (n, d) in over.items()}}
+                          for name, (n, d) in over.items()},
+            "over_exact_gate": {name: {"outputs": n, "draws": d,
+                                       "draw_rate": d / draws,
+                                       "max_excess_over_half_step":
+                                       excess[name]}
+                                for name, (n, d) in crossed.items()}}
 
 
 def main(argv=None) -> int:
