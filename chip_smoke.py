@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's three main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's four main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
 through ``TraServer`` on the ``jit`` executor; gemma2-2b at full width
-(26 layers, d_model 2304, vocab 256000; random bf16 weights from seed 0)
-and mamba2-130m at full width (24 Mamba2 layers, d_model 768, 24 SSD heads
-of dim 64, state 128, chunk 128, vocab 50280; random bf16 weights from
-seed 0), each through the ``--dense-oracle`` prefill + greedy decode loop
-— and holds every hand-written kernel of those paths against its plain
-PyTorch version on the card:
+(26 layers, d_model 2304, vocab 256000), mamba2-130m at full width (24
+Mamba2 layers, d_model 768, 24 SSD heads of dim 64, state 128, chunk 128,
+vocab 50280) and zamba2-7b at full width (78 Mamba2 layers in 13 groups of
+6, each followed by one of 2 shared attention + MLP blocks; d_model 3584,
+112 SSD heads of dim 64, state 64, chunk 128, 32/32 attention heads of dim
+112, d_ff 14336, vocab 32000; 6.72 B parameters), each model through the
+``--dense-oracle`` prefill + greedy decode loop with random bf16 weights
+from seed 0 — and holds every hand-written kernel of those paths against
+its plain PyTorch version on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
@@ -37,7 +40,10 @@ PyTorch version on the card:
    2e-4), every case also within a limit on each output row's error over
    that row's norm (bf16 1e-2, f32 1e-4); every bf16 case through the
    tensor-core kernel (``TC_LAUNCHES``), every f32 case through the FFMA
-   kernel (``FFMA_LAUNCHES``); at gemma2's head shape (8 seeds, S=256)
+   kernel (``FFMA_LAUNCHES``); zamba2-7b's shared attention (B=2, S=8192,
+   32/32 heads, D=112, causal, no soft-cap) gated as gemma2's shapes are,
+   timed in both types with the bound and ``scaled_dot_product_attention``
+   beside the bf16 kernel; at gemma2's head shape (8 seeds, S=256)
    the bf16 kernel's outputs that differ from the correctly rounded f64
    attention within ``FLASH_ROUNDING_FACTOR`` times the plain f32
    version's count; timed at the gemma2 shapes in bf16 and at the global
@@ -59,7 +65,10 @@ PyTorch version on the card:
    plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-7. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` at the JAX kernel
+7. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
+   exact result, :func:`exact_ssd`, as in every per-call SSD check here;
+   JAX's f32 sum of C·Bᵀ is off by a few % of a row where C_i·B_i
+   cancels) at the JAX kernel
    tests' cases, ragged S, S < chunk, B and C read as slices of one (B, S,
    2N) tensor (as the model hands them over) and as contiguous tensors,
    and mamba2-130m's layer shape (B=8, S=8192, H=24, P=64, N=128, L=128) —
@@ -71,13 +80,17 @@ PyTorch version on the card:
    of ``ssd_final_state`` and within ``SSD_STATE_TOL`` of the largest |h|
    of the f64 state; timed at the layer shape, bf16 on the tensor-core
    kernel and f32 on the FFMA one, with the plain version and the bound;
+   zamba2-7b's layer shape (B=2, S=8192, H=112, P=64, N=64, L=128) the
+   same ways;
 8. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (24 launches of the tensor-core SSD kernel, none of
    the FFMA one, no cast, no other kernel); in a second prefill, every
-   layer's SSD call on its real inputs against the plain versions, y and
+   layer's SSD call on its real inputs against the exact result, y and
    final state within the ssd phase's limits (beside them, not gated, the
-   FFMA kernel's row error on the same inputs); the same weights in f32
+   row errors of the FFMA kernel, of the plain version in f32 — the
+   model's plain path, JAX's arithmetic — and of the exact y rounded to
+   bf16, on the same inputs); the same weights in f32
    through the FFMA kernel (24 launches a prefill) and through the plain
    SSD scan, prefill and first decode logits within
    ``MAMBA2_F32_LOGIT_TOL``; the bf16 run's prefill and first
@@ -88,7 +101,22 @@ PyTorch version on the card:
    rounding changes: 24 layers without post-norms add up the bf16 noise
    of each); a profile by kernel of one prefill (24 SSD launches) and of
    8 decode steps (none);
-9. the kernels line, the ``nvidia-smi`` line, and the last line
+9. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
+   ``dense_generate`` with every launch count set to 0 just before and
+   read just after (13 launches of the tensor-core flash kernel, one per
+   shared-block application, and 78 of the tensor-core SSD kernel, one
+   per Mamba2 layer; none of either FFMA kernel, no copy, no cast); in
+   further prefills, every Mamba2 layer's SSD call on its real inputs held
+   as mamba2's are, and every shared-block application's attention on its
+   real inputs held to the flash phase's exact gate and row limit (the
+   plain version's and the FFMA kernel's crossings beside it); the
+   same weights in f32 through the FFMA kernels against both plain
+   versions, prefill and first decode logits within
+   ``0.02·(max|logit| + 1)``; the bf16 run against the plain-kernels run
+   within ``BF16_FLOOR_FACTOR`` of the rounding floor (both plain, the
+   SSD in half-size chunks against full ones); a profile by kernel of one
+   prefill (13 + 78 launches) and of 8 decode steps (none); peak memory;
+10. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -122,7 +150,8 @@ from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
-from repro_torch.models.model import _window_for, group_size  # noqa: E402
+from repro_torch.models.model import (_window_for, group_size,  # noqa: E402
+                                      n_scan_groups)
 
 SEED = 0
 N_REQUESTS = 64
@@ -186,6 +215,14 @@ SSD_STATE_TOL = 1e-4
 # BF16_FLOOR_FACTOR of that rounding floor, measured in the same run.
 MAMBA2_F32_LOGIT_TOL = 2e-2
 BF16_FLOOR_FACTOR = 1.5
+# zamba2-7b at full width: 78 Mamba2 layers in 13 groups of 6, each group
+# followed by one of 2 shared attention + MLP blocks; 2 x PROMPT_LEN tokens
+# (its SSD layer: 112 heads of two-head CTAs per batch row, 112 CTAs).  The
+# f32 run is held within 0.02·(max|logit| + 1) of the plain versions'
+# (tests/test_arch_smoke.py:96-98), the bf16 run within BF16_FLOOR_FACTOR
+# of its rounding floor, as mamba2's.
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_BATCH = 2
 PEAK = {torch.float32: H100_SXM.peak_flops_f32,
         torch.bfloat16: H100_SXM.peak_flops}
 
@@ -873,8 +910,35 @@ def phase_flash(device, gen) -> dict:
         emit({"phase": "flash", **row})
     rounding = flash_rounding(cfg, device)
     emit({"phase": "flash", **rounding})
+    # zamba2-7b's shared attention (MHA 32/32 of dim 112, which the
+    # tensor-core kernel pads to 128; causal, no window, no soft-cap), held
+    # as gemma2's shapes are, from a generator of its own, so that the
+    # later phases draw what they drew
+    zgen = torch.Generator(device=device).manual_seed(SEED + 21)
+    zdims, zkw = hybrid_attention(get_config(HYBRID_ARCH))
+    layers["zamba2"] = flash_case(*zdims, torch.bfloat16, zkw, device, zgen,
+                                  iters=4, exact=True)
+    emit({"phase": "flash", "at": f"{HYBRID_ARCH} shared attention",
+          **layers["zamba2"]})
+    rows.append(flash_case(*zdims, torch.float32, zkw, device, zgen, iters=2,
+                           atol=FLASH_TOL[torch.float32]))
+    layers["zamba2_f32"] = rows[-1]
+    emit({"phase": "flash", "at": f"{HYBRID_ARCH} shared attention, f32",
+          **rows[-1]})
+    zlib = flash_library_case(*zdims, torch.bfloat16, device, zgen,
+                              at=f"{HYBRID_ARCH} shared attention shape")
+    emit({"phase": "flash", **zlib})
     return {"rows": rows, "layers": layers, "library": library,
-            "rounding": rounding}
+            "rounding": rounding, "zamba2_library": zlib}
+
+
+def hybrid_attention(cfg) -> tuple:
+    """The dims and settings of zamba2-7b's attention calls in the prefill
+    (every shared-block application): (B, Hq, Hkv, Sq, Skv, D, Dv) and the
+    keywords."""
+    return ((HYBRID_BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT_LEN,
+             PROMPT_LEN, cfg.head_dim, cfg.head_dim),
+            {"causal": True, "window": 0, "softcap": cfg.attn_softcap})
 
 
 def exact_attention(q, k, v, *, causal, window, softcap, scale=None,
@@ -946,10 +1010,12 @@ def flash_rounding(cfg, device, seeds: int = 8, s: int = 256) -> dict:
             "ratio": ratio, "limit": FLASH_ROUNDING_FACTOR}
 
 
-def flash_library_case(b, hq, hkv, s, _, d, dv, dt, device, gen) -> dict:
+def flash_library_case(b, hq, hkv, s, _, d, dv, dt, device, gen,
+                       at=f"{ARCH} global layer shape, no soft-cap") -> dict:
     """The library yardstick: one PyTorch call computing the same function
-    at the global shape without soft-cap (no single call applies the
-    soft-cap), timed beside the kernel that ``dt`` routes to."""
+    at one shape without soft-cap (gemma2's global shape: no single call
+    applies the soft-cap), timed beside the kernel that ``dt`` routes
+    to."""
     q = torch.randn((b, hq, s, d), generator=gen, device=device).to(dt)
     k = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dt)
     v = torch.randn((b, hkv, s, dv), generator=gen, device=device).to(dt)
@@ -961,7 +1027,7 @@ def flash_library_case(b, hq, hkv, s, _, d, dv, dt, device, gen) -> dict:
     del lib_out, ker_out
     iters = 4 if dt == torch.bfloat16 else 2
     return {
-        "at": f"{ARCH} global layer shape, no soft-cap",
+        "at": at,
         "dtype": str(dt).split(".")[-1],
         "kernel": "wgmma" if dt == torch.bfloat16 else "ffma",
         "library_call": "scaled_dot_product_attention(is_causal=True, "
@@ -1014,17 +1080,19 @@ def device_profile(fn) -> dict:
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
 
-def compare_with_plain(cfg, model, prompts, run, impl_attr="attn_impl",
+def compare_with_plain(cfg, model, prompts, run, impls=("attn_impl",),
                        what_path="gemma2", limits=None) -> dict:
-    """The same model with the plain version of its kernel (``impl_attr``:
-    the attention or the SSD scan), fed the kernel run's tokens: its
-    prefill and first decode logits against the kernel run's (every logit
-    finite, and within ``limits[what]``, by default
-    ``0.02·(max|logit| + 1)``), the share of greedy tokens on which the
-    two agree, and the host-clock time of the plain run's prefill."""
+    """The same model with the plain versions of its kernels (``impls``:
+    ``attn_impl`` for the attention, ``ssd_impl`` for the SSD scan), fed
+    the kernel run's tokens: its prefill and first decode logits against
+    the kernel run's (every logit finite, and within ``limits[what]``, by
+    default ``0.02·(max|logit| + 1)``), the share of greedy tokens on
+    which the two agree, and the host-clock time of the plain run's
+    prefill."""
     from repro_torch.models import decode_step, prefill
     batch = prompts.shape[0]
-    setattr(model, impl_attr, "plain")
+    for attr in impls:
+        setattr(model, attr, "plain")
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1041,7 +1109,8 @@ def compare_with_plain(cfg, model, prompts, run, impl_attr="attn_impl",
             want = run.tokens[:, t:t + 1].to(prompts.device)
             agree += int((logits.argmax(-1) == want).sum())
             tok = want
-    setattr(model, impl_attr, "auto")
+    for attr in impls:
+        setattr(model, attr, "auto")
     checks = {}
     for what, got, ref in (("prefill", run.prefill_logits, plain_logits),
                            ("decode_step_1", run.first_decode_logits,
@@ -1064,11 +1133,22 @@ def compare_with_plain(cfg, model, prompts, run, impl_attr="attn_impl",
             "plain_prefill_ms": plain_prefill_ms}
 
 
-def path_profiles(cfg, model, prompts, ops, what_path="gemma2") -> dict:
+def launches_per_prefill(cfg) -> dict:
+    """The model kernels' launches in one prefill of ``cfg``: flash
+    attention once per attention layer (dense) or shared-block application
+    (hybrid), the SSD scan once per Mamba2 layer (ssm, hybrid)."""
+    flash = {"dense": cfg.n_layers, "ssm": 0,
+             "hybrid": n_scan_groups(cfg)}[cfg.family]
+    return {"flash_attention": flash,
+            "ssd_scan": 0 if cfg.family == "dense" else cfg.n_layers}
+
+
+def path_profiles(cfg, model, prompts, what_path="gemma2") -> dict:
     """One prefill, then 8 decode steps as ``dense_generate``'s loop takes
-    them, each under the profiler, with the launches of the path's kernel
-    (``ops.LAUNCHES``) in each: one per layer in the prefill, none in
-    decode."""
+    them, each under the profiler, with the launches of the flash and SSD
+    kernels (``ops.LAUNCHES``) in each: :func:`launches_per_prefill` in
+    the prefill, none in decode."""
+    ops = {"flash_attention": flash_ops, "ssd_scan": ssd_ops}
     from repro_torch.models import decode_step, prefill
     state = {}
 
@@ -1083,33 +1163,49 @@ def path_profiles(cfg, model, prompts, ops, what_path="gemma2") -> dict:
             tok = logits.argmax(-1)
             tok.cpu()
 
+    def counts():
+        return {name: m.LAUNCHES for name, m in ops.items()}
+
     with torch.inference_mode():
-        n0 = ops.LAUNCHES
+        n0 = counts()
         pre = device_profile(prefill_once)
-        n1 = ops.LAUNCHES
+        n1 = counts()
         dec = device_profile(decode_8_steps)
-        by_phase = {"prefill": n1 - n0,
-                    "decode_8_steps": ops.LAUNCHES - n1}
-    if by_phase != {"prefill": cfg.n_layers, "decode_8_steps": 0}:
+        n2 = counts()
+    by_phase = {"prefill": {k: n1[k] - n0[k] for k in ops},
+                "decode_8_steps": {k: n2[k] - n1[k] for k in ops}}
+    want = {"prefill": launches_per_prefill(cfg),
+            "decode_8_steps": {k: 0 for k in ops}}
+    if by_phase != want:
         fail(f"{what_path}: kernel launches by phase {by_phase}; expected "
-             f"{cfg.n_layers} in a prefill, 0 in decode")
+             f"{want}")
     return {"launches_by_phase": by_phase, "profile_prefill": pre,
             "profile_decode_8_steps": dec}
 
 
-def decode_step_bound_ms(cfg, model) -> float:
-    """The least time of the last decode step: every weight read once and
-    each layer's visible cache (PROMPT_LEN + GEN positions, or its window)
-    read once, at the HBM rate."""
+def decode_step_bound_ms(cfg, model, batch) -> float:
+    """The least time of the last decode step: every weight read once,
+    each attention's visible KV cache (PROMPT_LEN + GEN positions, or its
+    window) read once, and each Mamba2 layer's conv and SSM state read and
+    written once, at the HBM rate."""
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
+    isz = model.embed["w"].element_size()
     seen = PROMPT_LEN + GEN
-    k_and_v = 2 * PROMPT_BATCH * cfg.n_kv_heads * cfg.head_dim \
-        * model.embed["w"].element_size()
-    cache_bytes = 0
-    for i in range(cfg.n_layers):
-        window = gemma2_layer_kw(cfg, i)["window"]
-        cache_bytes += k_and_v * (min(seen, window) if window else seen)
+    k_and_v = 2 * batch * cfg.n_kv_heads * cfg.head_dim * isz
+    if cfg.family == "dense":
+        windows = [gemma2_layer_kw(cfg, i)["window"]
+                   for i in range(cfg.n_layers)]
+    else:
+        windows = [0] * launches_per_prefill(cfg)["flash_attention"]
+    cache_bytes = sum(k_and_v * (min(seen, w) if w else seen)
+                      for w in windows)
+    if cfg.family != "dense":
+        gn = cfg.ssm_ngroups * cfg.ssm_state
+        state = batch * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
+                         + (cfg.ssm_conv_width - 1)
+                         * (cfg.d_inner + 2 * gn) * isz)
+        cache_bytes += 2 * cfg.n_layers * state
     return (weight_bytes + cache_bytes) / H100_SXM.hbm_bw * 1e3
 
 
@@ -1148,11 +1244,11 @@ def phase_gemma2(device) -> dict:
            "prefill_ms": run.prefill_s * 1e3,
            "decode_tok_per_s": PROMPT_BATCH * GEN / run.decode_s,
            "decode_ms_per_step": run.decode_s * 1e3 / GEN,
-           "decode_step_bytes_bound_ms": decode_step_bound_ms(cfg, model),
+           "decode_step_bytes_bound_ms": decode_step_bound_ms(
+               cfg, model, PROMPT_BATCH),
            "max_memory_allocated_gb": peak / 1e9,
            **compare_with_plain(cfg, model, prompts, run),
-           "setup_s": setup_s, **path_profiles(cfg, model, prompts,
-                                               flash_ops)}
+           "setup_s": setup_s, **path_profiles(cfg, model, prompts)}
     emit(out)
     return out
 
@@ -1160,21 +1256,36 @@ def phase_gemma2(device) -> dict:
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc/"
 
 
-def flash_entries(flash: dict, gemma2: dict) -> list:
+def by_path(kernel: str, **paths) -> dict:
+    """A kernel's launches on each main path that runs it."""
+    return {paths[name]["arch"]: paths[name]["launches"][kernel]
+            for name in paths}
+
+
+def path_entry(layer: dict, **extra) -> dict:
+    """One layer shape's numbers of a kernels-line entry."""
+    return {**{k: layer[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                     "bound_by")}, **extra}
+
+
+def flash_entries(flash: dict, gemma2: dict, zamba2: dict) -> list:
     """The kernels line's two flash attention entries.  The tensor-core
-    kernel (bf16, the main path): one launch at gemma2-2b's global-layer
-    shape, the window layer and a whole prefill beside it.  The FFMA
-    kernel (f32 only, off the main path): one launch at the global shape
-    in f32."""
+    kernel (bf16, the main paths): one launch at gemma2-2b's global-layer
+    shape, the window layer, zamba2-7b's shared attention and a whole
+    prefill of each beside it.  The FFMA kernel (f32 only, off the main
+    paths): one launch at gemma2's global shape and at zamba2's in f32."""
     cfg = get_config(ARCH)
     glob, win = flash["layers"]["global"], flash["layers"]["window"]
     g32 = flash["layers"]["global_f32"]
+    z16, z32 = flash["layers"]["zamba2"], flash["layers"]["zamba2_f32"]
+    zlib = flash["zamba2_library"]
+    z_apps = zamba2["shared_block_applications"]
     n_win = sum(gemma2_layer_kw(cfg, i)["window"] > 0
                 for i in range(cfg.n_layers))
     n_glob = cfg.n_layers - n_win
     lib, lib32 = (flash["library"][dt]
                   for dt in (torch.bfloat16, torch.float32))
-    rows = {kind: [r for r in flash["rows"] + [glob, win]
+    rows = {kind: [r for r in flash["rows"] + [glob, win, z16]
                    if r["kernel"] == kind] for kind in ("wgmma", "ffma")}
     shape = (f"B={PROMPT_BATCH}, Hq={cfg.n_heads}, Hkv={cfg.n_kv_heads}, "
              f"S={PROMPT_LEN}, D={cfg.head_dim}, causal, soft-cap "
@@ -1182,10 +1293,19 @@ def flash_entries(flash: dict, gemma2: dict) -> list:
     common = {"route": "cuda",
               "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
               "function": "flash_attention_pallas"}
+    dp = flash_ops.padded_dim(z16["d"], z16["dv"])
+    zshape = (f"B={HYBRID_BATCH}, Hq=Hkv={z16['hq']}, S={PROMPT_LEN}, "
+              f"D={z16['d']} (padded to {dp}), causal, no soft-cap")
+    zprefill = {"kernel_ms": zamba2["profile_prefill"]["device_ms_by_group"][
+                    "flash_attention"],
+                "launches": z_apps, "bound_ms": z_apps * z16["bound_ms"]}
+    wgmma_paths = by_path("flash_attention_wgmma", gemma2=gemma2,
+                          zamba2=zamba2)
     return [{
         "name": "flash_attention_wgmma", **common,
         "source": FLASH_CSRC + "flash_attention_wgmma.cu",
-        "launches": gemma2["launches"]["flash_attention_wgmma"],
+        "launches": sum(wgmma_paths.values()),
+        "launches_by_path": wgmma_paths,
         "max_abs_err": max(r["max_abs_err"] for r in rows["wgmma"]),
         "ms": glob["kernel_ms"], "plain_ms": glob["plain_ms"],
         "bound_ms": glob["bound_ms"], "bound_by": glob["bound_by"],
@@ -1200,6 +1320,13 @@ def flash_entries(flash: dict, gemma2: dict) -> list:
             "bound_ms": n_glob * glob["bound_ms"] + n_win * win["bound_ms"],
             "prefill_ms": gemma2["prefill_ms"],
             "plain_prefill_ms": gemma2["plain_prefill_ms"]},
+        HYBRID_ARCH: path_entry(
+            z16, library_ms=zlib["library_ms"],
+            library_kernel_ms=zlib["kernel_ms"], prefill=zprefill,
+            at=f"one launch at the shared attention's shape ({zshape}); "
+               f"library_ms: the same function, library_kernel_ms the "
+               f"kernel beside it; prefill: the kernel's device time in a "
+               f"profiled prefill and its bound"),
         "at": f"bf16, the main path: one launch at the {ARCH} global-layer "
               f"shape ({shape}); library_ms and kernel_no_softcap_ms at "
               f"that shape with no soft-cap (no single PyTorch call "
@@ -1209,13 +1336,15 @@ def flash_entries(flash: dict, gemma2: dict) -> list:
               f"the kernel and on the plain attention"}, {
         "name": "flash_attention_ffma", **common,
         "source": FLASH_CSRC + "flash_attention.cu",
-        "launches": gemma2["launches"]["flash_attention_ffma"],
+        "launches": sum(by_path("flash_attention_ffma", gemma2=gemma2,
+                                zamba2=zamba2).values()),
         "max_abs_err": max(r["max_abs_err"] for r in rows["ffma"]),
         "ms": g32["kernel_ms"], "plain_ms": g32["plain_ms"],
         "bound_ms": g32["bound_ms"], "bound_by": g32["bound_by"],
         "library_ms": lib32["library_ms"],
         "kernel_no_softcap_ms": lib32["kernel_ms"],
         "library_call": lib32["library_call"] + ", f32, no soft-cap",
+        HYBRID_ARCH: path_entry(z32, at=f"f32, {zshape}"),
         "at": f"f32 only, off the main path (0 launches there): one launch "
               f"at the {ARCH} global-layer shape in f32 ({shape}); the "
               f"bound at the f32 FFMA peak; library_ms and "
@@ -1277,24 +1406,26 @@ def ssd_bound_times(b, s, h, p, n, chunk, dtype) -> tuple:
     return nbytes / H100_SXM.hbm_bw * 1e3, flops / PEAK[dtype] * 1e3
 
 
-def exact_final_state(x, dt, A, Bm, Cm) -> torch.Tensor:
-    """``ssd_final_state``'s function in f64: the yardstick of both the
-    kernels' state and ``ssd_final_state``'s (an f32 cumsum over the whole
-    sequence, whose own rounding grows with S)."""
-    xd, dtd = x.double(), dt.double()
-    a = torch.cumsum(dtd * A.double()[None, None, :], dim=1)
-    w = torch.exp(a[:, -1:, :] - a) * dtd
-    return torch.einsum("bsn,bshp->bhnp", Bm.double(), xd * w[..., None])
+def exact_ssd(x, dt, A, Bm, Cm, chunk) -> tuple:
+    """``(y, h_S)`` of the plain chunked scan computed in f64 from the same
+    inputs: the exact result that every per-call SSD check holds the
+    kernels to (the f32 plain version sums C·Bᵀ as JAX does, and loses a
+    few % of a row whose C_i·B_i cancels)."""
+    return ssd_chunked_ref(*(t.double() for t in (x, dt, A, Bm, Cm)), chunk,
+                           final_state=True)
 
 
-def ssd_state_errors(hk, x, dt, A, bm, cm, dtype) -> dict:
+def ssd_state_errors(hk, x, dt, A, bm, cm, dtype, exact=None) -> dict:
     """The kernel's final state ``hk`` against ``ssd_final_state`` on the
     same inputs, max |err| within ``SSD_TOL·max|h|``, and against the f64
-    state, within ``SSD_STATE_TOL`` of its largest |h|; beside them,
-    ``ssd_final_state``'s own distance to the f64 state.  ``fault`` says
+    state ``exact`` (:func:`exact_ssd`'s, computed here when not given),
+    within ``SSD_STATE_TOL`` of its largest |h|; beside them,
+    ``ssd_final_state``'s own distance to the f64 state (an f32 cumsum over
+    the whole sequence, whose own rounding grows with S).  ``fault`` says
     what failed, or is None."""
     href = ssd_ops.ssd_final_state(x, dt, A, bm, cm)
-    exact = exact_final_state(x, dt, A, bm, cm)
+    if exact is None:
+        exact = exact_ssd(x, dt, A, bm, cm, min(128, x.shape[1]))[1]
     top = exact.abs().max().item()
     err = (hk - href).abs().max().item()
     atol = SSD_TOL[dtype] * href.abs().max().item()
@@ -1317,10 +1448,11 @@ def ssd_state_errors(hk, x, dt, A, bm, cm, dtype) -> dict:
 def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
              strided=True, state=False) -> dict:
     """The kernel that ``dtype`` routes to (bf16: the tensor-core kernel,
-    f32: the FFMA kernel) against ``ssd_chunked_ref`` on one input
-    (:func:`ssd_errors`); with ``state``, its final state from the same
-    launch against ``ssd_final_state`` (:func:`ssd_state_errors`); timed
-    (kernel, plain, bound) when ``iters`` > 0."""
+    f32: the FFMA kernel) against the exact result on one input
+    (:func:`exact_ssd`, :func:`ssd_errors`); with ``state``, its final
+    state from the same launch against ``ssd_final_state`` and the f64
+    state (:func:`ssd_state_errors`); timed (kernel, plain, bound) when
+    ``iters`` > 0."""
     x, dt, A, bm, cm = ssd_inputs(b, s, h, p, n, dtype, device, gen,
                                   strided)
     before = (ssd_ops.TC_LAUNCHES, ssd_ops.FFMA_LAUNCHES)
@@ -1329,7 +1461,7 @@ def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
     routed = (ssd_ops.TC_LAUNCHES - before[0],
               ssd_ops.FFMA_LAUNCHES - before[1])
     out, hk = out if state else (out, None)
-    ref = ssd_chunked_ref(x, dt, A, bm, cm, min(chunk, s))
+    ref, exact_h = exact_ssd(x, dt, A, bm, cm, min(chunk, s))
     torch.cuda.synchronize(device)
     name = f"ssd_scan b{b} s{s} h{h} p{p} n{n} chunk{chunk} {dtype}"
     if routed != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
@@ -1349,7 +1481,7 @@ def ssd_case(b, s, h, p, n, chunk, dtype, device, gen, iters=0,
            "mean_abs_ref": r.abs().mean().item()}
     del o, r
     if state:
-        serr = ssd_state_errors(hk, x, dt, A, bm, cm, dtype)
+        serr = ssd_state_errors(hk, x, dt, A, bm, cm, dtype, exact_h)
         if serr.pop("fault") is not None:
             fail(f"{name}: final state off ssd_final_state: {serr}")
         row.update(serr)
@@ -1395,25 +1527,35 @@ def phase_ssd(device, gen) -> dict:
     layer32 = ssd_case(*dims, torch.float32, device, gen, iters=2)
     rows.append(layer32)
     emit({"phase": "ssd", "at": f"{SSM_ARCH} layer, f32", **layer32})
-    return {"rows": rows, "layer": layer, "layer_f32": layer32}
+    # zamba2-7b's layer shape (N = 64: the state rows past N and the B/C
+    # columns past it are zero fill), the same two ways, from a generator
+    # of its own
+    zcfg = get_config(HYBRID_ARCH)
+    zgen = torch.Generator(device=device).manual_seed(SEED + 22)
+    zdims = (HYBRID_BATCH, PROMPT_LEN, zcfg.ssm_heads, zcfg.ssm_head_dim,
+             zcfg.ssm_state, zcfg.ssm_chunk)
+    zlayer = ssd_case(*zdims, torch.bfloat16, device, zgen, iters=4,
+                      state=True)
+    emit({"phase": "ssd", "at": f"{HYBRID_ARCH} layer", **zlayer})
+    zlayer32 = ssd_case(*zdims, torch.float32, device, zgen, iters=2)
+    rows.append(zlayer32)
+    emit({"phase": "ssd", "at": f"{HYBRID_ARCH} layer, f32", **zlayer32})
+    return {"rows": rows, "layer": layer, "layer_f32": layer32,
+            "zamba2_layer": zlayer, "zamba2_layer_f32": zlayer32}
 
 
-def ssm_decode_step_bound_ms(model) -> float:
-    """The least time of one mamba2 decode step: every weight read once
-    (the conv and SSM state caches are ~1% of that), at the HBM rate."""
-    return sum(p.numel() * p.element_size()
-               for p in model.parameters()) / H100_SXM.hbm_bw * 1e3
-
-
-def ssd_layer_checks(cfg, model, prompts) -> dict:
-    """One prefill in which every SSD call also runs the plain versions on
-    the inputs the main path hands the kernel (each layer's real x, dt, A,
-    B, C): each layer's output within the SSD limits (:func:`ssd_errors`)
-    and the final state from the same launch within them of
-    ``ssd_final_state`` (:func:`ssd_state_errors`).  Beside them, not
-    gated, the FFMA kernel's row error on the same inputs (cast to f32, an
-    exact cast, and its y rounded to their type), for the open question
-    of why the tensor-core kernel's is larger (PERF.md, section 7)."""
+def ssd_layer_checks(cfg, model, prompts, what_path="mamba2") -> dict:
+    """One prefill in which every SSD call is also computed exactly
+    (:func:`exact_ssd`) on the inputs the main path hands the kernel (each
+    layer's real x, dt, A, B, C): each layer's output within the SSD limits
+    of the exact y (:func:`ssd_errors`) and the final state from the same
+    launch within them of ``ssd_final_state`` and of the exact state
+    (:func:`ssd_state_errors`).  Beside them, not gated, the row errors
+    against the exact y of the FFMA kernel (on the inputs cast to f32, an
+    exact cast, its y rounded to their type), of the plain version in f32
+    (the model's plain path: JAX's arithmetic, whose f32 sum of a
+    cancelling C_i·B_i loses a few % of a row), and of the exact y rounded
+    to the inputs' type (the floor of any output in that type)."""
     import repro_torch.models.layers as model_layers
     from repro_torch.models import prefill
     kernel_scan = model_layers.ssd_scan
@@ -1422,17 +1564,24 @@ def ssd_layer_checks(cfg, model, prompts) -> dict:
     def checked(x, dt, A, Bm, Cm, *, chunk, impl, return_final_state=False):
         y, hk = kernel_scan(x, dt, A, Bm, Cm, chunk=chunk, impl=impl,
                             return_final_state=True)
-        r = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk).float()
+        ey, eh = exact_ssd(x, dt, A, Bm, Cm, chunk)
+        r = ey.float()
         errs = ssd_errors(y.float(), r, x.dtype)
-        serr = ssd_state_errors(hk, x, dt, A, Bm, Cm, x.dtype)
+        serr = ssd_state_errors(hk, x, dt, A, Bm, Cm, x.dtype, eh)
         ffma = ssd_ops._launch(x.float(), dt, A, Bm.float(), Cm.float(),
                                chunk, "ffma").to(x.dtype)
+        plain = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+
+        def row_err(o):
+            return ssd_errors(o.float(), r, x.dtype)["max_row_rel_err"]
         rows.append({**errs, **{k: v for k, v in serr.items()
                                 if k != "fault"},
                      "fault": errs["fault"] or serr["fault"],
                      "max_abs_ref": r.abs().max().item(),
-                     "ffma_max_row_rel_err": ssd_errors(
-                         ffma.float(), r, x.dtype)["max_row_rel_err"]})
+                     "ffma_max_row_rel_err": row_err(ffma),
+                     "plain_f32_max_row_rel_err": row_err(plain),
+                     "rounded_exact_max_row_rel_err": row_err(
+                         ey.to(x.dtype))})
         return (y, hk) if return_final_state else y
 
     model_layers.ssd_scan = checked
@@ -1443,8 +1592,8 @@ def ssd_layer_checks(cfg, model, prompts) -> dict:
         model_layers.ssd_scan = kernel_scan
     faults = [(i, r["fault"]) for i, r in enumerate(rows) if r["fault"]]
     if len(rows) != cfg.n_layers or faults:
-        fail(f"mamba2: {len(rows)} SSD calls in a prefill; layers whose "
-             f"kernel output or final state is off the plain versions': "
+        fail(f"{what_path}: {len(rows)} SSD calls in a prefill; layers whose "
+             f"kernel output or final state is off the exact result: "
              f"{faults}")
     worst = max(rows, key=lambda r: r["max_row_rel_err"])
     return {"layers_checked": len(rows),
@@ -1454,6 +1603,10 @@ def ssd_layer_checks(cfg, model, prompts) -> dict:
             "row_rel_tol": worst["row_rel_tol"],
             "ffma_max_row_rel_err": max(r["ffma_max_row_rel_err"]
                                         for r in rows),
+            "plain_f32_max_row_rel_err": max(
+                r["plain_f32_max_row_rel_err"] for r in rows),
+            "rounded_exact_max_row_rel_err": max(
+                r["rounded_exact_max_row_rel_err"] for r in rows),
             # the largest state error over its limit (SSD_TOL·max|h|)
             "state_err_over_limit": max(r["state_max_abs_err"]
                                         / r["state_atol"] for r in rows),
@@ -1462,63 +1615,79 @@ def ssd_layer_checks(cfg, model, prompts) -> dict:
                                              for r in rows)}
 
 
-def compare_f32_with_plain(cfg, model, prompts) -> dict:
-    """The model's weights in f32, through the SSD kernel and through its
-    plain version, on the same tokens: prefill and first decode logits
-    within ``MAMBA2_F32_LOGIT_TOL``.  The model's decay erases the carried
-    state within a chunk, so last-position logits cannot show a fault in
-    the carried state: :func:`ssd_layer_checks` holds every layer's
-    output instead."""
-    import copy
+def compare_f32_with_plain(cfg, model, prompts, what_path="mamba2",
+                           tol=None) -> dict:
+    """The model's weights in f32, through the kernels (f32 routes to the
+    FFMA kernels: :func:`launches_per_prefill` of them a prefill, none on
+    the tensor cores) and through their plain versions, on the same
+    tokens: prefill and first decode logits within ``tol``, or within
+    ``0.02·(max|logit| + 1)`` of the plain run's when ``tol`` is None.
+    The model's decay erases the carried state within a chunk, so
+    last-position logits cannot show a fault in the carried state:
+    :func:`ssd_layer_checks` holds every layer's output instead."""
     import dataclasses
 
     from repro_torch.models import decode_step, prefill
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    m32 = copy.deepcopy(model).float()
-    m32.cfg = cfg32
+    # the model itself in f32 (a bf16 weight cast to f32 and back is the
+    # same weight): zamba2-7b's weights in both types would hold 40 GB
+    dtypes = [p.dtype for p in model.parameters()]
+    model.float()
+    model.cfg = cfg32
+    per = launches_per_prefill(cfg)
+    kernels = ("flash_attention_wgmma", "flash_attention_ffma",
+               "ssd_scan_wgmma", "ssd_scan_ffma")
     logits = {}
     with torch.inference_mode():
         for impl in ("auto", "plain"):
-            m32.ssd_impl = impl
-            before = (ssd_ops.TC_LAUNCHES, ssd_ops.FFMA_LAUNCHES)
-            pre, cache = prefill(cfg32, m32, {"tokens": prompts},
+            model.attn_impl = model.ssd_impl = impl
+            before = read_launches()
+            pre, cache = prefill(cfg32, model, {"tokens": prompts},
                                  prompts.shape[1] + 1)
-            routed = (ssd_ops.TC_LAUNCHES - before[0],
-                      ssd_ops.FFMA_LAUNCHES - before[1])
-            want = (0, cfg.n_layers) if impl == "auto" else (0, 0)
+            after = read_launches()
+            routed = {k: after[k] - before[k] for k in kernels}
+            want = {k: 0 for k in kernels}
+            if impl == "auto":
+                want["flash_attention_ffma"] = per["flash_attention"]
+                want["ssd_scan_ffma"] = per["ssd_scan"]
             if routed != want:
-                fail(f"mamba2 f32 {impl} prefill: (tensor-core, FFMA) SSD "
-                     f"launches {routed}, expected {want}")
+                fail(f"{what_path} f32 {impl} prefill: launches {routed}, "
+                     f"expected {want}")
             tok = logits["auto"][0].argmax(-1) if logits else pre.argmax(-1)
-            step, _ = decode_step(cfg32, m32, cache, {"token": tok})
+            step, _ = decode_step(cfg32, model, cache, {"token": tok})
             logits[impl] = (pre, step)
             del cache
-    del m32
-    checks = {"ffma_launches_per_prefill": cfg.n_layers}
+    for p, dt in zip(model.parameters(), dtypes):
+        p.data = p.data.to(dt)
+    model.cfg, model.attn_impl, model.ssd_impl = cfg, "auto", "auto"
+    checks = {"ffma_launches_per_prefill": {
+        k: v for k, v in per.items() if v}}
     for i, what in enumerate(("prefill", "decode_step_1")):
         got, ref = logits["auto"][i], logits["plain"][i]
         if not bool(torch.isfinite(got).all()):
-            fail(f"mamba2 f32 {what}: logits not finite")
+            fail(f"{what_path} f32 {what}: logits not finite")
         diff = (got - ref).abs().max().item()
-        bound = MAMBA2_F32_LOGIT_TOL
+        bound = tol if tol is not None else \
+            0.02 * (ref.abs().max().item() + 1.0)
         checks[what] = {"max_abs_diff_vs_plain": diff, "bound": bound}
         if not diff <= bound:
-            fail(f"mamba2 f32 {what}: logits differ from the plain-SSD run "
+            fail(f"{what_path} f32 {what}: logits differ from the plain run "
                  f"by {diff} > {bound}")
     return checks
 
 
 def bf16_rounding_floor(cfg, model, prompts, first_token) -> dict:
     """How far the bf16 model's prefill and first decode logits (the step
-    fed ``first_token``) move when only the rounding changes: the plain
-    SSD scan in chunks of ``ssm_chunk / 2`` against chunks of
-    ``ssm_chunk`` (the same function, summed in another order)."""
+    fed ``first_token``) move when only the rounding changes: with the
+    plain versions of both kernels, the SSD scan in chunks of
+    ``ssm_chunk / 2`` against chunks of ``ssm_chunk`` (the same function,
+    summed in another order)."""
     import dataclasses
 
     from repro_torch.models import decode_step, prefill
     half = dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2)
     out = []
-    model.ssd_impl = "plain"
+    model.attn_impl = model.ssd_impl = "plain"
     with torch.inference_mode():
         for c in (cfg, half):
             model.cfg = c
@@ -1527,7 +1696,7 @@ def bf16_rounding_floor(cfg, model, prompts, first_token) -> dict:
             step, _ = decode_step(c, model, cache, {"token": first_token})
             out.append((pre, step))
             del cache
-    model.cfg, model.ssd_impl = cfg, "auto"
+    model.cfg, model.attn_impl, model.ssd_impl = cfg, "auto", "auto"
     return {what: (out[0][i] - out[1][i]).abs().max().item()
             for i, what in enumerate(("prefill", "decode_step_1"))}
 
@@ -1571,18 +1740,157 @@ def phase_mamba2(device) -> dict:
            "prefill_ms": run.prefill_s * 1e3,
            "decode_tok_per_s": SSM_BATCH * GEN / run.decode_s,
            "decode_ms_per_step": run.decode_s * 1e3 / GEN,
-           "decode_step_bytes_bound_ms": ssm_decode_step_bound_ms(model),
+           "decode_step_bytes_bound_ms": decode_step_bound_ms(
+               cfg, model, SSM_BATCH),
            "max_memory_allocated_gb": peak / 1e9,
            # bf16, held against the model's own rounding floor: see
            # phase 8 of the module docstring
            "bf16_rounding_floor": floor,
            "bf16_vs_plain_ssd": compare_with_plain(
-               cfg, model, prompts, run, "ssd_impl", "mamba2",
+               cfg, model, prompts, run, ("ssd_impl",), "mamba2",
                limits={k: BF16_FLOOR_FACTOR * v for k, v in floor.items()}),
-           "f32_vs_plain_ssd": compare_f32_with_plain(cfg, model, prompts),
+           "f32_vs_plain_ssd": compare_f32_with_plain(
+               cfg, model, prompts, tol=MAMBA2_F32_LOGIT_TOL),
            "ssd_per_layer_vs_plain": ssd_layer_checks(cfg, model, prompts),
            "setup_s": setup_s,
-           **path_profiles(cfg, model, prompts, ssd_ops, "mamba2")}
+           **path_profiles(cfg, model, prompts, "mamba2")}
+    emit(out)
+    return out
+
+
+def attention_checks(cfg, model, prompts, what_path) -> dict:
+    """One prefill in which every attention call also runs the plain
+    version and the exact f64 attention on the inputs the main path hands
+    the kernel (each shared-block application's real q, k, v): each within
+    the flash phase's gate (:func:`flash_errors`: half a bf16 step plus
+    ``GEMMA2_BF16_DELTA`` of the exact attention, each row's error within
+    ``ROW_REL_TOL`` of its norm).  Beside it, not gated, the same gate's
+    crossings and largest excess of the plain version and of the FFMA
+    kernel (on the inputs cast to f32, its output rounded to bf16)."""
+    import repro_torch.models.layers as model_layers
+    from repro_torch.models import prefill
+    kernel_attention = model_layers.attention
+    rows = []
+
+    def checked(q, k, v, *, causal, window, softcap, impl):
+        o = kernel_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, impl=impl)
+        kw = {"causal": causal, "window": window, "softcap": softcap}
+        r = attention_ref(q, k, v, **kw)
+        ex = exact_attention(q, k, v, rows=512, **kw)
+        ffma = flash_ops.attention(q.float(), k.float(), v.float(),
+                                   impl="kernel", **kw).to(q.dtype)
+        rows.append({**flash_errors(o.float(), r.float(), q.dtype, exact=ex),
+                     "max_abs_ref": r.abs().max().item(),
+                     "plain": exact_gate(r, ex), "ffma": exact_gate(ffma, ex)})
+        return o
+
+    model_layers.attention = checked
+    try:
+        with torch.inference_mode():
+            prefill(cfg, model, {"tokens": prompts}, prompts.shape[1] + 1)
+    finally:
+        model_layers.attention = kernel_attention
+    n = launches_per_prefill(cfg)["flash_attention"]
+    faults = [(i, r["fault"]) for i, r in enumerate(rows) if r["fault"]]
+    if len(rows) != n or faults:
+        fail(f"{what_path}: {len(rows)} attention calls in a prefill "
+             f"({n} expected); applications whose kernel output is off the "
+             f"exact attention: {faults}")
+    return {"applications_checked": len(rows),
+            "crossings": sum(r["crossings"] for r in rows),
+            "delta": GEMMA2_BF16_DELTA,
+            "max_excess_over_half_step": max(r["max_excess_over_half_step"]
+                                             for r in rows),
+            "max_abs_err_vs_plain": max(r["max_abs_err"] for r in rows),
+            "max_abs_ref": max(r["max_abs_ref"] for r in rows),
+            "max_row_rel_err": max(r["max_row_rel_err"] for r in rows),
+            "row_rel_tol": ROW_REL_TOL[torch.bfloat16],
+            **{f"{name}_{k}": agg(r[name][k] for r in rows)
+               for name in ("plain", "ffma")
+               for k, agg in (("crossings", sum),
+                              ("max_excess_over_half_step", max))}}
+
+
+def phase_zamba2(device) -> dict:
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import init_params
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (HYBRID_BATCH, PROMPT_LEN),
+                            generator=gen, device=device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    dense_generate(cfg, model, prompts[:, :256], 2)     # warm: CUDA/cuBLAS
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # -- the main path: every launch count is 0 just before, read just after
+    reset_launches()
+    run = dense_generate(cfg, model, prompts, GEN)
+    launches = read_launches()
+    # ---------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated(device)
+    # one flash launch per shared-block application and one SSD launch per
+    # Mamba2 layer, all on the tensor cores: no FFMA launch, no copy of q, k
+    # or v, no cast of dt or A; path_profiles shows a lone prefill makes
+    # them all
+    per = launches_per_prefill(cfg)
+    expected = launches_of(flash_attention=per["flash_attention"],
+                           flash_attention_wgmma=per["flash_attention"],
+                           ssd_scan=per["ssd_scan"],
+                           ssd_scan_wgmma=per["ssd_scan"])
+    if launches != expected:
+        fail(f"zamba2: launches {launches}; expected {expected}")
+    t_checks = time.perf_counter()
+
+    def progress(what: str) -> None:
+        """A line after each check: its seconds and the memory in use."""
+        emit({"phase": "zamba2", "done": what,
+              "s": time.perf_counter() - t_checks,
+              "allocated_gb": torch.cuda.memory_allocated(device) / 1e9})
+
+    progress("main path")
+    floor = bf16_rounding_floor(cfg, model, prompts,
+                                run.prefill_logits.argmax(-1))
+    progress("rounding floor")
+    checks = {
+        "bf16_vs_plain": compare_with_plain(
+            cfg, model, prompts, run, ("attn_impl", "ssd_impl"), "zamba2",
+            limits={k: BF16_FLOOR_FACTOR * v for k, v in floor.items()})}
+    progress("bf16 against the plain versions")
+    checks["f32_vs_plain"] = compare_f32_with_plain(cfg, model, prompts,
+                                                    "zamba2")
+    progress("f32 against the plain versions")
+    checks["ssd_per_layer_vs_plain"] = ssd_layer_checks(cfg, model, prompts,
+                                                        "zamba2")
+    progress("SSD per layer")
+    checks["attention_per_application_vs_exact"] = attention_checks(
+        cfg, model, prompts, "zamba2")
+    progress("attention per application")
+    out = {"phase": "zamba2", "arch": HYBRID_ARCH,
+           "mamba_layers": cfg.n_layers,
+           "shared_block_applications": per["flash_attention"],
+           "shared_blocks": cfg.n_shared_blocks, "d_model": cfg.d_model,
+           "d_inner": cfg.d_inner, "ssd_heads": cfg.ssm_heads,
+           "state": cfg.ssm_state, "chunk": cfg.ssm_chunk,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": HYBRID_BATCH, "prompt_len": PROMPT_LEN, "gen": GEN,
+           "launches": launches,
+           "prefill_ms": run.prefill_s * 1e3,
+           "decode_tok_per_s": HYBRID_BATCH * GEN / run.decode_s,
+           "decode_ms_per_step": run.decode_s * 1e3 / GEN,
+           "decode_step_bytes_bound_ms": decode_step_bound_ms(
+               cfg, model, HYBRID_BATCH),
+           "max_memory_allocated_gb": peak / 1e9,
+           # bf16, held against the model's own rounding floor, as mamba2's
+           "bf16_rounding_floor": floor, **checks,
+           "setup_s": setup_s,
+           **path_profiles(cfg, model, prompts, "zamba2")}
     emit(out)
     return out
 
@@ -1590,15 +1898,26 @@ def phase_mamba2(device) -> dict:
 SSD_CSRC = "src/repro_torch/kernels/ssd_scan/csrc/"
 
 
-def ssd_entries(ssd: dict, mamba2: dict) -> list:
+def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict) -> list:
     """The kernels line's two SSD scan entries.  The tensor-core kernel
-    (bf16, the main path): one launch at mamba2-130m's layer shape and a
-    whole prefill.  The FFMA kernel (f32 only, off the main path): one
-    launch at the layer shape in f32."""
+    (bf16, the main paths): one launch at mamba2-130m's layer shape, one
+    at zamba2-7b's, and a whole prefill of each.  The FFMA kernel (f32
+    only, off the main paths): one launch at each layer shape in f32."""
     cfg = get_config(SSM_ARCH)
     layer, layer32 = ssd["layer"], ssd["layer_f32"]
-    rows = {kind: [r for r in ssd["rows"] + [layer] if r["kernel"] == kind]
-            for kind in ("wgmma", "ffma")}
+    z16, z32 = ssd["zamba2_layer"], ssd["zamba2_layer_f32"]
+    rows = {kind: [r for r in ssd["rows"] + [layer, z16]
+                   if r["kernel"] == kind] for kind in ("wgmma", "ffma")}
+    zshape = (f"B={z16['b']}, S={z16['s']}, H={z16['h']}, P={z16['p']}, "
+              f"N={z16['n']}, L={z16['chunk']}")
+    zprefill = {"kernel_ms": zamba2["profile_prefill"]["device_ms_by_group"][
+                    "ssd_scan"],
+                "launches": zamba2["mamba_layers"],
+                "bound_ms": zamba2["mamba_layers"] * z16["bound_ms"],
+                "prefill_ms": zamba2["prefill_ms"],
+                "plain_prefill_ms": zamba2["bf16_vs_plain"][
+                    "plain_prefill_ms"]}
+    wgmma_paths = by_path("ssd_scan_wgmma", mamba2=mamba2, zamba2=zamba2)
     shape = (f"B={SSM_BATCH}, S={PROMPT_LEN}, H={cfg.ssm_heads}, "
              f"P={cfg.ssm_head_dim}, N={cfg.ssm_state}, L={cfg.ssm_chunk}")
     common = {"route": "cuda",
@@ -1609,7 +1928,8 @@ def ssd_entries(ssd: dict, mamba2: dict) -> list:
     return [{
         "name": "ssd_scan_wgmma", **common,
         "source": SSD_CSRC + "ssd_scan_wgmma.cu",
-        "launches": mamba2["launches"]["ssd_scan_wgmma"],
+        "launches": sum(wgmma_paths.values()),
+        "launches_by_path": wgmma_paths,
         "max_abs_err": max(r["max_abs_err"] for r in rows["wgmma"]),
         "ms": layer["kernel_ms"], "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
@@ -1621,6 +1941,13 @@ def ssd_entries(ssd: dict, mamba2: dict) -> list:
             "prefill_ms": mamba2["prefill_ms"],
             "plain_prefill_ms": mamba2["bf16_vs_plain_ssd"][
                 "plain_prefill_ms"]},
+        HYBRID_ARCH: path_entry(
+            z16, state_vs_f64_rel=z16["state_vs_f64_rel"], prefill=zprefill,
+            at=f"one launch at the layer shape ({zshape}; dt/A f32), final "
+               f"state not asked; prefill: the kernel's device time in a "
+               f"profiled prefill (each launch with its final state), their "
+               f"bound, and the prefill on both kernels and on both plain "
+               f"versions"),
         "at": f"bf16, the main path: one launch at the {SSM_ARCH} layer "
               f"shape ({shape}; dt/A f32), final state not asked; "
               f"the bound counts C·B once per batch row and the causal half "
@@ -1630,10 +1957,12 @@ def ssd_entries(ssd: dict, mamba2: dict) -> list:
               f"and on the plain SSD"}, {
         "name": "ssd_scan", **common,
         "source": SSD_CSRC + "ssd_scan.cu",
-        "launches": mamba2["launches"]["ssd_scan_ffma"],
+        "launches": sum(by_path("ssd_scan_ffma", mamba2=mamba2,
+                                zamba2=zamba2).values()),
         "max_abs_err": max(r["max_abs_err"] for r in rows["ffma"]),
         "ms": layer32["kernel_ms"], "plain_ms": layer32["plain_ms"],
         "bound_ms": layer32["bound_ms"], "bound_by": layer32["bound_by"],
+        HYBRID_ARCH: path_entry(z32, at=f"f32, {zshape}"),
         "at": f"ssd_scan_kernel, f32 only, off the main path (0 launches "
               f"there): one launch at the {SSM_ARCH} layer shape in f32 "
               f"({shape}), the bound at the f32 FFMA peak"}]
@@ -1746,9 +2075,10 @@ def main() -> int:
     gemma2 = phase_gemma2(device)
     ssd = phase_ssd(device, gen)
     mamba2 = phase_mamba2(device)
+    zamba2 = phase_zamba2(device)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve),
-                      *flash_entries(flash, gemma2),
-                      *ssd_entries(ssd, mamba2)]})
+                      *flash_entries(flash, gemma2, zamba2),
+                      *ssd_entries(ssd, mamba2, zamba2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Configurations of the port: the paper's §5.3 FFNN configs
-(:mod:`.ffnn_paper`) and the dense and ssm families of the model zoo.
+(:mod:`.ffnn_paper`) and the dense, ssm and hybrid families of the model
+zoo.
 
 ``get_config("gemma2-2b")`` / ``--arch`` as in ``repro.configs``.  The
 model configs are copies of the JAX package's (same fields, same values).
@@ -12,7 +13,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from repro_torch.configs import (gemma2_2b, mamba2_130m, minitron_4b,
-                                 qwen2_5_14b, qwen2_7b)
+                                 qwen2_5_14b, qwen2_7b, zamba2_7b)
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 _MODULES = {
@@ -21,13 +22,12 @@ _MODULES = {
     "gemma2-2b": gemma2_2b,
     "minitron-4b": minitron_4b,
     "mamba2-130m": mamba2_130m,
+    "zamba2-7b": zamba2_7b,
 }
 
 #: archs of the JAX registry that the port does not serve yet -> the slice
 #: that brings them (ROADMAP.md)
 UNPORTED: Dict[str, str] = {
-    "zamba2-7b": "the hybrid slice (ROADMAP A8.2: Mamba2 groups + shared "
-                 "attention blocks)",
     "llama4-scout-17b-a16e": "the MoE slice (ROADMAP A8)",
     "deepseek-v2-lite-16b": "the MoE/MLA slice (ROADMAP A8)",
     "musicgen-large": "the audio/vlm embedding-input slice (ROADMAP A8)",

@@ -43,7 +43,16 @@
 //   PV costs three products: the kernel does 2x the tensor work of one-term
 //   flash attention.  The tensor cores' f32 accumulation still leaves its
 //   outputs off the exact ones ~1.6x as often as an f32 computation's
-//   (chip_smoke.py allows 2x).
+//   (chip_smoke.py allows 2x).  Chained onto the running O in the tensor
+//   cores' accumulator, the tile's 12 products put outputs up to 1.1e-5
+//   past half a bf16 step from the exact attention on zamba2-7b's real
+//   inputs (D 112; the smoke's gate allows 5.6e-6).  So where the registers
+//   allow (DP <= 128) they go into an accumulator of the tile's own, the
+//   smallest terms first, and O = O·alpha + tile is taken on the CUDA
+//   cores: 3.0e-7 past half a step at most, at the same speed (chip_smoke.py
+//   on an H100).  At DP 192 and 256 a second accumulator of DP/2 floats a
+//   thread does not fit beside O's in 255 registers: there the products
+//   chain onto O, and gemma2-2b's shapes stay within the gate.
 // * Epilogue: each row divides by its sum l (l == 0 divides by 1: 0), rounds
 //   to bf16 and stores by strides, rows past Sq masked.
 // No warp specialisation, no persistent CTAs, no clusters: one
@@ -546,35 +555,64 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      acc[4 * j] *= alpha0;
-      acc[4 * j + 1] *= alpha0;
-      acc[4 * j + 2] *= alpha1;
-      acc[4 * j + 3] *= alpha1;
-    }
 
     // O += P V: keys 16 kk .. 16 kk + 15 of the V tile, read MN-major (rows of
     // 128 bytes, 8-row groups 1024 bytes apart, 64-column blocks KV_BLOCK apart)
-    fence_regs(acc);
     fence_regs(phi);
     fence_regs(pmid);
     fence_regs(plo);
-    wgmma_fence();
+    if constexpr (DP <= 128) {
+      // the tile's 12 products into registers of their own, the smallest
+      // terms first, then acc = acc·alpha + tile on the CUDA cores
+      float tile[DP / 2];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = sw128_desc(v_st + kk * 16 * 128, KV_BLOCK, 1024);
-      const uint32_t a_hi[4] = {phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2], phi[4 * kk + 3]};
-      const uint32_t a_mid[4] = {pmid[4 * kk], pmid[4 * kk + 1], pmid[4 * kk + 2],
-                                 pmid[4 * kk + 3]};
-      const uint32_t a_lo[4] = {plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2], plo[4 * kk + 3]};
-      wgmma_pv<DP>(acc, a_hi, db);
-      wgmma_pv<DP>(acc, a_mid, db);
-      wgmma_pv<DP>(acc, a_lo, db);
+      for (int i = 0; i < DP / 2; ++i) tile[i] = 0.f;
+      fence_regs(tile);
+      wgmma_fence();
+#pragma unroll
+      for (int term = 2; term >= 0; --term)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t* pt = term == 0 ? phi : (term == 1 ? pmid : plo);
+          const uint32_t a[4] = {pt[4 * kk], pt[4 * kk + 1], pt[4 * kk + 2], pt[4 * kk + 3]};
+          wgmma_pv<DP>(tile, a, sw128_desc(v_st + kk * 16 * 128, KV_BLOCK, 1024));
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(tile);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j] = fmaf(acc[4 * j], alpha0, tile[4 * j]);
+        acc[4 * j + 1] = fmaf(acc[4 * j + 1], alpha0, tile[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(acc[4 * j + 2], alpha1, tile[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(acc[4 * j + 3], alpha1, tile[4 * j + 3]);
+      }
+    } else {
+      // no room for a second accumulator: the products chain onto acc
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j] *= alpha0;
+        acc[4 * j + 1] *= alpha0;
+        acc[4 * j + 2] *= alpha1;
+        acc[4 * j + 3] *= alpha1;
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = sw128_desc(v_st + kk * 16 * 128, KV_BLOCK, 1024);
+        const uint32_t a_hi[4] = {phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2], phi[4 * kk + 3]};
+        const uint32_t a_mid[4] = {pmid[4 * kk], pmid[4 * kk + 1], pmid[4 * kk + 2],
+                                   pmid[4 * kk + 3]};
+        const uint32_t a_lo[4] = {plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2], plo[4 * kk + 3]};
+        wgmma_pv<DP>(acc, a_hi, db);
+        wgmma_pv<DP>(acc, a_mid, db);
+        wgmma_pv<DP>(acc, a_lo, db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
 
     __syncthreads();                                // both warpgroups are done with stage st
     if (tid == 0 && t + 2 < n_tiles)

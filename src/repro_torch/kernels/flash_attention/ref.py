@@ -7,34 +7,58 @@ score matrix in f32, applies scale, then the soft-cap, then the mask
 (causal with the ends aligned, so query row ``i`` stands at key position
 ``i + skv - sq``; sliding window ``rows - cols < window``), and gives 0 for
 a fully masked row.  V's head dim may differ from Q's and K's.
+
+Deviation: the score matrix is built for a block of query rows at a time,
+a multiple of 64 rows whose f32 scores take at most
+:data:`SCORE_BLOCK_BYTES` (one block of every row when the whole matrix
+fits).  Every row goes through the same operations as unblocked, with all
+the keys.  At zamba2-7b's prefill (B 2, 32 heads, S 8192) the whole f32
+matrix is 17.2 GB and the mask, softmax and ``nan_to_num`` each make
+another: unblocked, the plain version would not fit beside the model on an
+80 GB card.  On the CPU the blocks give the unblocked result to the bit
+(``tests/test_torch_zamba2.py``); blocks of 1 to 4 rows would not, where
+the CPU's matrix product takes another kernel for so few rows.
 """
 from __future__ import annotations
 
 import torch
+
+#: the largest f32 score block (bytes) the plain version builds at once
+SCORE_BLOCK_BYTES = 1 << 30
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, softcap: float = 0.0,
                   scale: float | None = None) -> torch.Tensor:
     """``q (B,Hq,Sq,D)``, ``k (B,Hkv,Skv,D)``, ``v (B,Hkv,Skv,Dv)`` →
-    ``(B,Hq,Sq,Dv)`` in ``q.dtype``; GQA by ratio ``Hq / Hkv``."""
-    sq, d = q.shape[2], q.shape[3]
+    ``(B,Hq,Sq,Dv)`` in ``q.dtype``; GQA by ratio ``Hq / Hkv``.  The query
+    rows go in blocks of the most multiples of 64 rows whose scores
+    :data:`SCORE_BLOCK_BYTES` holds, at least 64."""
+    b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    group = q.shape[1] // hkv
+    group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
-    k = k.repeat_interleave(group, dim=1)
-    v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if softcap > 0.0:
-        s = softcap * torch.tanh(s / softcap)
-    rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    fit = SCORE_BLOCK_BYTES // max(1, b * hq * skv * 4)
+    block_rows = max(64, fit // 64 * 64)
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
     cols = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (rows >= cols)
-    if window > 0:
-        mask = mask & (rows - cols < window)
-    s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.empty((b, hq, sq, v.shape[3]), dtype=q.dtype, device=q.device)
+    for r0 in range(0, sq, block_rows):
+        r1 = min(sq, r0 + block_rows)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(), kf) \
+            * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        rows = torch.arange(r0, r1, device=q.device)[:, None] + (skv - sq)
+        mask = torch.ones((r1 - r0, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (rows >= cols)
+        if window > 0:
+            mask = mask & (rows - cols < window)
+        s = s.masked_fill(~mask, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        p = torch.nan_to_num(p, nan=0.0)
+        out[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    return out

@@ -4,11 +4,20 @@
 // Replaces, for f32 x, B, C, the TPU kernel src/repro/kernels/ssd_scan/
 // kernel.py::ssd_scan_pallas (_ssd_kernel); bf16 runs the tensor-core kernel
 // of ssd_scan_wgmma.cu.  Same function: x (B,S,H,P), dt (B,S,H), A (H,),
-// B/C (B,S,N) shared across heads, all f32, all math in f32, y f32.  For a
-// chunk of L steps with a = cumsum(dt·A) (inclusive):
+// B/C (B,S,N) shared across heads, all f32, all math in f32 but the scores,
+// y f32.  For a chunk of L steps with a = cumsum(dt·A) (inclusive):
 //
 //   y_i = Σ_{j<=i} exp(a_i - a_j)·(C_i·B_j)·dt_j·x_j  +  exp(a_i)·C_i·h
 //   h  <- h·exp(a_L) + Σ_j exp(a_L - a_j)·dt_j·B_j ⊗ x_j        (h: N x P, f32)
+//
+// The scores C_i·B_j are summed in f64 and rounded once to f32: where a
+// step's decay erases the rest of its chunk, a row of y is C_i·B_i·dt_i·x_i,
+// and where that dot product cancels, an f32 sum of its N products is off
+// by a few % of the row (JAX's sum, and the plain version's in f32, against
+// the plain version in f64 on zamba2-7b's and mamba2-130m's real inputs:
+// chip_smoke.py's per-layer checks on an H100), and this kernel's f32 sum
+// lay 1.9e-3 of a row from the f64 one at mamba2-130m's layer shape on
+// random inputs, past the f32 row limit of 1e-3 (chip_smoke.py, an H100).
 //
 // The upper triangle is masked before the exp, so it cannot overflow;
 // exp(a_i) may underflow to 0, as on the TPU.  Chunks start at position 0;
@@ -95,11 +104,11 @@ __device__ __forceinline__ void row_block(const Params& p, const Tiles& t, float
   constexpr int r0 = RBI * RB;
   const int ty = tid >> 5, tx = tid & 31;
 
-  float s[4][K];
+  double s[4][K];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int k = 0; k < K; ++k) s[i][k] = 0.f;
+    for (int k = 0; k < K; ++k) s[i][k] = 0.0;
 #pragma unroll 2
   for (int n = 0; n < p.nr; n += 4) {
     float4 cv[4], bv[K];
@@ -113,10 +122,10 @@ __device__ __forceinline__ void row_block(const Params& p, const Tiles& t, float
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        s[i][k] = fmaf(cv[i].x, bv[k].x, s[i][k]);
-        s[i][k] = fmaf(cv[i].y, bv[k].y, s[i][k]);
-        s[i][k] = fmaf(cv[i].z, bv[k].z, s[i][k]);
-        s[i][k] = fmaf(cv[i].w, bv[k].w, s[i][k]);
+        s[i][k] = fma(static_cast<double>(cv[i].x), static_cast<double>(bv[k].x), s[i][k]);
+        s[i][k] = fma(static_cast<double>(cv[i].y), static_cast<double>(bv[k].y), s[i][k]);
+        s[i][k] = fma(static_cast<double>(cv[i].z), static_cast<double>(bv[k].z), s[i][k]);
+        s[i][k] = fma(static_cast<double>(cv[i].w), static_cast<double>(bv[k].w), s[i][k]);
       }
   }
   // decay exp(a_i - a_j) below the diagonal; the mask comes before the exp
@@ -127,7 +136,8 @@ __device__ __forceinline__ void row_block(const Params& p, const Tiles& t, float
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int col = tx + 32 * k;
-      t.P[(4 * ty + i) * ML + col] = col <= row ? s[i][k] * expf(ai - t.a[col]) : 0.f;
+      t.P[(4 * ty + i) * ML + col] =
+          col <= row ? static_cast<float>(s[i][k]) * expf(ai - t.a[col]) : 0.f;
     }
   }
   __syncthreads();

@@ -38,7 +38,15 @@
 //   mamba2-130m's real inputs read a row error of 1.5e-2 (limit 1e-2, the
 //   f32 FFMA kernel 6.9e-3): rows whose bf16 rounding flipped more often.
 //   tests/test_torch_ssd_tensor_cores.py models one, two and three terms.
-//   Never TF32.
+//   Never TF32.  The diagonal scores C_i·B_i are summed once more on the
+//   CUDA cores, a compensated (two-sum) f32 sum of the exact products, while
+//   the tensor cores sum C·Bᵀ: where a step's decay erases the rest of its
+//   chunk (dt·A near -20 a step), row i of y is C_i·B_i·dt_i·x_i, and where
+//   that dot product of N terms cancels, the tensor cores' chained f32 sum
+//   over the 8 k-steps was off by up to 1.6% of the row (chip_smoke.py,
+//   mamba2-130m's real inputs on an H100, against the plain version in
+//   f64); such a row hangs on C_i·B_i alone, the other scores are damped.  It costs ~15% of the launch (1.31 -> 1.50 ms at the
+//   mamba2-130m layer shape).
 // * One CTA of 256 threads (two warpgroups of 64 rows) per (two heads,
 //   batch row): C·Bᵀ, which no head changes (mamba2 has one group), is
 //   computed once per chunk for both heads and kept in registers; each
@@ -339,6 +347,16 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t (&t)[TERMS]) {
   }
 }
 
+// sum + err += x, with the rounding error of the add kept in err (Knuth's
+// two-sum): a compensated sum of many terms that cancel stays exact to a
+// few ulps of the result
+__device__ __forceinline__ void two_sum(float& sum, float& err, float x) {
+  const float t = sum + x;
+  const float bp = t - sum;
+  err += (sum - (t - bp)) + (x - bp);
+  sum = t;
+}
+
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel_wgmma(const Params p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -426,8 +444,45 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel_wgmma(const Params
     for (int kk = 0; kk < ML / 16; ++kk)
       wgmma_ss_n128(cb, kmajor(c_wg, kk), kmajor(su + B_OFF, kk), kk > 0);
     wgmma_commit();
+    // while the tensor cores sum C·Bᵀ: the diagonal scores C_i·B_i of this
+    // thread's rows r0, r0 + 8 on the CUDA cores, as a compensated f32 sum
+    // of the exact products (see the header): thread q of a quad takes
+    // columns 8q .. 8q + 7 of each 32, and the quad adds its four sums
+    float dg[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float sum = 0.f, err = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int k = (lane & 3) + 4 * t;             // 16-byte chunk of the row
+        const int off = (k >> 3) * BLK + sw(r0 + 8 * e, k & 7);
+        const uint4 cv = *reinterpret_cast<const uint4*>(sm + C_OFF + off);
+        const uint4 bv = *reinterpret_cast<const uint4*>(sm + B_OFF + off);
+        const uint32_t cw[4] = {cv.x, cv.y, cv.z, cv.w};
+        const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 c2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cw[w]));
+          const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
+          two_sum(sum, err, c2.x * b2.x);               // a bf16 product is exact in f32
+          two_sum(sum, err, c2.y * b2.y);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float s2 = __shfl_xor_sync(0xffffffffu, sum, o);
+        const float e2 = __shfl_xor_sync(0xffffffffu, err, o);
+        two_sum(sum, err, s2);
+        err += e2;
+      }
+      dg[e] = sum + err;
+    }
     wgmma_wait_all();
     fence_regs(cb);
+    // the diagonal score of each of this thread's rows, C_i·B_i
+#pragma unroll
+    for (int v = 0; v < 64; ++v)
+      if (8 * (v >> 2) + cq + (v & 1) == r0 + 8 * ((v >> 1) & 1)) cb[v] = dg[(v >> 1) & 1];
     PHASE(1);                                           // C·Bᵀ
 
 #pragma unroll

@@ -12,12 +12,16 @@ rates and ``B/C (B,S,N)`` shared across heads:
 * :func:`ssd_chunked_ref` — the chunked algorithm of the JAX op's
   ``_ssd_chunked_jnp`` (``repro/kernels/ssd_scan/ops.py:18-62``) as a
   Python loop over chunks in f32, output in ``x.dtype``.  It is the CPU
-  path of :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` and the
-  yardstick the CUDA kernels are held against on the card.  Deviation: a
+  path of :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan`.  Deviation: a
   last chunk shorter than ``chunk`` is taken as it is, where JAX pads it
   with zeros; the zero rows add nothing to the rows before them, so the
   result is the same.  With ``final_state`` it also returns the state its
-  scan carries out of the last chunk, as the kernels do.
+  scan carries out of the last chunk, as the kernels do.  Given f64
+  inputs it computes in f64: ``chip_smoke.py`` holds the CUDA kernels
+  against that exact result, since the f32 sum of the scores C·Bᵀ (JAX's)
+  is off by a few % of an output row where a step's decay erases the
+  rest of its chunk (dt·A near -20 a step: the row is C_i·B_i·dt_i·x_i)
+  and the dot product C_i·B_i of N terms cancels.
 """
 from __future__ import annotations
 
@@ -55,16 +59,17 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD forward → ``y (B,S,H,P)`` in ``x.dtype``; chunks of
     ``chunk`` steps from position 0, the state carried between them.  With
     ``final_state``, ``(y, h_S)``: the carried state after the last step,
-    ``(B,H,N,P)`` f32."""
+    ``(B,H,N,P)`` f32 (f64 from f64 inputs, as all of the arithmetic)."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
-    Af = A.float()
-    hstate = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    Af = A.to(ct)
+    hstate = torch.zeros((b, h, n, p), dtype=ct, device=x.device)
     ys = []
     for s0 in range(0, s, chunk):
         sl = slice(s0, min(s0 + chunk, s))
-        xc, dtc = x[:, sl].float(), dt[:, sl].float()     # (b,L,h,p) (b,L,h)
-        bc, cc = Bm[:, sl].float(), Cm[:, sl].float()     # (b,L,n)
+        xc, dtc = x[:, sl].to(ct), dt[:, sl].to(ct)       # (b,L,h,p) (b,L,h)
+        bc, cc = Bm[:, sl].to(ct), Cm[:, sl].to(ct)       # (b,L,n)
         L = xc.shape[1]
         a_cs = torch.cumsum(dtc * Af, dim=1)               # (b,L,h) inclusive
         tri = torch.ones((L, L), dtype=torch.bool,

@@ -7,6 +7,8 @@ model zoo's prefill + decode loop.
         --arch gemma2-2b --batch 2 --prompt-len 8192 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
         --arch mamba2-130m --batch 8 --prompt-len 8192 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
+        --arch zamba2-7b --batch 2 --prompt-len 8192 --gen 32
 
 Port of ``repro.launch.serve`` with two of its paths:
 
@@ -15,10 +17,11 @@ Port of ``repro.launch.serve`` with two of its paths:
   after warmup), printing tokens/s and p50/p95/p99 of total / queue-wait /
   service latency;
 * ``--dense-oracle``: the model zoo's prefill + greedy decode loop
-  (:func:`dense_generate`) over a dense-family arch (KV cache) or the
-  ssm family's mamba2-130m (conv and SSM state caches) (``--arch``,
-  default ``gemma2-2b``; ``--smoke`` for its narrow config), printing
-  prefill ms and decode tok/s.  Prompts come from a ``torch.Generator``
+  (:func:`dense_generate`) over a dense-family arch (KV cache), the
+  ssm family's mamba2-130m (conv and SSM state caches) or the hybrid
+  family's zamba2-7b (both) (``--arch``, default ``gemma2-2b``;
+  ``--smoke`` for its narrow config), printing prefill ms and decode
+  tok/s.  Prompts come from a ``torch.Generator``
   seeded with ``--seed``, weights from ``init_params(cfg, --seed)``.
 
 The flags are the JAX launcher's, plus ``--device`` (default ``cuda``;
@@ -26,9 +29,8 @@ without a card it fails — pass ``--device cpu`` to run on the CPU).
 ``--servable`` defaults to ``scorer`` here.  Not ported yet, each exits 2
 with a "not ported" message naming its slice (``ROADMAP.md``):
 ``--servable lm`` (the decode slice), ``--dense-oracle`` for an arch
-outside the dense and ssm families (zamba2-7b: the hybrid slice; MoE,
-MLA and embedding-input archs), and ``--dense-oracle --mesh`` (the
-distributed slice).
+outside the dense, ssm and hybrid families (MoE, MLA and embedding-input
+archs), and ``--dense-oracle --mesh`` (the distributed slice).
 """
 from __future__ import annotations
 

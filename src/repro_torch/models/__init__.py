@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense and ssm families (``repro.models``
-counterpart)."""
+"""Model zoo of the port: the dense, ssm and hybrid families
+(``repro.models`` counterpart)."""
 from repro_torch.models.model import (DenseLM, count_params, decode_step,
                                       forward, init_cache, init_params,
                                       prefill)

@@ -27,9 +27,11 @@ norm scales in f32, activations keep the JAX layout ((B, S, d), caches
   :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` in the same way;
   ``mamba2_prefill`` left-pads its conv cache with zeros when the prompt
   is shorter than the conv's ``W - 1`` taps (JAX's slice then comes out
-  short and its decode fails), and takes the final SSM state from the
-  scan's own launch (``return_final_state``) where JAX recomputes it with
-  ``ssd_final_state``.
+  short and its decode fails), copies those taps out of the projections
+  (a slice of a torch tensor keeps the whole (B, S, d_inner) projection
+  alive: 18 GB over zamba2-7b's 78 layers at 2×8192 tokens), and takes
+  the final SSM state from the scan's own launch (``return_final_state``)
+  where JAX recomputes it with ``ssd_final_state``.
 
 The projections, the decode attention (an einsum against the cache), the
 depthwise causal conv (f32, as in JAX; no cuDNN), the SSD decode step and
@@ -304,10 +306,11 @@ def mamba2_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
 def _conv_tail(t: torch.Tensor, W: int) -> torch.Tensor:
     """The last ``W - 1`` positions of (B, S, C), zero-padded on the left
-    when S is shorter."""
+    when S is shorter: a copy, so that the cache does not keep all of
+    ``t`` alive."""
     if t.shape[1] < W - 1:
         t = F.pad(t, (0, 0, W - 1 - t.shape[1], 0))
-    return t[:, t.shape[1] - (W - 1):, :]
+    return t[:, t.shape[1] - (W - 1):, :].clone()
 
 
 def mamba2_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, *,

@@ -1,14 +1,14 @@
-"""Decoder LM of the dense family (gemma2, qwen2, qwen2.5, minitron) and
-the ssm family (mamba2).
+"""Decoder LM of the dense family (gemma2, qwen2, qwen2.5, minitron), the
+ssm family (mamba2) and the hybrid family (zamba2).
 
-Port of the dense and ssm paths of ``repro.models.model``
+Port of the dense, ssm and hybrid paths of ``repro.models.model``
 (``model.py:60-192, 234-290, 312-451``).  The weights live in
 :class:`DenseLM` (dense as in ``--dense-oracle``: one card, no sharding),
 an ``nn.Module`` whose parameter names mirror the JAX tree (``embed.w``,
 ``blocks.<layer>.attn.wq``, ``blocks.<layer>.mix.norm.scale``,
-``final_norm.scale``, ``lm_head.w``); the module-level functions keep the
-JAX names and signatures and call its methods, with the module in the
-place of the JAX ``params`` tree:
+``shared.<s>.attn.wq``, ``final_norm.scale``, ``lm_head.w``); the
+module-level functions keep the JAX names and signatures and call its
+methods, with the module in the place of the JAX ``params`` tree:
 
 * :func:`forward`      — full sequence → logits (B, S, vocab) in f32
 * :func:`prefill`      — full sequence → (last-position logits, KV cache)
@@ -19,10 +19,16 @@ Deviations from the JAX module:
 * ``jax.lax.scan`` over groups of ``group_size`` layers becomes a Python
   loop over the layers; layer ``l`` takes the window of sub-layer
   ``l % group_size`` (gemma2: even layers local, odd layers global), as
-  the scan does;
+  the scan does.  The hybrid family's layers are its Mamba2 blocks
+  (``blocks``, layer ``g·mamba_per_group + i``); after group ``g`` comes
+  the shared attention block ``shared[g % n_shared_blocks]``
+  (``_select_shared``), window 0, as in JAX;
 * the cache is ``{"blocks": [per layer], "pos": int}`` (JAX stacks it as
   (G, group_size, …)); a layer's entry is ``{"k", "v"}`` (dense) or
-  ``{"conv_x", "conv_bc", "ssm"}`` (ssm).  :func:`decode_step` updates
+  ``{"conv_x", "conv_bc", "ssm"}`` (ssm).  The hybrid cache is
+  ``{"blocks": [per group {"mamba": [group_size Mamba entries], "attn":
+  {"k", "v"}}], "pos": int}`` (JAX stacks the same tree as
+  (G, group_size, …) / (G, …)).  :func:`decode_step` updates
   the dense tensors in place and returns them under a new dict with
   ``pos + 1`` — the cache handed in must not be used again;
 * ``unembed`` gives f32 logits of the bf16 product, as JAX's dot with
@@ -36,9 +42,9 @@ Deviations from the JAX module:
   are handed to every prefill attention and every SSD scan: ``"plain"``
   runs the model with that kernel's plain version.
 
-MLA, MoE (and ``first_dense_layers``), the hybrid family and embedding
-inputs (audio, vlm) raise ``NotImplementedError`` naming the slice that
-ports them (``ROADMAP.md``).
+MLA, MoE (and ``first_dense_layers``) and embedding inputs (audio, vlm)
+raise ``NotImplementedError`` naming the slice that ports them
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -57,17 +63,14 @@ Cache = Dict[str, object]
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family (Mamba2 groups + shared "
-            f"attention blocks) comes with the hybrid slice (ROADMAP A8.2)")
     if cfg.family == "moe" or cfg.n_experts or cfg.first_dense_layers:
         raise NotImplementedError(f"{cfg.name}: MoE blocks come with the MoE "
                                   f"slice (ROADMAP A8)")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA attention comes with the "
                                   f"MoE/MLA slice (ROADMAP A8)")
-    if cfg.family not in ("dense", "ssm") or cfg.input_mode != "tokens":
+    if cfg.family not in ("dense", "ssm", "hybrid") \
+            or cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} embedding inputs come with the "
             f"audio/vlm slice (ROADMAP A8)")
@@ -183,7 +186,8 @@ def _window_for(cfg: ModelConfig, idx_in_group: int) -> int:
 # ==========================================================================
 
 class DenseLM(nn.Module):
-    """The weights of a dense- or ssm-family LM and its three entry points.
+    """The weights of a dense-, ssm- or hybrid-family LM and its three
+    entry points.
 
     ``gen`` draws the random weights on ``device`` (``None`` with
     ``device="meta"`` builds shapes only: :func:`count_params`,
@@ -202,10 +206,14 @@ class DenseLM(nn.Module):
         self.embed = ParamTree({"w": (torch.randn(
             (V, d), generator=gen, dtype=torch.float32, device=device)
             * (d ** -0.5)).to(dt)})
-        block_init = _mamba_block_init if cfg.family == "ssm" \
-            else _attn_block_init
+        block_init = _attn_block_init if cfg.family == "dense" \
+            else _mamba_block_init
         self.blocks = nn.ModuleList([block_init(gen, cfg, device)
                                      for _ in range(cfg.n_layers)])
+        if cfg.family == "hybrid":
+            self.shared = nn.ModuleList([
+                _attn_block_init(gen, cfg, device)
+                for _ in range(cfg.n_shared_blocks)])
         self.final_norm = ParamTree(L.rmsnorm_init(d, device))
         if not cfg.tie_embeddings:
             self.lm_head = ParamTree({"w": L.dense_init(gen, d, V, dt,
@@ -216,13 +224,47 @@ class DenseLM(nn.Module):
         """Layer ``i`` in ``mode``; ``cache`` is the cache length in prefill
         mode, as in JAX.  Returns (x, new_cache_or_None)."""
         cfg, blk = self.cfg, self.blocks[i]
-        if cfg.family == "ssm":
+        if cfg.family != "dense":
             return _mamba_block(blk, cfg, x, mode=mode, cache=cache,
                                 impl=self.ssd_impl)
         return _attn_block(blk, cfg, x,
                            window=_window_for(cfg, i % group_size(cfg)),
                            mode=mode, cache=cache, pos=pos,
                            impl=self.attn_impl)
+
+    def _select_shared(self, g: int) -> ParamTree:
+        return self.shared[g % self.cfg.n_shared_blocks]
+
+    def _layers(self, x: torch.Tensor, mode: str, cache=None,
+                pos: Optional[int] = None):
+        """Every layer in ``mode``, in order, and after each group of the
+        hybrid family its shared attention block: (x, the cache's
+        ``blocks``).  ``cache`` is the cache length in prefill mode and the
+        ``blocks`` of the cache in decode mode."""
+        cfg = self.cfg
+        gsz, hybrid = group_size(cfg), cfg.family == "hybrid"
+        decode = mode == "decode"
+        blocks: List[object] = []
+        for g in range(n_scan_groups(cfg)):
+            entry = cache[g] if decode and hybrid else None
+            group = []
+            for j in range(gsz):
+                i = g * gsz + j
+                if entry is not None:
+                    c = entry["mamba"][j]
+                else:
+                    c = cache[i] if decode else cache
+                x, nc = self._block(i, x, mode, cache=c, pos=pos)
+                group.append(nc)
+            if not hybrid:
+                blocks += group
+                continue
+            x, ac = _attn_block(self._select_shared(g), cfg, x, window=0,
+                                mode=mode,
+                                cache=entry["attn"] if entry else cache,
+                                pos=pos, impl=self.attn_impl)
+            blocks.append({"mamba": group, "attn": ac})
+        return x, blocks
 
     def embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed["w"][tokens]
@@ -246,29 +288,21 @@ class DenseLM(nn.Module):
         return logits
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed_in(tokens)
-        for i in range(len(self.blocks)):
-            x, _ = self._block(i, x, "train")
+        x, _ = self._layers(self.embed_in(tokens), "train")
         return self.unembed(x)
 
     def prefill(self, tokens: torch.Tensor,
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
-        x = self.embed_in(tokens)
-        blocks: List[Dict[str, torch.Tensor]] = []
-        for i in range(len(self.blocks)):
-            x, c = self._block(i, x, "prefill", cache=cache_len)
-            blocks.append(c)
+        x, blocks = self._layers(self.embed_in(tokens), "prefill",
+                                 cache=cache_len)
         logits = self.unembed(x[:, -1:, :])
         return logits, {"blocks": blocks, "pos": tokens.shape[1]}
 
     def decode_step(self, cache: Cache,
                     token: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        x = self.embed_in(token)
         pos = cache["pos"]
-        blocks = []
-        for i, c in enumerate(cache["blocks"]):
-            x, nc = self._block(i, x, "decode", cache=c, pos=pos)
-            blocks.append(nc)
+        x, blocks = self._layers(self.embed_in(token), "decode",
+                                 cache=cache["blocks"], pos=pos)
         return self.unembed(x), {"blocks": blocks, "pos": pos + 1}
 
 
@@ -328,14 +362,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     _check_dense(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.kv_cache_dtype or cfg.dtype)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+
+    def attn():
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
     if cfg.family == "ssm":
         return {"blocks": [L.mamba2_init_cache(cfg, batch, dt, dev)
                            for _ in range(cfg.n_layers)], "pos": 0}
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"blocks": [{"k": torch.zeros(shape, dtype=dt, device=dev),
-                        "v": torch.zeros(shape, dtype=dt, device=dev)}
-                       for _ in range(cfg.n_layers)],
-            "pos": 0}
+    if cfg.family == "hybrid":
+        return {"blocks": [{"mamba": [L.mamba2_init_cache(cfg, batch, dt, dev)
+                                      for _ in range(group_size(cfg))],
+                            "attn": attn()}
+                           for _ in range(n_scan_groups(cfg))], "pos": 0}
+    return {"blocks": [attn() for _ in range(cfg.n_layers)], "pos": 0}
 
 
 def prefill(cfg: ModelConfig, params: DenseLM, batch: Dict,

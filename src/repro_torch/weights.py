@@ -13,8 +13,8 @@ two therefore goes through the weights themselves, as numpy arrays:
       scorer = repro_torch.serve.FFNNScorer.from_numpy(
           arrays, db=4, hb=4, device="cpu")
 
-* a model zoo parameter tree (``repro.models.init_params``) of the dense
-  or ssm family becomes the port's
+* a model zoo parameter tree (``repro.models.init_params``) of the dense,
+  ssm or hybrid family becomes the port's
   :class:`~repro_torch.models.model.DenseLM` (:func:`model_from_numpy`):
 
       params = repro.models.init_params(cfg, jax.random.PRNGKey(0))
@@ -71,9 +71,11 @@ def model_from_numpy(cfg, tree: Mapping, device: DeviceLike = "cuda"):
 
     JAX stacks every ``params["blocks"]`` leaf as (G, group_size, …), so
     layer ``g·group_size + i`` takes ``[g, i]`` (``blocks/attn/wq`` of the
-    dense family, ``blocks/mix/norm/scale`` of the ssm family).  Exactly the model's
-    leaves: a missing or extra leaf, or one whose shape does not fit,
-    raises ``ValueError``."""
+    dense family, ``blocks/mix/norm/scale`` of the ssm and hybrid
+    families), and every ``params["shared"]`` leaf of the hybrid family as
+    (n_shared_blocks, …), so shared block ``s`` takes ``[s]``
+    (``shared/attn/wq``).  Exactly the model's leaves: a missing or extra
+    leaf, or one whose shape does not fit, raises ``ValueError``."""
     from repro_torch.models.model import DenseLM, group_size, n_scan_groups
     dev = resolve_device(device)
     model = DenseLM(cfg, None, "meta").to_empty(device=dev)
@@ -87,6 +89,9 @@ def model_from_numpy(cfg, tree: Mapping, device: DeviceLike = "cuda"):
             path, index = ("blocks",) + tuple(parts[2:]), (layer // gsz,
                                                             layer % gsz)
             lead = (groups, gsz)
+        elif parts[0] == "shared":
+            path, index = ("shared",) + tuple(parts[2:]), (int(parts[1]),)
+            lead = (cfg.n_shared_blocks,)
         else:
             path, index, lead = tuple(parts), (), ()
         if path not in flat:

@@ -33,7 +33,11 @@ f32 case through the FFMA kernel, which the launch counters show; B and C
 read in place as slices of one tensor; the final state of the same launch
 against ``ssd_final_state`` and the plain scan's carried state; and
 mamba2-smoke through the kernels against the same model with the plain
-SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  This file
+SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  zamba2-7b's
+shapes: the bf16 flash kernel at head dim 112 on the model's transposed
+views (no copy), the bf16 SSD kernel at state 64 with an odd S, and
+zamba2-smoke through both kernels (launches counted; f32 at 1e-4, bf16
+within its rounding floor).  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed.
 """
@@ -741,3 +745,153 @@ def test_unembed_f32_logits_on_card(cuda):
     want = model_cpu.unembed(x.cpu())
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------------- zamba2-7b's shapes
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [300, 2048])
+def test_flash_kernel_zamba2_head_dim_on_card(cuda, s):
+    """zamba2-7b's shared attention: MHA with head dim 112 (padded to 128
+    in shared memory; TMA zero-fills columns 112-127), causal, no window,
+    no soft-cap, scale 112^-0.5, in bf16 through the tensor-core kernel.
+    q, k, v are the model's ``transpose(1, 2)`` views of (B, S, H, 112),
+    whose 224-byte rows TMA reads in place: no copy."""
+    r = np.random.default_rng(11)
+    x = [torch.tensor(r.standard_normal((2, s, 8, 112)), dtype=torch.float32,
+                      device=cuda).bfloat16() for _ in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    assert flash_ops.padded_dim(112, 112) == 128
+    before = (flash_ops.TC_LAUNCHES, flash_ops.COPIES)
+    _flash_check(q, k, v, "bfloat16", causal=True, window=0, softcap=0.0)
+    assert (flash_ops.TC_LAUNCHES, flash_ops.COPIES) == (before[0] + 1,
+                                                         before[1])
+    got = flash_ops.attention(q, k, v)
+    assert torch.equal(got, flash_ops.attention(
+        q.contiguous(), k.contiguous(), v.contiguous()))
+    assert flash_ops.COPIES == before[1]
+    # chip_smoke.py's gate: half a bf16 step + GEMMA2_BF16_DELTA of the f64
+    # attention, each row's error within ROW_REL_TOL of its norm
+    from _torch_helpers import chip_smoke
+    smoke = chip_smoke()
+    exact = smoke.exact_attention(q, k, v, causal=True, window=0,
+                                  softcap=0.0, rows=512)
+    errs = smoke.flash_errors(got.float(), attention_ref(q, k, v).float(),
+                              torch.bfloat16, exact=exact)
+    assert errs["fault"] is None, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h", [(2, 1001, 5), (1, 257, 6)],
+                         ids=["odd-s-odd-heads", "one-past-two-chunks"])
+def test_ssd_kernel_zamba2_state_on_card(cuda, b, s, h):
+    """zamba2-7b's SSD widths, state N = 64 and heads of 64 (the kernel's
+    state rows and B/C columns past N are zero fill), at an odd S with a
+    ragged last chunk, in bf16 through the tensor-core kernel with B and C
+    the two halves of one (B, S, 128) tensor: y within ``SSD_TOL`` of the
+    plain scan, the final state from the same launch within ``SSD_TOL``
+    of the plain scan's carried state and ``ssd_final_state``, and within
+    ``SSD_STATE_TOL`` of the f64 state."""
+    x, dt, A, bm, cm = _ssd_inputs(b, s, h, 64, 64, "bfloat16", cuda,
+                                   seed=12)
+    bcc = torch.cat([bm, cm], dim=-1)
+    bv, cv = bcc[..., :64], bcc[..., 64:]
+    _ssd_check(x, dt, A, bv, cv, 128, "bfloat16")
+    y, hk = ssd_ops.ssd_scan(x, dt, A, bv, cv, chunk=128,
+                             return_final_state=True)
+    assert tuple(hk.shape) == (b, h, 64, 64) and hk.dtype == torch.float32
+    want, carried = ssd_chunked_ref(x, dt, A, bv, cv, 128, final_state=True)
+    tol = SSD_TOL["bfloat16"] * want.float().abs().max().item()
+    assert (y.float() - want.float()).abs().max().item() <= tol
+    for ref in (carried, ssd_ops.ssd_final_state(x, dt, A, bv, cv)):
+        assert (hk - ref).abs().max().item() <= \
+            SSD_TOL["bfloat16"] * ref.abs().max().item()
+    a = torch.cumsum(dt.double() * A.double(), dim=1)
+    w = torch.exp(a[:, -1:] - a) * dt.double()
+    exact = torch.einsum("bsn,bshp->bhnp", bv.double(),
+                         x.double() * w[..., None])
+    assert (hk.double() - exact).abs().max().item() <= \
+        SSD_STATE_TOL * exact.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_zamba2_through_both_kernels_on_card(cuda):
+    """zamba2-smoke on the card, a 300-token prompt in chunks of 16: one
+    flash launch per shared-block application and one SSD launch per
+    Mamba2 layer in the prefill, none in decode, no copy or cast.  In f32
+    (the FFMA kernels) the prefill and first decode logits lie within
+    1e-4 of the same model with both plain versions; in bf16 (the
+    tensor-core kernels) within 0.02·(max|logit| + 1) of the plain bf16
+    run, or 1.5x the distance between the plain bf16 and f32 runs where
+    that lies higher (the model's rounding floor)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg16 = get_config("zamba2-7b", smoke=True)
+    groups = cfg16.n_layers // cfg16.mamba_per_group
+    prompts = torch.randint(0, cfg16.vocab_size, (2, 300), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(3))
+    model16 = init_params(cfg16, 0, device=cuda)
+    logits, tok = {}, None
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(cfg16, dtype=dtype)
+        model = model16
+        if dtype == "float32":
+            model = init_params(cfg16, 0, device=cuda).float()
+            model.cfg = cfg
+        tc = dtype == "bfloat16"
+        before = (_ssd_counts(), flash_ops.TC_LAUNCHES,
+                  flash_ops.FFMA_LAUNCHES, flash_ops.COPIES)
+        run = dense_generate(cfg, model, prompts, 3)
+        assert _ssd_counts() == (
+            before[0][0] + cfg.n_layers, before[0][1] + tc * cfg.n_layers,
+            before[0][2] + (not tc) * cfg.n_layers, before[0][3])
+        assert (flash_ops.TC_LAUNCHES, flash_ops.FFMA_LAUNCHES,
+                flash_ops.COPIES) == (before[1] + tc * groups,
+                                      before[2] + (not tc) * groups,
+                                      before[3])
+        # every run's first decode step takes the bf16 kernel run's token
+        tok = run.prefill_logits.argmax(-1) if tok is None else tok
+        for impl in ("auto", "plain"):
+            model.attn_impl = model.ssd_impl = impl
+            with torch.inference_mode():
+                pre, cache = prefill(cfg, model, {"tokens": prompts}, 303)
+                step, _ = decode_step(cfg, model, cache, {"token": tok})
+            logits[dtype, impl] = (pre, step)
+    for got, want in zip(logits["float32", "auto"],
+                         logits["float32", "plain"]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    for got, want, want32 in zip(logits["bfloat16", "auto"],
+                                 logits["bfloat16", "plain"],
+                                 logits["float32", "plain"]):
+        assert bool(torch.isfinite(got).all())
+        floor = (want - want32).abs().max().item()
+        bound = max(0.02 * (want.abs().max().item() + 1.0), 1.5 * floor)
+        assert (got - want).abs().max().item() <= bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+def test_ssd_kernels_sum_a_cancelling_diagonal_score_on_card(cuda, dtype):
+    """Where a step's decay erases the rest of its chunk, row i of y is
+    (C_i·B_i)·dt_i·x_i.  With C_i·B_i = 2^16 + 2^-10 - 2^16, its terms in
+    three k-steps of 16 columns, an f32 sum of the products in order (the
+    tensor cores' chained accumulator, an f32 FMA chain) loses the 2^-10;
+    both kernels give 2^-10·x_i exactly, as the plain version does in f64
+    (from f64 inputs)."""
+    n, s = 64, 3
+    x, dt, _, bm, cm = _ssd_inputs(1, s, 1, 64, n, dtype, cuda, seed=13)
+    cm, bm = torch.zeros_like(cm), torch.zeros_like(bm)
+    cm[0, 1, [0, 20, 40]] = torch.tensor([256.0, 2.0 ** -5, -256.0],
+                                         device=cuda).to(cm.dtype)
+    bm[0, 1, [0, 20, 40]] = torch.tensor([256.0, 2.0 ** -5, 256.0],
+                                         device=cuda).to(bm.dtype)
+    dt = torch.ones_like(dt)
+    A = torch.tensor([-1000.0], device=cuda)             # exp(-1000) = 0
+    got = ssd_ops.ssd_scan(x, dt, A, bm, cm, chunk=s, impl="kernel")
+    want = x[0, 1, 0] * 2.0 ** -10
+    assert torch.equal(got[0, 1, 0], want)
+    exact = ssd_chunked_ref(*(t.double() for t in (x, dt, A, bm, cm)), s)
+    assert torch.equal(exact[0, 1, 0].to(x.dtype), want)
