@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's four main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's five main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
-through ``TraServer`` on the ``jit`` executor; gemma2-2b at full width
+through ``TraServer`` on the ``jit`` executor; the same FFNN trained at
+that width on a minibatch of 10000 through ``TraTrainer``, plan-level
+autodiff and AdamW; gemma2-2b at full width
 (26 layers, d_model 2304, vocab 256000), mamba2-130m at full width (24
 Mamba2 layers, d_model 768, 24 SSD heads of dim 64, state 128, chunk 128,
 vocab 50280) and zamba2-7b at full width (78 Mamba2 layers in 13 groups of
@@ -57,7 +59,26 @@ its plain PyTorch version on the card:
    copy the parent tree made, and each product at bucket 8 timed in place
    as the engine calls it, beside ``torch.matmul`` on the copied 2-D
    operands, the tile kernel there (the parent's path) and the bound;
-6. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
+6. train: ``ffnn_train_step_tra`` at speech-100k (N 10000, D 1600, H
+   100000, L 10, f32, blocked nb 10, db 4, hb 10, lb 1) through
+   ``TraTrainer(Engine(device="cuda", executor="jit"), ...)`` with
+   AdamW(1e-2), data and weights drawn on the card as
+   ``benchmarks/train.py`` draws them, for 5 steps with every launch
+   count set to 0 just before and read just after: 1 compile and 4 cached
+   dispatches, the loss finite and lower at the last step than at the
+   first, per step 2 launches of the tile kernel (X·W1, and a1·W2 split
+   in K) and as many split-K passes as ``plan_launch`` splits products,
+   none of the skinny kernel (the operand copies the op makes are
+   printed); step 1's loss, AdamW moments and parameters, and one SGD(0.01)
+   step's parameters, against the same step with the matmul op's plain
+   version on the card and against a dense f64 step on the card, each
+   within ``tolerance(k, f32)`` of the product computing it (AdamW's
+   parameters where the reference |g| exceeds ``ADAM_GATE_ATOLS`` times
+   the atol); step ms (median of steps 2-5), peak memory, a profile of one
+   step by kernel, and each forward product timed on the tile kernel
+   beside the plain version, ``torch.matmul`` and the bound, with the
+   split-K pass beside ``sum(0)``;
+7. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
    before and read just after (26 launches of the tensor-core flash
    kernel, none of the FFMA kernel, no copy of q, k or v); the prefill's
@@ -65,7 +86,7 @@ its plain PyTorch version on the card:
    plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-7. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
+8. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
    exact result, :func:`exact_ssd`, as in every per-call SSD check here;
    JAX's f32 sum of C·Bᵀ is off by a few % of a row where C_i·B_i
    cancels) at the JAX kernel
@@ -82,7 +103,7 @@ its plain PyTorch version on the card:
    kernel and f32 on the FFMA one, with the plain version and the bound;
    zamba2-7b's layer shape (B=2, S=8192, H=112, P=64, N=64, L=128) the
    same ways;
-8. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
+9. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (24 launches of the tensor-core SSD kernel, none of
    the FFMA one, no cast, no other kernel); in a second prefill, every
@@ -101,7 +122,7 @@ its plain PyTorch version on the card:
    rounding changes: 24 layers without post-norms add up the bf16 noise
    of each); a profile by kernel of one prefill (24 SSD launches) and of
    8 decode steps (none);
-9. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
+10. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (13 launches of the tensor-core flash kernel, one per
    shared-block application, and 78 of the tensor-core SSD kernel, one
@@ -116,7 +137,7 @@ its plain PyTorch version on the card:
    within ``BF16_FLOOR_FACTOR`` of the rounding floor (both plain, the
    SSD in half-size chunks against full ones); a profile by kernel of one
    prefill (13 + 78 launches) and of 8 decode steps (none); peak memory;
-10. the kernels line, the ``nvidia-smi`` line, and the last line
+11. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -124,6 +145,7 @@ device the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -731,6 +753,365 @@ def dispatch_breakdown(server, scorer, device) -> dict:
             "products_b8": products}
 
 
+# ------------------------------------------------------------- training
+TRAIN_STEPS = 5
+TRAIN_BLOCKS = (10, 4, 10, 1)    # nb, db, hb, lb: W1 blocked as the scorer's
+#: AdamW's rate on the main path.  benchmarks/train.py's 1e-2 moves every
+#: weight by ~1e-2 a step, which at D 1600 and H 100000 sends the loss up
+#: tenfold (tools/ffnn_train_rates.py: of 1e-2 down to 1e-5 only 3e-5 and
+#: 1e-5 lower it over 5 steps, only 1e-5 at every step)
+TRAIN_LR = 1e-5
+#: the rates of the step-1 checks: benchmarks/train.py's AdamW, whose first
+#: update (lr·sign(g)) is far above the gradients' atol, and the paper's η
+CHECK_LR = 1e-2
+SGD_LR = 0.01
+#: the path's name in the kernels line
+TRAIN_PATH = "ffnn-train-speech-100k"
+#: AdamW's first update is about lr·sign(g): its W' is held only where the
+#: reference |g| exceeds this many times the gradient's atol
+ADAM_GATE_ATOLS = 100.0
+GEMM_NAMES = ("gemm", "nvjet", "sm90_xmma", "cutlass", "cublas")
+MODEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+                ("ssd_scan", ("ssd_scan_kernel",)), ("gemm", GEMM_NAMES))
+TRAIN_GROUPS = (("matmul_tile", ("matmul_tile_kernel",)),
+                ("splitk_reduce", ("splitk_reduce_kernel",)),
+                ("matmul_skinny", ("matmul_skinny_kernel",)),
+                ("gemm", GEMM_NAMES), ("copy", ("copy",)),
+                ("elementwise", ("elementwise",)))
+
+
+@contextlib.contextmanager
+def plain_matmul():
+    """Every matmul op call inside takes the op's plain version: the
+    reference run of the train phase only (the main path never does)."""
+    real = mm_ops.matmul
+    mm_ops.matmul = lambda a, b, **kw: real(a, b, **{**kw, "impl": "plain"})
+    try:
+        yield
+    finally:
+        mm_ops.matmul = real
+
+
+def train_problem(device):
+    """The §5.3 FFNN at speech-100k, not cut: dims for
+    ``ffnn_train_step_tra`` and the dense X, Y, W1, W2, drawn on the card
+    as ``benchmarks/train.py`` draws them (X normal, Y = sigmoid(X·Wt),
+    W1 and W2 scaled by D^-1/2 and H^-1/2)."""
+    cfg = speech(100_000)
+    nb, db, hb, lb = TRAIN_BLOCKS
+    n, d, h, l_ = cfg.batch, cfg.d_in, cfg.d_hidden, cfg.d_out
+    dims = (nb, db, hb, lb, n // nb, d // db, h // hb, l_ // lb)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((n, d), generator=gen, device=device)
+    wt = torch.randn((d, l_), generator=gen, device=device) * 0.5
+    y = torch.sigmoid(x @ wt)
+    w1 = torch.randn((d, h), generator=gen, device=device) * d ** -0.5
+    w2 = torch.randn((h, l_), generator=gen, device=device) * h ** -0.5
+    return cfg, dims, {"X": x, "Y": y, "W1": w1, "W2": w2}
+
+
+def train_relations(dims, dense) -> tuple:
+    """(data, params): the dense tensors blocked as the program's inputs."""
+    from repro_torch.core import from_tensor
+    nb, db, hb, lb, bn, bd, bh, bl = dims
+    tiles = {"X": (bn, bd), "Y": (bn, bl), "W1": (bd, bh), "W2": (bh, bl)}
+    rel = {k: from_tensor(dense[k], t) for k, t in tiles.items()}
+    return ({k: rel[k] for k in ("X", "Y")},
+            {k: rel[k] for k in ("W1", "W2")})
+
+
+def train_trainer(dims, params, optimizer, device):
+    from repro_torch.core import Engine, TraTrainer
+    from repro_torch.core.programs import ffnn_train_step_tra
+    return TraTrainer(Engine(executor="jit", device=device),
+                      ffnn_train_step_tra(*dims, optimizer=optimizer),
+                      params=params)
+
+
+def dense_f64_step(dense, z1) -> dict:
+    """The loss and both gradients of the first step, dense and in f64 on
+    the card, from the formulas of the dense oracle of
+    ``tests/test_train.py``: a2 = σ(relu(X·W1)·W2), the clipped BCE sum,
+    and its gradients through ∂L/∂z2 = a2 − Y.
+
+    ``z1`` is X·W1 as the tile kernel computes it for the step (on the
+    dense operands, which the engine's blocked views stand for; the kernel
+    is deterministic): held against the f64 product within
+    ``tolerance(D, f32)``, and its sign against the f64 product's.  Where
+    a z1 within that rounding of 0 takes the other sign, relu' differs
+    and so does the whole hidden unit's column of the W1 gradient:
+    ``kink`` marks those columns."""
+    x, y = dense["X"].double(), dense["Y"].double()
+    w1, w2 = dense["W1"].double(), dense["W2"].double()
+    a1 = x @ w1                                 # z1, then relu(z1) in place
+    kink = torch.zeros(a1.shape[1], dtype=torch.bool, device=a1.device)
+    step = 10_000
+    z1_held = []
+    for c in range(0, a1.shape[1], step):
+        cols = slice(c, c + step)
+        z1_held.append(held("z1 = X·W1 (tile kernel) vs f64", z1[:, cols],
+                            a1[:, cols], x.shape[1]))
+        kink[cols] = ((z1[:, cols] > 0) != (a1[:, cols] > 0)).any(0)
+    a1.clamp_min_(0.0)                          # z1 > 0 ⇔ a1 > 0
+    a2 = torch.sigmoid(a1 @ w2)
+    pc = a2.clamp(1e-7, 1.0 - 1e-7)
+    loss = -(y * torch.log(pc) + (1.0 - y) * torch.log1p(-pc)).sum()
+    dz2 = a2 - y
+    g2 = a1.T @ dz2
+    dz1 = dz2 @ w2.T
+    dz1.mul_(a1 > 0)
+    del a1
+    g1 = x.T @ dz1
+    del dz1
+    worst = max(z1_held, key=lambda r: r["worst_share_of_limit"])
+    return {"loss": loss, "W1": g1, "W2": g2, "kink": kink,
+            "z1_vs_f64": worst}
+
+
+def held(what: str, got, ref, k: int, where=None, gate=True) -> dict:
+    """``got`` (f32) against ``ref`` within ``tolerance(k, f32)``, where
+    ``where`` is true (everywhere by default); fails otherwise, unless
+    ``gate`` is false (a reading only)."""
+    rtol, atol = tolerance(k, torch.float32)
+    got = torch.as_tensor(got).double()
+    ref = torch.as_tensor(ref, device=got.device).double()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        fail(f"train {what}: shape {tuple(got.shape)} against "
+             f"{tuple(ref.shape)}, or not finite")
+    err, lim = (got - ref).abs(), atol + rtol * ref.abs()
+    if where is not None:
+        err, lim = err[where], lim[where]
+    over = int((err > lim).sum())
+    out = {"max_abs_err": err.max().item() if err.numel() else 0.0,
+           "worst_share_of_limit": (err / lim).max().item()
+           if err.numel() else 0.0, "values_over": over, "rtol": rtol,
+           "atol": atol, "k": k}
+    if over and gate:
+        fail(f"train {what}: {over} values over rtol={rtol} atol={atol} "
+             f"(max |err| {out['max_abs_err']})")
+    return out
+
+
+def adamw_first_update(w, g, lr):
+    """AdamW's parameter after its first step from zero moments, in f64:
+    m̂ = g, v̂ = g², p' = p − lr·m̂/(√v̂ + eps) (no weight decay)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m, v = (1.0 - b1) * g, (1.0 - b2) * g * g
+    return w - lr * (m / (1.0 - b1)) / (torch.sqrt(v / (1.0 - b2)) + eps)
+
+
+def train_checks(first: dict, plain: dict, ref: dict, dense, cfg,
+                 prefix: str, adam: bool) -> dict:
+    """One step's outputs (the loss, W1' and W2', and AdamW's moments)
+    against the plain-matmul run's and the f64 oracle's, each within
+    ``tolerance(k, f32)`` of the product that computes it: the loss the
+    second forward product's (K = H), the gradients' the batch (K = N).
+    AdamW's W' is held where the reference |g| exceeds
+    ``ADAM_GATE_ATOLS`` times the gradient's atol, and W1's first moment
+    against the f64 oracle outside the ``kink`` columns of
+    :func:`dense_f64_step` (a reading inside them); the counts are
+    reported."""
+    from repro_torch.core import to_tensor
+    k_loss, k_grad = cfg.d_hidden, cfg.batch
+    _, atol = tolerance(k_grad, torch.float32)
+    lr = CHECK_LR if adam else SGD_LR
+    checks = {}
+    for against, want in (("plain", plain["loss"]), ("f64", ref["loss"])):
+        checks[f"{prefix}loss_vs_{against}"] = held(
+            f"{prefix}loss vs {against}", first["loss"], want, k_loss)
+    smooth = ~ref["kink"][None, :].expand(cfg.d_in, -1)
+    for name in ("W1", "W2"):
+        g, w = ref[name], dense[name].double()
+        if adam:
+            gate = g.abs() > ADAM_GATE_ATOLS * atol
+            checks[f"{name}_below_the_gate"] = int((~gate).sum())
+            exact = {name: adamw_first_update(w, g, lr),
+                     f"{name}.m": 0.1 * g, f"{name}.v": 0.001 * g * g}
+        else:
+            gate, exact = None, {name: w - lr * g}
+        for key, value in exact.items():
+            got = to_tensor(first[key])
+            checks[f"{prefix}{key}_vs_plain"] = held(
+                f"{prefix}{key} vs plain", got, to_tensor(plain[key]),
+                k_grad, gate if key == name else None)
+            where = gate if key == name else \
+                smooth if key == "W1.m" else None
+            checks[f"{prefix}{key}_vs_f64"] = held(
+                f"{prefix}{key} vs f64", got, value, k_grad, where)
+            if key == "W1.m":
+                checks[f"{prefix}W1.m_vs_f64_in_kink_columns"] = held(
+                    "W1.m vs f64 at the kink", got, value, k_grad,
+                    ~smooth, gate=False)
+        del exact, w
+    return checks
+
+
+def first_step_checks(cfg, dims, dense, data, params, device, z1) -> dict:
+    """Step 1 at the check rates (AdamW, SGD) on the kernels, on the plain
+    matmul and in f64, the first product's output ``z1`` held on its own
+    (:func:`dense_f64_step`, :func:`train_checks`)."""
+    from repro_torch.core import AdamW, SGD
+    ref = dense_f64_step(dense, z1)
+    checks = {"z1_vs_f64": ref["z1_vs_f64"],
+              "kink_columns": int(ref["kink"].sum())}
+    for prefix, make in (("", lambda: AdamW(CHECK_LR)),
+                         ("sgd_", lambda: SGD(SGD_LR))):
+        run = train_trainer(dims, params, make(), device)
+        got = step_outputs(run, run.step(**data))
+        with plain_matmul():
+            plain = train_trainer(dims, params, make(), device)
+            want = step_outputs(plain, plain.step(**data))
+        checks.update(train_checks(got, want, ref, dense, cfg, prefix,
+                                   adam=not prefix))
+        del run, got, plain, want
+    return checks
+
+
+def step_outputs(trainer, loss) -> dict:
+    return {"loss": loss, **trainer.params, **trainer.state}
+
+
+def train_products(calls, device) -> list:
+    """The step's two matmul calls, each timed as the engine makes it (the
+    relations' views, the op's copies included) and on 2-D contiguous
+    copies through the tile kernel (with its split-K pass), the plain
+    version and ``torch.matmul``, with the bound; the tile kernel held
+    against the plain version within ``tolerance(k, f32)``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for (a, b, kw), name in zip(calls, ("first", "second")):
+        m = math.prod(a.shape[:kw["a_rows"]])
+        k = math.prod(a.shape[kw["a_rows"]:])
+        n = math.prod(b.shape[kw["b_rows"]:])
+        a2, b2 = a.reshape(m, k).contiguous(), b.reshape(k, n).contiguous()
+        out, ref = tile_kernel(a2, b2), matmul_ref(a2, b2)
+        torch.cuda.synchronize(device)
+        rtol, atol = tolerance(k, torch.float32)
+        err = (out - ref).abs()
+        if not bool(torch.isfinite(out).all()) or bool(
+                (err > atol + rtol * ref.abs()).any()):
+            fail(f"train {name} product on the tile kernel: max |err| "
+                 f"{err.max().item()} over rtol={rtol} atol={atol}")
+        max_err = err.max().item()
+        del out, ref, err
+        t_bytes, t_ops = bound_times(m, k, n, torch.float32)
+        bnd, by = bound_of(t_bytes, t_ops)
+        iters = 3 if k * n > 10 ** 8 else 5
+        timed = {"kernel": lambda: tile_kernel(a2, b2),
+                 "in_place": lambda: mm_ops.matmul(a, b, **kw),
+                 "plain": lambda: matmul_ref(a2, b2),
+                 "library": lambda: torch.matmul(a2, b2)}
+        rows.append({"product": name, "m": m, "k": k, "n": n,
+                     "a_contiguous": a.is_contiguous(),
+                     "b_contiguous": b.is_contiguous(),
+                     "tile_splits": mm_ops.plan_launch(m, n, k, sms)[1],
+                     **{f"{what}_ms": timed_ms(fn, device, iters, warmup=1)
+                        for what, fn in timed.items()},
+                     "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
+                     "operations_ms": t_ops, "max_abs_err": max_err,
+                     "rtol": rtol, "atol": atol})
+        del a2, b2
+    return rows
+
+
+def phase_train(device) -> dict:
+    """The §5.3 FFNN trains at speech-100k through the port's Engine,
+    plan-level autodiff and ``TraTrainer`` (AdamW at ``TRAIN_LR``), its
+    forward products on the tile kernel and its split-K pass; step 1 at
+    the check rates against the plain matmul and the f64 oracle."""
+    from repro_torch.core import AdamW
+    t0 = time.perf_counter()
+    cfg, dims, dense = train_problem(device)
+    data, params = train_relations(dims, dense)
+    trainer = train_trainer(dims, params, AdamW(TRAIN_LR), device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n, d, h, l_ = cfg.batch, cfg.d_in, cfg.d_hidden, cfg.d_out
+    products = [(n, d, h), (n, h, l_)]
+    splits = [mm_ops.plan_launch(m, nn, k, sms)[1] for m, k, nn in products]
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # -- the main path: every launch count is 0 just before, read just after
+    reset_launches()
+    step_ms, copies = [], []
+    for _ in range(TRAIN_STEPS):
+        c0 = mm_ops.COPIES
+        torch.cuda.synchronize(device)
+        s0 = time.perf_counter()
+        trainer.step(**data)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        copies.append(mm_ops.COPIES - c0)
+    launches = read_launches()
+    # ---------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated(device)
+    eng = trainer.engine
+    if eng.cache_misses != 1 or eng.cache_hits != TRAIN_STEPS - 1:
+        fail(f"train: {eng.cache_misses} compiles and {eng.cache_hits} "
+             f"cached dispatches in {TRAIN_STEPS} steps, expected 1 and "
+             f"{TRAIN_STEPS - 1}")
+    losses = list(trainer.history)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} not finite or not decreasing")
+    expected = launches_of(
+        matmul=len(products) * TRAIN_STEPS,
+        matmul_splitk_reduce=sum(s > 1 for s in splits) * TRAIN_STEPS,
+        matmul_copies=launches["matmul_copies"])
+    if launches != expected:
+        fail(f"train: launches {launches} in {TRAIN_STEPS} steps, "
+             f"expected {expected}")
+
+    checks = first_step_checks(cfg, dims, dense, data, params, device,
+                               tile_kernel(dense["X"], dense["W1"]))
+
+    # one more step, profiled by kernel, with the matmul calls it makes
+    calls, real = [], mm_ops.matmul
+
+    def spy(a, b, **kw):
+        calls.append((a, b, kw))
+        return real(a, b, **kw)
+
+    mm_ops.matmul = spy
+    try:
+        profile = device_profile(lambda: trainer.step(**data),
+                                 TRAIN_GROUPS)
+    finally:
+        mm_ops.matmul = real
+    if len(calls) != len(products):
+        fail(f"train: {len(calls)} matmul calls in a step, expected "
+             f"{len(products)}")
+    rows = train_products(calls, device)
+    del calls
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    reduce = reduce_case(n, h, l_, device, gen, iters=20)
+    med = sorted(step_ms[1:])
+    out = {"phase": "train", "path": TRAIN_PATH,
+           "width": [d, h, l_], "batch": n, "dims": list(dims),
+           "optimizer": f"AdamW({TRAIN_LR})",
+           "check_optimizers": [f"AdamW({CHECK_LR})", f"SGD({SGD_LR})"],
+           "steps": TRAIN_STEPS,
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_median_2_to_5": (med[len(med) // 2]
+                                     + med[(len(med) - 1) // 2]) / 2,
+           "cache": {"misses": eng.cache_misses, "hits": eng.cache_hits},
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items() if v},
+           "matmul_copies_per_step": copies,
+           "tile_splits": splits,
+           "max_memory_allocated_gb": peak / 1e9, "checks": checks,
+           "profile_step": profile, "products": rows,
+           "splitk_reduce": reduce, "setup_s": setup_s,
+           "phase_s": time.perf_counter() - t0}
+    emit(out)
+    del trainer, data, params, dense
+    torch.cuda.empty_cache()
+    return out
+
+
 def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     """Unmasked (query, key) pairs of one head: the work this input needs
     (row i stands at key position i + skv - sq)."""
@@ -1040,11 +1421,12 @@ def flash_library_case(b, hq, hkv, s, _, d, dv, dt, device, gen,
         "max_abs_diff": lib_err}
 
 
-def device_profile(fn) -> dict:
-    """Device time of ``fn()`` by kernel (``torch.profiler``), grouped into
-    the flash kernel, the SSD kernel, the GEMMs (cuBLAS: projections, MLP,
-    unembedding) and the rest, beside the host-clock wall time of the
-    profiled call."""
+def device_profile(fn, groups=MODEL_GROUPS) -> dict:
+    """Device time of ``fn()`` by kernel (``torch.profiler``), grouped by
+    the first of ``groups`` whose name parts a kernel's name holds (by
+    default the flash kernel, the SSD kernel, the GEMMs — cuBLAS:
+    projections, MLP, unembedding) and the rest, beside the host-clock
+    wall time of the profiled call."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1058,23 +1440,17 @@ def device_profile(fn) -> dict:
             kernels[e.key] = kernels.get(e.key, 0.0) + \
                 e.self_device_time_total / 1e3
             launches += e.count
-    groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
-              "other": 0.0}
+    totals = {name: 0.0 for name, _ in groups}
+    totals["other"] = 0.0
     for name, ms in kernels.items():
         low = name.lower()
-        if "flash_attention_kernel" in low:
-            groups["flash_attention"] += ms
-        elif "ssd_scan_kernel" in low:
-            groups["ssd_scan"] += ms
-        elif any(t in low for t in ("gemm", "nvjet", "sm90_xmma", "cutlass",
-                                    "cublas")):
-            groups["gemm"] += ms
-        else:
-            groups["other"] += ms
+        group = next((g for g, parts in groups
+                      if any(p in low for p in parts)), "other")
+        totals[group] += ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "kernel_launches": launches,
-            "device_ms_by_group": groups,
+            "device_ms_by_group": totals,
             "device_ms_total": busy,
             "device_busy_share": busy / wall_ms if busy else None,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
@@ -1971,13 +2347,14 @@ def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict) -> list:
 MATMUL_CU = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
 
 
-def matmul_entries(rows, reduce_rows, skinny, serve) -> list:
-    """The kernels line's four matmul entries, at one scorer dispatch at
-    bucket 8: the skinny kernel (the main path: both products, read in
-    place as the engine calls them), its fold (inside the second product's
-    launch), the tile kernel and its split-K pass (off the main path now:
-    timed at the same two products on the copied 2-D operands, the
-    parent tree's path)."""
+def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
+    """The kernels line's four matmul entries.  The skinny kernel and its
+    fold at one scorer dispatch at bucket 8 (the serving path: both
+    products, read in place as the engine calls them; the fold inside the
+    second product's launch).  The tile kernel and its split-K pass at the
+    train path's two forward products (speech-100k, N 10000), with their
+    launches there; beside them, as before, the scorer's two products on
+    the tile kernel (copied 2-D operands)."""
     first, second = serve["products_b8"]
     b = first["m"]
     both = (first, second)
@@ -1987,11 +2364,24 @@ def matmul_entries(rows, reduce_rows, skinny, serve) -> list:
     folds = [r for r in skinny if r["case"].startswith("fold")]
     shapes = (f"({b}x{first['k']})@({first['k']}x{first['n']}) + "
               f"({b}x{second['k']})@({second['k']}x{second['n']})")
+    tp = train["products"]
+    tshapes = " + ".join(f"({p['m']}x{p['k']})@({p['k']}x{p['n']})"
+                         for p in tp)
+    tbnd, tby = bound_of(sum(p["bytes_ms"] for p in tp),
+                         sum(p["operations_ms"] for p in tp))
+    tred = train["splitk_reduce"]
+    tgroups = train["profile_step"]["device_ms_by_group"]
     common = {"route": "cuda", "source": MATMUL_CU,
               "replaces": "src/repro/kernels/matmul/kernel.py:39"}
+    tile_paths = {"scorer": serve["launches"]["matmul"],
+                  TRAIN_PATH: train["launches"]["matmul"]}
+    reduce_paths = {"scorer": serve["launches"]["matmul_splitk_reduce"],
+                    TRAIN_PATH: train["launches"]["matmul_splitk_reduce"]}
     return [{
         "name": "matmul_skinny", **common, "function": "matmul_pallas",
         "launches": serve["launches"]["matmul_skinny"],
+        "launches_by_path": {"scorer": serve["launches"]["matmul_skinny"],
+                             TRAIN_PATH: train["launches"]["matmul_skinny"]},
         "max_abs_err": max([p["max_abs_err"] for p in both]
                            + [r["max_abs_err"] for r in skinny
                               if not r["case"].startswith("fold")]
@@ -2030,29 +2420,56 @@ def matmul_entries(rows, reduce_rows, skinny, serve) -> list:
               f"max_abs_err is the fold against splitk_reduce_ref of its "
               f"own partial tiles"}, {
         "name": "matmul", **common, "function": "matmul_pallas",
-        "launches": serve["launches"]["matmul"],
+        "launches": sum(tile_paths.values()),
+        "launches_by_path": tile_paths,
         "max_abs_err": max([r.get("tile_max_abs_err", r["max_abs_err"])
-                            for r in rows]),
-        "ms": sum(p["tile_kernel_on_copy_device_ms"] for p in both),
-        "plain_ms": sum(p["plain_device_ms"] for p in both),
-        "bound_ms": bnd, "bound_by": by,
-        "library_ms": sum(p["torch_matmul_on_copy_device_ms"] for p in both),
+                            for r in rows]
+                           + [p["max_abs_err"] for p in tp]),
+        "ms": sum(p["kernel_ms"] for p in tp),
+        "plain_ms": sum(p["plain_ms"] for p in tp),
+        "bound_ms": tbnd, "bound_by": tby,
+        "library_ms": sum(p["library_ms"] for p in tp),
         "library_call": "torch.matmul, each product",
-        "events_ms": sum(p["tile_kernel_on_copy_ms"] for p in both),
-        "at": f"matmul_tile_kernel (bf16, or more than 16 rows; off the "
-              f"main path): the same dispatch's products {shapes} on the "
-              f"copied 2-D operands, as the parent tree ran them; the "
-              f"second's time includes its split-K pass; device times"}, {
+        TRAIN_PATH: {
+            "products": [{key: p[key] for key in (
+                "m", "k", "n", "tile_splits", "kernel_ms", "in_place_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for p in tp],
+            "kernel_ms_in_profiled_step": tgroups["matmul_tile"],
+            "step_ms_median": train["step_ms_median_2_to_5"],
+            "copies_per_step": train["matmul_copies_per_step"]},
+        "scorer_products_on_copies": {
+            "ms": sum(p["tile_kernel_on_copy_device_ms"] for p in both),
+            "plain_ms": sum(p["plain_device_ms"] for p in both),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": sum(p["torch_matmul_on_copy_device_ms"]
+                              for p in both),
+            "events_ms": sum(p["tile_kernel_on_copy_ms"] for p in both),
+            "at": f"the scorer dispatch's products {shapes} on the copied "
+                  f"2-D operands (off the serving path); device times"},
+        "at": f"matmul_tile_kernel (f32 with more than 16 rows, or bf16): "
+              f"the train path's two forward products {tshapes} on 2-D "
+              f"contiguous operands, CUDA events over back-to-back calls; "
+              f"the second's time includes its split-K pass; in_place_ms: "
+              f"as the engine calls the op, its copies of non-contiguous "
+              f"operands included"}, {
         "name": "matmul_splitk_reduce", **common,
         "function": "matmul_pallas (its f32 accumulation over the K grid)",
-        "launches": serve["launches"]["matmul_splitk_reduce"],
-        "max_abs_err": max(r["max_abs_err"] for r in reduce_rows),
-        "ms": red["kernel_ms"], "plain_ms": red["plain_ms"],
-        "bound_ms": red["bound_ms"], "bound_by": red["bound_by"],
-        "library_ms": red["library_ms"], "library_call": "sum(0)",
-        "at": f"the tile kernel's split-K pass (off the main path): the "
-              f"{red['splits']} partial sums of ({b}x{red['of_product_k']})"
-              f"@({red['of_product_k']}x{red['n']})"}]
+        "launches": sum(reduce_paths.values()),
+        "launches_by_path": reduce_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in reduce_rows + [tred]),
+        "ms": tred["kernel_ms"], "plain_ms": tred["plain_ms"],
+        "bound_ms": tred["bound_ms"], "bound_by": tred["bound_by"],
+        "library_ms": tred["library_ms"], "library_call": "sum(0)",
+        "kernel_ms_in_profiled_step": tgroups["splitk_reduce"],
+        "scorer": {key: red[key] for key in (
+            "splits", "m", "n", "of_product_k", "kernel_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")},
+        "at": f"the tile kernel's split-K pass on the train path: the "
+              f"{tred['splits']} partial sums of ({tred['m']}x"
+              f"{tred['of_product_k']})@({tred['of_product_k']}x"
+              f"{tred['n']}); scorer: at the scorer's second product, off "
+              f"the serving path"}]
 
 
 def main() -> int:
@@ -2072,11 +2489,13 @@ def main() -> int:
     skinny = phase_skinny(device, d_in, d_hidden, d_out)
     flash = phase_flash(device, gen)
     serve = phase_serve(device)
+    train = phase_train(device)
     gemma2 = phase_gemma2(device)
     ssd = phase_ssd(device, gen)
     mamba2 = phase_mamba2(device)
     zamba2 = phase_zamba2(device)
-    emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve),
+    emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
+                                      train),
                       *flash_entries(flash, gemma2, zamba2),
                       *ssd_entries(ssd, mamba2, zamba2)]})
     print(smi, flush=True)

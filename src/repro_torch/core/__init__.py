@@ -8,9 +8,9 @@ The user-facing API is the lazy frontend plus the engine:
     engine = tra.Engine(device="cuda")     # executor="jit" by default
     C = engine.run(A @ B, A=RA, B=RB)
 
-Names of ``repro.core`` that this slice does not port (autodiff, the
-trainers, the fault injector, the deprecated ``evaluate_*`` shims) are
-absent; ``ROADMAP.md`` lists the slice that brings each.
+Names of ``repro.core`` that are not ported yet (the fault injector, the
+deprecated ``evaluate_*`` shims and ``TPU_V5E``, whose counterpart is
+``H100_SXM``) are absent; ``ROADMAP.md`` lists the slice that brings each.
 """
 from repro_torch.core.kernels_registry import (JoinVjp, Kernel, compose,
                                                get_kernel, register,
@@ -33,10 +33,14 @@ from repro_torch.core.optimize import OptimizeResult, fuse_join_agg, optimize
 from repro_torch.core.expr import (Expr, ExprTypeError, const, einsum,  # noqa: A004
                                    input, input_like, ones_like, scalar,
                                    scalar_input, wrap)
+from repro_torch.core.autodiff import AutodiffError, grad
 from repro_torch.core.engine import CacheEntry, CompiledExpr, Engine
 from repro_torch.core.faults import (CompileFailure, DeviceOOM, FaultError,
                                      SimulatedFailure)
 from repro_torch.core.guards import NumericsError
+from repro_torch.core.train import (AdamW, Momentum, SGD, TrainStep,
+                                    TraOptimizer, TraTrainer,
+                                    make_train_step)
 
 __all__ = [
     "JoinVjp", "Kernel", "compose", "get_kernel", "register",
@@ -54,7 +58,10 @@ __all__ = [
     "cost_plan", "OptimizeResult", "fuse_join_agg", "optimize",
     "Expr", "ExprTypeError", "const", "einsum", "input", "input_like",
     "ones_like", "scalar", "scalar_input", "wrap",
+    "AutodiffError", "grad",
     "CacheEntry", "CompiledExpr", "Engine",
     "CompileFailure", "DeviceOOM", "FaultError", "SimulatedFailure",
     "NumericsError",
+    "AdamW", "Momentum", "SGD", "TrainStep", "TraOptimizer", "TraTrainer",
+    "make_train_step",
 ]

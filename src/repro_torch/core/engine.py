@@ -38,10 +38,16 @@ Deviations from the JAX ``Engine``:
   (``repro.analysis``) is a later slice (4).
 * ``mesh`` and the ``gspmd``/``shard_map`` executors (slice 7),
   ``memory_budget``/``store`` (slice 6), ``fault_injector``,
-  ``check_numerics`` and ``degrade`` (slice 5), and ``value_and_grad``
-  (slice 2) raise ``NotImplementedError`` when set or called.
-* There is no ``chunk`` argument: it only steers the chunked fused
-  lowering and the out-of-core autotuner, neither ported yet.
+  ``check_numerics`` and ``degrade`` (slice 5) raise
+  ``NotImplementedError`` when set.
+* ``chunk`` defaults to ``None`` (the bytes-based default of
+  :func:`repro_torch.core.tra.fused_join_agg`); ``"auto"``, the JAX
+  default, autotunes from the out-of-core memory model (slice 6) and
+  raises.
+* The ``jit`` schedule runs structurally identical nodes of a program
+  once, across roots too, and drops each value after its last reader
+  (:func:`_schedule_call`): the work XLA's common subexpression
+  elimination and buffer liveness do under ``jax.jit``.
 """
 from __future__ import annotations
 
@@ -139,6 +145,59 @@ def _func_sig(tag: str, fn) -> Tuple:
     return (tag, id(fn), _code_fp(fn))
 
 
+def _local_sig(n, kids: Tuple) -> Tuple:
+    """One node's signature, its children given as ``kids`` (references in
+    :func:`children` order: back-references into a plan signature, or the
+    ``jit`` schedule's value slots)."""
+    from repro_torch.core import plan as P
+    if isinstance(n, (P.TraInput, P.IAInput)):
+        sig = ("in", n.name, n.rtype.key_shape, n.rtype.bound,
+               str(n.rtype.dtype))
+        if isinstance(n, P.IAInput):
+            sig += (n.placement.kind, n.placement.dims,
+                    n.placement.axes, n.placement.dup_axes,
+                    n.placement.dup_kernel)
+    elif isinstance(n, (P.TraConst, P.IAConst)):
+        sig = ("const", n.rtype.key_shape, n.rtype.bound,
+               str(n.rtype.dtype), n.fill)
+        if isinstance(n, P.IAConst):
+            sig += (n.placement.kind, n.placement.dims,
+                    n.placement.axes, n.placement.dup_axes,
+                    n.placement.dup_kernel)
+    elif isinstance(n, (P.TraPad, P.LocalPad)):
+        sig = ("pad", n.key_shape)
+    elif isinstance(n, (P.TraJoin, P.LocalJoin)):
+        sig = ("join", n.join_keys_l, n.join_keys_r, _kernel_sig(n.kernel))
+    elif isinstance(n, P.FusedJoinAgg):
+        sig = ("fja", n.join_keys_l, n.join_keys_r,
+               _kernel_sig(n.join_kernel), n.group_by,
+               _kernel_sig(n.agg_kernel), n.partial)
+    elif isinstance(n, (P.TraAgg, P.LocalAgg)):
+        sig = ("agg", n.group_by, _kernel_sig(n.kernel),
+               getattr(n, "partial", False))
+    elif isinstance(n, P.TraTransform):
+        sig = ("map", _kernel_sig(n.kernel))
+    elif isinstance(n, P.LocalMap):
+        sig = ("lmap", _kernel_sig(n.kernel),
+               None if n.key_func is None
+               else _func_sig(n.tag, n.key_func))
+    elif isinstance(n, (P.TraFilter, P.LocalFilter)):
+        sig = ("filter", _func_sig(n.tag, n.bool_func))
+    elif isinstance(n, P.TraReKey):
+        sig = ("rekey", _func_sig(n.tag, n.key_func))
+    elif isinstance(n, (P.TraTile, P.LocalTile)):
+        sig = ("tile", n.tile_dim, n.tile_size)
+    elif isinstance(n, (P.TraConcat, P.LocalConcat)):
+        sig = ("concat", n.key_dim, n.array_dim)
+    elif isinstance(n, P.Bcast):
+        sig = ("bcast",)
+    elif isinstance(n, P.Shuf):
+        sig = ("shuf", n.part_dims, n.axes)
+    else:
+        raise TypeError(type(n))
+    return sig + (kids,)
+
+
 def plan_sig(node) -> Tuple:
     """Structural signature of a logical or physical plan (cache key)."""
     node = as_node(node)
@@ -148,53 +207,7 @@ def plan_sig(node) -> Tuple:
     def rec(n) -> int:
         if id(n) in memo:               # shared subexpression → back-ref
             return memo[id(n)]
-        from repro_torch.core import plan as P
-        if isinstance(n, (P.TraInput, P.IAInput)):
-            sig = ("in", n.name, n.rtype.key_shape, n.rtype.bound,
-                   str(n.rtype.dtype))
-            if isinstance(n, P.IAInput):
-                sig += (n.placement.kind, n.placement.dims,
-                        n.placement.axes, n.placement.dup_axes,
-                        n.placement.dup_kernel)
-        elif isinstance(n, (P.TraConst, P.IAConst)):
-            sig = ("const", n.rtype.key_shape, n.rtype.bound,
-                   str(n.rtype.dtype), n.fill)
-            if isinstance(n, P.IAConst):
-                sig += (n.placement.kind, n.placement.dims,
-                        n.placement.axes, n.placement.dup_axes,
-                        n.placement.dup_kernel)
-        elif isinstance(n, (P.TraPad, P.LocalPad)):
-            sig = ("pad", rec(n.child), n.key_shape)
-        elif isinstance(n, (P.TraJoin, P.LocalJoin)):
-            sig = ("join", rec(n.left), rec(n.right), n.join_keys_l,
-                   n.join_keys_r, _kernel_sig(n.kernel))
-        elif isinstance(n, P.FusedJoinAgg):
-            sig = ("fja", rec(n.left), rec(n.right), n.join_keys_l,
-                   n.join_keys_r, _kernel_sig(n.join_kernel), n.group_by,
-                   _kernel_sig(n.agg_kernel), n.partial)
-        elif isinstance(n, (P.TraAgg, P.LocalAgg)):
-            sig = ("agg", rec(n.child), n.group_by, _kernel_sig(n.kernel),
-                   getattr(n, "partial", False))
-        elif isinstance(n, P.TraTransform):
-            sig = ("map", rec(n.child), _kernel_sig(n.kernel))
-        elif isinstance(n, P.LocalMap):
-            sig = ("lmap", rec(n.child), _kernel_sig(n.kernel),
-                   None if n.key_func is None
-                   else _func_sig(n.tag, n.key_func))
-        elif isinstance(n, (P.TraFilter, P.LocalFilter)):
-            sig = ("filter", rec(n.child), _func_sig(n.tag, n.bool_func))
-        elif isinstance(n, P.TraReKey):
-            sig = ("rekey", rec(n.child), _func_sig(n.tag, n.key_func))
-        elif isinstance(n, (P.TraTile, P.LocalTile)):
-            sig = ("tile", rec(n.child), n.tile_dim, n.tile_size)
-        elif isinstance(n, (P.TraConcat, P.LocalConcat)):
-            sig = ("concat", rec(n.child), n.key_dim, n.array_dim)
-        elif isinstance(n, P.Bcast):
-            sig = ("bcast", rec(n.child))
-        elif isinstance(n, P.Shuf):
-            sig = ("shuf", rec(n.child), n.part_dims, n.axes)
-        else:
-            raise TypeError(type(n))
+        sig = _local_sig(n, tuple(rec(c) for c in children(n)))
         memo[id(n)] = len(parts)
         parts.append(sig)
         return memo[id(n)]
@@ -315,6 +328,16 @@ class CacheEntry:
     compiled: CompiledExpr
 
 
+def _check_chunk(chunk) -> None:
+    """``chunk`` is ``None`` or a positive int (``"auto"``: slice 6)."""
+    if chunk == "auto":
+        raise _not_ported("chunk='auto' (the out-of-core autotuner)", 6)
+    if chunk is not None and (isinstance(chunk, bool)
+                              or not isinstance(chunk, int) or chunk < 1):
+        raise ValueError(f"chunk must be None or a positive int, got "
+                         f"{chunk!r}")
+
+
 def _coerce(name: str, value, rtype, device: torch.device) -> TensorRelation:
     if isinstance(value, TensorRelation):
         if value.data.device != device:
@@ -355,16 +378,24 @@ def _input_nodes(roots) -> Dict[str, object]:
     return rtypes
 
 
-def _schedule_call(plans, out_infos, device, fuse: bool) -> Callable:
+def _schedule_call(plans, out_infos, device, fuse: bool, chunk) -> Callable:
     """The ``jit`` executor: flatten the plans once into a list of
     ``(node, child slots, fused)`` steps, replayed on every dispatch.
 
     Logical plans get the eager walk's Σ∘⋈ fusion (a ``TraAgg`` over a
     single-consumer fusable ``TraJoin`` becomes one step over the join's
     operands); physical plans carry their ``FusedJoinAgg`` nodes already.
+
+    Structurally identical nodes share one step, across roots too: each
+    root of a multi-root program is optimized on its own, so a train step's
+    eight roots hold eight copies of the forward pass, which XLA's common
+    subexpression elimination merges under ``jax.jit`` in the JAX package.
+    A step's value is dropped after its last reader has run (XLA's buffer
+    liveness), unless it is an output.
     """
     consumers = consumer_counts(plans) if fuse else {}
     slot: Dict[int, int] = {}
+    by_sig: Dict[Tuple, int] = {}
     steps = []
 
     def visit(n) -> int:
@@ -374,22 +405,37 @@ def _schedule_call(plans, out_infos, device, fuse: bool) -> Callable:
                  and fusable(n, consumers))
         operands = (n.child.left, n.child.right) if fused else children(n)
         kids = tuple(visit(c) for c in operands)
-        slot[id(n)] = len(steps)
-        steps.append((n, kids, fused))
+        sig = (_local_sig(n, kids) if not fused else
+               ("fused", _local_sig(n.child, kids), _local_sig(n, ())))
+        if sig not in by_sig:
+            by_sig[sig] = len(steps)
+            steps.append((n, kids, fused))
+        slot[id(n)] = by_sig[sig]
         return slot[id(n)]
 
     out_slots = tuple(visit(p) for p in plans)
+    keep = set(out_slots)
+    last_read: Dict[int, int] = {}
+    for i, (_, kids, _) in enumerate(steps):
+        for k in kids:
+            last_read[k] = i
+    drops = [tuple(k for k in set(kids)
+                   if last_read[k] == i and k not in keep)
+             for i, (_, kids, _) in enumerate(steps)]
 
     def call(env):
         vals = []
-        for n, kids, fused in steps:
+        for (n, kids, fused), drop in zip(steps, drops):
             if isinstance(n, (IAInput, TraInput)):
                 vals.append(env[n.name])
             elif isinstance(n, IANode):
-                vals.append(eval_ia_node(n, [vals[k] for k in kids], device))
+                vals.append(eval_ia_node(n, [vals[k] for k in kids], device,
+                                         chunk))
             else:
                 vals.append(eval_tra_node(n, [vals[k] for k in kids], device,
-                                          fused=fused))
+                                          fused=fused, chunk=chunk))
+            for k in drop:
+                vals[k] = None
         return tuple(TensorRelation(vals[s].data, oi.rtype, oi.mask)
                      for s, oi in zip(out_slots, out_infos))
 
@@ -424,6 +470,11 @@ class Engine:
     input_placements / site_axes / axis_sizes / accounting /
     try_logical_rewrites:
         Optimizer configuration (1-site ``("sites",)`` by default).
+    chunk:
+        Grid slices gathered per step of the chunked fused-Σ∘⋈ lowering:
+        ``None`` (default) derives it from ``tra.DEFAULT_CHUNK_BYTES``, an
+        int pins it; ``"auto"`` raises (slice 6).  ``compile(...,
+        chunk=...)`` overrides it per program.
     validate:
         ``"off"`` only (the default here; the verifier is slice 4).
     memory_budget / store / fault_injector / check_numerics / degrade:
@@ -439,6 +490,7 @@ class Engine:
                  accounting: str = "wire",
                  try_logical_rewrites: bool = True,
                  fuse: bool = True,
+                 chunk: Optional[int] = None,
                  memory_budget: Optional[int] = None,
                  store=None,
                  fault_injector=None,
@@ -463,12 +515,14 @@ class Engine:
         if fault_injector is not None or check_numerics or degrade:
             raise _not_ported(
                 "fault injection, check_numerics and degrade", 5)
+        _check_chunk(chunk)
         self.device = resolve_device(device)
         self.validate = validate
         self.mesh = None
         self.executor = executor
         self.optimize = optimize
         self.fuse = fuse
+        self.chunk = chunk
         self.accounting = accounting
         self.try_logical_rewrites = try_logical_rewrites
         self.input_placements = dict(input_placements or {})
@@ -533,12 +587,16 @@ class Engine:
 
     def compile(self, expr,
                 input_placements: Optional[Dict[str, Placement]] = None,
-                target: Optional[Placement] = None) -> CompiledExpr:
+                target: Optional[Placement] = None,
+                chunk: Optional[int] = None) -> CompiledExpr:
         """Compile an expression for this engine's executor.
 
         ``input_placements`` (falling back to the engine-level default)
-        seed the optimizer; ``target`` constrains the result placement.
+        seed the optimizer; ``target`` constrains the result placement;
+        ``chunk`` overrides the engine-level fused-path chunk size.
         """
+        _check_chunk(chunk)
+        chunk = self.chunk if chunk is None else chunk
         root_names = None
         if isinstance(expr, dict):
             # named multi-root program: run() returns {name: relation}
@@ -553,14 +611,15 @@ class Engine:
                self.fuse, self.accounting, self.try_logical_rewrites,
                _placements_sig(placements),
                _placements_sig({"·": target} if target else None),
-               multi, root_names)
+               multi, chunk, root_names)
         hit = self._cache.get(key)
         if hit is not None:
             self.cache_hits += 1
             hit.hits += 1
             return hit.compiled
         self.cache_misses += 1
-        compiled = self._compile(roots, placements, target, executor, multi)
+        compiled = self._compile(roots, placements, target, executor, multi,
+                                 chunk)
         compiled.root_names = root_names
         compiled.artifact_id = (
             f"{compiled.executor}:"
@@ -568,9 +627,29 @@ class Engine:
         self._cache[key] = _CacheSlot(compiled)
         return compiled
 
-    def value_and_grad(self, expr, wrt, seed=None, input_placements=None):
-        """Value and plan-level gradients — not ported yet (slice 2)."""
-        raise _not_ported("Engine.value_and_grad", 2)
+    def value_and_grad(self, expr, wrt, seed=None,
+                       input_placements: Optional[Dict[str,
+                                                       Placement]] = None,
+                       chunk: Optional[int] = None) -> CompiledExpr:
+        """Compile ``(expr, *d expr/d wrt)`` as one multi-output program.
+
+        The gradient expressions are *derived* from the forward plan by
+        :mod:`repro_torch.core.autodiff` and flow through the same
+        optimizer/executor stack as any expression — the fused Σ∘⋈
+        selection applies to backward plans too.  ``wrt`` is an input name
+        (or input ``Expr``) or a list of them; ``seed`` is the output
+        cotangent (default: ones — the gradient of the sum of every output
+        entry).  The returned artifact's ``run`` yields
+        ``(value, grad_0, grad_1, ...)`` in ``wrt`` order.
+        """
+        from repro_torch.core.autodiff import grad as _grad
+        from repro_torch.core.expr import Expr, wrap
+        if not isinstance(expr, Expr):
+            expr = wrap(as_node(expr))
+        wrt_list = list(wrt) if isinstance(wrt, (tuple, list)) else [wrt]
+        grads = _grad(expr, wrt=wrt_list, seed=seed)
+        return self.compile((expr,) + tuple(grads),
+                            input_placements=input_placements, chunk=chunk)
 
     # -- internals ---------------------------------------------------------
     def _resolve_executor(self) -> str:
@@ -600,7 +679,7 @@ class Engine:
         return tuple(phys), tuple(opts)
 
     def _compile(self, roots, placements, target, executor,
-                 multi) -> CompiledExpr:
+                 multi, chunk) -> CompiledExpr:
         # logical roots run the eager TRA walk (optimized ones run the
         # physical walk), as in the JAX package
         if self.optimize or any(isinstance(r, IANode) for r in roots):
@@ -615,11 +694,12 @@ class Engine:
                 # cache shared across roots
                 cache: dict = {}
                 return tuple(
-                    _evaluate_ia(p, env, cache, device)
+                    _evaluate_ia(p, env, cache, device, chunk)
                     if isinstance(p, IANode) else
-                    _evaluate_tra(p, env, cache, fuse=fuse, device=device)
+                    _evaluate_tra(p, env, cache, fuse=fuse, device=device,
+                                  chunk=chunk)
                     for p in plans)
         else:
-            call = _schedule_call(plans, out_infos, device, fuse)
+            call = _schedule_call(plans, out_infos, device, fuse, chunk)
         return CompiledExpr(executor, plans, _input_nodes(plans), out_infos,
                             call, device, opts, multi)

@@ -1,11 +1,10 @@
 """Lazy expression frontend for the TRA — the user-facing API.
 
 Port of ``repro.core.expr``.  Builders (``input``, ``const``, ``join``,
-``agg``, ``map``, ``@``, ``+``/``-``/``*``, ``describe`` …) are unchanged
-apart from torch dtypes.  ``Expr.grad`` and ``Expr.scale_by`` (autodiff and
-the train-step scalars) and the ``einsum`` frontend raise
-``NotImplementedError`` until the training slice (2); ``Expr.slot_update``
-(decode state) until the decode slice (3).  See ``ROADMAP.md``.
+``agg``, ``map``, ``@``, ``+``/``-``/``*``, ``scale_by``, ``grad``,
+``einsum``, ``describe`` …) are unchanged apart from torch dtypes.
+``Expr.slot_update`` (decode state) raises ``NotImplementedError`` until
+the decode slice (3, see ``ROADMAP.md``).
 
 The paper's point is that the TRA is *declarative*: a computation written
 once against the logical algebra can be re-optimized and retargeted across
@@ -33,8 +32,8 @@ only two evaluation entry points.
     >>> C = A @ B                       # Σ_(⟨0,2⟩,+) ∘ ⋈_(⟨1⟩,⟨0⟩,matMul)
     >>> tra.Engine(device="cuda").run(C, A=RA, B=RB)
 
-Every frontend — fluent, operator (and, from the training slice, Einstein
-notation) — lands on one optimizer entry path.
+``einsum`` builds through the same constructors, so every frontend —
+fluent, operator, Einstein notation — lands on one optimizer entry path.
 """
 from __future__ import annotations
 
@@ -154,11 +153,26 @@ class Expr:
         return _build(TraPad(self.node, tuple(key_shape)), "pad", self)
 
     def scale_by(self, scalar: "Expr") -> "Expr":
-        """Multiply every array by a scalar relation — not ported yet
-        (training slice, 2)."""
-        raise NotImplementedError(
-            "Expr.scale_by is not ported to repro_torch yet (slice 2; see "
-            "ROADMAP.md)")
+        """Multiply every array by a *scalar relation* (key ``(1,)``,
+        bound ``(1, 1)``).
+
+        The scalar joins in on no key dims (a broadcast join with the
+        ``scaleBy`` kernel) and the appended singleton key dim is
+        aggregated away.  This is how per-step scalars — Adam bias
+        corrections, learning-rate schedules — thread through a compiled
+        train-step program as *data* instead of kernel constants, so one
+        compiled artifact serves every step (see
+        :mod:`repro_torch.core.train`).
+        """
+        scalar = _as_expr(scalar)
+        if scalar.key_shape != (1,) or scalar.bound != (1, 1):
+            raise ExprTypeError(
+                f"scale_by needs a scalar relation (key (1,), bound "
+                f"(1, 1) — tra.scalar / tra.scalar_input), got "
+                f"{_describe_rtype(scalar.info)}")
+        k = self.key_arity
+        j = self.join(scalar, on=((), ()), kernel="scaleBy")
+        return j.agg(tuple(range(k)), "matAdd")
 
     def slot_update(self, rows: "Expr", mask: "Expr") -> "Expr":
         """Masked in-plan slot update — not ported yet (decode slice, 3)."""
@@ -168,10 +182,22 @@ class Expr:
 
     # -- differentiation ---------------------------------------------------
     def grad(self, wrt, seed: "Expr" = None):
-        """Cotangent expression(s) — not ported yet (training slice, 2)."""
-        raise NotImplementedError(
-            "Expr.grad (plan-level autodiff) is not ported to repro_torch "
-            "yet (slice 2; see ROADMAP.md)")
+        """Cotangent expression(s) of ``self`` w.r.t. input(s) ``wrt``.
+
+        The backward graph is derived from this expression's plan by
+        :mod:`repro_torch.core.autodiff` and is itself an ``Expr`` DAG —
+        run it on any executor, optimizer fusion included.  ``wrt`` is an
+        input name / input ``Expr`` (returns one ``Expr``) or a sequence of
+        them (returns a tuple); ``seed`` overrides the default ones
+        cotangent (∂Σ(out)/∂out).
+
+            >>> z = (x @ w).map("relu")
+            >>> dw = z.grad("W")                  # d Σ(relu(x@w)) / dW
+        """
+        from repro_torch.core.autodiff import grad as _grad
+        single = isinstance(wrt, (str, Expr))
+        outs = _grad(self, [wrt] if single else list(wrt), seed=seed)
+        return outs[0] if single else outs
 
     # -- operator sugar ----------------------------------------------------
     def _keywise(self, other: "Expr", kernel: str) -> "Expr":
@@ -259,7 +285,7 @@ def scalar(fill: float, dtype=torch.float32) -> Expr:
     """A literal *scalar relation* — key ``(1,)``, bound ``(1, 1)``.
 
     The carrier type for per-step scalars (step counts, schedules) in
-    the train step (training slice); applied with :meth:`Expr.scale_by`."""
+    :mod:`repro_torch.core.train`; apply one with :meth:`Expr.scale_by`."""
     return const(fill, (1,), (1, 1), dtype)
 
 
@@ -280,7 +306,30 @@ def wrap(node: TraNode) -> Expr:
 
 
 def einsum(spec: str, *operands: Expr) -> Expr:
-    """Einstein-notation frontend (paper §2.3) — not ported yet (training
-    slice, 2)."""
-    raise NotImplementedError(
-        "einsum is not ported to repro_torch yet (slice 2; see ROADMAP.md)")
+    """Einstein-notation frontend (paper §2.3) over ``Expr`` operands.
+
+    Builds the paper's binary-production construction — one join +
+    aggregation per contraction step — through the same ``Expr``
+    constructors as the fluent API, so einsum expressions flow through the
+    identical optimizer entry path.
+
+        >>> C = tra.einsum("ij,jk->ik", A, B)
+
+    Each operand's key arity and rank must both equal its index-term
+    length (one key dim + one array dim per index).
+    """
+    from repro_torch.core.einsum_frontend import build_einsum, parse_spec
+    terms, out_idx = parse_spec(spec)
+    if len(terms) != len(operands):
+        raise ExprTypeError(
+            f"einsum '{spec}' has {len(terms)} terms but "
+            f"{len(operands)} operands were given")
+    exprs = [_as_expr(o) for o in operands]
+    for t, e in zip(terms, exprs):
+        if e.key_arity != len(t) or e.info.rtype.rank != len(t):
+            raise ExprTypeError(
+                f"einsum term '{t}' needs {len(t)} key dims and rank "
+                f"{len(t)}, got {_describe_rtype(e.info)}")
+    node = build_einsum(terms, out_idx, [e.node for e in exprs],
+                        [e.bound for e in exprs])
+    return wrap(node)

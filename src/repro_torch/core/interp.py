@@ -9,9 +9,9 @@ Port of ``repro.core.interp`` for one device:
 
 The JAX package's SPMD mode (``_evaluate_ia(spmd=True)``, ``_jit_ia_plans``)
 and the deprecated ``evaluate_*`` / ``jit_ia_plan`` shims wait for the
-distributed slice (7, see ``ROADMAP.md``).  The walks take no ``chunk`` /
-``budget`` / ``ctx`` arguments: they steer the chunked fused lowering, the
-out-of-core store and the fault hooks, which later slices bring.
+distributed slice (7, see ``ROADMAP.md``).  The walks take ``chunk`` (the
+chunked fused lowering's slices per step) but no ``budget`` / ``ctx``: they
+steer the out-of-core store and the fault hooks, which later slices bring.
 Constants are materialized on ``device``.
 """
 from __future__ import annotations
@@ -59,8 +59,8 @@ def consumer_counts(roots) -> Dict[int, int]:
     return counts
 
 
-def eval_tra_node(n: TraNode, kids, device,
-                  fused: bool = False) -> TensorRelation:
+def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
+                  chunk=None) -> TensorRelation:
     """One logical node's value from its children's values.  With
     ``fused`` the node is a ``TraAgg`` and ``kids`` are its join child's
     two operands (see :func:`fusable`)."""
@@ -78,7 +78,7 @@ def eval_tra_node(n: TraNode, kids, device,
             c = n.child
             return tra.fused_join_agg(kids[0], kids[1], c.join_keys_l,
                                       c.join_keys_r, c.kernel, n.group_by,
-                                      n.kernel)
+                                      n.kernel, chunk=chunk)
         return tra.agg(kids[0], n.group_by, n.kernel)
     if isinstance(n, TraReKey):
         return tra.rekey(kids[0], n.key_func)
@@ -96,7 +96,7 @@ def eval_tra_node(n: TraNode, kids, device,
 def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
                   _cache: Optional[dict] = None,
                   fuse: bool = True,
-                  device="cpu") -> TensorRelation:
+                  device="cpu", chunk=None) -> TensorRelation:
     """Walk a logical plan with the dense eager ops.
 
     With ``fuse=True`` (default) every ``TraAgg(TraJoin(...))`` pair whose
@@ -116,7 +116,7 @@ def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
             out = env[n.name]
         elif fuse and fusable(n, consumers) and id(n.child) not in cache:
             out = eval_tra_node(n, [rec(n.child.left), rec(n.child.right)],
-                                device, fused=True)
+                                device, fused=True, chunk=chunk)
         else:
             out = eval_tra_node(n, [rec(c) for c in children(n)], device)
         cache[id(n)] = out
@@ -125,7 +125,7 @@ def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
     return rec(node)
 
 
-def eval_ia_node(node: IANode, kids, device) -> TensorRelation:
+def eval_ia_node(node: IANode, kids, device, chunk=None) -> TensorRelation:
     """One physical node's value from its children's values (``kids`` in
     :func:`repro_torch.core.plan.children` order) — shared by the
     recursive walk below and the engine's ``jit`` schedule."""
@@ -145,7 +145,8 @@ def eval_ia_node(node: IANode, kids, device) -> TensorRelation:
     if isinstance(node, FusedJoinAgg):
         return tra.fused_join_agg(kids[0], kids[1], node.join_keys_l,
                                   node.join_keys_r, node.join_kernel,
-                                  node.group_by, node.agg_kernel)
+                                  node.group_by, node.agg_kernel,
+                                  chunk=chunk)
     if isinstance(node, LocalFilter):
         return tra.filt(kids[0], node.bool_func)
     if isinstance(node, LocalMap):
@@ -164,7 +165,7 @@ def eval_ia_node(node: IANode, kids, device) -> TensorRelation:
 
 def _evaluate_ia(node: IANode, env: Dict[str, TensorRelation],
                  _cache: Optional[dict] = None,
-                 device="cpu") -> TensorRelation:
+                 device="cpu", chunk=None) -> TensorRelation:
     """Evaluate a physical plan on one device (sites ignored)."""
     node = as_node(node)
     cache = _cache if _cache is not None else {}
@@ -173,7 +174,8 @@ def _evaluate_ia(node: IANode, env: Dict[str, TensorRelation],
     if isinstance(node, IAInput):
         out = env[node.name]
     else:
-        kids = [_evaluate_ia(c, env, cache, device) for c in children(node)]
-        out = eval_ia_node(node, kids, device)
+        kids = [_evaluate_ia(c, env, cache, device, chunk)
+                for c in children(node)]
+        out = eval_ia_node(node, kids, device, chunk)
     cache[id(node)] = out
     return out

@@ -8,18 +8,20 @@ device their tensors live on — the operations never move data between
 devices.
 
 Ported here: ``RelType`` (with a torch dtype), ``TensorRelation``,
-``from_tensor`` / ``to_tensor``, ``join``, ``agg``, ``transform``,
-``fused_join_agg`` with its 2-D matmul lowering (through the hand-written
-CUDA kernel, :func:`repro_torch.kernels.matmul.ops.matmul`) and its einsum
-lowering, and the serving helpers ``pack_rows`` / ``unpack_rows`` /
-``scatter_rows`` / ``zero_rows``.
+``from_tensor`` / ``to_tensor``, ``join``, ``agg``, ``rekey``, ``filt``,
+``pad``, ``transform``, ``tile``, ``concat``, ``fused_join_agg`` with its
+three lowerings — the 2-D matmul (through the hand-written CUDA kernel,
+:func:`repro_torch.kernels.matmul.ops.matmul`), the einsum and the chunked
+streaming reduction — and the serving helpers ``pack_rows`` /
+``unpack_rows`` / ``scatter_rows`` / ``zero_rows``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice, see
-``ROADMAP.md``): ``rekey``, ``filt``, ``pad``, ``tile``, ``concat`` and the
-chunked streaming lowering of ``fused_join_agg`` (training slice, 2).
-``fused_join_agg`` therefore takes no ``chunk``/``budget``/``ctx``/``node``
-arguments: they only steer that lowering, the out-of-core autotuner and
-the fault hooks, which later slices bring.
+Deviations: ``fused_join_agg`` takes ``chunk`` but no ``budget``, ``ctx``
+or ``node`` — they steer the out-of-core autotuner and the fault hooks
+(slices 6 and 5, see ``ROADMAP.md``), so ``chunk="auto"`` raises
+``NotImplementedError``.  The chunked lowering is a Python loop over the
+chunks of the reduce-key grid that gathers each chunk's cells at once
+(JAX traces a ``lax.fori_loop`` over ``vmap``-ed cells); it folds in the
+same order.
 """
 from __future__ import annotations
 
@@ -497,10 +499,76 @@ def _fused_einsum(g: _JoinGeometry, left: TensorRelation,
     return torch.einsum(f"{l_sub},{r_sub}->{o_sub}", ldata, rdata)
 
 
+def _fused_chunked(g: _JoinGeometry, left: TensorRelation,
+                   right: TensorRelation, join_kernel: Kernel,
+                   gb: Tuple[int, ...], reduce_dims: Tuple[int, ...],
+                   agg_kernel: Kernel, chunk: int) -> torch.Tensor:
+    """Stream the reduction over the contracted key dims.
+
+    A loop walks the flattened reduce-key grid ``chunk`` cells per step;
+    each step gathers only ``chunk`` grid *slices* (one slice = the
+    group-by grid × one reduce coordinate), tree-folds them and folds the
+    result into the accumulator with the associative agg kernel, as the
+    JAX package's ``fori_loop`` does.  Peak live payload is
+    O(output + chunk·slice) instead of the unfused O(full grid).
+    """
+    k_out, kl = g.k_out, g.kl
+    out_bound = tuple(join_kernel.out_bound(left.bound, right.bound))
+    ldata_b = g.ldata.reshape(g.f_out_l + (1,) * (k_out - kl)
+                              + tuple(left.bound))
+    rdata_b = g.rdata_t.reshape(g.r_shape + tuple(right.bound))
+    jm = _joint_mask_grid(g)
+    jm_dev = None if jm is None else _device_mask(jm, ldata_b)
+    red_sizes = tuple(g.out_key_shape[d] for d in reduce_dims)
+    nred = math.prod(red_sizes)
+    front = list(range(len(reduce_dims)))
+    # reduce dims first: a cell's slice is one index per reduce dim
+    lf, rf = (torch.movedim(x, list(reduce_dims), front)
+              for x in (ldata_b, rdata_b))
+    mf = None if jm_dev is None else torch.movedim(jm_dev, list(reduce_dims),
+                                                   front)
+    fill = None if jm is None else torch.tensor(
+        agg_kernel.identity, dtype=ldata_b.dtype, device=ldata_b.device)
+
+    def take(x, coords):
+        # size-1 (broadcast) axes clamp to their one slice
+        return x[tuple(c.clamp(max=x.shape[i] - 1)
+                       for i, c in enumerate(coords))]
+
+    csize = max(1, min(int(chunk), nred))
+    while nred % csize:
+        csize -= 1
+
+    def step_val(s):
+        flat = torch.arange(s * csize, (s + 1) * csize,
+                            device=ldata_b.device)
+        coords = torch.unravel_index(flat, red_sizes)
+        val = join_kernel.apply(take(lf, coords), take(rf, coords))
+        if mf is not None:
+            msk = take(mf, coords)
+            val = torch.where(msk.reshape(msk.shape + (1,) * len(out_bound)),
+                              val, fill)
+        return _tree_fold(val, agg_kernel) if csize > 1 else val[0]
+
+    acc = step_val(0)
+    for s in range(1, nred // csize):
+        acc = agg_kernel.apply(acc, step_val(s))
+    remaining = [d for d in range(k_out) if d not in reduce_dims]
+    perm = [remaining.index(d) for d in gb] \
+        + [len(gb) + i for i in range(len(out_bound))]
+    return acc.permute(perm)
+
+
+# Default streaming-chunk budget for the chunked lowering: each step
+# gathers ``chunk`` grid slices, so the bytes-based default keeps peak live
+# payload near this budget regardless of shape.
+DEFAULT_CHUNK_BYTES = 16 * 1024 * 1024
+
+
 def fused_join_agg(left: TensorRelation, right: TensorRelation,
                    join_keys_l: Sequence[int], join_keys_r: Sequence[int],
                    join_kernel: Kernel, group_by: Sequence[int],
-                   agg_kernel: Kernel) -> TensorRelation:
+                   agg_kernel: Kernel, *, chunk=None) -> TensorRelation:
     """Σ_(groupBy, aggOp) ∘ ⋈_(jkl, jkr, projOp) without the grid.
 
     Semantically identical to ``agg(join(left, right, ...), group_by, ...)``
@@ -511,8 +579,11 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
       inner contraction;
     * one ``torch.einsum`` for any other contraction-shaped pair
       (matMul / matTranMulL / matTranMulR / elemMul with matAdd);
-    * every other associative kernel pair streams its reduction in chunks
-      in the JAX package; that lowering is not ported yet and raises.
+    * a chunked streaming reduction for every other associative kernel
+      pair.  ``chunk`` is the number of grid slices each step gathers;
+      ``None`` derives it from :data:`DEFAULT_CHUNK_BYTES`.  ``"auto"``
+      (the JAX engine's autotuner over a device memory budget) belongs to
+      the out-of-core slice and raises.
 
     Falls back to the unfused pair when nothing is actually reduced or when
     holes cannot be identity-filled — the unfused path remains the
@@ -522,6 +593,8 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
     gb = tuple(group_by)
     if not agg_kernel.is_associative:
         raise ValueError(f"agg kernel {agg_kernel.name} must be associative")
+    if chunk == "auto":
+        raise _not_ported("chunk='auto' (the out-of-core autotuner)", 6)
     g = _join_align(left, right, jkl, jkr)
     reduce_dims = tuple(d for d in range(g.k_out) if d not in gb)
     if not reduce_dims or not can_fuse(join_kernel, agg_kernel):
@@ -544,25 +617,86 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
     if has_mask and agg_kernel.identity is None:
         # cannot identity-fill holes — mirror tra.agg's requirement
         return agg(join(left, right, jkl, jkr, join_kernel), gb, agg_kernel)
-    raise _not_ported(
-        f"the chunked streaming lowering of fused_join_agg "
-        f"({join_kernel.name} → {agg_kernel.name})", 2)
+    if chunk is None:
+        out_floats = (math.prod(out_key_shape) if out_key_shape else 1) \
+            * (math.prod(out_bound) if out_bound else 1)
+        slice_bytes = max(1, out_floats * left.data.element_size())
+        chunk = max(1, DEFAULT_CHUNK_BYTES // slice_bytes)
+    data = _fused_chunked(g, left, right, join_kernel, gb, reduce_dims,
+                          agg_kernel, chunk)
+    return TensorRelation(
+        data, RelType(out_key_shape, out_bound, data.dtype), out_mask)
 
 
 def rekey(rel: TensorRelation, key_func: KeyFunc,
           out_arity: Optional[int] = None) -> TensorRelation:
-    """ReKey_(keyFunc)(R) — not ported yet."""
-    raise _not_ported("tra.rekey", 2)
+    """ReKey_(keyFunc)(R) — keys are static, so this is a static scatter."""
+    keys = rel.valid_keys()
+    new_keys = np.asarray([key_func(tuple(int(x) for x in k)) for k in keys],
+                          dtype=np.int64)
+    if new_keys.ndim == 1:
+        new_keys = new_keys[:, None]
+    if out_arity is not None and new_keys.shape[1] != out_arity:
+        raise ValueError("key_func arity mismatch")
+    if len(new_keys) == 0:
+        raise ValueError("rekey of an empty relation")
+    uniq = {tuple(k) for k in new_keys.tolist()}
+    if len(uniq) != len(new_keys):
+        raise ValueError("rekey produced duplicate keys (uniqueness violated)")
+    f_out = tuple(int(m) + 1 for m in new_keys.max(axis=0))
+    flat_src = np.ravel_multi_index(keys.T, rel.key_shape) if rel.key_shape \
+        else np.zeros(1, np.int64)
+    dev = rel.data.device
+    src = rel.data.reshape((-1,) + tuple(rel.bound))[
+        torch.as_tensor(flat_src, device=dev)]
+    out = rel.data.new_zeros(f_out + tuple(rel.bound))
+    out[tuple(torch.as_tensor(k, device=dev) for k in new_keys.T)] = src
+    mask = np.zeros(f_out, bool)
+    mask[tuple(new_keys.T)] = True
+    if np.all(mask):
+        mask = None
+    rt = RelType(f_out, rel.bound, rel.data.dtype)
+    return TensorRelation(out, rt, mask)
 
 
 def filt(rel: TensorRelation, bool_func: BoolFunc) -> TensorRelation:
-    """σ_(boolFunc)(R) — not ported yet."""
-    raise _not_ported("tra.filt", 2)
+    """σ_(boolFunc)(R) — static key predicate ⇒ static mask update."""
+    grid = np.indices(rel.key_shape).reshape(rel.rtype.key_arity, -1).T
+    keep = np.asarray([bool(bool_func(tuple(int(x) for x in k)))
+                       for k in grid]).reshape(rel.key_shape)
+    mask = keep if rel.mask is None else np.logical_and(rel.mask, keep)
+    if not mask.any():
+        raise ValueError("filter removed every tuple")
+    # frontier shrink (paper §4.3 rule 3): slice to the bounding box
+    idx = np.argwhere(mask)
+    f_out = tuple(int(m) + 1 for m in idx.max(axis=0))
+    sl = tuple(slice(0, f) for f in f_out)
+    data = rel.data[sl]
+    mask = mask[sl]
+    if np.all(mask):
+        mask = None
+    rt = RelType(f_out, rel.bound, rel.data.dtype)
+    return TensorRelation(data, rt, mask)
 
 
 def pad(rel: TensorRelation, key_shape: Sequence[int]) -> TensorRelation:
-    """Pad_(keyShape)(R) — not ported yet."""
-    raise _not_ported("tra.pad", 2)
+    """Pad_(keyShape)(R) — densify: zero-fill holes, grow the frontier.
+
+    The dual of σ, introduced for the autodiff layer: converts "tuple
+    absent" into "tuple present with value 0" so cotangents over filtered
+    key spaces can be accumulated on one common grid.
+    """
+    ks = tuple(key_shape)
+    if len(ks) != rel.rtype.key_arity or \
+            any(k < f for k, f in zip(ks, rel.key_shape)):
+        raise ValueError(
+            f"pad key_shape {ks} must cover frontier {rel.key_shape}")
+    data = _zero_fill(rel.data, rel.mask, rel.rtype.rank)
+    if ks != rel.key_shape:
+        out = data.new_zeros(ks + tuple(rel.bound))
+        out[tuple(slice(0, f) for f in rel.key_shape)] = data
+        data = out
+    return TensorRelation(data, RelType(ks, rel.bound, data.dtype))
 
 
 def transform(rel: TensorRelation, kernel: Kernel) -> TensorRelation:
@@ -574,13 +708,46 @@ def transform(rel: TensorRelation, kernel: Kernel) -> TensorRelation:
 
 
 def tile(rel: TensorRelation, tile_dim: int, tile_size: int) -> TensorRelation:
-    """Tile_(tileDim, tileSize)(R) — not ported yet."""
-    raise _not_ported("tra.tile", 2)
+    """Tile_(tileDim, tileSize)(R) — split an array dim, append a key dim."""
+    b = rel.bound
+    if b[tile_dim] % tile_size:
+        raise ValueError("tile size must divide the bound")
+    ntiles = b[tile_dim] // tile_size
+    k = rel.rtype.key_arity
+    ax = k + tile_dim
+    shape = (rel.key_shape + b[:tile_dim] + (ntiles, tile_size)
+             + b[tile_dim + 1:])
+    x = rel.data.reshape(shape)
+    x = torch.movedim(x, ax, k)          # new key dim appended after keys
+    new_bound = b[:tile_dim] + (tile_size,) + b[tile_dim + 1:]
+    rt = RelType(rel.key_shape + (ntiles,), new_bound, rel.data.dtype)
+    mask = None
+    if rel.mask is not None:
+        mask = np.repeat(rel.mask[..., None], ntiles, axis=-1)
+    return TensorRelation(x, rt, mask)
 
 
 def concat(rel: TensorRelation, key_dim: int, array_dim: int) -> TensorRelation:
-    """Concat_(keyDim, arrayDim)(R) — not ported yet."""
-    raise _not_ported("tra.concat", 2)
+    """Concat_(keyDim, arrayDim)(R) — inverse of tile."""
+    if rel.mask is not None:
+        mt = np.moveaxis(rel.mask, key_dim, -1)
+        if not (np.all(mt == mt[..., :1])):
+            raise ValueError("concat groups must be complete")
+    k = rel.rtype.key_arity
+    x = torch.movedim(rel.data, key_dim, k - 1 + array_dim)
+    # now the concat key dim sits immediately before the target array axis
+    new_key_shape = tuple(s for d, s in enumerate(rel.key_shape)
+                          if d != key_dim)
+    nb = list(rel.bound)
+    nb[array_dim] = rel.key_shape[key_dim] * rel.bound[array_dim]
+    x = x.reshape(new_key_shape + tuple(nb))
+    mask = None
+    if rel.mask is not None:
+        mask = np.take(rel.mask, 0, axis=key_dim)
+        if np.all(mask):
+            mask = None
+    rt = RelType(new_key_shape, tuple(nb), rel.data.dtype)
+    return TensorRelation(x, rt, mask)
 
 
 # ==========================================================================

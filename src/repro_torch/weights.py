@@ -20,6 +20,18 @@ two therefore goes through the weights themselves, as numpy arrays:
       params = repro.models.init_params(cfg, jax.random.PRNGKey(0))
       tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
       model = model_from_numpy(cfg, tree, device="cpu")
+
+* a train step's state — its parameter and optimizer-state relations
+  (``W1``, ``W2``, ``W1.m``, ``W1.v``, ``opt.step``, …, as
+  ``repro.core.TraTrainer`` holds them in ``params`` and ``state``) —
+  becomes the port's, typed by the port's program
+  (:func:`train_state_from_numpy`):
+
+      arrays = {k: np.asarray(r.data) for k, r in
+                {**jax_trainer.params, **jax_trainer.state}.items()}
+      params, state = train_state_from_numpy(step, arrays, device="cpu")
+      trainer = repro_torch.core.TraTrainer(engine, step, params=params)
+      trainer.state = state
 """
 from __future__ import annotations
 
@@ -40,7 +52,7 @@ def relations_from_numpy(arrays: Mapping[str, np.ndarray],
     a missing or extra name, or a shape that does not fit, raises."""
     if set(arrays) != set(rtypes):
         raise ValueError(f"weights {sorted(arrays)} do not match the "
-                         f"servable's {sorted(rtypes)}")
+                         f"expected {sorted(rtypes)}")
     out = {}
     for name, rt in rtypes.items():
         arr = np.asarray(arrays[name])
@@ -51,6 +63,27 @@ def relations_from_numpy(arrays: Mapping[str, np.ndarray],
         data = torch.tensor(arr, dtype=rt.dtype)       # a copy
         out[name] = TensorRelation(data.to(device), rt)
     return out
+
+
+def train_state_from_numpy(step, arrays: Mapping[str, np.ndarray],
+                           device: DeviceLike = "cuda"
+                           ) -> Tuple[Dict[str, TensorRelation],
+                                      Dict[str, TensorRelation]]:
+    """``(params, state)`` of the port's train step ``step`` (a
+    :class:`~repro_torch.core.train.TrainStep`) from their dense numpy
+    values, copied onto ``device`` and typed as ``step``'s inputs of those
+    names.  Exactly the step's parameter and state names: a missing or
+    extra name, or a shape that does not fit, raises ``ValueError``."""
+    from repro_torch.core.plan import TraInput, postorder
+    names = tuple(step.param_names) + tuple(step.state_names)
+    rtypes = {}
+    for root in step.roots.values():
+        for n in postorder(root.node):
+            if isinstance(n, TraInput) and n.name in names:
+                rtypes[n.name] = n.rtype
+    rels = relations_from_numpy(arrays, rtypes, resolve_device(device))
+    return ({nm: rels[nm] for nm in step.param_names},
+            {nm: rels[nm] for nm in step.state_names})
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()

@@ -3,8 +3,9 @@
 Same outputs as the JAX ``Engine`` on the ``reference`` and ``jit``
 executors for single-root, tuple and dict programs (optimized and not),
 the same ``cache_hits`` / ``cache_misses`` sequence over a program stream,
-``pin`` / ``cache_clear`` / ``cache_info``, and a loud
-``NotImplementedError`` for every option this slice does not port.
+``pin`` / ``cache_clear`` / ``cache_info``, the chunked lowering of a
+fused plan, and a loud ``NotImplementedError`` for every option not
+ported yet.
 """
 import pytest
 
@@ -136,26 +137,30 @@ def test_unported_options_raise(kwargs, slice_no):
 
 
 @pytest.mark.parametrize("executor", EXECUTORS)
-def test_chunked_fused_plan_raises(executor):
+def test_chunked_fused_plan_matches_jax(executor):
     """``rowSum`` distributes over ``matAdd``, so the optimizer composes it
     into the join (R1-4, R1-7) and fuses a ``rowSum∘matMul → matAdd``
-    node, whose chunked lowering is not ported yet."""
-    prog = _programs(tE)["matmul"].map("rowSum")
+    node, which runs on the chunked streaming lowering: the same values
+    as the JAX engine's, and one artifact per ``chunk``."""
     x = _inputs(3)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tcore.Engine(executor=executor, device=CPU).run(
-            prog, A=x["A"], B=x["B"])
+    want = jcore.Engine(executor=executor).run(
+        _programs(jE)["matmul"].map("rowSum"), A=x["A"], B=x["B"])
+    prog = _programs(tE)["matmul"].map("rowSum")
+    eng = tcore.Engine(executor=executor, device=CPU)
+    assert "FusedJoinAgg" in eng.compile(prog).describe()
+    for chunk in (None, 1, 2):
+        got = eng.compile(prog, chunk=chunk).run(A=x["A"], B=x["B"])
+        np.testing.assert_allclose(as_np(got), np.asarray(want.data),
+                                   rtol=1e-5, atol=1e-5)
+    assert eng.cache_misses == 3
+    with pytest.raises(ValueError, match="chunk"):
+        tcore.Engine(chunk=0, device=CPU)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tcore.Engine(chunk="auto", device=CPU)
 
 
 def test_unported_frontend_raises():
     a = tE.input("A", (2, 2), (2, 2))
-    eng = tcore.Engine(device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        a.grad("A")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tE.einsum("ij,jk->ik", a, a)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        eng.value_and_grad(a @ a, ["A"])
     with pytest.raises(NotImplementedError, match="slice 3"):
         a.slot_update(a, a)
     with pytest.raises(ValueError, match="unknown executor"):

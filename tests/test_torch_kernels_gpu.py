@@ -37,7 +37,10 @@ SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  zamba2-7b's
 shapes: the bf16 flash kernel at head dim 112 on the model's transposed
 views (no copy), the bf16 SSD kernel at state 64 with an odd S, and
 zamba2-smoke through both kernels (launches counted; f32 at 1e-4, bf16
-within its rounding floor).  This file
+within its rounding floor).  The §5.3 FFNN train step through the tile
+kernel and its split-K pass (SGD and AdamW, three steps) against the same
+steps on the plain matmul, and the tile kernel at the train path's
+second product scaled down (10 columns, split in K).  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed.
 """
@@ -895,3 +898,95 @@ def test_ssd_kernels_sum_a_cancelling_diagonal_score_on_card(cuda, dtype):
     assert torch.equal(got[0, 1, 0], want)
     exact = ssd_chunked_ref(*(t.double() for t in (x, dt, A, bm, cm)), s)
     assert torch.equal(exact[0, 1, 0].to(x.dtype), want)
+
+
+# ------------------------------------------------- the FFNN train step
+# N 256, D 64, H 128, L 10; db and hb above 2, so that the optimizer fuses
+# both forward products (at 2 the unfused pair ties on its temporaries)
+TRAIN_DIMS = (4, 4, 4, 1, 64, 16, 32, 10)
+
+
+def _train_setup(cuda, optimizer):
+    from repro_torch.core import Engine, TraTrainer, from_tensor
+    from repro_torch.core.programs import ffnn_train_step_tra
+    nb, db, hb, lb, bn, bd, bh, bl = TRAIN_DIMS
+    n, d, h, l_ = nb * bn, db * bd, hb * bh, lb * bl
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    y = torch.sigmoid(x @ (torch.randn((d, l_), generator=g, device=cuda)
+                           * 0.5))
+    w1 = torch.randn((d, h), generator=g, device=cuda) * d ** -0.5
+    w2 = torch.randn((h, l_), generator=g, device=cuda) * h ** -0.5
+    data = {"X": from_tensor(x, (bn, bd)), "Y": from_tensor(y, (bn, bl))}
+    params = {"W1": from_tensor(w1, (bd, bh)),
+              "W2": from_tensor(w2, (bh, bl))}
+    return TraTrainer(Engine(executor="jit", device=cuda),
+                      ffnn_train_step_tra(*TRAIN_DIMS, optimizer=optimizer),
+                      params=params), data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+def test_ffnn_train_step_on_card(cuda, optimizer, monkeypatch):
+    """Three steps of the §5.3 train step through the tile kernel (both
+    forward products; the second, 10 columns wide, split in K and summed
+    by the split-K pass) against the same steps with the matmul op's plain
+    version on the card, at 1e-4."""
+    from repro_torch.core import SGD, AdamW
+    make = {"sgd": lambda: SGD(0.01), "adamw": lambda: AdamW(1e-2)}
+    nb, db, hb, lb, bn, bd, bh, bl = TRAIN_DIMS
+    n, d, h, l_ = nb * bn, db * bd, hb * bh, lb * bl
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = [ops.plan_launch(n, h, d, sms)[1],
+              ops.plan_launch(n, l_, h, sms)[1]]
+    assert splits[1] > 1
+    trainer, data = _train_setup(cuda, make[optimizer]())
+    before = _counts()
+    losses = trainer.fit(3, **data)
+    torch.cuda.synchronize()
+    skinny, tile, reduces, _, _ = (x - y for x, y in zip(_counts(), before))
+    assert (skinny, tile, reduces) == (0, 2 * 3,
+                                       3 * sum(s > 1 for s in splits))
+    assert trainer.engine.cache_hits == 2
+    real = ops.matmul
+    monkeypatch.setattr(ops, "matmul", lambda a, b, **kw: real(
+        a, b, **{**kw, "impl": "plain"}))
+    plain, data = _train_setup(cuda, make[optimizer]())
+    before = _counts()
+    want = plain.fit(3, **data)
+    assert _counts() == before
+    np.testing.assert_allclose(losses, want, rtol=1e-4, atol=1e-4)
+    for k in trainer.params:
+        np.testing.assert_allclose(trainer.params[k].data.cpu().numpy(),
+                                   plain.params[k].data.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [2000, 10000])
+def test_tile_kernel_at_the_train_second_product_on_card(cuda, rows):
+    """The train path's second forward product scaled down in K, a1·W2
+    with 10 columns: a1 handed over as the engine's blocked view
+    (nb, bn | hb, bh), the tile kernel split in K and the split-K pass
+    summing the partials, against the plain version."""
+    nb, hb, bh, n = 10, 5, 2000, 10
+    bn = rows // nb
+    r = np.random.default_rng(5)
+    a1 = torch.tensor(r.standard_normal((nb, bn, hb, bh)),
+                      dtype=torch.float32, device=cuda).clamp_min(0.0)
+    a_view = a1.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    w2 = torch.tensor(r.standard_normal((hb * bh, n)), dtype=torch.float32,
+                      device=cuda) * (hb * bh) ** -0.5
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = ops.plan_launch(rows, n, hb * bh, sms)[1]
+    assert splits > 1
+    before = _counts()
+    got = ops.matmul(a_view, w2, a_rows=2)
+    torch.cuda.synchronize()
+    skinny, tile, reduces, _, copies = (x - y for x, y in zip(_counts(),
+                                                              before))
+    assert (skinny, tile, reduces, copies) == (0, 1, 1, 1)
+    want = matmul_ref(a1.reshape(rows, -1), w2)
+    k = hb * bh
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * k ** 0.5)

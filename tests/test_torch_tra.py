@@ -2,8 +2,9 @@
 
 ``join`` / ``agg`` / ``transform`` / ``fused_join_agg`` (its 2-D matmul
 branch and its einsum branch, masked and unmasked) and the serving row
-helpers against the JAX package on the same numpy relations, at 1e-5.
-The operations not ported yet raise ``NotImplementedError``.
+helpers against the JAX package on the same numpy relations, at 1e-5,
+and ``rekey`` / ``filt`` / ``pad`` / ``tile`` / ``concat`` and the chunked
+lowering once each (``test_torch_tra_ops.py`` sweeps them).
 """
 import pytest
 
@@ -166,23 +167,26 @@ def test_scorer_products_take_the_relations_own_tensors(bucket, monkeypatch):
         assert not (plan.copy_a or plan.copy_b)
 
 
-def test_chunked_lowering_not_ported():
+def test_chunked_lowering_matches_jax():
     r = rng(5)
-    _, tl = rel_pair(r, (3, 4), (2, 5))
-    _, tr = rel_pair(r, (4, 5), (2, 5))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ttra.fused_join_agg(tl, tr, (1,), (0,), tkr.get_kernel("matAdd"),
-                            (0, 2), tkr.get_kernel("elemMax"))
+    jl, tl = rel_pair(r, (3, 4), (2, 5))
+    jr, tr = rel_pair(r, (4, 5), (2, 5))
+    want = jtra.fused_join_agg(jl, jr, (1,), (0,), jkr.get_kernel("matAdd"),
+                               (0, 2), jkr.get_kernel("elemMax"))
+    got = ttra.fused_join_agg(tl, tr, (1,), (0,), tkr.get_kernel("matAdd"),
+                              (0, 2), tkr.get_kernel("elemMax"))
+    assert_rel_close(want, got, TOL)
 
 
 @pytest.mark.parametrize("op,args", [
-    ("rekey", (lambda k: k,)), ("filt", (lambda k: True,)),
+    ("rekey", (lambda k: (k[1], k[0]),)),
+    ("filt", (lambda k: k != (0, 1),)),
     ("pad", ((4, 4),)), ("tile", (0, 1)), ("concat", (0, 0)),
 ])
-def test_unported_ops_raise(op, args):
-    _, tr = rel_pair(rng(6), (2, 2), (2, 2))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        getattr(ttra, op)(tr, *args)
+def test_ops_match_jax(op, args):
+    jr, tr = rel_pair(rng(6), (2, 2), (2, 2))
+    assert_rel_close(getattr(jtra, op)(jr, *args),
+                     getattr(ttra, op)(tr, *args), TOL)
 
 
 class TestRowHelpers:
