@@ -20,13 +20,15 @@ its plain PyTorch version on the card:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
    ``nvcc`` per source, all started together), and counts the ``HGMMA``
-   instructions (``wgmma``) in the flash and SSD libraries' SASS and the
-   ``UTMALDG`` (TMA loads) in the matmul library's: none fails;
+   instructions (``wgmma``) in the flash, SSD and matmul libraries' SASS
+   and the ``UTMALDG`` (TMA loads) in the matmul library's: none fails;
 3. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
-   package's kernel tests, a ragged shape and the scorer's two products
-   (f32 with at most 16 rows through the skinny kernel, the rest through
-   the tile kernel; the scorer's products also through the tile kernel, as
-   the parent tree ran them), and the split-K reduction pass
+   package's kernel tests, a ragged shape (M, N and K off the tiles) and
+   the scorer's two products (f32 with at most 16 rows through the skinny
+   kernel, f32 with more rows and more than 32 columns through the
+   tensor-core route, the rest through the tile kernel; the skinny and
+   tensor-core products also through the tile kernel, the route they took
+   over), and the split-K reduction pass
    (``splitk_reduce``) against ``splitk_reduce_ref`` at the partial sums of
    the scorer's second product, each with kernel / plain / library times
    and the bound; then the skinny kernel on blocked views read in place
@@ -62,21 +64,27 @@ its plain PyTorch version on the card:
 6. train: ``ffnn_train_step_tra`` at speech-100k (N 10000, D 1600, H
    100000, L 10, f32, blocked nb 10, db 4, hb 10, lb 1) through
    ``TraTrainer(Engine(device="cuda", executor="jit"), ...)`` with
-   AdamW(1e-2), data and weights drawn on the card as
+   AdamW(``TRAIN_LR``, 1e-5), data and weights drawn on the card as
    ``benchmarks/train.py`` draws them, for 5 steps with every launch
    count set to 0 just before and read just after: 1 compile and 4 cached
    dispatches, the loss finite and lower at the last step than at the
-   first, per step 2 launches of the tile kernel (X·W1, and a1·W2 split
-   in K) and as many split-K passes as ``plan_launch`` splits products,
-   none of the skinny kernel (the operand copies the op makes are
-   printed); step 1's loss, AdamW moments and parameters, and one SGD(0.01)
-   step's parameters, against the same step with the matmul op's plain
-   version on the card and against a dense f64 step on the card, each
-   within ``tolerance(k, f32)`` of the product computing it (AdamW's
-   parameters where the reference |g| exceeds ``ADAM_GATE_ATOLS`` times
-   the atol); step ms (median of steps 2-5), peak memory, a profile of one
-   step by kernel, and each forward product timed on the tile kernel
-   beside the plain version, ``torch.matmul`` and the bound, with the
+   first, per step 1 launch of the tensor-core kernel and 2 of its split
+   pass (X·W1), 1 of the tile kernel (a1·W2, split in K) and as many
+   split-K passes as ``plan_launch`` splits it, none of the skinny kernel,
+   and no operand copy; step 1's loss, AdamW moments and parameters, and
+   one SGD(0.01) step's parameters, against the same step with the matmul
+   op's plain version on the card and against a dense f64 step on the
+   card, each within ``tolerance(k, f32)`` of the product computing it
+   (AdamW's parameters where the reference |g| exceeds
+   ``ADAM_GATE_ATOLS`` times the atol; W1's first moment against f64
+   everywhere, the f64 step taking relu' from the kernel's z1, and
+   against the plain run outside the columns where the kernel's and the
+   plain run's z1 differ in sign, each such sign within the z1 limit of
+   0); z1 itself within ``tolerance(1600, f32)`` of the f64 product; step
+   ms (median of steps 2-5), peak memory, a profile of one step by
+   kernel, and each forward product timed on its route beside the FFMA
+   tile kernel, the plain version, ``torch.matmul`` and the bounds (X·W1:
+   its split passes and the tensor-core kernel alone, too), with the
    split-K pass beside ``sum(0)``;
 7. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
@@ -169,7 +177,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref)
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
-                                            splitk_reduce_ref)
+                                            splitk_reduce_ref,
+                                            tf32_split_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 from repro_torch.models.model import (_window_for, group_size,  # noqa: E402
@@ -299,14 +308,30 @@ def device_ms_per_call(fn, calls: int = 10) -> float:
         / 1e3 / calls
 
 
-def bound_times(m: int, k: int, n: int, dtype) -> tuple:
+def bound_times(m: int, k: int, n: int, dtype, route: str = "") -> tuple:
     """(bytes_ms, operations_ms) of a product on an H100 SXM (data sheet):
     each input read once and the output written once at the HBM rate,
-    against the operations at the type's peak.  The bound is the larger."""
+    against the operations at the type's peak — for f32 on the
+    tensor-core route (``route="tc"``) three TF32 products at the tensor
+    cores' TF32 rate, else one product at the FFMA rate.  The bound is the
+    larger."""
     isz = torch.tensor([], dtype=dtype).element_size()
     nbytes = (m * k + k * n + m * n) * isz
+    flops = 2.0 * m * n * k
+    ops_ms = (3 * flops / H100_SXM.peak_flops_tf32 if route == "tc"
+              else flops / PEAK[dtype]) * 1e3
+    return nbytes / H100_SXM.hbm_bw * 1e3, ops_ms
+
+
+def split_bound_times(m: int, k: int, n: int) -> tuple:
+    """(bytes_ms, operations_ms) of the two split passes of an (m, k) @
+    (k, n) product on the tensor-core route: each operand read once and
+    its two TF32 terms written once (K padded), against two roundings and
+    a subtraction a value at the f32 peak."""
+    kp = mm_ops.tc_kp(k)
+    nbytes = (m * k + k * n + 2 * (m + n) * kp) * 4
     return (nbytes / H100_SXM.hbm_bw * 1e3,
-            2.0 * m * n * k / PEAK[dtype] * 1e3)
+            3.0 * (m * k + k * n) / PEAK[torch.float32] * 1e3)
 
 
 def reduce_bound_times(splits: int, m: int, n: int) -> tuple:
@@ -333,6 +358,7 @@ def tolerance(k: int, dtype) -> tuple:
 def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
     mm_ops.SKINNY_LAUNCHES = mm_ops.FOLDS = mm_ops.COPIES = 0
+    mm_ops.TC_LAUNCHES = mm_ops.SPLIT_LAUNCHES = 0
     flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
     ssd_ops.LAUNCHES = ssd_ops.TC_LAUNCHES = ssd_ops.FFMA_LAUNCHES = 0
     ssd_ops.COPIES = 0
@@ -348,6 +374,8 @@ def read_launches() -> dict:
             "matmul_copies": mm_ops.COPIES,
             "matmul": mm_ops.LAUNCHES,
             "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES,
+            "matmul_tc": mm_ops.TC_LAUNCHES,
+            "matmul_tf32_split": mm_ops.SPLIT_LAUNCHES,
             "flash_attention": flash_ops.LAUNCHES,
             "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
             "flash_attention_ffma": flash_ops.FFMA_LAUNCHES,
@@ -378,8 +406,8 @@ def phase_device(device) -> str:
 
 def phase_build() -> None:
     """Every kernel library at once, each source by its own ``nvcc``, all
-    in parallel; then the ``HGMMA`` counts of the flash and SSD libraries
-    and the ``UTMALDG`` count of the matmul library."""
+    in parallel; then the ``HGMMA`` counts of the flash, SSD and matmul
+    libraries and the ``UTMALDG`` count of the matmul library."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SOURCES)) as pool:
@@ -393,15 +421,18 @@ def phase_build() -> None:
     hgmma = build.sass_count("flash_attention", "HGMMA")
     ssd_hgmma = build.sass_count("ssd_scan", "HGMMA")
     utmaldg = build.sass_count("matmul", "UTMALDG")
+    mm_hgmma = build.sass_count("matmul", "HGMMA")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "flash_attention_hgmma": hgmma, "ssd_scan_hgmma": ssd_hgmma,
-          "matmul_utmaldg": utmaldg})
+          "matmul_hgmma": mm_hgmma, "matmul_utmaldg": utmaldg})
     if hgmma == 0:
         fail("build: no HGMMA instruction in the flash library's SASS")
     if ssd_hgmma == 0:
         fail("build: no HGMMA instruction in the SSD library's SASS")
     if utmaldg == 0:
         fail("build: no UTMALDG (TMA load) in the matmul library's SASS")
+    if mm_hgmma == 0:
+        fail("build: no HGMMA instruction in the matmul library's SASS")
 
 
 def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
@@ -420,10 +451,10 @@ def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
             (err > atol + rtol * r.abs()).any()):
         fail(f"matmul {m}x{k}x{n} {dtype}: max |err| {err.max().item()} "
              f"over rtol={rtol} atol={atol}")
-    t_bytes, t_ops = bound_times(m, k, n, dtype)
-    bnd, by = bound_of(t_bytes, t_ops)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     route = mm_ops.route(a, b, "kernel")
+    t_bytes, t_ops = bound_times(m, k, n, dtype, route)
+    bnd, by = bound_of(t_bytes, t_ops)
     row = {"m": m, "k": k, "n": n, "dtype": str(dtype).split(".")[-1],
            "route": route,
            "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
@@ -435,8 +466,9 @@ def kernel_case(m, k, n, dtype, device, gen, iters) -> dict:
            "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
            "operations_ms": t_ops,
            "tile_splits": mm_ops.plan_launch(m, n, k, sms)[1]}
-    if route == "skinny":
-        # the products the skinny kernel took over, on the tile kernel
+    if route in ("skinny", "tc"):
+        # the products the skinny kernel and the tensor-core route took
+        # over, on the tile kernel
         tile = tile_kernel(a, b).float()
         terr = (tile - r).abs()
         if not bool(torch.isfinite(tile).all()) or bool(
@@ -773,7 +805,9 @@ ADAM_GATE_ATOLS = 100.0
 GEMM_NAMES = ("gemm", "nvjet", "sm90_xmma", "cutlass", "cublas")
 MODEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
                 ("ssd_scan", ("ssd_scan_kernel",)), ("gemm", GEMM_NAMES))
-TRAIN_GROUPS = (("matmul_tile", ("matmul_tile_kernel",)),
+TRAIN_GROUPS = (("matmul_tc", ("matmul_tc_kernel",)),
+                ("tf32_split", ("tf32_split_kernel",)),
+                ("matmul_tile", ("matmul_tile_kernel",)),
                 ("splitk_reduce", ("splitk_reduce_kernel",)),
                 ("matmul_skinny", ("matmul_skinny_kernel",)),
                 ("gemm", GEMM_NAMES), ("copy", ("copy",)),
@@ -828,44 +862,85 @@ def train_trainer(dims, params, optimizer, device):
                       params=params)
 
 
-def dense_f64_step(dense, z1) -> dict:
+def dense_f64_step(dense, z1, z1_plain) -> dict:
     """The loss and both gradients of the first step, dense and in f64 on
     the card, from the formulas of the dense oracle of
     ``tests/test_train.py``: a2 = σ(relu(X·W1)·W2), the clipped BCE sum,
     and its gradients through ∂L/∂z2 = a2 − Y.
 
-    ``z1`` is X·W1 as the tile kernel computes it for the step (on the
-    dense operands, which the engine's blocked views stand for; the kernel
-    is deterministic): held against the f64 product within
-    ``tolerance(D, f32)``, and its sign against the f64 product's.  Where
-    a z1 within that rounding of 0 takes the other sign, relu' differs
-    and so does the whole hidden unit's column of the W1 gradient:
-    ``kink`` marks those columns."""
+    ``z1`` is X·W1 as the step's kernel computes it (through the route the
+    engine takes, on the dense operands, which the engine's blocked views
+    stand for; the route is deterministic and reads a view and a
+    contiguous tensor alike): held against the f64 product within
+    ``tolerance(D, f32)``.  relu' is taken from the sign of ``z1``, the
+    mask the step used, so that the oracle's W1 gradient is the step's
+    own function everywhere: where a z1 within rounding of 0 has the other
+    sign than the f64 product, relu' would differ for the whole hidden
+    unit's column of the gradient.
+
+    ``z1_plain`` is X·W1 as the plain run computes it (``matmul_ref``).
+    Where it and ``z1`` take different signs, that column of the plain
+    run's W1 gradient differs from the kernel run's: ``flips`` marks those
+    columns.  Each such sign must lie within the z1 gate's own limit of 0
+    (|z1_f64| ≤ atol + rtol·|z1_f64|); any other fails the run.
+
+    Readings of both z1 against f64, beside the kernel's gate (the plain
+    one's share of the limit is not gated): the RMS error, the mean error
+    along the sign of the f64 value (a drift toward zero reads negative)
+    and the signs that differ from the f64 product's."""
     x, y = dense["X"].double(), dense["Y"].double()
     w1, w2 = dense["W1"].double(), dense["W2"].double()
+    d = x.shape[1]
+    rtol, atol = tolerance(d, torch.float32)
     a1 = x @ w1                                 # z1, then relu(z1) in place
-    kink = torch.zeros(a1.shape[1], dtype=torch.bool, device=a1.device)
+    flips = torch.zeros(a1.shape[1], dtype=torch.bool, device=a1.device)
     step = 10_000
-    z1_held = []
+    n_flips, past_limit = 0, 0
+    sums = {what: {"held": [], "sq": 0.0, "along": 0.0, "flips": 0}
+            for what in ("kernel", "plain")}
     for c in range(0, a1.shape[1], step):
         cols = slice(c, c + step)
-        z1_held.append(held("z1 = X·W1 (tile kernel) vs f64", z1[:, cols],
-                            a1[:, cols], x.shape[1]))
-        kink[cols] = ((z1[:, cols] > 0) != (a1[:, cols] > 0)).any(0)
-    a1.clamp_min_(0.0)                          # z1 > 0 ⇔ a1 > 0
+        exact = a1[:, cols]
+        for what, z in (("kernel", z1), ("plain", z1_plain)):
+            acc = sums[what]
+            acc["held"].append(held(f"z1 = X·W1 ({what}) vs f64", z[:, cols],
+                                    exact, d, gate=what == "kernel"))
+            err = z[:, cols].double() - exact
+            acc["sq"] += err.square().sum().item()
+            acc["along"] += (err * exact.sign()).sum().item()
+            acc["flips"] += int(((z[:, cols] > 0) != (exact > 0)).sum())
+            del err
+        flip = (z1[:, cols] > 0) != (z1_plain[:, cols] > 0)
+        n_flips += int(flip.sum())
+        past_limit += int((flip & (exact.abs() > atol + rtol * exact.abs()))
+                          .sum())
+        flips[cols] = flip.any(0)
+        del flip
+    readings = {}
+    for what, acc in sums.items():
+        readings[what] = {
+            **max(acc["held"], key=lambda r: r["worst_share_of_limit"]),
+            "rms_err": math.sqrt(acc["sq"] / a1.numel()),
+            "mean_err_along_sign": acc["along"] / a1.numel(),
+            "sign_flips_vs_f64": acc["flips"]}
+    if past_limit:
+        fail(f"train z1: {past_limit} of the {n_flips} signs where the "
+             f"kernel and the plain run differ lie past the z1 limit of 0")
+    a1.clamp_min_(0.0)
     a2 = torch.sigmoid(a1 @ w2)
     pc = a2.clamp(1e-7, 1.0 - 1e-7)
     loss = -(y * torch.log(pc) + (1.0 - y) * torch.log1p(-pc)).sum()
     dz2 = a2 - y
     g2 = a1.T @ dz2
-    dz1 = dz2 @ w2.T
-    dz1.mul_(a1 > 0)
     del a1
+    dz1 = dz2 @ w2.T
+    dz1.mul_(z1 > 0)                            # the step's own relu mask
     g1 = x.T @ dz1
     del dz1
-    worst = max(z1_held, key=lambda r: r["worst_share_of_limit"])
-    return {"loss": loss, "W1": g1, "W2": g2, "kink": kink,
-            "z1_vs_f64": worst}
+    return {"loss": loss, "W1": g1, "W2": g2, "flips": flips,
+            "z1_vs_f64": readings["kernel"],
+            "z1_plain_vs_f64": readings["plain"],
+            "sign_flips_vs_plain": n_flips, "flip_columns": int(flips.sum())}
 
 
 def held(what: str, got, ref, k: int, where=None, gate=True) -> dict:
@@ -907,8 +982,9 @@ def train_checks(first: dict, plain: dict, ref: dict, dense, cfg,
     ``tolerance(k, f32)`` of the product that computes it: the loss the
     second forward product's (K = H), the gradients' the batch (K = N).
     AdamW's W' is held where the reference |g| exceeds
-    ``ADAM_GATE_ATOLS`` times the gradient's atol, and W1's first moment
-    against the f64 oracle outside the ``kink`` columns of
+    ``ADAM_GATE_ATOLS`` times the gradient's atol.  W1's first moment is
+    held against the f64 oracle (relu' from the step's own z1) everywhere,
+    and against the plain run outside the ``flips`` columns of
     :func:`dense_f64_step` (a reading inside them); the counts are
     reported."""
     from repro_torch.core import to_tensor
@@ -919,7 +995,7 @@ def train_checks(first: dict, plain: dict, ref: dict, dense, cfg,
     for against, want in (("plain", plain["loss"]), ("f64", ref["loss"])):
         checks[f"{prefix}loss_vs_{against}"] = held(
             f"{prefix}loss vs {against}", first["loss"], want, k_loss)
-    smooth = ~ref["kink"][None, :].expand(cfg.d_in, -1)
+    same_sign = ~ref["flips"][None, :].expand(cfg.d_in, -1)
     for name in ("W1", "W2"):
         g, w = ref[name], dense[name].double()
         if adam:
@@ -931,29 +1007,36 @@ def train_checks(first: dict, plain: dict, ref: dict, dense, cfg,
             gate, exact = None, {name: w - lr * g}
         for key, value in exact.items():
             got = to_tensor(first[key])
-            checks[f"{prefix}{key}_vs_plain"] = held(
-                f"{prefix}{key} vs plain", got, to_tensor(plain[key]),
-                k_grad, gate if key == name else None)
+            want = to_tensor(plain[key])
             where = gate if key == name else \
-                smooth if key == "W1.m" else None
+                same_sign if key == "W1.m" else None
+            checks[f"{prefix}{key}_vs_plain"] = held(
+                f"{prefix}{key} vs plain", got, want, k_grad, where)
             checks[f"{prefix}{key}_vs_f64"] = held(
-                f"{prefix}{key} vs f64", got, value, k_grad, where)
+                f"{prefix}{key} vs f64", got, value, k_grad,
+                gate if key == name else None)
             if key == "W1.m":
-                checks[f"{prefix}W1.m_vs_f64_in_kink_columns"] = held(
-                    "W1.m vs f64 at the kink", got, value, k_grad,
-                    ~smooth, gate=False)
+                checks[f"{prefix}W1.m_vs_plain_in_flip_columns"] = held(
+                    "W1.m vs plain where z1's signs differ", got, want,
+                    k_grad, ~same_sign, gate=False)
         del exact, w
     return checks
 
 
-def first_step_checks(cfg, dims, dense, data, params, device, z1) -> dict:
+def first_step_checks(cfg, dims, dense, data, params, device) -> dict:
     """Step 1 at the check rates (AdamW, SGD) on the kernels, on the plain
-    matmul and in f64, the first product's output ``z1`` held on its own
-    (:func:`dense_f64_step`, :func:`train_checks`)."""
+    matmul and in f64, the first product's output z1 held on its own
+    (:func:`dense_f64_step`, :func:`train_checks`): z1 through the route
+    the engine takes (``matmul(X, W1, impl="kernel")``) and through the
+    plain version."""
     from repro_torch.core import AdamW, SGD
-    ref = dense_f64_step(dense, z1)
-    checks = {"z1_vs_f64": ref["z1_vs_f64"],
-              "kink_columns": int(ref["kink"].sum())}
+    z1 = mm_ops.matmul(dense["X"], dense["W1"], impl="kernel")
+    z1_plain = matmul_ref(dense["X"], dense["W1"])
+    ref = dense_f64_step(dense, z1, z1_plain)
+    del z1, z1_plain
+    checks = {key: ref[key] for key in (
+        "z1_vs_f64", "z1_plain_vs_f64", "sign_flips_vs_plain",
+        "flip_columns")}
     for prefix, make in (("", lambda: AdamW(CHECK_LR)),
                          ("sgd_", lambda: SGD(SGD_LR))):
         run = train_trainer(dims, params, make(), device)
@@ -973,10 +1056,15 @@ def step_outputs(trainer, loss) -> dict:
 
 def train_products(calls, device) -> list:
     """The step's two matmul calls, each timed as the engine makes it (the
-    relations' views, the op's copies included) and on 2-D contiguous
-    copies through the tile kernel (with its split-K pass), the plain
-    version and ``torch.matmul``, with the bound; the tile kernel held
-    against the plain version within ``tolerance(k, f32)``."""
+    relations' views, in place or with the op's copies) and on 2-D
+    contiguous copies through the op's route (for X·W1 the tensor-core
+    route: also its two split passes and ``matmul_tc_kernel`` alone), the
+    FFMA tile kernel with its split-K pass (the route X·W1 took before:
+    kept as the earlier reading), the plain version and ``torch.matmul``,
+    with the bounds (on the tensor-core route both: three TF32 products at
+    the tensor cores' rate, one f32 product at the FFMA rate); the route's
+    and the tile kernel's outputs held against the plain version within
+    ``tolerance(k, f32)``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
     for (a, b, kw), name in zip(calls, ("first", "second")):
@@ -984,41 +1072,77 @@ def train_products(calls, device) -> list:
         k = math.prod(a.shape[kw["a_rows"]:])
         n = math.prod(b.shape[kw["b_rows"]:])
         a2, b2 = a.reshape(m, k).contiguous(), b.reshape(k, n).contiguous()
-        out, ref = tile_kernel(a2, b2), matmul_ref(a2, b2)
-        torch.cuda.synchronize(device)
+        route = mm_ops.route(a2, b2, "kernel")
+        ref = matmul_ref(a2, b2)
         rtol, atol = tolerance(k, torch.float32)
-        err = (out - ref).abs()
-        if not bool(torch.isfinite(out).all()) or bool(
-                (err > atol + rtol * ref.abs()).any()):
-            fail(f"train {name} product on the tile kernel: max |err| "
-                 f"{err.max().item()} over rtol={rtol} atol={atol}")
-        max_err = err.max().item()
-        del out, ref, err
-        t_bytes, t_ops = bound_times(m, k, n, torch.float32)
+        errs = {}
+        for what, fn in (("kernel", lambda: mm_ops.matmul(a2, b2,
+                                                          impl="kernel")),
+                         ("tile", lambda: tile_kernel(a2, b2))):
+            out = fn()
+            torch.cuda.synchronize(device)
+            err = (out - ref).abs()
+            if not bool(torch.isfinite(out).all()) or bool(
+                    (err > atol + rtol * ref.abs()).any()):
+                fail(f"train {name} product on the {what} route: max |err| "
+                     f"{err.max().item()} over rtol={rtol} atol={atol}")
+            errs[what] = err.max().item()
+            del out, err
+        del ref
+        t_bytes, t_ops = bound_times(m, k, n, torch.float32, route)
         bnd, by = bound_of(t_bytes, t_ops)
         iters = 3 if k * n > 10 ** 8 else 5
-        timed = {"kernel": lambda: tile_kernel(a2, b2),
+        timed = {"kernel": lambda: mm_ops.matmul(a2, b2, impl="kernel"),
                  "in_place": lambda: mm_ops.matmul(a, b, **kw),
+                 "tile": lambda: tile_kernel(a2, b2),
                  "plain": lambda: matmul_ref(a2, b2),
                  "library": lambda: torch.matmul(a2, b2)}
-        rows.append({"product": name, "m": m, "k": k, "n": n,
-                     "a_contiguous": a.is_contiguous(),
-                     "b_contiguous": b.is_contiguous(),
-                     "tile_splits": mm_ops.plan_launch(m, n, k, sms)[1],
-                     **{f"{what}_ms": timed_ms(fn, device, iters, warmup=1)
-                        for what, fn in timed.items()},
-                     "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
-                     "operations_ms": t_ops, "max_abs_err": max_err,
-                     "rtol": rtol, "atol": atol})
+        row = {"product": name, "m": m, "k": k, "n": n, "route": route,
+               "a_contiguous": a.is_contiguous(),
+               "b_contiguous": b.is_contiguous(),
+               "tile_splits": mm_ops.plan_launch(m, n, k, sms)[1],
+               **{f"{what}_ms": timed_ms(fn, device, iters, warmup=1)
+                  for what, fn in timed.items()},
+               "bound_ms": bnd, "bound_by": by, "bytes_ms": t_bytes,
+               "operations_ms": t_ops,
+               "ffma_operations_ms": bound_times(m, k, n,
+                                                 torch.float32)[1],
+               "max_abs_err": errs["kernel"], "tile_max_abs_err": errs["tile"],
+               "rtol": rtol, "atol": atol}
+        if route == "tc":
+            kp = mm_ops.tc_kp(k)
+            sa = mm_ops.tf32_split(a2)
+            sb = mm_ops.tf32_split(b2, transpose=True)
+            s_bytes, s_ops = split_bound_times(m, k, n)
+            row.update({
+                "split_passes_ms": timed_ms(lambda: (
+                    mm_ops.tf32_split(a2),
+                    mm_ops.tf32_split(b2, transpose=True)),
+                    device, iters, warmup=1),
+                "split_plain_ms": timed_ms(lambda: (
+                    tf32_split_ref(a2, kp), tf32_split_ref(b2, kp, True)),
+                    device, iters, warmup=1),
+                "split_max_abs_err": max(
+                    (sa - tf32_split_ref(a2, kp)).abs().max().item(),
+                    (sb - tf32_split_ref(b2, kp, True)).abs().max().item()),
+                "split_bytes_ms": s_bytes, "split_operations_ms": s_ops,
+                "tc_kernel_ms": timed_ms(lambda: mm_ops._tc_gemm(
+                    sa, sb, m, n, torch.float32), device, iters, warmup=1)})
+            if row["split_max_abs_err"] != 0.0:
+                fail(f"train {name} product: the split passes differ from "
+                     f"tf32_split_ref by {row['split_max_abs_err']}")
+            del sa, sb
+        rows.append(row)
         del a2, b2
     return rows
 
 
 def phase_train(device) -> dict:
     """The §5.3 FFNN trains at speech-100k through the port's Engine,
-    plan-level autodiff and ``TraTrainer`` (AdamW at ``TRAIN_LR``), its
-    forward products on the tile kernel and its split-K pass; step 1 at
-    the check rates against the plain matmul and the f64 oracle."""
+    plan-level autodiff and ``TraTrainer`` (AdamW at ``TRAIN_LR``), X·W1 on
+    the tensor-core route (two split passes, ``matmul_tc_kernel``), a1·W2
+    on the tile kernel and its split-K pass; step 1 at the check rates
+    against the plain matmul and the f64 oracle."""
     from repro_torch.core import AdamW
     t0 = time.perf_counter()
     cfg, dims, dense = train_problem(device)
@@ -1029,7 +1153,11 @@ def phase_train(device) -> dict:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n, d, h, l_ = cfg.batch, cfg.d_in, cfg.d_hidden, cfg.d_out
     products = [(n, d, h), (n, h, l_)]
-    splits = [mm_ops.plan_launch(m, nn, k, sms)[1] for m, k, nn in products]
+    routes = [mm_ops.route(torch.empty(m, k, device="meta"),
+                           torch.empty(k, nn, device="meta"), "kernel")
+              for m, k, nn in products]
+    splits = [mm_ops.plan_launch(m, nn, k, sms)[1] if r == "tile" else 1
+              for (m, k, nn), r in zip(products, routes)]
     torch.cuda.reset_peak_memory_stats(device)
 
     # -- the main path: every launch count is 0 just before, read just after
@@ -1056,16 +1184,18 @@ def phase_train(device) -> dict:
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train: losses {losses} not finite or not decreasing")
+    # X and W1 read in place by the split passes, a1 by the tile kernel:
+    # no operand is copied
     expected = launches_of(
-        matmul=len(products) * TRAIN_STEPS,
-        matmul_splitk_reduce=sum(s > 1 for s in splits) * TRAIN_STEPS,
-        matmul_copies=launches["matmul_copies"])
+        matmul_tc=routes.count("tc") * TRAIN_STEPS,
+        matmul_tf32_split=2 * routes.count("tc") * TRAIN_STEPS,
+        matmul=routes.count("tile") * TRAIN_STEPS,
+        matmul_splitk_reduce=sum(s > 1 for s in splits) * TRAIN_STEPS)
     if launches != expected:
         fail(f"train: launches {launches} in {TRAIN_STEPS} steps, "
              f"expected {expected}")
 
-    checks = first_step_checks(cfg, dims, dense, data, params, device,
-                               tile_kernel(dense["X"], dense["W1"]))
+    checks = first_step_checks(cfg, dims, dense, data, params, device)
 
     # one more step, profiled by kernel, with the matmul calls it makes
     calls, real = [], mm_ops.matmul
@@ -1101,7 +1231,7 @@ def phase_train(device) -> dict:
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in launches.items() if v},
            "matmul_copies_per_step": copies,
-           "tile_splits": splits,
+           "routes": routes, "tile_splits": splits,
            "max_memory_allocated_gb": peak / 1e9, "checks": checks,
            "profile_step": profile, "products": rows,
            "splitk_reduce": reduce, "setup_s": setup_s,
@@ -2345,16 +2475,17 @@ def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict) -> list:
 
 
 MATMUL_CU = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
+MATMUL_WGMMA_CU = "src/repro_torch/kernels/matmul/csrc/matmul_wgmma.cu"
 
 
 def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
-    """The kernels line's four matmul entries.  The skinny kernel and its
+    """The kernels line's six matmul entries.  The skinny kernel and its
     fold at one scorer dispatch at bucket 8 (the serving path: both
     products, read in place as the engine calls them; the fold inside the
-    second product's launch).  The tile kernel and its split-K pass at the
-    train path's two forward products (speech-100k, N 10000), with their
-    launches there; beside them, as before, the scorer's two products on
-    the tile kernel (copied 2-D operands)."""
+    second product's launch).  The tensor-core kernel and its split passes
+    at the train path's X·W1, the tile kernel and its split-K pass at its
+    a1·W2 (speech-100k, N 10000), with their launches there; beside the
+    tile kernel, as before, X·W1 and the scorer's two products on it."""
     first, second = serve["products_b8"]
     b = first["m"]
     both = (first, second)
@@ -2365,16 +2496,22 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
     shapes = (f"({b}x{first['k']})@({first['k']}x{first['n']}) + "
               f"({b}x{second['k']})@({second['k']}x{second['n']})")
     tp = train["products"]
-    tshapes = " + ".join(f"({p['m']}x{p['k']})@({p['k']}x{p['n']})"
-                         for p in tp)
-    tbnd, tby = bound_of(sum(p["bytes_ms"] for p in tp),
-                         sum(p["operations_ms"] for p in tp))
+    tc = next(p for p in tp if p["route"] == "tc")
+    tile = next(p for p in tp if p["route"] == "tile")
+    tshape = f"({tile['m']}x{tile['k']})@({tile['k']}x{tile['n']})"
+    tcshape = f"({tc['m']}x{tc['k']})@({tc['k']}x{tc['n']})"
+    sbnd, sby = bound_of(tc["split_bytes_ms"], tc["split_operations_ms"])
     tred = train["splitk_reduce"]
     tgroups = train["profile_step"]["device_ms_by_group"]
     common = {"route": "cuda", "source": MATMUL_CU,
               "replaces": "src/repro/kernels/matmul/kernel.py:39"}
+    wgmma = {**common, "source": MATMUL_WGMMA_CU}
     tile_paths = {"scorer": serve["launches"]["matmul"],
                   TRAIN_PATH: train["launches"]["matmul"]}
+    tc_paths = {"scorer": serve["launches"]["matmul_tc"],
+                TRAIN_PATH: train["launches"]["matmul_tc"]}
+    split_paths = {"scorer": serve["launches"]["matmul_tf32_split"],
+                   TRAIN_PATH: train["launches"]["matmul_tf32_split"]}
     reduce_paths = {"scorer": serve["launches"]["matmul_splitk_reduce"],
                     TRAIN_PATH: train["launches"]["matmul_splitk_reduce"]}
     return [{
@@ -2419,25 +2556,65 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
               f"that whole launch's device time, fold included; "
               f"max_abs_err is the fold against splitk_reduce_ref of its "
               f"own partial tiles"}, {
+        "name": "matmul_tc", **wgmma, "function": "matmul_pallas",
+        "launches": sum(tc_paths.values()), "launches_by_path": tc_paths,
+        "max_abs_err": max([r["max_abs_err"] for r in rows
+                            if r["route"] == "tc"] + [tc["max_abs_err"]]),
+        "ms": tc["tc_kernel_ms"], "plain_ms": tc["plain_ms"],
+        "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"],
+        "library_ms": tc["library_ms"],
+        "library_call": "torch.matmul (TF32 off)",
+        "ffma_bound_ms": tc["ffma_operations_ms"],
+        "route_ms": tc["kernel_ms"], "in_place_ms": tc["in_place_ms"],
+        "tile_kernel_ms": tc["tile_ms"],
+        "kernel_ms_in_profiled_step": tgroups["matmul_tc"],
+        "at": f"matmul_tc_kernel alone on the split operands of the train "
+              f"path's X·W1 {tcshape}, CUDA events over back-to-back calls; "
+              f"bound: three TF32 products at the tensor cores' rate "
+              f"(ffma_bound_ms: one f32 product at the FFMA rate); "
+              f"route_ms: the two split passes and the kernel on 2-D "
+              f"operands, in_place_ms: as the engine calls the op; "
+              f"tile_kernel_ms: the same product on matmul_tile_kernel, "
+              f"X·W1's route before"}, {
+        "name": "matmul_tf32_split", **wgmma,
+        "function": "matmul_pallas (its f32 operands, read as two TF32 "
+                    "terms each)",
+        "launches": sum(split_paths.values()),
+        "launches_by_path": split_paths,
+        "max_abs_err": tc["split_max_abs_err"],
+        "ms": tc["split_passes_ms"], "plain_ms": tc["split_plain_ms"],
+        "bound_ms": sbnd, "bound_by": sby, "library_ms": None,
+        "library_call": None,
+        "kernel_ms_in_profiled_step": tgroups["tf32_split"],
+        "at": f"both split passes of the train path's X·W1 {tcshape} (X, "
+              f"and W1 transposed), CUDA events; max_abs_err against "
+              f"tf32_split_ref (torch bit operations); no PyTorch call "
+              f"computes it"}, {
         "name": "matmul", **common, "function": "matmul_pallas",
         "launches": sum(tile_paths.values()),
         "launches_by_path": tile_paths,
         "max_abs_err": max([r.get("tile_max_abs_err", r["max_abs_err"])
                             for r in rows]
-                           + [p["max_abs_err"] for p in tp]),
-        "ms": sum(p["kernel_ms"] for p in tp),
-        "plain_ms": sum(p["plain_ms"] for p in tp),
-        "bound_ms": tbnd, "bound_by": tby,
-        "library_ms": sum(p["library_ms"] for p in tp),
-        "library_call": "torch.matmul, each product",
+                           + [p["tile_max_abs_err"] for p in tp]),
+        "ms": tile["kernel_ms"], "plain_ms": tile["plain_ms"],
+        "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
+        "library_ms": tile["library_ms"],
+        "library_call": "torch.matmul",
         TRAIN_PATH: {
             "products": [{key: p[key] for key in (
-                "m", "k", "n", "tile_splits", "kernel_ms", "in_place_ms",
-                "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                "m", "k", "n", "route", "tile_splits", "kernel_ms",
+                "in_place_ms", "tile_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "ffma_operations_ms")}
                 for p in tp],
             "kernel_ms_in_profiled_step": tgroups["matmul_tile"],
             "step_ms_median": train["step_ms_median_2_to_5"],
             "copies_per_step": train["matmul_copies_per_step"]},
+        "x_w1_on_tile_kernel": {
+            "ms": tc["tile_ms"], "bound_ms": tc["ffma_operations_ms"],
+            "bound_by": "operations", "plain_ms": tc["plain_ms"],
+            "library_ms": tc["library_ms"],
+            "at": f"{tcshape} on matmul_tile_kernel (FFMA), off the main "
+                  f"path since the tensor-core route took it"},
         "scorer_products_on_copies": {
             "ms": sum(p["tile_kernel_on_copy_device_ms"] for p in both),
             "plain_ms": sum(p["plain_device_ms"] for p in both),
@@ -2447,12 +2624,11 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
             "events_ms": sum(p["tile_kernel_on_copy_ms"] for p in both),
             "at": f"the scorer dispatch's products {shapes} on the copied "
                   f"2-D operands (off the serving path); device times"},
-        "at": f"matmul_tile_kernel (f32 with more than 16 rows, or bf16): "
-              f"the train path's two forward products {tshapes} on 2-D "
-              f"contiguous operands, CUDA events over back-to-back calls; "
-              f"the second's time includes its split-K pass; in_place_ms: "
-              f"as the engine calls the op, its copies of non-contiguous "
-              f"operands included"}, {
+        "at": f"matmul_tile_kernel (bf16, or f32 with more than 16 rows and "
+              f"at most {mm_ops.TC_NARROW_COLS} columns): the train path's "
+              f"a1·W2 {tshape} on 2-D contiguous operands, CUDA events over "
+              f"back-to-back calls, its split-K pass included; in_place_ms: "
+              f"as the engine calls the op"}, {
         "name": "matmul_splitk_reduce", **common,
         "function": "matmul_pallas (its f32 accumulation over the K grid)",
         "launches": sum(reduce_paths.values()),

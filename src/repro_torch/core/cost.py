@@ -45,6 +45,7 @@ class HardwareModel:
 
     peak_flops: float = 989e12          # bf16 FLOP/s, tensor cores
     peak_flops_f32: float = 67e12       # f32 FLOP/s, FFMA (no tensor cores)
+    peak_flops_tf32: float = 495e12     # TF32 FLOP/s, tensor cores
     hbm_bw: float = 3.35e12             # bytes/s (80 GB HBM3)
     ici_bw: float = 450e9               # bytes/s NVLink, each direction
     bytes_per_float: int = 4

@@ -31,7 +31,8 @@ BUILD_DIR = _ROOT / "_build"
 
 #: library name -> its CUDA sources
 SOURCES: Dict[str, Tuple[Path, ...]] = {
-    "matmul": (_ROOT / "matmul" / "csrc" / "matmul.cu",),
+    "matmul": (_ROOT / "matmul" / "csrc" / "matmul.cu",
+               _ROOT / "matmul" / "csrc" / "matmul_wgmma.cu"),
     "flash_attention": (
         _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
         _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu"),

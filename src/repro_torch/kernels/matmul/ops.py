@@ -7,8 +7,7 @@ Counterpart of ``repro.kernels.matmul.ops.matmul``.  ``impl`` selects:
 * ``"kernel"``: always a CUDA kernel — a CPU tensor raises;
 * ``"plain"``: always the plain version (tests and the chip smoke run only).
 
-A CUDA call goes by type and rows (:func:`route`), both in
-``csrc/matmul.cu``:
+A CUDA call goes by type, rows and columns (:func:`route`):
 
 * f32 with at most :data:`SKINNY_MAX_M` rows (the FFNN scorer's buckets,
   the main path) → ``matmul_skinny_kernel``.  It reads each operand in
@@ -25,11 +24,25 @@ A CUDA call goes by type and rows (:func:`route`), both in
   adds the splits' partial tiles in split order, as
   :func:`.ref.splitk_reduce_ref` does (:data:`FOLDS` counts the launches
   that folded).
-* bf16, or more rows → ``matmul_tile_kernel`` on contiguous row-major
-  operands (any other layout is copied first and counted in
-  :data:`COPIES`); when its output has too few tiles for the card it
-  splits K across blocks (:func:`plan_launch`) and a second kernel,
-  ``splitk_reduce_kernel``, adds the partial sums (:func:`splitk_reduce`).
+* f32 with more rows and more than :data:`TC_NARROW_COLS` columns (the
+  FFNN train step's X·W1, the main path) → the tensor-core route, in
+  ``csrc/matmul_wgmma.cu``: ``tf32_split_kernel`` (:func:`tf32_split`)
+  writes each operand as its TF32 big and small terms, K-major (B
+  transposed) and K padded to :data:`TC_BK` with zeros, reading the
+  operand in place by the strides of its :func:`blocked_view` (a layout
+  with more merged axes is copied first and counted in :data:`COPIES`);
+  then ``matmul_tc_kernel`` sums the three TF32 products small·big +
+  big·small + big·big in f32 on ``wgmma``, accurate to f32 (one TF32
+  product is not: at the train path's X·W1 it crosses the f32 limit).
+  Deviation: f32 sums on the tensor cores, in another order than an FFMA
+  chain.
+* bf16, or f32 with more rows and at most :data:`TC_NARROW_COLS` columns
+  (the train step's a1·W2, 10 columns) → ``matmul_tile_kernel`` on
+  contiguous row-major operands (any other layout is copied first and
+  counted in :data:`COPIES`); when its output has too few tiles for the
+  card it splits K across blocks (:func:`plan_launch`) and a second
+  kernel, ``splitk_reduce_kernel``, adds the partial sums
+  (:func:`splitk_reduce`).
 
 A CUDA tensor never falls back to the plain version: the kernel builds and
 launches, or the call raises.  Deviations from the JAX op: no
@@ -44,7 +57,9 @@ relation's own tensor (the JAX engine transposes and reshapes it into a
 
 Launch counters, one per ``__global__`` kernel, so a run can show that its
 main path went through them: :data:`SKINNY_LAUNCHES`, :data:`LAUNCHES`
-(the tile kernel) and :data:`REDUCE_LAUNCHES` (its split-K pass).
+(the tile kernel), :data:`REDUCE_LAUNCHES` (its split-K pass),
+:data:`TC_LAUNCHES` (the tensor-core kernel) and :data:`SPLIT_LAUNCHES`
+(its operand pass, two a product).
 """
 from __future__ import annotations
 
@@ -65,6 +80,10 @@ REDUCE_LAUNCHES = 0
 SKINNY_LAUNCHES = 0
 #: skinny-kernel launches that split K and folded the partial sums
 FOLDS = 0
+#: tensor-core kernel launches made by :func:`matmul` in this process
+TC_LAUNCHES = 0
+#: operand passes of the tensor-core route made by :func:`tf32_split`
+SPLIT_LAUNCHES = 0
 #: operands copied into a layout the kernels read
 COPIES = 0
 
@@ -75,6 +94,11 @@ TILE_CONFIGS = {0: (8, 128, 32), 1: (64, 64, 16)}
 
 #: the skinny kernel takes f32 products of at most this many rows
 SKINNY_MAX_M = 16
+#: f32 products of more rows go to the tensor-core route when they have
+#: more than this many columns, else to the tile kernel
+TC_NARROW_COLS = 32
+#: the tensor-core kernel's K step: the split pass pads K to a multiple
+TC_BK = 32
 #: its ring of B tiles, and its tiles: wide (128 columns, 32 rows of K) or
 #: narrow (all N <= NARROW_MAX_COLS columns, 128 rows of K)
 SKINNY_STAGES = 4
@@ -90,6 +114,9 @@ MIN_SPLIT_TILES = 2
 _lib_handle: Optional[ctypes.CDLL] = None
 #: the skinny kernel's flat launch descriptor: two maps and its arguments
 _DESC = struct.Struct("42q")
+#: ``SplitArgs`` of ``csrc/matmul_wgmma.cu``: the operand's four axes and
+#: their strides, the padded K, the transpose flag
+_SPLIT_ARGS = struct.Struct("10q")
 _SM_COUNTS: Dict[int, int] = {}
 #: the skinny kernel's fold tickets, one zeroed buffer per (device, stream)
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -382,18 +409,25 @@ def _dims(t: torch.Tensor, rows: Optional[int], name: str) -> Tuple[int, int]:
 
 
 def route(a: torch.Tensor, b: torch.Tensor, impl: str = "auto",
-          a_rows: Optional[int] = None) -> str:
+          a_rows: Optional[int] = None, b_rows: Optional[int] = None) -> str:
     """Where :func:`matmul` sends a call: ``"plain"``, ``"skinny"`` (f32
-    with at most :data:`SKINNY_MAX_M` rows) or ``"tile"``."""
-    return _route(a, b, impl, _dims(a, a_rows, "a")[0])
+    with at most :data:`SKINNY_MAX_M` rows), ``"tc"`` (f32 with more rows
+    and more than :data:`TC_NARROW_COLS` columns) or ``"tile"``."""
+    return _route(a, b, impl, _dims(a, a_rows, "a")[0],
+                  _dims(b, b_rows, "b")[1])
 
 
-def _route(a: torch.Tensor, b: torch.Tensor, impl: str, m: int) -> str:
+def _route(a: torch.Tensor, b: torch.Tensor, impl: str, m: int,
+           n: int) -> str:
     if impl == "plain" or (impl == "auto" and a.device.type == "cpu"
                            and b.device.type == "cpu"):
         return "plain"
-    return ("skinny" if a.dtype == torch.float32 and m <= SKINNY_MAX_M
-            else "tile")
+    if a.dtype == torch.float32:
+        if m <= SKINNY_MAX_M:
+            return "skinny"
+        if n > TC_NARROW_COLS:
+            return "tc"
+    return "tile"
 
 
 def plan_launch(m: int, n: int, k: int, num_sms: int) -> Tuple[int, int, int]:
@@ -451,6 +485,11 @@ def _lib() -> ctypes.CDLL:
         lib.repro_matmul_skinny.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ctypes.c_char_p, ptr]
         lib.repro_matmul_skinny.restype = i32
+        lib.repro_tf32_split.argtypes = [ptr, ptr, ctypes.c_char_p, ptr]
+        lib.repro_tf32_split.restype = i32
+        lib.repro_matmul_tc.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                        ptr]
+        lib.repro_matmul_tc.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -600,6 +639,75 @@ def _launch_tile(a: torch.Tensor, b: torch.Tensor, m: int, k: int, n: int,
     return splitk_reduce(out, out_dtype=out_dtype) if splits > 1 else out
 
 
+def tc_kp(k: int) -> int:
+    """K padded to the tensor-core kernel's step, :data:`TC_BK`."""
+    return -(-k // TC_BK) * TC_BK
+
+
+def tf32_split(x: torch.Tensor, *, rows: Optional[int] = None,
+               transpose: bool = False) -> torch.Tensor:
+    """The tensor-core route's operand pass, on the card: f32 ``x`` — 2-D,
+    or an N-D view whose leading ``rows`` axes are its rows — as the
+    ``(2, R, kp)`` f32 array of its TF32 big and small terms ([0], [1]), R
+    its rows (or, with ``transpose``, its columns), each row padded along K
+    to ``kp`` = :func:`tc_kp` (K) values with zeros; its plain version is
+    :func:`.ref.tf32_split_ref`.  The kernel reads ``x`` where it lies when
+    :func:`blocked_view` describes it, else it copies it first (counted in
+    :data:`COPIES`)."""
+    global SPLIT_LAUNCHES, COPIES
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes f32, got {x.dtype}")
+    nr, nc = _dims(x, rows, "x")
+    kp = tc_kp(nr if transpose else nc)
+    if x.device.type != "cuda":
+        raise ValueError(f"the split kernel takes a CUDA tensor, got one on "
+                         f"{x.device}")
+    out = torch.empty((2, nc if transpose else nr, kp), dtype=torch.float32,
+                      device=x.device)
+    if nr == 0 or nc == 0:
+        return out.zero_()
+    view = blocked_view(x.shape, x.stride(), rows or 1)
+    if view is None:
+        x = x.reshape(nr, nc).contiguous()
+        COPIES += 1
+        view = blocked_view(x.shape, x.stride(), 1)
+    args = _SPLIT_ARGS.pack(*view.shape, *view.strides, kp, int(transpose))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = _lib().repro_tf32_split(x.data_ptr(), out.data_ptr(), args,
+                                     stream)
+    _raise_on(rc, f"tf32 split launch failed ({nr}x{nc}, transpose "
+                  f"{transpose}, kp {kp})")
+    SPLIT_LAUNCHES += 1
+    return out
+
+
+def _tc_gemm(a2: torch.Tensor, b2: torch.Tensor, m: int, n: int,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """``matmul_tc_kernel`` alone: C (m, n) from the split arrays of A and
+    of Bᵀ, as :func:`tf32_split` writes them."""
+    global TC_LAUNCHES
+    if max(m, n, a2.shape[2]) >= 2 ** 31:
+        raise ValueError(f"matmul dims must be < 2**31, got {m}, "
+                         f"{a2.shape[2]}, {n}")
+    out = torch.empty((m, n), dtype=out_dtype, device=a2.device)
+    stream = torch.cuda.current_stream(a2.device).cuda_stream
+    with torch.cuda.device(a2.device):
+        rc = _lib().repro_matmul_tc(a2.data_ptr(), b2.data_ptr(),
+                                    out.data_ptr(), m, n, a2.shape[2],
+                                    int(out_dtype == torch.bfloat16), stream)
+    _raise_on(rc, f"tensor-core matmul launch failed ({m}x{a2.shape[2]} @ "
+                  f"{a2.shape[2]}x{n})")
+    TC_LAUNCHES += 1
+    return out
+
+
+def _launch_tc(a, b, a_rows, b_rows, m, n, out_dtype) -> torch.Tensor:
+    a2 = tf32_split(a, rows=a_rows)
+    b2 = tf32_split(b, rows=b_rows, transpose=True)
+    return _tc_gemm(a2, b2, m, n, out_dtype)
+
+
 def splitk_reduce(partial: torch.Tensor, *, impl: str = "auto",
                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``partial`` (splits, m, n) f32 summed over its first axis in split
@@ -643,7 +751,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
     out_dtype, m, k, n = _check(a, b, out_dtype, a_rows, b_rows)
-    where = _route(a, b, impl, m)
+    where = _route(a, b, impl, m, n)
     if where == "plain":
         return matmul_ref(a.reshape(m, k), b.reshape(k, n), out_dtype)
     _on_one_card(a, b)
@@ -652,5 +760,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
     if where == "skinny":
         return _launch_skinny(a, b, a_rows or 1, b_rows or 1, m, k, n,
                               out_dtype)
+    if where == "tc":
+        return _launch_tc(a, b, a_rows, b_rows, m, n, out_dtype)
     return _launch_tile(a, b, m, k, n, out_dtype)
 

@@ -6,6 +6,9 @@ yardstick the CUDA kernel is held against on the card.  Mirrors
 ``out_dtype`` (default ``a.dtype``).  On the card, f32 products run in true
 f32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False (the
 default), which callers comparing at 1e-5 set explicitly.
+
+:func:`tf32_split_ref` is the plain version of the tensor-core route's
+operand pass (``tf32_split_kernel``), in torch bit operations.
 """
 from __future__ import annotations
 
@@ -27,3 +30,29 @@ def splitk_reduce_ref(partial: torch.Tensor,
     for s in range(partial.shape[0]):
         out = out + partial[s]
     return out.to(out_dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero, the low 13
+    bits zero (half of the dropped bits' unit added to the magnitude, then
+    the bits cut)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_ref(x: torch.Tensor, kp: int,
+                   transpose: bool = False) -> torch.Tensor:
+    """Plain version of the split pass: the 2-D f32 ``x`` (or ``xᵀ`` with
+    ``transpose``) as a ``(2, R, kp)`` array of its R rows, [0] each value's
+    TF32 big term and [1] the TF32 small term of what big leaves, each row
+    padded along K to ``kp`` values with zeros."""
+    m = (x.t() if transpose else x).float()
+    r, k = m.shape
+    if kp < k:
+        raise ValueError(f"kp {kp} is shorter than K {k}")
+    out = torch.zeros((2, r, kp), dtype=torch.float32, device=x.device)
+    big = tf32_round(m)
+    out[0, :, :k] = big
+    out[1, :, :k] = tf32_round(m - big)
+    return out

@@ -250,11 +250,21 @@ def test_padded_copy_is_what_the_plan_reads():
     (17, torch.float32, "kernel", "tile"), (8, torch.bfloat16, "kernel",
                                             "tile"),
     (8, torch.float32, "auto", "plain"), (8, torch.float32, "plain",
-                                          "plain")])
+                                          "plain"),
+    ((17, 33), torch.float32, "kernel", "tc"),
+    ((10000, 100000), torch.float32, "kernel", "tc"),
+    ((17, 32), torch.float32, "kernel", "tile"),
+    ((10000, 10), torch.float32, "kernel", "tile"),
+    ((16, 100000), torch.float32, "kernel", "skinny"),
+    ((17, 33), torch.bfloat16, "kernel", "tile"),
+    ((17, 33), torch.float32, "auto", "plain")])
 def test_route(m, dtype, impl, want):
-    """f32 with m <= 16 goes to the skinny kernel, bf16 or more rows to the
-    tile kernel; CPU tensors under "auto" to the plain version."""
-    a, b = torch.zeros(m, 32, dtype=dtype), torch.zeros(32, 8, dtype=dtype)
+    """f32 with m <= 16 goes to the skinny kernel; f32 with more rows to
+    the tensor-core route when B has more than 32 columns, else to the
+    tile kernel, as bf16 does; CPU tensors under "auto" to the plain
+    version.  ``m`` is A's rows (B 8 columns wide) or (rows, columns)."""
+    m, n = m if isinstance(m, tuple) else (m, 8)
+    a, b = torch.zeros(m, 32, dtype=dtype), torch.zeros(32, n, dtype=dtype)
     assert ops.route(a, b, impl) == want
 
 

@@ -12,7 +12,13 @@ holding each kernel against its plain version.  The matmul
 100×70×50 case and the scorer's two product shapes: f32 at rtol 1e-5
 (1e-4 at K = 100000, where the summation orders differ over many more
 terms), atol 1e-5·√K; bf16 at 2e-2 — f32 with at most 16 rows through the
-skinny kernel, the rest through the tile kernel, as the counters show; the
+skinny kernel, f32 with more rows and more than 32 columns through the
+tensor-core route (two split passes and ``matmul_tc_kernel``), the rest
+through the tile kernel, as the counters show; the split pass against
+``tf32_split_ref`` to the bit (blocked views in place, a view of three
+merged axes copied once), the tensor-core route at ragged M, N and K, in
+f32 and bf16 out, and at the train path's X·W1 cut to N 2000 on the
+engine's blocked views (no copy), bit-equal to contiguous operands; the
 skinny kernel on strided views read in place (the scorer's blocked W1,
 blocks with ragged edges, W2's 40-byte rows), copies only of layouts TMA
 cannot read, its split-K fold bit-equal to ``splitk_reduce_ref`` on its own
@@ -37,13 +43,16 @@ SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  zamba2-7b's
 shapes: the bf16 flash kernel at head dim 112 on the model's transposed
 views (no copy), the bf16 SSD kernel at state 64 with an odd S, and
 zamba2-smoke through both kernels (launches counted; f32 at 1e-4, bf16
-within its rounding floor).  The §5.3 FFNN train step through the tile
-kernel and its split-K pass (SGD and AdamW, three steps) against the same
-steps on the plain matmul, and the tile kernel at the train path's
-second product scaled down (10 columns, split in K).  This file
+within its rounding floor).  The §5.3 FFNN train step through the
+tensor-core route (X·W1), the tile kernel and its split-K pass (a1·W2)
+(SGD and AdamW, three steps, no operand copy) against the same steps on
+the plain matmul, and the tile kernel at the train path's second product
+scaled down (10 columns, split in K).  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -53,7 +62,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul import ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
-                                            splitk_reduce_ref)
+                                            splitk_reduce_ref,
+                                            tf32_split_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 
@@ -83,23 +93,35 @@ def _counts():
             ops.FOLDS, ops.COPIES)
 
 
+def _tc_counts():
+    """Launches of the tensor-core kernel and of its split pass."""
+    return ops.TC_LAUNCHES, ops.SPLIT_LAUNCHES
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", SHAPES)
 @pytest.mark.parametrize("dtype", sorted(TOL))
 def test_kernel_matches_plain_on_card(cuda, m, k, n, dtype):
     a, b = _operands(m, k, n, dtype, cuda)
-    before = _counts()
+    before, tc_before = _counts(), _tc_counts()
     got = ops.matmul(a, b, impl="kernel")
     want = matmul_ref(a, b)
     torch.cuda.synchronize()
     skinny, tile, reduces, _, copies = (x - y for x, y in zip(_counts(),
                                                               before))
+    tc, passes = (x - y for x, y in zip(_tc_counts(), tc_before))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    if ops.route(a, b, "kernel") == "skinny":
-        assert (skinny, tile, reduces) == (1, 0, 0)
+    route = ops.route(a, b, "kernel")
+    assert route == ("skinny" if m <= 16 and dtype == "float32" else
+                     "tc" if n > 32 and dtype == "float32" else "tile")
+    if route == "skinny":
+        assert (skinny, tile, reduces, tc, passes) == (1, 0, 0, 0, 0)
+    elif route == "tc":
+        assert (skinny, tile, reduces, tc, passes) == (0, 0, 0, 1, 2)
     else:
         split = ops.plan_launch(m, n, k, sms)[1] > 1
-        assert (skinny, tile, reduces) == (0, 1, int(split))
+        assert (skinny, tile, reduces, tc, passes) == (0, 1, int(split), 0,
+                                                       0)
     assert copies == 0
     assert got.dtype == a.dtype and tuple(got.shape) == (m, n)
     tol = TOL[dtype]
@@ -107,7 +129,8 @@ def test_kernel_matches_plain_on_card(cuda, m, k, n, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol,
                                atol=tol * k ** 0.5)
-    # split-K is deterministic: a second launch is bit-identical
+    # split-K and the tensor-core route are deterministic: a second launch
+    # is bit-identical
     again = ops.matmul(a, b)
     assert torch.equal(again, got)
 
@@ -275,6 +298,93 @@ def test_skinny_launches_on_two_streams_keep_their_own_tickets(cuda):
     torch.cuda.synchronize()
     for o in outs:
         assert torch.equal(o, want)
+
+
+def _split_operand(kind, device):
+    """An f32 operand of the split pass as ``(tensor, rows)``: contiguous,
+    ragged (K 70), the engine's blocked view of X and of W1, and a view
+    whose rows merge three strided axes (copied first)."""
+    g = torch.Generator(device=device).manual_seed(7)
+    if kind == "contiguous":
+        return torch.randn((256, 512), generator=g, device=device), None
+    if kind == "ragged":
+        return torch.randn((100, 70), generator=g, device=device), None
+    if kind == "blocked_x":                  # (nb, bn | db, bd) of (nb, db, bn, bd)
+        t = torch.randn((4, 3, 50, 40), generator=g, device=device)
+        return t.permute(0, 2, 1, 3), 2
+    if kind == "blocked_w1":                 # (db, bd | hb, bh) of (db, hb, bd, bh)
+        t = torch.randn((3, 5, 40, 36), generator=g, device=device)
+        return t.permute(0, 2, 1, 3), 2
+    t = torch.randn((2, 3, 4, 24), generator=g, device=device)
+    return t.permute(1, 0, 2, 3), 3          # rows (3, 2, 4): three axes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["contiguous", "ragged", "blocked_x",
+                                  "blocked_w1", "three_axes"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_tf32_split_matches_plain_on_card(cuda, kind, transpose):
+    """The tensor-core route's operand pass against its plain version (torch
+    bit operations), to the bit: both TF32 terms, K padded with zeros, B
+    transposed; views read in place, a view of three merged row axes
+    copied once and counted."""
+    x, rows = _split_operand(kind, cuda)
+    r = math.prod(x.shape[:rows or 1])
+    dense = x.reshape(r, -1)
+    kp = ops.tc_kp(dense.shape[0] if transpose else dense.shape[1])
+    copies, passes = ops.COPIES, ops.SPLIT_LAUNCHES
+    got = ops.tf32_split(x, rows=rows, transpose=transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tf32_split_ref(dense, kp, transpose))
+    assert ops.SPLIT_LAUNCHES == passes + 1
+    assert ops.COPIES == copies + (kind == "three_axes")
+
+
+@pytest.mark.gpu
+def test_tc_route_at_the_train_first_product_on_card(cuda):
+    """X·W1 of the train path cut to N 2000 (D 1600, H 100000), X and W1
+    handed over as the engine's blocked views (nb, bn | db, bd) and (db, bd
+    | hb, bh): two split passes read them in place (no copy), one
+    tensor-core launch, within tolerance(1600, f32) of the plain version;
+    bit-equal to the same values given as contiguous tensors, and to a
+    second launch."""
+    nb, db, hb, n, d, h = 10, 4, 10, 2000, 1600, 100000
+    bn, bd, bh = n // nb, d // db, h // hb
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    w1 = torch.randn((d, h), generator=g, device=cuda) * d ** -0.5
+    x_view = x.reshape(nb, bn, db, bd).permute(0, 2, 1, 3).contiguous() \
+        .permute(0, 2, 1, 3)
+    w_view = w1.reshape(db, bd, hb, bh).permute(0, 2, 1, 3).contiguous() \
+        .permute(0, 2, 1, 3)
+    before, tc_before = _counts(), _tc_counts()
+    got = ops.matmul(x_view, w_view, a_rows=2, b_rows=2)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (n, h)
+    assert _counts() == before
+    assert _tc_counts() == (tc_before[0] + 1, tc_before[1] + 2)
+    want = matmul_ref(x, w1)
+    rtol, atol = 1e-5, 1e-5 * d ** 0.5
+    assert bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+    assert torch.equal(got, ops.matmul(x, w1))
+    assert torch.equal(got, ops.matmul(x_view, w_view, a_rows=2, b_rows=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(17, 33, 33), (129, 100, 257),
+                                   (300, 1600, 1000)])
+def test_tc_route_ragged_edges_on_card(cuda, m, k, n):
+    """Rows, columns and K off the kernel's 128 x 128 x 32 tiles, f32 and
+    bf16 out: the edges masked, K's padding zero."""
+    a, b = _operands(m, k, n, "float32", cuda, seed=4)
+    assert ops.route(a, b, "kernel") == "tc"
+    want = matmul_ref(a, b)
+    got = ops.matmul(a, b, impl="kernel")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * k ** 0.5)
+    half = ops.matmul(a, b, impl="kernel", out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    assert torch.equal(half, got.to(torch.bfloat16))
 
 
 @pytest.mark.gpu
@@ -928,9 +1038,10 @@ def _train_setup(cuda, optimizer):
 @pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
 def test_ffnn_train_step_on_card(cuda, optimizer, monkeypatch):
-    """Three steps of the §5.3 train step through the tile kernel (both
-    forward products; the second, 10 columns wide, split in K and summed
-    by the split-K pass) against the same steps with the matmul op's plain
+    """Three steps of the §5.3 train step through the hand kernels (X·W1
+    on the tensor-core route, two split passes and one tensor-core launch;
+    a1·W2, 10 columns wide, on the tile kernel, split in K and summed by
+    the split-K pass) against the same steps with the matmul op's plain
     version on the card, at 1e-4."""
     from repro_torch.core import SGD, AdamW
     make = {"sgd": lambda: SGD(0.01), "adamw": lambda: AdamW(1e-2)}
@@ -941,20 +1052,24 @@ def test_ffnn_train_step_on_card(cuda, optimizer, monkeypatch):
               ops.plan_launch(n, l_, h, sms)[1]]
     assert splits[1] > 1
     trainer, data = _train_setup(cuda, make[optimizer]())
-    before = _counts()
+    before, tc_before = _counts(), _tc_counts()
     losses = trainer.fit(3, **data)
     torch.cuda.synchronize()
-    skinny, tile, reduces, _, _ = (x - y for x, y in zip(_counts(), before))
-    assert (skinny, tile, reduces) == (0, 2 * 3,
-                                       3 * sum(s > 1 for s in splits))
+    skinny, tile, reduces, _, copies = (x - y for x, y in
+                                        zip(_counts(), before))
+    tc, passes = (x - y for x, y in zip(_tc_counts(), tc_before))
+    assert (skinny, tile, reduces, tc, passes) == (
+        0, 3, 3 * (splits[1] > 1), 3, 2 * 3)
+    assert copies == 0                  # X, W1 and a1 are read in place
     assert trainer.engine.cache_hits == 2
     real = ops.matmul
     monkeypatch.setattr(ops, "matmul", lambda a, b, **kw: real(
         a, b, **{**kw, "impl": "plain"}))
     plain, data = _train_setup(cuda, make[optimizer]())
     before = _counts()
+    tc_before = _tc_counts()
     want = plain.fit(3, **data)
-    assert _counts() == before
+    assert _counts() == before and _tc_counts() == tc_before
     np.testing.assert_allclose(losses, want, rtol=1e-4, atol=1e-4)
     for k in trainer.params:
         np.testing.assert_allclose(trainer.params[k].data.cpu().numpy(),
@@ -980,12 +1095,13 @@ def test_tile_kernel_at_the_train_second_product_on_card(cuda, rows):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     splits = ops.plan_launch(rows, n, hb * bh, sms)[1]
     assert splits > 1
-    before = _counts()
+    before, tc_before = _counts(), _tc_counts()
     got = ops.matmul(a_view, w2, a_rows=2)
     torch.cuda.synchronize()
     skinny, tile, reduces, _, copies = (x - y for x, y in zip(_counts(),
                                                               before))
     assert (skinny, tile, reduces, copies) == (0, 1, 1, 1)
+    assert _tc_counts() == tc_before        # 10 columns: not the tc route
     want = matmul_ref(a1.reshape(rows, -1), w2)
     k = hb * bh
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
