@@ -26,12 +26,13 @@ its plain PyTorch version on the card:
    package's kernel tests, a ragged shape (M, N and K off the tiles) and
    the scorer's two products (f32 with at most 16 rows through the skinny
    kernel, f32 with more rows and more than 32 columns through the
-   tensor-core route, the rest through the tile kernel; the skinny and
+   tensor-core route, f32 with more rows and at most 32 columns through
+   the narrow kernel, bf16 through the tile kernel; the skinny and
    tensor-core products also through the tile kernel, the route they took
-   over), and the split-K reduction pass
-   (``splitk_reduce``) against ``splitk_reduce_ref`` at the partial sums of
-   the scorer's second product, each with kernel / plain / library times
-   and the bound; then the skinny kernel on blocked views read in place
+   over), and the tile kernel's split-K reduction pass
+   (``splitk_reduce``, off every main path) against ``splitk_reduce_ref``
+   at the partial sums of the scorer's second product, each with kernel /
+   plain / library times and the bound; then the skinny kernel on blocked views read in place
    (a scorer-shaped W1, blocks with ragged edges, W2's 40-byte rows: no
    copy) and on an operand off 16 bytes (one copy), and its split-K fold
    bit-equal to ``splitk_reduce_ref`` on its own partial tiles (drawn from
@@ -69,9 +70,9 @@ its plain PyTorch version on the card:
    count set to 0 just before and read just after: 1 compile and 4 cached
    dispatches, the loss finite and lower at the last step than at the
    first, per step 1 launch of the tensor-core kernel and 2 of its split
-   pass (X·W1), 1 of the tile kernel (a1·W2, split in K) and as many
-   split-K passes as ``plan_launch`` splits it, none of the skinny kernel,
-   and no operand copy; step 1's loss, AdamW moments and parameters, and
+   pass (X·W1), 1 of the narrow kernel (a1·W2, split in K and folding its
+   sum in the same launch), none of the tile kernel, the split-K pass or
+   the skinny kernel, and no operand copy; step 1's loss, AdamW moments and parameters, and
    one SGD(0.01) step's parameters, against the same step with the matmul
    op's plain version on the card and against a dense f64 step on the
    card, each within ``tolerance(k, f32)`` of the product computing it
@@ -83,9 +84,10 @@ its plain PyTorch version on the card:
    0); z1 itself within ``tolerance(1600, f32)`` of the f64 product; step
    ms (median of steps 2-5), peak memory, a profile of one step by
    kernel, and each forward product timed on its route beside the FFMA
-   tile kernel, the plain version, ``torch.matmul`` and the bounds (X·W1:
-   its split passes and the tensor-core kernel alone, too), with the
-   split-K pass beside ``sum(0)``;
+   tile kernel (with its split-K pass: the route both took before), the
+   plain version, ``torch.matmul`` and the bounds (X·W1: its split passes
+   and the tensor-core kernel alone, too), with the split-K pass at
+   a1·W2's partial sums (off the path) beside ``sum(0)``;
 7. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
    before and read just after (26 launches of the tensor-core flash
@@ -269,8 +271,8 @@ def fail(msg: str) -> None:
 
 def tile_kernel(a, b):
     """f32 ``a @ b`` (2-D) on the tile kernel and its split-K pass, whatever
-    the op's route: the products the skinny kernel took over, timed and
-    checked on the kernel it replaced."""
+    the op's route: the products the skinny, tensor-core and narrow routes
+    took over, timed and checked on the kernel they replaced."""
     return mm_ops._launch_tile(a, b, a.shape[0], a.shape[1], b.shape[1],
                                torch.float32)
 
@@ -359,6 +361,7 @@ def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
     mm_ops.SKINNY_LAUNCHES = mm_ops.FOLDS = mm_ops.COPIES = 0
     mm_ops.TC_LAUNCHES = mm_ops.SPLIT_LAUNCHES = 0
+    mm_ops.NARROW_LAUNCHES = mm_ops.NARROW_FOLDS = 0
     flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
     ssd_ops.LAUNCHES = ssd_ops.TC_LAUNCHES = ssd_ops.FFMA_LAUNCHES = 0
     ssd_ops.COPIES = 0
@@ -366,9 +369,9 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel's launch count (``flash_attention`` and ``ssd_scan``
-    are the sums of their two kernels'), the skinny matmul launches that
-    folded a split-K sum, and the copies of operands the matmul, flash and
-    SSD ops made."""
+    are the sums of their two kernels'), the skinny and narrow matmul
+    launches that folded a split-K sum, and the copies of operands the
+    matmul, flash and SSD ops made."""
     return {"matmul_skinny": mm_ops.SKINNY_LAUNCHES,
             "matmul_fold": mm_ops.FOLDS,
             "matmul_copies": mm_ops.COPIES,
@@ -376,6 +379,8 @@ def read_launches() -> dict:
             "matmul_splitk_reduce": mm_ops.REDUCE_LAUNCHES,
             "matmul_tc": mm_ops.TC_LAUNCHES,
             "matmul_tf32_split": mm_ops.SPLIT_LAUNCHES,
+            "matmul_narrow": mm_ops.NARROW_LAUNCHES,
+            "matmul_narrow_fold": mm_ops.NARROW_FOLDS,
             "flash_attention": flash_ops.LAUNCHES,
             "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
             "flash_attention_ffma": flash_ops.FFMA_LAUNCHES,
@@ -807,6 +812,7 @@ MODEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
                 ("ssd_scan", ("ssd_scan_kernel",)), ("gemm", GEMM_NAMES))
 TRAIN_GROUPS = (("matmul_tc", ("matmul_tc_kernel",)),
                 ("tf32_split", ("tf32_split_kernel",)),
+                ("matmul_narrow", ("matmul_narrow_kernel",)),
                 ("matmul_tile", ("matmul_tile_kernel",)),
                 ("splitk_reduce", ("splitk_reduce_kernel",)),
                 ("matmul_skinny", ("matmul_skinny_kernel",)),
@@ -1054,16 +1060,54 @@ def step_outputs(trainer, loss) -> dict:
     return {"loss": loss, **trainer.params, **trainer.state}
 
 
+def narrow_plan(m: int, k: int, n: int, sms: int):
+    """The narrow kernel's plan (``mm_ops.plan_narrow``) for contiguous 2-D
+    operands of this shape."""
+    op = mm_ops.plan_operands(((m, k), (k, 1), 0, 1),
+                              ((k, n), (n, 1), 0, 1), "narrow")
+    return mm_ops.plan_narrow(op.a, op.b, op.b_plan, sms)
+
+
+def train_routes(products, sms: int) -> tuple:
+    """Each train product ``(m, k, n)``'s route (``mm_ops.route``, f32 on
+    the card) and the K splits it takes there (the tile kernel's
+    ``plan_launch``, the narrow kernel's ``plan_narrow``; 1 elsewhere)."""
+    routes = [mm_ops.route(torch.empty(m, k, device="meta"),
+                           torch.empty(k, n, device="meta"), "kernel")
+              for m, k, n in products]
+    splits = [mm_ops.plan_launch(m, n, k, sms)[1] if r == "tile"
+              else narrow_plan(m, k, n, sms).splits if r == "narrow" else 1
+              for (m, k, n), r in zip(products, routes)]
+    return routes, splits
+
+
+def train_launches(routes, splits, steps: int) -> dict:
+    """The launch counts ``steps`` train steps should read: per step and
+    product, the tensor-core kernel and its two split passes, the narrow
+    kernel (folding when split), or the tile kernel and its split-K pass
+    (when split), by each product's route; no copy."""
+    def count(route, split=None):
+        return steps * sum(r == route and (split is None or (s > 1) == split)
+                           for r, s in zip(routes, splits))
+    return launches_of(matmul_tc=count("tc"),
+                       matmul_tf32_split=2 * count("tc"),
+                       matmul=count("tile"),
+                       matmul_splitk_reduce=count("tile", True),
+                       matmul_narrow=count("narrow"),
+                       matmul_narrow_fold=count("narrow", True))
+
+
 def train_products(calls, device) -> list:
     """The step's two matmul calls, each timed as the engine makes it (the
     relations' views, in place or with the op's copies) and on 2-D
     contiguous copies through the op's route (for X·W1 the tensor-core
-    route: also its two split passes and ``matmul_tc_kernel`` alone), the
-    FFMA tile kernel with its split-K pass (the route X·W1 took before:
-    kept as the earlier reading), the plain version and ``torch.matmul``,
-    with the bounds (on the tensor-core route both: three TF32 products at
-    the tensor cores' rate, one f32 product at the FFMA rate); the route's
-    and the tile kernel's outputs held against the plain version within
+    route: also its two split passes and ``matmul_tc_kernel`` alone; for
+    a1·W2 the narrow kernel, one launch), the FFMA tile kernel with its
+    split-K pass (the route both took before: kept as the earlier
+    reading), the plain version and ``torch.matmul``, with the bounds (on
+    the tensor-core route both: three TF32 products at the tensor cores'
+    rate, one f32 product at the FFMA rate); the route's and the tile
+    kernel's outputs held against the plain version within
     ``tolerance(k, f32)``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
@@ -1091,7 +1135,7 @@ def train_products(calls, device) -> list:
         del ref
         t_bytes, t_ops = bound_times(m, k, n, torch.float32, route)
         bnd, by = bound_of(t_bytes, t_ops)
-        iters = 3 if k * n > 10 ** 8 else 5
+        iters = 3 if k * n > 10 ** 8 else 10
         timed = {"kernel": lambda: mm_ops.matmul(a2, b2, impl="kernel"),
                  "in_place": lambda: mm_ops.matmul(a, b, **kw),
                  "tile": lambda: tile_kernel(a2, b2),
@@ -1109,6 +1153,10 @@ def train_products(calls, device) -> list:
                                                  torch.float32)[1],
                "max_abs_err": errs["kernel"], "tile_max_abs_err": errs["tile"],
                "rtol": rtol, "atol": atol}
+        if route == "narrow":
+            nw = narrow_plan(m, k, n, sms)
+            row.update({"narrow_splits": nw.splits,
+                        "narrow_stages": nw.stages})
         if route == "tc":
             kp = mm_ops.tc_kp(k)
             sa = mm_ops.tf32_split(a2)
@@ -1141,8 +1189,8 @@ def phase_train(device) -> dict:
     """The §5.3 FFNN trains at speech-100k through the port's Engine,
     plan-level autodiff and ``TraTrainer`` (AdamW at ``TRAIN_LR``), X·W1 on
     the tensor-core route (two split passes, ``matmul_tc_kernel``), a1·W2
-    on the tile kernel and its split-K pass; step 1 at the check rates
-    against the plain matmul and the f64 oracle."""
+    on the narrow kernel (its split-K sum folded in the launch); step 1 at
+    the check rates against the plain matmul and the f64 oracle."""
     from repro_torch.core import AdamW
     t0 = time.perf_counter()
     cfg, dims, dense = train_problem(device)
@@ -1153,11 +1201,7 @@ def phase_train(device) -> dict:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n, d, h, l_ = cfg.batch, cfg.d_in, cfg.d_hidden, cfg.d_out
     products = [(n, d, h), (n, h, l_)]
-    routes = [mm_ops.route(torch.empty(m, k, device="meta"),
-                           torch.empty(k, nn, device="meta"), "kernel")
-              for m, k, nn in products]
-    splits = [mm_ops.plan_launch(m, nn, k, sms)[1] if r == "tile" else 1
-              for (m, k, nn), r in zip(products, routes)]
+    routes, splits = train_routes(products, sms)
     torch.cuda.reset_peak_memory_stats(device)
 
     # -- the main path: every launch count is 0 just before, read just after
@@ -1184,13 +1228,9 @@ def phase_train(device) -> dict:
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train: losses {losses} not finite or not decreasing")
-    # X and W1 read in place by the split passes, a1 by the tile kernel:
-    # no operand is copied
-    expected = launches_of(
-        matmul_tc=routes.count("tc") * TRAIN_STEPS,
-        matmul_tf32_split=2 * routes.count("tc") * TRAIN_STEPS,
-        matmul=routes.count("tile") * TRAIN_STEPS,
-        matmul_splitk_reduce=sum(s > 1 for s in splits) * TRAIN_STEPS)
+    # X and W1 read in place by the split passes, a1 and W2 by the narrow
+    # kernel: no operand is copied
+    expected = train_launches(routes, splits, TRAIN_STEPS)
     if launches != expected:
         fail(f"train: launches {launches} in {TRAIN_STEPS} steps, "
              f"expected {expected}")
@@ -1231,7 +1271,7 @@ def phase_train(device) -> dict:
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in launches.items() if v},
            "matmul_copies_per_step": copies,
-           "routes": routes, "tile_splits": splits,
+           "routes": routes, "splits": splits,
            "max_memory_allocated_gb": peak / 1e9, "checks": checks,
            "profile_step": profile, "products": rows,
            "splitk_reduce": reduce, "setup_s": setup_s,
@@ -2476,16 +2516,19 @@ def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict) -> list:
 
 MATMUL_CU = "src/repro_torch/kernels/matmul/csrc/matmul.cu"
 MATMUL_WGMMA_CU = "src/repro_torch/kernels/matmul/csrc/matmul_wgmma.cu"
+MATMUL_NARROW_CU = "src/repro_torch/kernels/matmul/csrc/matmul_narrow.cu"
 
 
 def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
-    """The kernels line's six matmul entries.  The skinny kernel and its
+    """The kernels line's seven matmul entries.  The skinny kernel and its
     fold at one scorer dispatch at bucket 8 (the serving path: both
     products, read in place as the engine calls them; the fold inside the
     second product's launch).  The tensor-core kernel and its split passes
-    at the train path's X·W1, the tile kernel and its split-K pass at its
-    a1·W2 (speech-100k, N 10000), with their launches there; beside the
-    tile kernel, as before, X·W1 and the scorer's two products on it."""
+    at the train path's X·W1, the narrow kernel at its a1·W2 (speech-100k,
+    N 10000), with their launches there.  The tile kernel and its split-K
+    pass, off both paths, at a1·W2 (their route before the narrow kernel);
+    beside the tile kernel, as before, X·W1 and the scorer's two products
+    on it."""
     first, second = serve["products_b8"]
     b = first["m"]
     both = (first, second)
@@ -2497,8 +2540,8 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
               f"({b}x{second['k']})@({second['k']}x{second['n']})")
     tp = train["products"]
     tc = next(p for p in tp if p["route"] == "tc")
-    tile = next(p for p in tp if p["route"] == "tile")
-    tshape = f"({tile['m']}x{tile['k']})@({tile['k']}x{tile['n']})"
+    narrow = next(p for p in tp if p["route"] == "narrow")
+    tshape = f"({narrow['m']}x{narrow['k']})@({narrow['k']}x{narrow['n']})"
     tcshape = f"({tc['m']}x{tc['k']})@({tc['k']}x{tc['n']})"
     sbnd, sby = bound_of(tc["split_bytes_ms"], tc["split_operations_ms"])
     tred = train["splitk_reduce"]
@@ -2512,6 +2555,8 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
                 TRAIN_PATH: train["launches"]["matmul_tc"]}
     split_paths = {"scorer": serve["launches"]["matmul_tf32_split"],
                    TRAIN_PATH: train["launches"]["matmul_tf32_split"]}
+    narrow_paths = {"scorer": serve["launches"]["matmul_narrow"],
+                    TRAIN_PATH: train["launches"]["matmul_narrow"]}
     reduce_paths = {"scorer": serve["launches"]["matmul_splitk_reduce"],
                     TRAIN_PATH: train["launches"]["matmul_splitk_reduce"]}
     return [{
@@ -2590,15 +2635,38 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
               f"and W1 transposed), CUDA events; max_abs_err against "
               f"tf32_split_ref (torch bit operations); no PyTorch call "
               f"computes it"}, {
+        "name": "matmul_narrow", **common, "source": MATMUL_NARROW_CU,
+        "function": "matmul_pallas",
+        "launches": sum(narrow_paths.values()),
+        "launches_by_path": narrow_paths,
+        "folding_launches_by_path": {
+            "scorer": serve["launches"]["matmul_narrow_fold"],
+            TRAIN_PATH: train["launches"]["matmul_narrow_fold"]},
+        "max_abs_err": narrow["max_abs_err"],
+        "ms": narrow["kernel_ms"], "plain_ms": narrow["plain_ms"],
+        "bound_ms": narrow["bound_ms"], "bound_by": narrow["bound_by"],
+        "library_ms": narrow["library_ms"],
+        "library_call": "torch.matmul",
+        "in_place_ms": narrow["in_place_ms"],
+        "tile_kernel_ms": narrow["tile_ms"],
+        "kernel_ms_in_profiled_step": tgroups["matmul_narrow"],
+        "splits": narrow["narrow_splits"], "stages": narrow["narrow_stages"],
+        "at": f"matmul_narrow_kernel at the train path's a1·W2 {tshape} on "
+              f"2-D contiguous operands, CUDA events over back-to-back "
+              f"calls, its split-K fold included; in_place_ms: as the "
+              f"engine calls the op (a1 and W2 read in place); "
+              f"tile_kernel_ms: the same product on matmul_tile_kernel and "
+              f"its split-K pass, a1·W2's route before; max_abs_err "
+              f"against the plain version in f32"}, {
         "name": "matmul", **common, "function": "matmul_pallas",
         "launches": sum(tile_paths.values()),
         "launches_by_path": tile_paths,
         "max_abs_err": max([r.get("tile_max_abs_err", r["max_abs_err"])
                             for r in rows]
                            + [p["tile_max_abs_err"] for p in tp]),
-        "ms": tile["kernel_ms"], "plain_ms": tile["plain_ms"],
-        "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
-        "library_ms": tile["library_ms"],
+        "ms": narrow["tile_ms"], "plain_ms": narrow["plain_ms"],
+        "bound_ms": narrow["bound_ms"], "bound_by": narrow["bound_by"],
+        "library_ms": narrow["library_ms"],
         "library_call": "torch.matmul",
         TRAIN_PATH: {
             "products": [{key: p[key] for key in (
@@ -2624,11 +2692,10 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
             "events_ms": sum(p["tile_kernel_on_copy_ms"] for p in both),
             "at": f"the scorer dispatch's products {shapes} on the copied "
                   f"2-D operands (off the serving path); device times"},
-        "at": f"matmul_tile_kernel (bf16, or f32 with more than 16 rows and "
-              f"at most {mm_ops.TC_NARROW_COLS} columns): the train path's "
-              f"a1·W2 {tshape} on 2-D contiguous operands, CUDA events over "
-              f"back-to-back calls, its split-K pass included; in_place_ms: "
-              f"as the engine calls the op"}, {
+        "at": f"matmul_tile_kernel (bf16 only since the narrow kernel; off "
+              f"both paths): the train path's a1·W2 {tshape} on 2-D "
+              f"contiguous operands, CUDA events over back-to-back calls, "
+              f"its split-K pass included, the route a1·W2 took before"}, {
         "name": "matmul_splitk_reduce", **common,
         "function": "matmul_pallas (its f32 accumulation over the K grid)",
         "launches": sum(reduce_paths.values()),
@@ -2641,11 +2708,11 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
         "scorer": {key: red[key] for key in (
             "splits", "m", "n", "of_product_k", "kernel_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")},
-        "at": f"the tile kernel's split-K pass on the train path: the "
-              f"{tred['splits']} partial sums of ({tred['m']}x"
-              f"{tred['of_product_k']})@({tred['of_product_k']}x"
-              f"{tred['n']}); scorer: at the scorer's second product, off "
-              f"the serving path"}]
+        "at": f"the tile kernel's split-K pass (off both paths since the "
+              f"narrow kernel folds a1·W2's sum): the {tred['splits']} "
+              f"partial sums of ({tred['m']}x{tred['of_product_k']})@("
+              f"{tred['of_product_k']}x{tred['n']}); scorer: at the "
+              f"scorer's second product"}]
 
 
 def main() -> int:

@@ -6,8 +6,9 @@ loaded with :mod:`ctypes`.  A library may have several sources: each is
 compiled to an object by its own ``nvcc``, all started together, and the
 objects are linked into the library.  The build runs at first use, from
 the sources in the package, into ``kernels/_build/`` (git-ignored).  A
-library's file name carries a digest of its sources, so an edited source
-is rebuilt and a built one is reused.
+library's file name carries a digest of its sources and of the headers
+beside them, so an edited source or header is rebuilt and a built one is
+reused.
 
 Nothing here runs at import time: the CPU tests import every module and
 have no ``nvcc``.
@@ -32,7 +33,8 @@ BUILD_DIR = _ROOT / "_build"
 #: library name -> its CUDA sources
 SOURCES: Dict[str, Tuple[Path, ...]] = {
     "matmul": (_ROOT / "matmul" / "csrc" / "matmul.cu",
-               _ROOT / "matmul" / "csrc" / "matmul_wgmma.cu"),
+               _ROOT / "matmul" / "csrc" / "matmul_wgmma.cu",
+               _ROOT / "matmul" / "csrc" / "matmul_narrow.cu"),
     "flash_attention": (
         _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
         _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu"),
@@ -69,9 +71,15 @@ def _nvcc() -> str:
     return found
 
 
+def _inputs(name: str) -> list:
+    """A library's sources and the headers (``*.cuh``) beside them."""
+    dirs = sorted({src.parent for src in SOURCES[name]})
+    return [*SOURCES[name], *(h for d in dirs for h in sorted(d.glob("*.cuh")))]
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha1()
-    for src in SOURCES[name]:
+    for src in _inputs(name):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -54,14 +54,17 @@
 //     0.  So every launch leaves its ticket buffer zeroed for the next launch
 //     on its stream; ops.py keeps one buffer per stream, so two launches in
 //     flight on different streams never share one.
+//   * B's ring and A's slice are read with ordinary loads and refilled by
+//     TMA: every consumer thread fences the proxies before it releases them
+//     (tma.cuh::mbar_release_to_tma), as the narrow kernel must.
 //   * Every mbarrier wait traps after ~10 s of clock instead of hanging.
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): the caller owns every allocation and the stream.  Each entry point
 // launches one kernel, so the caller counts every launch: repro_matmul the
 // tile kernel, repro_splitk_reduce the reduction pass, repro_matmul_skinny
-// the skinny kernel.  cuTensorMapEncodeTiled is reached through
-// cudaGetDriverEntryPoint, so the library does not link libcuda.
+// the skinny kernel.  The mbarrier, TMA and tensor-map helpers are in
+// tma.cuh, shared with matmul_wgmma.cu and matmul_narrow.cu.
 
 #include <cstdint>
 
@@ -69,19 +72,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// One operand of the skinny kernel as a 4-D tensor map: dims[0] the
-// contiguous axis, then the other three in the order of their strides
-// (strides in bytes of dims 1-3), the box one copy brings, and perm: the map
-// dim (1-3) of the first logical axis in bits 0-1 and of the second in bits
-// 2-3 (the third takes the dim left).  Logical axes: for A (row within a row
-// block, K block, row block), for B (row within a K block, column block, K
-// block).
-struct MmMapSpec {
-  long long dims[4];
-  long long strides[3];
-  int box[4];
-  int perm;
-};
+#include "tma.cuh"
 
 // The skinny kernel's launch plan (ops.py::plan_skinny builds it).
 struct SkinnyArgs {
@@ -295,7 +286,6 @@ constexpr int SK_THREADS = SK_CONSUMERS + 32;     // and one producer warp
 constexpr int SK_STAGES = 4;                      // B tiles in the ring
 constexpr int SK_WIDE_COLS = 128;                 // columns of a wide tile
 constexpr int SK_MAX_SMEM = 232448;               // a block's shared memory on sm_90
-constexpr int kEncodeError = 1000;                // + CUresult of cuTensorMapEncodeTiled
 
 __host__ __device__ constexpr int sk_bk(bool wide) { return wide ? 32 : 128; }
 
@@ -320,65 +310,12 @@ __host__ __device__ inline SkLayout sk_layout(const SkinnyArgs& s) {
   return l;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of `bar` with this parity.  A copy that never lands (a
-// tensor map that does not fit the expected bytes) traps after ~10 s of
-// clock instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > 20000000000ll) __trap();
-  }
-}
 
 // The four consumer warps only: the producer warp never joins.
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(SK_CONSUMERS) : "memory");
 }
 
-// One box of a 4-D tensor map into shared memory, completion to `bar`: c0
-// along the contiguous dim, x1..x3 along the logical axes placed by perm.
-__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                          int x1, int x2, int x3, int perm) {
-  const int d1 = perm & 3, d2 = (perm >> 2) & 3;
-  const int c1 = d1 == 1 ? x1 : (d2 == 1 ? x2 : x3);
-  const int c2 = d1 == 2 ? x1 : (d2 == 2 ? x2 : x3);
-  const int c3 = d1 == 3 ? x1 : (d2 == 3 ? x2 : x3);
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 __device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
   acc[0] = fmaf(a, b.x, acc[0]);
@@ -426,10 +363,10 @@ __global__ void __launch_bounds__(SK_THREADS, 1)
   if (tid == 0) {
     for (int st = 0; st < SK_STAGES; ++st) {
       mbar_init(full0 + 8 * st, 1);
-      mbar_init(empty0 + 8 * st, SK_CONSUMERS / 32);
+      mbar_init(empty0 + 8 * st, SK_CONSUMERS);
     }
     mbar_init(a_full, 1);
-    mbar_init(a_empty, SK_CONSUMERS / 32);
+    mbar_init(a_empty, SK_CONSUMERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -519,8 +456,7 @@ __global__ void __launch_bounds__(SK_THREADS, 1)
           for (int r = 0; r < MP; ++r) acc[r][0] = fmaf(at[r * BK + k], b, acc[r][0]);
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+      mbar_release_to_tma(empty0 + 8 * st);
     }
 
     // The row groups' sums, added in group order.
@@ -606,50 +542,8 @@ __global__ void __launch_bounds__(SK_THREADS, 1)
       if (tid == 0) p.tickets[tile] = 0;
     }
     consumers_sync();                             // A's slice and the stage are free
-    if (lane == 0) mbar_arrive(a_empty);
+    mbar_release_to_tma(a_empty);
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// 0, or kEncodeError + the CUresult of a refused map.  f32, no swizzle,
-// out-of-bounds elements read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, const MmMapSpec& m) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4], elem_strides[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) {
-    dims[i] = static_cast<cuuint64_t>(m.dims[i]);
-    box[i] = static_cast<cuuint32_t>(m.box[i]);
-  }
-  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(m.strides[i]);
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
 typedef void (*SkinnyKernel)(CUtensorMap, CUtensorMap, SkParams);
@@ -753,20 +647,10 @@ int repro_splitk_reduce(const void* partial, void* c, long long mn, int splits,
 // cudaError_t, or kEncodeError + the CUresult of a refused tensor map.
 int repro_matmul_skinny(const void* a, const void* b, void* c, void* ws, void* tickets,
                         const long long* desc, void* stream) {
-  MmMapSpec maps[2];
-  for (int i = 0; i < 2; ++i) {
-    const long long* d = desc + 12 * i;
-    for (int j = 0; j < 4; ++j) maps[i].dims[j] = d[j];
-    for (int j = 0; j < 3; ++j) maps[i].strides[j] = d[4 + j];
-    for (int j = 0; j < 4; ++j) maps[i].box[j] = static_cast<int>(d[7 + j]);
-    maps[i].perm = static_cast<int>(d[11]);
-  }
   SkinnyArgs s;
   int* fields = &s.m;
   static_assert(sizeof(SkinnyArgs) == 18 * sizeof(int), "SkinnyArgs: 18 ints");
   for (int j = 0; j < 18; ++j) fields[j] = static_cast<int>(desc[24 + j]);
-  const MmMapSpec* am = &maps[0];
-  const MmMapSpec* bm = &maps[1];
   const bool shapes_ok = s.m >= 1 && s.m <= s.mp && (s.mp == 4 || s.mp == 8 || s.mp == 16) &&
                          s.n >= 1 && s.tc >= 1 && s.g >= 1 && s.ntiles >= 1 && s.ktiles >= 1 &&
                          s.kts >= 1 && s.splits >= 1 && (s.splits - 1) * s.kts < s.ktiles &&
@@ -777,8 +661,8 @@ int repro_matmul_skinny(const void* a, const void* b, void* c, void* ws, void* t
   const int smem = sk_layout(s).total;
   if (smem > SK_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
-  int rc = make_map(&ta, a, *am);
-  if (rc == 0) rc = make_map(&tb, b, *bm);
+  int rc = make_map(&ta, a, map_spec(desc));
+  if (rc == 0) rc = make_map(&tb, b, map_spec(desc + 12));
   if (rc != 0) return rc;
   const int index = (s.mp == 4 ? 0 : s.mp == 8 ? 2 : 4) + (s.wide ? 1 : 0);
   SkinnyKernel fn = s.mp == 4 ? skinny_kernel<4>(s.wide != 0)

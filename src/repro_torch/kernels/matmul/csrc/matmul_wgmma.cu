@@ -65,9 +65,8 @@
 //
 // Plain C interface (built with nvcc into the matmul library with
 // matmul.cu, loaded with ctypes): the caller owns every allocation and the
-// stream; one call launches one kernel.  cuTensorMapEncodeTiled is reached
-// through cudaGetDriverEntryPoint, so the library does not link libcuda.
-// Error codes follow matmul.cu's: a cudaError_t, or kEncodeError + the
+// stream; one call launches one kernel.  The mbarrier and tensor-map
+// helpers are in tma.cuh.  Error codes follow matmul.cu's: a cudaError_t, or kEncodeError + the
 // CUresult of a refused tensor map (repro_cuda_error_string there names
 // both).
 
@@ -76,6 +75,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tma.cuh"
 
 // One operand of the split pass: element (i, j) of its (rows, cols) matrix at
 // (i / r1)·s_r0 + (i % r1)·s_r1 + (j / c1)·s_c0 + (j % c1)·s_c1 elements
@@ -101,7 +102,6 @@ constexpr int TC_THREADS = TC_CONSUMERS + 32;   // and one producer warp
 constexpr int TC_TILE_BYTES = TC_BM * TC_BK * 4;       // 16 KB (TC_BN == TC_BM)
 constexpr int TC_STAGE_BYTES = 4 * TC_TILE_BYTES;      // A big, A small, Bᵀ big, Bᵀ small
 constexpr int TC_SMEM = TC_STAGES * TC_STAGE_BYTES + 2 * 8 * TC_STAGES + 1024;
-constexpr int kEncodeError = 1000;              // + CUresult of cuTensorMapEncodeTiled
 
 static_assert(TC_BN == TC_BM, "one box shape for A and Bᵀ tiles");
 
@@ -160,46 +160,6 @@ __global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
     const float small = tf32_rna(x - big);
     dst[i * s.kp + j] = big;
     dst[plane + i * s.kp + j] = small;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of `bar` with this parity.  A copy that never lands (a
-// tensor map that does not fit the expected bytes) traps after ~10 s of
-// clock instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > 20000000000ll) __trap();
   }
 }
 
@@ -385,29 +345,6 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     if (r < p.m) store2(p, r, col, acc[4 * j], acc[4 * j + 1]);
     if (r + 8 < p.m) store2(p, r + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
 }
 
 // The map of a split array (2, rows, kp) f32: boxes of 32 values x 128 rows

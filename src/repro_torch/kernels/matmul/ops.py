@@ -36,13 +36,30 @@ A CUDA call goes by type, rows and columns (:func:`route`):
   product is not: at the train path's X·W1 it crosses the f32 limit).
   Deviation: f32 sums on the tensor cores, in another order than an FFMA
   chain.
-* bf16, or f32 with more rows and at most :data:`TC_NARROW_COLS` columns
-  (the train step's a1·W2, 10 columns) → ``matmul_tile_kernel`` on
-  contiguous row-major operands (any other layout is copied first and
-  counted in :data:`COPIES`); when its output has too few tiles for the
-  card it splits K across blocks (:func:`plan_launch`) and a second
-  kernel, ``splitk_reduce_kernel``, adds the partial sums
-  (:func:`splitk_reduce`).
+* f32 with more rows and at most :data:`TC_NARROW_COLS` columns (the FFNN
+  train step's a1·W2, 10 columns, the main path) → ``matmul_narrow_kernel``
+  in ``csrc/matmul_narrow.cu``: A streams once through a TMA ring of
+  128-row tiles, each consumer thread holding 4 rows × all N columns in
+  registers (FFMA in true f32: the product is bound by A's bytes).  It
+  reads both operands in place through the skinny kernel's tensor maps
+  (:func:`plan_operands` with ``kernel="narrow"``; a layout it cannot read
+  is copied once and counted in :data:`COPIES`), and splits K only as far
+  as fills two blocks an SM in one wave (:func:`plan_narrow`); the split-K
+  sum is folded into the same launch in split order, as the skinny
+  kernel's is (:data:`NARROW_FOLDS`).  Deviation: the f32 sum runs in
+  another order than the TPU kernel's one accumulator over the K grid, a
+  fixed one: within a split, each of four warps sums its eighth of every
+  32-deep K step along K, the warps' sums are added in warp order, then
+  the splits' in split order (:func:`.ref.matmul_split_ref` adds the same
+  partials in the same order).  The K steps follow A's K blocks, so a
+  view whose K blocks are not whole 32-deep steps (block-major, blocks of
+  2000) sums in another order than its contiguous copy: the two agree
+  within the f32 limit, not to the bit.
+* bf16 → ``matmul_tile_kernel`` on contiguous row-major operands (any
+  other layout is copied first and counted in :data:`COPIES`); when its
+  output has too few tiles for the card it splits K across blocks
+  (:func:`plan_launch`) and a second kernel, ``splitk_reduce_kernel``,
+  adds the partial sums (:func:`splitk_reduce`).
 
 A CUDA tensor never falls back to the plain version: the kernel builds and
 launches, or the call raises.  Deviations from the JAX op: no
@@ -58,8 +75,9 @@ relation's own tensor (the JAX engine transposes and reshapes it into a
 Launch counters, one per ``__global__`` kernel, so a run can show that its
 main path went through them: :data:`SKINNY_LAUNCHES`, :data:`LAUNCHES`
 (the tile kernel), :data:`REDUCE_LAUNCHES` (its split-K pass),
-:data:`TC_LAUNCHES` (the tensor-core kernel) and :data:`SPLIT_LAUNCHES`
-(its operand pass, two a product).
+:data:`TC_LAUNCHES` (the tensor-core kernel), :data:`SPLIT_LAUNCHES`
+(its operand pass, two a product) and :data:`NARROW_LAUNCHES` (the narrow
+kernel).
 """
 from __future__ import annotations
 
@@ -84,6 +102,10 @@ FOLDS = 0
 TC_LAUNCHES = 0
 #: operand passes of the tensor-core route made by :func:`tf32_split`
 SPLIT_LAUNCHES = 0
+#: narrow-kernel launches made by :func:`matmul` in this process
+NARROW_LAUNCHES = 0
+#: narrow-kernel launches that split K and folded the partial sums
+NARROW_FOLDS = 0
 #: operands copied into a layout the kernels read
 COPIES = 0
 
@@ -95,7 +117,7 @@ TILE_CONFIGS = {0: (8, 128, 32), 1: (64, 64, 16)}
 #: the skinny kernel takes f32 products of at most this many rows
 SKINNY_MAX_M = 16
 #: f32 products of more rows go to the tensor-core route when they have
-#: more than this many columns, else to the tile kernel
+#: more than this many columns, else to the narrow kernel
 TC_NARROW_COLS = 32
 #: the tensor-core kernel's K step: the split pass pads K to a multiple
 TC_BK = 32
@@ -111,9 +133,22 @@ MAX_SMEM = 232448
 #: a split takes at least this many K tiles
 MIN_SPLIT_TILES = 2
 
+#: the narrow kernel's row tile and K step (one 128-byte swizzled row of A
+#: a stage), its ring depth, and the blocks an SM it plans for: shared
+#: memory for two blocks, each within half the SM's 228 KB less the 1 KB
+#: the card keeps for each block
+NW_BM, NW_BK = 128, 32
+NW_MIN_STAGES, NW_MAX_STAGES = 4, 6
+NW_BLOCKS_PER_SM = 2
+NW_SMEM_CAP = 233472 // NW_BLOCKS_PER_SM - 1024
+#: a split takes at least this many K steps
+NW_MIN_SPLIT_TILES = 8
+
 _lib_handle: Optional[ctypes.CDLL] = None
-#: the skinny kernel's flat launch descriptor: two maps and its arguments
+#: the skinny and narrow kernels' flat launch descriptors: two maps and
+#: their arguments
 _DESC = struct.Struct("42q")
+_NW_DESC = struct.Struct("40q")
 #: ``SplitArgs`` of ``csrc/matmul_wgmma.cu``: the operand's four axes and
 #: their strides, the padded K, the transpose flag
 _SPLIT_ARGS = struct.Struct("10q")
@@ -236,54 +271,55 @@ def _tma_map(inner: int, axes: Sequence[Tuple[int, int]], data_ptr: int,
 
 
 class BPlan(NamedTuple):
-    """How the skinny kernel reads B: its map, the tile kind (``wide``:
-    128-column tiles of 32 K rows; narrow: one tile of all columns, 128 K
-    rows), the tile's pitch ``tc`` in shared memory and ``g``, the B rows
-    one TMA row holds."""
+    """How a kernel reads B: its map, the tile kind (``wide``: 128-column
+    tiles of 32 K rows; narrow: one tile of all columns, ``bk`` K rows),
+    the tile's pitch ``tc`` in shared memory, ``g``, the B rows one TMA row
+    holds, and ``bk``, the K rows of a tile."""
     map: TmaMap
     wide: bool
     tc: int
     g: int
-
-    @property
-    def bk(self) -> int:
-        return WIDE_BK if self.wide else NARROW_BK
+    bk: int
 
 
-def b_map(b: Blocked, data_ptr: int) -> Optional[BPlan]:
+def b_map(b: Blocked, data_ptr: int,
+          narrow_bk: int = NARROW_BK) -> Optional[BPlan]:
     """The skinny kernel's reading of B (logical axes: row within a K
-    block, column block, K block); None when it needs a copy.  Narrow rows
-    whose pitch is not a multiple of 16 bytes (the scorer's W2, 10 f32
-    columns) are read ``g`` packed rows to a TMA row."""
+    block, column block, K block), with narrow tiles of ``narrow_bk`` K
+    rows (the narrow kernel's: :data:`NW_BK`); None when it needs a copy.
+    Narrow rows whose pitch is not a multiple of 16 bytes (the scorer's W2,
+    10 f32 columns) are read ``g`` packed rows to a TMA row."""
     (r0, r1, c0, c1), (s_r0, s_r1, s_c0, s_c1) = b.shape, b.strides
     if c1 > 1 and s_c1 != 1:
         return None
     if c0 > 1 or c1 > NARROW_MAX_COLS:
         m = _tma_map(c1, [(r1, s_r1), (c0, s_c0), (r0, s_r0)], data_ptr,
                      WIDE_COLS, WIDE_BK)
-        return None if m is None else BPlan(m, True, WIDE_COLS, 1)
+        return None if m is None else BPlan(m, True, WIDE_COLS, 1, WIDE_BK)
     if r1 == 1 or s_r1 * 4 % 16 == 0:
         tc = -(-c1 // 4) * 4
         m = _tma_map(c1, [(r1, s_r1), (c0, s_c0), (r0, s_r0)], data_ptr, tc,
-                     NARROW_BK)
-        return None if m is None else BPlan(m, False, tc, 1)
+                     narrow_bk)
+        return None if m is None else BPlan(m, False, tc, 1, narrow_bk)
     g = 16 // math.gcd(c1 * 4, 16)
     if s_r1 != c1 or r1 % g:                 # rows not packed, or ragged
         return None
     m = _tma_map(g * c1, [(r1 // g, g * c1), (c0, s_c0), (r0, s_r0)],
-                 data_ptr, g * c1, NARROW_BK // g)
-    return None if m is None else BPlan(m, False, c1, g)
+                 data_ptr, g * c1, narrow_bk // g)
+    return None if m is None else BPlan(m, False, c1, g, narrow_bk)
 
 
-def a_map(a: Blocked, data_ptr: int, bk: int) -> Optional[TmaMap]:
-    """The skinny kernel's reading of A (logical axes: row within a row
-    block, K block, row block; a box is ``bk`` columns of one row block);
-    None when it needs a copy."""
+def a_map(a: Blocked, data_ptr: int, bk: int,
+          rows: Optional[int] = None) -> Optional[TmaMap]:
+    """The skinny and narrow kernels' reading of A (logical axes: row
+    within a row block, K block, row block; a box is ``bk`` columns of
+    ``rows`` rows, by default a whole row block); None when it needs a
+    copy."""
     (r0, r1, c0, c1), (s_r0, s_r1, s_c0, s_c1) = a.shape, a.strides
     if c1 > 1 and s_c1 != 1:
         return None
     return _tma_map(c1, [(r1, s_r1), (c0, s_c0), (r0, s_r0)], data_ptr, bk,
-                    r1)
+                    rows or r1)
 
 
 def _k_pairs(a: Blocked, b: Blocked):
@@ -298,9 +334,9 @@ def _k_pairs(a: Blocked, b: Blocked):
 
 
 class OperandPlan(NamedTuple):
-    """The skinny kernel's reading of one call, or what to copy first:
-    ``copy_b`` (B's own layout is unreadable), else ``copy_a`` (A's, or no
-    K blocking both share)."""
+    """A kernel's reading of one call, or what to copy first: ``copy_b``
+    (B's own layout is unreadable), else ``copy_a`` (A's, or no K blocking
+    both share)."""
     copy_a: bool = False
     copy_b: bool = False
     a: Optional[Blocked] = None
@@ -309,22 +345,28 @@ class OperandPlan(NamedTuple):
     b_plan: Optional[BPlan] = None
 
 
-def plan_operands(a_view: Tuple, b_view: Tuple) -> OperandPlan:
-    """The skinny kernel's plan for operands given as ``(shape, strides,
-    data_ptr, rows)``: both read in place, or which to copy."""
+def plan_operands(a_view: Tuple, b_view: Tuple,
+                  kernel: str = "skinny") -> OperandPlan:
+    """The skinny (or, with ``kernel="narrow"``, the narrow) kernel's plan
+    for operands given as ``(shape, strides, data_ptr, rows)``: both read in
+    place, or which to copy.  The narrow kernel reads B as one narrow tile
+    of :data:`NW_BK` K rows and A in boxes of :data:`NW_BK` columns ×
+    :data:`NW_BM` rows."""
+    narrow = kernel == "narrow"
     bv = blocked_view(b_view[0], b_view[1], b_view[3])
-    if bv is None:
+    if bv is None or (narrow and bv.shape[2] > 1):
         return OperandPlan(copy_b=True)
+    bk = NW_BK if narrow else NARROW_BK
     av = blocked_view(a_view[0], a_view[1], a_view[3])
     tried = None
     for a2, b2 in (_k_pairs(av, bv) if av is not None else ()):
-        bp = b_map(b2, b_view[2])
+        bp = b_map(b2, b_view[2], bk)
         if b2 is bv:
             tried = bp
-        am = bp and a_map(a2, a_view[2], bp.bk)
+        am = bp and a_map(a2, a_view[2], bp.bk, NW_BM if narrow else None)
         if am is not None:
             return OperandPlan(a=a2, b=b2, a_map=am, b_plan=bp)
-    if (tried or b_map(bv, b_view[2])) is None:
+    if (tried or b_map(bv, b_view[2], bk)) is None:
         return OperandPlan(copy_b=True)
     return OperandPlan(copy_a=True, b=bv)
 
@@ -395,6 +437,76 @@ def plan_skinny(a: Blocked, b: Blocked, bp: BPlan,
                       skinny_smem(bp.wide, bp.tc, mp, kts))
 
 
+class NarrowPlan(NamedTuple):
+    """The narrow kernel's launch plan (its first 13 fields are the first
+    13 of ``NarrowArgs`` in ``csrc/matmul_narrow.cu``): C (m, n); B's slice
+    at ``bpitch`` floats a row in shared memory, ``bg`` B rows to a TMA
+    row; A's rows in blocks of ``a_r1``, each cut into ``rtpb`` tiles of
+    :data:`NW_BM` rows, ``rtiles`` in all; K in blocks of ``kblock``, each
+    cut into ``ktpb`` steps of :data:`NW_BK`, ``ktiles`` in all, and into
+    ``splits`` of ``kts`` steps; a ring of ``stages``; a block's shared
+    memory and the fold's workspace, in floats (0 without split-K)."""
+    m: int
+    n: int
+    bpitch: int
+    bg: int
+    a_r1: int
+    rtpb: int
+    rtiles: int
+    kblock: int
+    ktpb: int
+    ktiles: int
+    kts: int
+    splits: int
+    stages: int
+    smem: int
+    ws_floats: int
+
+    def k_bounds(self) -> list:
+        """Where each split starts along K, and K itself: split z covers
+        K values ``[bounds[z], bounds[z + 1])``."""
+        def start(kt: int) -> int:
+            kb, j = divmod(kt, self.ktpb)
+            return kb * self.kblock + j * NW_BK
+        return [start(min(z * self.kts, self.ktiles))
+                for z in range(self.splits + 1)]
+
+
+def narrow_smem(stages: int, bpitch: int) -> int:
+    """Shared memory of one narrow block, as ``nw_layout`` in
+    ``csrc/matmul_narrow.cu`` lays it out: the A ring, the B ring, the
+    barriers, and the slack that aligns the ring to 1024 bytes."""
+    return stages * (NW_BM * NW_BK * 4 + NW_BK * bpitch * 4) + 128 + 1024
+
+
+def plan_narrow(a: Blocked, b: Blocked, bp: BPlan,
+                num_sms: int) -> NarrowPlan:
+    """Tiles, splits and ring depth for A and B in one K blocking: K is
+    split only as far as fills :data:`NW_BLOCKS_PER_SM` blocks on every SM
+    in one wave (a split at least :data:`NW_MIN_SPLIT_TILES` K steps deep),
+    and the ring is as deep as two blocks an SM allow.  The splits are
+    counted from M's 128-row tiles, not from the view's row blocks, so a
+    blocked view and a contiguous copy of it whose K steps fall alike are
+    split alike and give the same bits."""
+    m, n = a.rows, b.cols
+    rtpb = -(-a.shape[1] // NW_BM)
+    rtiles = a.shape[0] * rtpb
+    k0, k1 = b.shape[:2]
+    ktpb = -(-k1 // NW_BK)
+    ktiles = k0 * ktpb
+    splits = max(1, min(NW_BLOCKS_PER_SM * num_sms // -(-m // NW_BM),
+                        ktiles // NW_MIN_SPLIT_TILES))
+    kts = -(-ktiles // splits)
+    splits = -(-ktiles // kts)
+    fixed = narrow_smem(0, bp.tc)
+    stages = min(NW_MAX_STAGES, (NW_SMEM_CAP - fixed)
+                 // (narrow_smem(1, bp.tc) - fixed))
+    ws = rtiles * splits * NW_BM * n if splits > 1 else 0
+    return NarrowPlan(m, n, bp.tc, bp.g, a.shape[1], rtpb, rtiles, k1, ktpb,
+                      ktiles, kts, splits, stages, narrow_smem(stages, bp.tc),
+                      ws)
+
+
 # ---------------------------------------------------------------- routing
 def _dims(t: torch.Tensor, rows: Optional[int], name: str) -> Tuple[int, int]:
     """(rows, columns) of the matrix an operand stands for."""
@@ -412,7 +524,9 @@ def route(a: torch.Tensor, b: torch.Tensor, impl: str = "auto",
           a_rows: Optional[int] = None, b_rows: Optional[int] = None) -> str:
     """Where :func:`matmul` sends a call: ``"plain"``, ``"skinny"`` (f32
     with at most :data:`SKINNY_MAX_M` rows), ``"tc"`` (f32 with more rows
-    and more than :data:`TC_NARROW_COLS` columns) or ``"tile"``."""
+    and more than :data:`TC_NARROW_COLS` columns), ``"narrow"`` (f32 with
+    more rows and at most :data:`TC_NARROW_COLS` columns) or ``"tile"``
+    (bf16)."""
     return _route(a, b, impl, _dims(a, a_rows, "a")[0],
                   _dims(b, b_rows, "b")[1])
 
@@ -425,8 +539,7 @@ def _route(a: torch.Tensor, b: torch.Tensor, impl: str, m: int,
     if a.dtype == torch.float32:
         if m <= SKINNY_MAX_M:
             return "skinny"
-        if n > TC_NARROW_COLS:
-            return "tc"
+        return "tc" if n > TC_NARROW_COLS else "narrow"
     return "tile"
 
 
@@ -485,6 +598,9 @@ def _lib() -> ctypes.CDLL:
         lib.repro_matmul_skinny.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ctypes.c_char_p, ptr]
         lib.repro_matmul_skinny.restype = i32
+        lib.repro_matmul_narrow.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ctypes.c_char_p, ptr]
+        lib.repro_matmul_narrow.restype = i32
         lib.repro_tf32_split.argtypes = [ptr, ptr, ctypes.c_char_p, ptr]
         lib.repro_tf32_split.restype = i32
         lib.repro_matmul_tc.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
@@ -531,35 +647,39 @@ def _tickets(device: torch.device, stream: int, ntiles: int) -> torch.Tensor:
     return buf
 
 
-def _skinny_operands(a, b, a_rows, b_rows, m, k, n):
-    """A and B as the skinny kernel reads them, copying (and counting)
-    what it cannot read in place; their :class:`OperandPlan`."""
+def _operands(a, b, a_rows, b_rows, m, k, n, kernel: str = "skinny"):
+    """A and B as the skinny (or narrow) kernel reads them, copying (and
+    counting) what it cannot read in place; their :class:`OperandPlan`."""
     global COPIES
-    plan = plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
-                         (b.shape, b.stride(), b.data_ptr(), b_rows))
-    if plan.copy_b:
+
+    def plan(a, b, a_rows, b_rows):
+        return plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
+                             (b.shape, b.stride(), b.data_ptr(), b_rows),
+                             kernel)
+
+    op = plan(a, b, a_rows, b_rows)
+    if op.copy_b:
         bv = blocked_view(b.shape, b.stride(), b_rows)
-        shape = bv.shape if bv is not None else (1, k, 1, n)
+        shape = bv.shape if bv is not None and kernel == "skinny" \
+            else (1, k, 1, n)
         b, b_rows = _padded_copy(b, shape), 2
         COPIES += 1
-        plan = plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
-                             (b.shape, b.stride(), b.data_ptr(), b_rows))
-    if plan.copy_a:
-        k0, k1 = plan.b.shape[:2]
+        op = plan(a, b, a_rows, b_rows)
+    if op.copy_a:
+        k0, k1 = op.b.shape[:2]
         a, a_rows = _padded_copy(a, (1, m, k0, k1)), 2
         COPIES += 1
-        plan = plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
-                             (b.shape, b.stride(), b.data_ptr(), b_rows))
-    if plan.copy_a or plan.copy_b:
+        op = plan(a, b, a_rows, b_rows)
+    if op.copy_a or op.copy_b:
         raise RuntimeError(f"matmul: no readable layout after the copies "
-                           f"({plan})")
-    return a, b, plan
+                           f"({op})")
+    return a, b, op
 
 
 def _launch_skinny(a, b, a_rows, b_rows, m, k, n, out_dtype,
                    keep_partials: bool = False):
     global SKINNY_LAUNCHES, FOLDS
-    a, b, op = _skinny_operands(a, b, a_rows, b_rows, m, k, n)
+    a, b, op = _operands(a, b, a_rows, b_rows, m, k, n)
     sp = plan_skinny(op.a, op.b, op.b_plan, _sm_count(a.device))
     if sp.smem > MAX_SMEM:
         raise ValueError(f"matmul: the skinny kernel's plan takes "
@@ -601,6 +721,62 @@ def _partials(ws: torch.Tensor, sp: SkinnyPlan) -> torch.Tensor:
         w = min(sp.tc, sp.n1 - j * sp.tc)
         col = c0 * sp.n1 + j * sp.tc
         out[:, :, col:col + w] = tiles[t, :, :sp.m, :w]
+    return out
+
+
+def _launch_narrow(a, b, a_rows, b_rows, m, k, n, out_dtype,
+                   keep_partials: bool = False):
+    """``matmul_narrow_kernel``: f32 (m, k) @ (k, n), n <= 32, one launch,
+    its split-K sum folded in.  With ``keep_partials``, also the splits'
+    partial products as ``(splits, m, n)`` (None without split-K)."""
+    global NARROW_LAUNCHES, NARROW_FOLDS
+    a, b, op = _operands(a, b, a_rows, b_rows, m, k, n, "narrow")
+    nw = plan_narrow(op.a, op.b, op.b_plan, _sm_count(a.device))
+    if nw.smem > MAX_SMEM:
+        raise ValueError(f"matmul: the narrow kernel's plan takes "
+                         f"{nw.smem} bytes of shared memory")
+    if max(m, k) >= 2 ** 31 or nw.rtiles * nw.splits >= 2 ** 31:
+        raise ValueError(f"matmul: {m}x{k} @ {k}x{n} exceeds the narrow "
+                         f"kernel's grid")
+    device = a.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out = torch.empty((m, n), dtype=out_dtype, device=device)
+    ws = tickets = None
+    if nw.splits > 1:
+        ws = torch.empty(nw.ws_floats, dtype=torch.float32, device=device)
+        tickets = _tickets(device, stream, nw.rtiles)
+    desc = (op.a_map.spec() + op.b_plan.map.spec() + nw[:13]
+            + (op.a_map.perm, op.b_plan.map.perm,
+               int(out_dtype == torch.bfloat16)))
+    with torch.cuda.device(device):
+        rc = _lib().repro_matmul_narrow(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            _NW_DESC.pack(*desc), stream)
+    _raise_on(rc, f"narrow matmul kernel launch failed ({m}x{k} @ {k}x{n}, "
+                  f"{nw.splits} splits)")
+    NARROW_LAUNCHES += 1
+    NARROW_FOLDS += nw.splits > 1
+    if not keep_partials:
+        return out
+    return out, (None if ws is None else _narrow_partials(ws, nw))
+
+
+def _narrow_partials(ws: torch.Tensor, nw: NarrowPlan) -> torch.Tensor:
+    """The narrow kernel's workspace, (row tile, split, tile row, column),
+    read back as ``(splits, m, n)``: row tile t holds rows ``rw .. rw +
+    127`` of row block ``rb`` (those past the block's ``a_r1`` rows are
+    padding)."""
+    tiles = ws.view(nw.rtiles, nw.splits, NW_BM, nw.n)
+    out = torch.empty((nw.splits, nw.m, nw.n), dtype=torch.float32,
+                      device=ws.device)
+    for t in range(nw.rtiles):
+        rb, j = divmod(t, nw.rtpb)
+        rw = j * NW_BM
+        h = min(NW_BM, nw.a_r1 - rw)
+        row = rb * nw.a_r1 + rw
+        out[:, row:row + h] = tiles[t, :, :h]
     return out
 
 
@@ -762,5 +938,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
                               out_dtype)
     if where == "tc":
         return _launch_tc(a, b, a_rows, b_rows, m, n, out_dtype)
+    if where == "narrow":
+        return _launch_narrow(a, b, a_rows or 1, b_rows or 1, m, k, n,
+                              out_dtype)
     return _launch_tile(a, b, m, k, n, out_dtype)
 

@@ -7,8 +7,11 @@ yardstick the CUDA kernel is held against on the card.  Mirrors
 f32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False (the
 default), which callers comparing at 1e-5 set explicitly.
 
-:func:`tf32_split_ref` is the plain version of the tensor-core route's
-operand pass (``tf32_split_kernel``), in torch bit operations.
+:func:`matmul_split_ref` sums a product the way the narrow kernel folds
+its split-K sum: each K split's partial product, then the partials added
+in split order.  :func:`tf32_split_ref` is the plain version of the
+tensor-core route's operand pass (``tf32_split_kernel``), in torch bit
+operations.
 """
 from __future__ import annotations
 
@@ -30,6 +33,18 @@ def splitk_reduce_ref(partial: torch.Tensor,
     for s in range(partial.shape[0]):
         out = out + partial[s]
     return out.to(out_dtype)
+
+
+def matmul_split_ref(a: torch.Tensor, b: torch.Tensor, bounds,
+                     out_dtype: torch.dtype = None) -> torch.Tensor:
+    """``a @ b`` summed in the narrow kernel's split order: the partial
+    product of each K split ``[bounds[z], bounds[z + 1])`` in f32, then the
+    partials added in split order (:func:`splitk_reduce_ref`).  ``bounds``
+    runs from 0 to K (``NarrowPlan.k_bounds``)."""
+    out_dtype = out_dtype or a.dtype
+    parts = torch.stack([matmul_ref(a[:, k0:k1], b[k0:k1], torch.float32)
+                         for k0, k1 in zip(bounds[:-1], bounds[1:])])
+    return splitk_reduce_ref(parts, out_dtype)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -247,22 +247,23 @@ def test_padded_copy_is_what_the_plan_reads():
 @pytest.mark.parametrize("m,dtype,impl,want", [
     (8, torch.float32, "kernel", "skinny"), (16, torch.float32, "kernel",
                                              "skinny"),
-    (17, torch.float32, "kernel", "tile"), (8, torch.bfloat16, "kernel",
-                                            "tile"),
+    (17, torch.float32, "kernel", "narrow"), (8, torch.bfloat16, "kernel",
+                                              "tile"),
     (8, torch.float32, "auto", "plain"), (8, torch.float32, "plain",
                                           "plain"),
     ((17, 33), torch.float32, "kernel", "tc"),
     ((10000, 100000), torch.float32, "kernel", "tc"),
-    ((17, 32), torch.float32, "kernel", "tile"),
-    ((10000, 10), torch.float32, "kernel", "tile"),
+    ((17, 32), torch.float32, "kernel", "narrow"),
+    ((10000, 10), torch.float32, "kernel", "narrow"),
     ((16, 100000), torch.float32, "kernel", "skinny"),
     ((17, 33), torch.bfloat16, "kernel", "tile"),
     ((17, 33), torch.float32, "auto", "plain")])
 def test_route(m, dtype, impl, want):
     """f32 with m <= 16 goes to the skinny kernel; f32 with more rows to
     the tensor-core route when B has more than 32 columns, else to the
-    tile kernel, as bf16 does; CPU tensors under "auto" to the plain
-    version.  ``m`` is A's rows (B 8 columns wide) or (rows, columns)."""
+    narrow kernel; bf16 to the tile kernel; CPU tensors under "auto" to
+    the plain version.  ``m`` is A's rows (B 8 columns wide) or (rows,
+    columns)."""
     m, n = m if isinstance(m, tuple) else (m, 8)
     a, b = torch.zeros(m, 32, dtype=dtype), torch.zeros(32, n, dtype=dtype)
     assert ops.route(a, b, impl) == want

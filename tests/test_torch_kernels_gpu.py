@@ -98,6 +98,11 @@ def _tc_counts():
     return ops.TC_LAUNCHES, ops.SPLIT_LAUNCHES
 
 
+def _narrow_counts():
+    """Launches of the narrow kernel, and those that folded."""
+    return ops.NARROW_LAUNCHES, ops.NARROW_FOLDS
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", SHAPES)
 @pytest.mark.parametrize("dtype", sorted(TOL))
@@ -112,8 +117,9 @@ def test_kernel_matches_plain_on_card(cuda, m, k, n, dtype):
     tc, passes = (x - y for x, y in zip(_tc_counts(), tc_before))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     route = ops.route(a, b, "kernel")
-    assert route == ("skinny" if m <= 16 and dtype == "float32" else
-                     "tc" if n > 32 and dtype == "float32" else "tile")
+    assert route == ("tile" if dtype != "float32" else "skinny" if m <= 16
+                     else "tc" if n > 32 else "narrow")
+    assert route != "narrow"             # the narrow tests are below
     if route == "skinny":
         assert (skinny, tile, reduces, tc, passes) == (1, 0, 0, 0, 0)
     elif route == "tc":
@@ -385,6 +391,177 @@ def test_tc_route_ragged_edges_on_card(cuda, m, k, n):
     half = ops.matmul(a, b, impl="kernel", out_dtype=torch.bfloat16)
     assert half.dtype == torch.bfloat16
     assert torch.equal(half, got.to(torch.bfloat16))
+
+
+# ------------------------------------------------- the narrow kernel
+def _narrow_check(got, a, b):
+    """``got`` against the exact product (the operands multiplied in f64)
+    within the f32 limit at this K.  Not against the plain version in f32:
+    at K 100000 on N(0, 1) operands a few outputs of the two differ by more
+    than the limit.  Returns the largest error of ``got`` and of the f32
+    plain version against the exact product."""
+    k = a.shape[1]
+    rtol = 1e-4 if k >= 100000 else 1e-5
+    exact = a.double() @ b.double()
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               exact.cpu().numpy(), rtol=rtol,
+                               atol=1e-5 * k ** 0.5)
+    return ((got.double() - exact).abs().max().item(),
+            (matmul_ref(a, b).double() - exact).abs().max().item())
+
+
+def _narrow_operands(m, k, n, device, seed):
+    """f32 A (m, k) and B (k, n) drawn on the card (the train shape's 4 GB
+    A would take a while through numpy)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((m, k), generator=g, device=device),
+            torch.randn((k, n), generator=g, device=device))
+
+
+def _narrow_plan(a, b, a_rows=1, b_rows=1):
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    op = ops.plan_operands((a.shape, a.stride(), a.data_ptr(), a_rows),
+                           (b.shape, b.stride(), b.data_ptr(), b_rows),
+                           "narrow")
+    return ops.plan_narrow(op.a, op.b, op.b_plan, sms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(10000, 100000, 10)]
+                         + [(333, 4004, n) for n in range(1, 33)]
+                         + [(17, 100000, 10), (129, 32, 1), (2000, 96, 32)])
+def test_narrow_kernel_matches_plain_on_card(cuda, m, k, n):
+    """The narrow kernel at the train path's a1·W2 and at ragged M, K and
+    N = 1 … 32 (K 4004 is off the 32-deep step but keeps rows on 16 bytes,
+    so nothing is copied): one launch, no other kernel, no copy, within
+    the f32 limit of ``matmul_ref``, and a second launch bit-identical."""
+    a, b = _narrow_operands(m, k, n, cuda, seed=7)
+    before = _counts(), _tc_counts(), _narrow_counts()
+    got = ops.matmul(a, b, impl="kernel")
+    torch.cuda.synchronize()
+    assert (_counts(), _tc_counts()) == before[:2]
+    plan = _narrow_plan(a, b)
+    assert _narrow_counts() == (before[2][0] + 1,
+                                before[2][1] + (plan.splits > 1))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    err, plain_err = _narrow_check(got, a, b)
+    if k >= 100000:              # a sum in 12 or more parts against one
+        assert err <= plain_err
+    assert torch.equal(ops.matmul(a, b), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_major,bh", [(False, 2000), (True, 2048),
+                                            (True, 2000)])
+def test_narrow_kernel_reads_blocked_views_in_place_on_card(cuda,
+                                                            block_major, bh):
+    """a1·W2 as the engine hands it over, at nb = 4, hb = 5: a1 as the
+    view (nb, bn | hb, bh) of a tensor stored row-major (as the X·W1
+    product leaves it) or block-major (nb, hb, bn, bh), W2 as the view
+    (hb, bh | lb, bl) of its blocked tensor.  Read in place (no copy) and
+    within the f32 limit; bit-identical to the same values handed over as
+    contiguous 2-D tensors where the K blocks are whole 32-deep K steps.
+    Block-major a1 with K blocks of 2000 is not: it is read a K block at a
+    time, each block ending in a short step, which moves the later steps'
+    sums to other warps and the splits' bounds along K.  There the two
+    results are held to each other within the f32 limit (rtol 1e-5, atol
+    1e-5·√K) instead."""
+    nb, bn, hb, n = 4, 300, 5, 10
+    r = np.random.default_rng(8)
+    a1 = torch.tensor(r.standard_normal((nb, bn, hb, bh)),
+                      dtype=torch.float32, device=cuda)
+    if block_major:
+        a1 = a1.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    w2 = torch.tensor(r.standard_normal((hb, 1, bh, n)),
+                      dtype=torch.float32, device=cuda)
+    w2_view = w2.permute(0, 2, 1, 3)
+    a2, b2 = a1.reshape(nb * bn, -1), w2_view.reshape(hb * bh, n)
+    copies, (launches, _) = ops.COPIES, _narrow_counts()
+    got = ops.matmul(a1, w2_view, a_rows=2, b_rows=2)
+    torch.cuda.synchronize()
+    assert ops.COPIES == copies and _narrow_counts()[0] == launches + 1
+    _narrow_check(got, a2, b2)
+    flat = ops.matmul(a2.contiguous(), b2.contiguous())
+    if block_major and bh % 32:
+        k = hb * bh
+        np.testing.assert_allclose(got.cpu().numpy(), flat.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5 * k ** 0.5)
+    else:
+        assert torch.equal(flat, got)
+
+
+@pytest.mark.gpu
+def test_narrow_kernel_copies_an_unreadable_view_once_on_card(cuda):
+    """A with rows of 4001 f32 (off 16 bytes) is out of TMA's reach: the op
+    copies it once into a padded layout, counts the copy, and the result
+    is the same."""
+    a, b = _narrow_operands(300, 4001, 12, cuda, seed=9)
+    copies, (launches, _) = ops.COPIES, _narrow_counts()
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.COPIES == copies + 1
+    assert _narrow_counts()[0] == launches + 1
+    _narrow_check(got, a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(10000, 100000, 10), (333, 4004, 7),
+                                   (17, 100000, 32)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_narrow_fold_is_the_split_order_sum_of_its_partials(cuda, m, k, n,
+                                                            out_dtype):
+    """The fold adds the splits' partial tiles in split order: the output
+    equals ``splitk_reduce_ref`` of the kernel's own partials to the bit
+    (the second half of ``matmul_split_ref``); each partial is its split's
+    product (``plan.k_bounds``) within the f32 limit; and the tickets are
+    all 0 again after the launch."""
+    a, b = _narrow_operands(m, k, n, cuda, seed=10)
+    plan = _narrow_plan(a, b)
+    assert plan.splits > 1
+    folds = ops.NARROW_FOLDS
+    got, partials = ops._launch_narrow(a, b, 1, 1, m, k, n, out_dtype,
+                                       keep_partials=True)
+    torch.cuda.synchronize()
+    assert ops.NARROW_FOLDS == folds + 1
+    assert tuple(partials.shape) == (plan.splits, m, n)
+    assert torch.equal(got, splitk_reduce_ref(partials, out_dtype))
+    bounds = plan.k_bounds()
+    for z in range(plan.splits):
+        _narrow_check(partials[z], a[:, bounds[z]:bounds[z + 1]],
+                      b[bounds[z]:bounds[z + 1]])
+    if out_dtype == torch.float32:
+        _narrow_check(got, a, b)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    tickets = ops._TICKETS[(cuda.index if cuda.index is not None
+                            else torch.cuda.current_device(), stream)]
+    assert not bool(tickets.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(300, 100000, 32), (17, 100000, 32),
+                                   (10000, 100000, 10), (8, 100000, 10)])
+def test_repeated_launches_are_bit_identical_on_card(cuda, m, k, n):
+    """40 launches of the narrow kernel (and of the skinny kernel, 8 rows),
+    each bit-identical to the first and within the f32 limit of the exact
+    product.  A stage read by the CUDA cores must be fenced against the
+    TMA that refills it: without the fence, at N 32 the last columns of a
+    split came from the next stage in most launches."""
+    a, b = _narrow_operands(m, k, n, cuda, seed=10)
+    first = ops.matmul(a, b)
+    _narrow_check(first, a, b)
+    for _ in range(39):
+        assert torch.equal(ops.matmul(a, b), first)
+
+
+@pytest.mark.gpu
+def test_narrow_kernel_never_falls_back_on_card(cuda):
+    """A CUDA call on the narrow route launches the kernel or raises: a
+    CPU operand beside a CUDA one raises, and launches nothing."""
+    a, b = _narrow_operands(300, 256, 10, cuda, seed=11)
+    launches = _narrow_counts()[0]
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.matmul(a, b.cpu())
+    assert _narrow_counts()[0] == launches
 
 
 @pytest.mark.gpu
@@ -1040,36 +1217,34 @@ def _train_setup(cuda, optimizer):
 def test_ffnn_train_step_on_card(cuda, optimizer, monkeypatch):
     """Three steps of the §5.3 train step through the hand kernels (X·W1
     on the tensor-core route, two split passes and one tensor-core launch;
-    a1·W2, 10 columns wide, on the tile kernel, split in K and summed by
-    the split-K pass) against the same steps with the matmul op's plain
-    version on the card, at 1e-4."""
+    a1·W2, 10 columns wide, on the narrow kernel, one launch) against the
+    same steps with the matmul op's plain version on the card, at 1e-4."""
     from repro_torch.core import SGD, AdamW
     make = {"sgd": lambda: SGD(0.01), "adamw": lambda: AdamW(1e-2)}
     nb, db, hb, lb, bn, bd, bh, bl = TRAIN_DIMS
     n, d, h, l_ = nb * bn, db * bd, hb * bh, lb * bl
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    splits = [ops.plan_launch(n, h, d, sms)[1],
-              ops.plan_launch(n, l_, h, sms)[1]]
-    assert splits[1] > 1
+    assert ops.route(torch.empty(n, h, device="meta"),
+                     torch.empty(h, l_, device="meta"), "kernel") == "narrow"
     trainer, data = _train_setup(cuda, make[optimizer]())
-    before, tc_before = _counts(), _tc_counts()
+    before, tc_before, nw_before = _counts(), _tc_counts(), _narrow_counts()
     losses = trainer.fit(3, **data)
     torch.cuda.synchronize()
     skinny, tile, reduces, _, copies = (x - y for x, y in
                                         zip(_counts(), before))
     tc, passes = (x - y for x, y in zip(_tc_counts(), tc_before))
-    assert (skinny, tile, reduces, tc, passes) == (
-        0, 3, 3 * (splits[1] > 1), 3, 2 * 3)
-    assert copies == 0                  # X, W1 and a1 are read in place
+    narrow, _ = (x - y for x, y in zip(_narrow_counts(), nw_before))
+    assert (skinny, tile, reduces, tc, passes, narrow) == (
+        0, 0, 0, 3, 2 * 3, 3)
+    assert copies == 0                  # X, W1, a1 and W2 are read in place
     assert trainer.engine.cache_hits == 2
     real = ops.matmul
     monkeypatch.setattr(ops, "matmul", lambda a, b, **kw: real(
         a, b, **{**kw, "impl": "plain"}))
     plain, data = _train_setup(cuda, make[optimizer]())
-    before = _counts()
-    tc_before = _tc_counts()
+    before = _counts(), _tc_counts(), _narrow_counts()
     want = plain.fit(3, **data)
-    assert _counts() == before and _tc_counts() == tc_before
+    assert (_counts(), _tc_counts(), _narrow_counts()) == before
     np.testing.assert_allclose(losses, want, rtol=1e-4, atol=1e-4)
     for k in trainer.params:
         np.testing.assert_allclose(trainer.params[k].data.cpu().numpy(),
@@ -1081,9 +1256,10 @@ def test_ffnn_train_step_on_card(cuda, optimizer, monkeypatch):
 @pytest.mark.parametrize("rows", [2000, 10000])
 def test_tile_kernel_at_the_train_second_product_on_card(cuda, rows):
     """The train path's second forward product scaled down in K, a1·W2
-    with 10 columns: a1 handed over as the engine's blocked view
-    (nb, bn | hb, bh), the tile kernel split in K and the split-K pass
-    summing the partials, against the plain version."""
+    with 10 columns, on the tile kernel (the route it took before the
+    narrow kernel): a1 handed over as the engine's blocked view (nb, bn |
+    hb, bh), which the tile kernel copies, the tile kernel split in K and
+    the split-K pass summing the partials, against the plain version."""
     nb, hb, bh, n = 10, 5, 2000, 10
     bn = rows // nb
     r = np.random.default_rng(5)
@@ -1096,7 +1272,7 @@ def test_tile_kernel_at_the_train_second_product_on_card(cuda, rows):
     splits = ops.plan_launch(rows, n, hb * bh, sms)[1]
     assert splits > 1
     before, tc_before = _counts(), _tc_counts()
-    got = ops.matmul(a_view, w2, a_rows=2)
+    got = ops._launch_tile(a_view, w2, rows, hb * bh, n, torch.float32)
     torch.cuda.synchronize()
     skinny, tile, reduces, _, copies = (x - y for x, y in zip(_counts(),
                                                               before))
