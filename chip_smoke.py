@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's five main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's six main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
-through ``TraServer`` on the ``jit`` executor; the same FFNN trained at
+through ``TraServer`` on the ``jit`` executor; ``RecurrentLM``'s
+continuous-batching decode at gemma2-2b's width (d_model 2304, vocab
+256000) served through ``TraServer`` as well; the same FFNN trained at
 that width on a minibatch of 10000 through ``TraTrainer``, plan-level
 autodiff and AdamW; gemma2-2b at full width
 (26 layers, d_model 2304, vocab 256000), mamba2-130m at full width (24
@@ -147,7 +149,42 @@ its plain PyTorch version on the card:
    within ``BF16_FLOOR_FACTOR`` of the rounding floor (both plain, the
    SSD in half-size chunks against full ones); a profile by kernel of one
    prefill (13 + 78 launches) and of 8 decode steps (none); peak memory;
-11. the kernels line, the ``nvidia-smi`` line, and the last line
+11. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
+   2304, vocab 256000; Wh, Wx, Wo and the embedding table drawn on the card
+   from seed 0), capacity 8, through ``TraServer(Engine(device="cuda",
+   executor="jit"))`` with TF32 off: 40 requests from ``lm_mix`` (prompts
+   of 1-8 tokens, 1-12 new tokens) arriving by ``open_loop`` at a Poisson
+   50 requests/s — the JAX launcher's documented run
+   (``src/repro/launch/serve.py:3-4``) at full width — with every launch
+   count set to 0 just before and read just after.  Gates: each request's
+   tokens equal the oracle's (``oracle_decode``'s loop, plain f32 on the
+   card) and each generated token's logits lie within the step's limit of
+   the oracle's: ``tolerance(2304, f32)`` with its atol scaled by the
+   step's max|h'|·max|Wo| (the unscaled form assumes unit operands; a
+   logit here is ~1e-2), never above that ceiling; where the tokens part,
+   the oracle's two highest logits at that step lie within that same limit
+   of each other (a near-tie, counted and printed; later steps of that
+   request are not compared); 1 compile and 0 cache misses after warmup;
+   every hand-kernel launch count 0 (JAX's optimizer leaves the step's
+   products unfused, so they run on cuBLAS); after the drain no slot is
+   held and every state row is zero; a control on the logits gate: one
+   full tick from a non-zero state passes the limit as served, and fails
+   it with its logits from operands rounded to TF32 or to bf16 (read too:
+   the served tick with ``allow_tf32`` on, and each share of the
+   ceiling).
+   Then the same requests again on an engine with ``check_numerics=True``
+   and ``chaos_injector(site_every=7, nan_node="relu", nan_every=11)``,
+   ``max_retries`` 8 (``benchmarks/resilience.py``'s budget, above the 7
+   faults a 20-token request can meet): every request completes with the
+   clean run's tokens, ``transient_faults`` and ``recovered`` above 0, no
+   launch of a hand kernel.  Printed: ticks, host ms a tick (median, each
+   tick ending in its logits' copy to the host), device ms a tick from a
+   profile by kernel of 10 full ticks, the tick's bound (the three
+   products' bytes, Wh + Wx + Wo = 2.40 GB, at the HBM rate), tokens/s,
+   p50/p99, peak memory, the logits copied to the host a tick (8.2 MB)
+   and the time of that copy and of the state snapshot, the chaos run's
+   counters and extra wall time, and the card's name and power limit;
+12. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -2715,6 +2752,337 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
               f"scorer's second product"}]
 
 
+# ------------------------------------------------------------ LM decode
+LM_CAPACITY = 8
+LM_REQUESTS = 40
+LM_RATE = 50.0                   # requests/s, Poisson
+LM_PROMPT = (1, 8)               # prompt tokens (lm_mix's defaults)
+LM_NEW = (1, 12)                 # new tokens
+LM_MAX_RETRIES = 8               # benchmarks/resilience.py's MAX_RETRIES
+LM_CHAOS = {"site_every": 7, "nan_node": "relu", "nan_every": 11}
+LM_PROFILE_TICKS = 10
+
+
+def lm_logit_limit(lm, h, wo_max: float) -> tuple:
+    """(rtol, atol) for one step's logits ``h'·Wo``: ``tolerance(d, f32)``,
+    whose atol 1e-5·√K assumes operands of unit size, with its atol scaled
+    by max|h'|·max|Wo| (Wo is drawn at d^-0.5, a logit is ~1e-2).  Never
+    above the ceiling: it tightens the limit so that it parts f32 from a
+    TF32 product (:func:`lm_precision_control`)."""
+    rtol, atol = tolerance(lm.d, torch.float32)
+    return rtol, min(atol, atol * float(h.abs().max()) * wo_max)
+
+
+def lm_oracle(lm, prompt, max_new_tokens, wo_max: float) -> tuple:
+    """``oracle_decode``'s loop, step by step through ``oracle_step``, on
+    the card in plain f32: the generated tokens, their logits, and each
+    step's :func:`lm_logit_limit`."""
+    h = torch.zeros((1, lm.d), dtype=torch.float32, device=lm.device)
+    for t in prompt[:-1]:
+        h, _ = lm.oracle_step(h, int(t))
+    tok, toks, logs, limits = int(prompt[-1]), [], [], []
+    for _ in range(max_new_tokens):
+        h, logits = lm.oracle_step(h, tok)
+        tok = lm.next_token(logits)
+        toks.append(tok)
+        logs.append(logits)
+        limits.append(lm_logit_limit(lm, h, wo_max))
+    return toks, logs, limits
+
+
+def lm_wo_max(lm) -> float:
+    return float(lm.weights()["lm.Wo"].data.abs().max())
+
+
+def lm_token_checks(lm, reqs, results) -> dict:
+    """Each request's tokens against the oracle's (:func:`lm_oracle`), each
+    generated token's logits within that step's :func:`lm_logit_limit` of
+    the oracle's.  Where the tokens part, the oracle's two highest logits
+    at that step must lie within the same limit of each other (a tie on
+    rounding alone at 256000 logits); such a case is counted, and the
+    steps after it, conditioned on other tokens, are not compared.  The
+    worst share is read against the ceiling ``tolerance(d, f32)`` too."""
+    rtol, ceiling = tolerance(lm.d, torch.float32)
+    wo_max = lm_wo_max(lm)
+    worst, worst_ceiling, compared, ties = 0.0, 0.0, 0, []
+    atols = []
+    for r, (req, res) in enumerate(zip(reqs, results)):
+        toks, logs, limits = lm_oracle(lm, req.prompt, req.max_new_tokens,
+                                       wo_max)
+        if len(res["tokens"]) != len(toks) or \
+                len(res["logits"]) != len(logs):
+            fail(f"lm_serve: request {r} gave {len(res['tokens'])} tokens, "
+                 f"the oracle {len(toks)}")
+        for j, (gt, wt, gl, wl, (_, atol)) in enumerate(zip(
+                res["tokens"], toks, res["logits"], logs, limits)):
+            gl, wl = np.asarray(gl), np.asarray(wl)
+            if gl.shape != (lm.vocab,) or not np.all(np.isfinite(gl)):
+                fail(f"lm_serve: request {r} step {j}: logits of shape "
+                     f"{gl.shape} / not finite")
+            off = np.abs(gl - wl)
+            share = float(np.max(off / (atol + rtol * np.abs(wl))))
+            worst = max(worst, share)
+            worst_ceiling = max(worst_ceiling, float(np.max(
+                off / (ceiling + rtol * np.abs(wl)))))
+            atols.append(atol)
+            compared += 1
+            if share > 1.0:
+                fail(f"lm_serve: request {r} step {j}: logits off the "
+                     f"oracle's by {share:.3f}x the step's limit "
+                     f"(atol {atol})")
+            if gt != wt:
+                top = np.sort(wl)[-2:]
+                limit = atol + rtol * abs(float(top[1]))
+                gap = float(top[1] - top[0])
+                if gap > limit:
+                    fail(f"lm_serve: request {r} step {j}: token {gt} "
+                         f"against the oracle's {wt}, whose top-2 gap "
+                         f"{gap} exceeds the limit {limit}")
+                ties.append({"request": r, "step": j, "token": gt,
+                             "oracle_token": wt, "top2_gap": gap,
+                             "limit": limit})
+                break
+    return {"logits_compared": compared,
+            "logits_worst_share_of_limit": worst,
+            "logits_worst_share_of_ceiling": worst_ceiling,
+            "near_ties": len(ties), "near_tie_cases": ties,
+            "tolerance": [rtol, ceiling],
+            "step_atol_range": [min(atols), max(atols)]}
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest): the operands a
+    tensor-core f32 product reads when ``allow_tf32`` is on."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def lm_precision_control(lm, compiled) -> dict:
+    """The control on the logits gate.  One full tick of the served step
+    program from a non-zero state, against the f32 oracle's step for every
+    slot: as served it must pass :func:`lm_logit_limit`; the same tick's
+    logits from operands at TF32 and at bf16 precision (the oracle's h'
+    and Wo rounded, products summed in f32) must fail it.  Also read: the
+    served tick with ``allow_tf32`` on (cuBLAS may or may not take tensor
+    cores for the step's products), and every share of the ceiling
+    ``tolerance(d, f32)``."""
+    c, d = lm.capacity, lm.d
+    weights, wo_max = lm.weights(), lm_wo_max(lm)
+    wo = weights["lm.Wo"].data[0, 0]
+    rtol, ceiling = tolerance(d, torch.float32)
+    s0 = compiled.run(**lm.step_inputs(list(range(1, c + 1))), **weights,
+                      **{"lm.state": lm.init_state()})["state"]
+    toks = list(range(c + 1, 2 * c + 1))
+    rows = s0.data.reshape(c, d)
+    hs, want, atols = [], [], []
+    for i, t in enumerate(toks):
+        h, logits = lm.oracle_step(rows[i:i + 1], t)
+        hs.append(h)
+        want.append(logits)
+        atols.append(lm_logit_limit(lm, h, wo_max)[1])
+    h = torch.cat(hs)
+
+    def served(tf32):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got = compiled.run(**lm.step_inputs(toks), **weights,
+                               **{"lm.state": s0})["logits"].data
+            return got.reshape(c, lm.vocab).cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def shares(got):
+        off = [np.abs(g - w) for g, w in zip(got, want)]
+        return {"worst_share_of_limit": max(float(np.max(
+                    o / (a + rtol * np.abs(w)))) for o, a, w in
+                    zip(off, atols, want)),
+                "worst_share_of_ceiling": max(float(np.max(
+                    o / (ceiling + rtol * np.abs(w)))) for o, w in
+                    zip(off, want)),
+                "max_abs_err": max(float(o.max()) for o in off)}
+
+    out = {"served_f32": shares(served(False)),
+           "served_allow_tf32": shares(served(True)),
+           "tf32_operands": shares(
+               (tf32_round(h) @ tf32_round(wo)).cpu().numpy()),
+           "bf16_operands": shares(
+               (h.bfloat16().float() @ wo.bfloat16().float()).cpu().numpy())}
+    if out["served_f32"]["worst_share_of_limit"] > 1.0:
+        fail(f"lm_serve control: the served tick fails its limit ({out})")
+    for name in ("tf32_operands", "bf16_operands"):
+        if out[name]["worst_share_of_limit"] <= 1.0:
+            fail(f"lm_serve control: logits from {name} pass the limit, "
+                 f"which then cannot tell them from f32 ({out})")
+    return out
+
+
+def lm_tick_bound_ms(lm) -> tuple:
+    """The least time of one decode tick: its three products (s·Wh and
+    emb·Wx at capacity rows, h·Wo), each operand read once and each output
+    written once, by :func:`bound_times`; Wh, Wx and Wo hold (2·d² +
+    d·vocab)·4 bytes."""
+    c, d, v = lm.capacity, lm.d, lm.vocab
+    parts = [bound_times(c, d, d, torch.float32),
+             bound_times(c, d, d, torch.float32),
+             bound_times(c, d, v, torch.float32)]
+    t_bytes = sum(p[0] for p in parts)
+    t_ops = sum(p[1] for p in parts)
+    return (*bound_of(t_bytes, t_ops), t_bytes, t_ops,
+            (2 * d * d + d * v) * 4)
+
+
+def timed_ticks(server) -> list:
+    """Wrap the server's decode tick: host-clock ms of every tick that
+    dispatched (ending in the logits' copy to the host, which syncs)."""
+    ms, real = [], server._step_decode
+
+    def tick(now):
+        before = sum(server.dispatches.values())
+        t0 = time.perf_counter()
+        out = real(now)
+        if sum(server.dispatches.values()) > before:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    server._step_decode = tick
+    return ms
+
+
+def lm_serve_run(lm, engine, reqs, arrivals, **kw):
+    from repro_torch.serve import TraServer, open_loop
+    server = TraServer(engine, lm, collect_logits=True, **kw)
+    server.warmup()
+    ticks = timed_ticks(server)
+    reset_launches()
+    report = open_loop(server, reqs, arrivals)
+    launches = read_launches()
+    return server, report, launches, ticks
+
+
+def phase_lm_serve(device, smi) -> dict:
+    """``RecurrentLM`` at gemma2-2b's full width served through
+    ``TraServer`` on the ``jit`` executor: 40 Poisson requests, then the
+    same requests under a chaos schedule with ``check_numerics``."""
+    from repro_torch.core import Engine
+    from repro_torch.serve import (RecurrentLM, chaos_injector, lm_mix,
+                                   poisson_arrivals)
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = RecurrentLM.from_config(cfg, capacity=LM_CAPACITY, seed=SEED,
+                                 device=device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    reqs = lm_mix(lm, rng, LM_REQUESTS, prompt_len=LM_PROMPT,
+                  new_tokens=LM_NEW)
+    arrivals = poisson_arrivals(rng, LM_REQUESTS, LM_RATE)
+    engine = Engine(executor="jit", device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # -- the main path: every launch count is 0 just before, read just after
+    server, report, launches, ticks = lm_serve_run(lm, engine, reqs,
+                                                   arrivals)
+    # ---------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated(device)
+    if report.errors or report.shed:
+        fail(f"lm_serve: {report.errors} errors, {report.shed} shed")
+    if engine.cache_misses != 1 or server.cache_misses_since_warmup != 0:
+        fail(f"lm_serve: {engine.cache_misses} compiles, "
+             f"{server.cache_misses_since_warmup} cache misses after "
+             f"warmup; expected 1 and 0")
+    # JAX's unfused plan: the products are cuBLAS calls, no hand kernel
+    if launches != launches_of():
+        fail(f"lm_serve: launches {launches}; expected none")
+    if any(s is not None for s in server._slots) or \
+            bool(server._state.data.abs().max() != 0):
+        fail("lm_serve: the drained server holds a slot or a non-zero "
+             "state row")
+    checks = lm_token_checks(lm, reqs, report.results)
+
+    # -- the chaos run: same requests, periodic faults, numeric guards
+    inj = chaos_injector(**LM_CHAOS)
+    chaos_engine = Engine(executor="jit", device=device, fault_injector=inj,
+                          check_numerics=True)
+    chaos, chaos_report, chaos_launches, _ = lm_serve_run(
+        lm, chaos_engine, reqs, arrivals, max_retries=LM_MAX_RETRIES)
+    if chaos_report.errors or chaos_report.shed:
+        fail(f"lm_serve chaos: {chaos_report.errors} errors, "
+             f"{chaos_report.shed} shed")
+    for r, (a, b) in enumerate(zip(report.results, chaos_report.results)):
+        if a["tokens"] != b["tokens"]:
+            fail(f"lm_serve chaos: request {r} tokens {b['tokens']} differ "
+                 f"from the clean run's {a['tokens']}")
+    counters = chaos.counters
+    if counters["transient_faults"] == 0 or counters["recovered"] == 0:
+        fail(f"lm_serve chaos: no fault was retried and recovered "
+             f"({counters})")
+    if chaos_launches != launches_of():
+        fail(f"lm_serve chaos: launches {chaos_launches}; expected none")
+
+    # -- what a tick costs: device time by kernel, the two host syncs
+    compiled = engine.compile(lm.step_program())
+    full = lm.step_inputs(list(range(1, LM_CAPACITY + 1)))
+    state = lm.init_state()
+
+    def tick():
+        outs = compiled.run(**full, **lm.weights(), **{"lm.state": state})
+        outs["logits"].data.cpu()
+        lm.snapshot_state(outs["state"])
+
+    def ticks_fn():
+        for _ in range(LM_PROFILE_TICKS):
+            tick()
+
+    tick()
+    prof = device_profile(ticks_fn, groups=(("gemm", GEMM_NAMES),))
+    outs = compiled.run(**full, **lm.weights(), **{"lm.state": state})
+    logits, new_state = outs["logits"].data, outs["state"]
+    control = lm_precision_control(lm, compiled)
+    bound, by, t_bytes, t_ops, weight_bytes = lm_tick_bound_ms(lm)
+    summary = report.summary
+    out = {"phase": "lm_serve", "card": smi, "arch": ARCH,
+           "d_model": lm.d, "vocab": lm.vocab, "capacity": lm.capacity,
+           "requests": report.requests, "arrival_rate_per_s": LM_RATE,
+           "prompt_len": list(LM_PROMPT), "new_tokens": list(LM_NEW),
+           "ticks": sum(server.dispatches.values()),
+           "tick_ms_median": float(np.median(ticks)),
+           "tick_ms_p90": float(np.percentile(ticks, 90)),
+           "tick_device_ms": prof["device_ms_total"] / LM_PROFILE_TICKS,
+           "tick_profile": prof,
+           "tick_bound_ms": bound, "tick_bound_by": by,
+           "tick_bytes_ms": t_bytes, "tick_operations_ms": t_ops,
+           "weight_bytes": weight_bytes,
+           "logits_to_host_bytes": logits.numel() * logits.element_size(),
+           "logits_to_host_ms": timed_ms(lambda: logits.cpu(), device, 20),
+           "state_snapshot_ms": timed_ms(
+               lambda: lm.snapshot_state(new_state), device, 20),
+           "tokens_per_s": summary["tokens_per_s"],
+           "tokens": summary["tokens"], "wall_s": report.wall_s,
+           "p50_ms": summary["total_ms"]["p50"],
+           "p99_ms": summary["total_ms"]["p99"],
+           "queue_wait_p50_ms": summary["queue_wait_ms"]["p50"],
+           "launches": launches,
+           "compiles": engine.cache_misses,
+           "cache_misses_since_warmup": server.cache_misses_since_warmup,
+           "max_memory_allocated_gb": peak / 1e9,
+           **checks,
+           "precision_control": control,
+           "chaos": {"schedule": LM_CHAOS, "max_retries": LM_MAX_RETRIES,
+                     "counters": dict(counters),
+                     "faults_fired": {k: sum(1 for kind, _ in inj.log
+                                             if kind == k)
+                                      for k in ("site", "nan")},
+                     "ticks": sum(chaos.dispatches.values()),
+                     "wall_s": chaos_report.wall_s,
+                     "extra_wall_s": chaos_report.wall_s - report.wall_s,
+                     "p99_ms": chaos_report.summary["total_ms"]["p99"]},
+           "setup_s": setup_s}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2737,6 +3105,7 @@ def main() -> int:
     ssd = phase_ssd(device, gen)
     mamba2 = phase_mamba2(device)
     zamba2 = phase_zamba2(device)
+    phase_lm_serve(device, smi)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
                                       train),
                       *flash_entries(flash, gemma2, zamba2),

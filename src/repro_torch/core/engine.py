@@ -37,9 +37,15 @@ Deviations from the JAX ``Engine``:
 * ``validate`` accepts only ``"off"``, its default: the static verifier
   (``repro.analysis``) is a later slice (4).
 * ``mesh`` and the ``gspmd``/``shard_map`` executors (slice 7),
-  ``memory_budget``/``store`` (slice 6), ``fault_injector``,
-  ``check_numerics`` and ``degrade`` (slice 5) raise
-  ``NotImplementedError`` when set.
+  ``memory_budget``/``store`` and ``degrade`` (slice 6: its OOM ladder
+  re-runs fused contractions as streamed chunks, out-of-core machinery)
+  raise ``NotImplementedError`` when set.
+* ``fault_injector`` node hooks fire on every dispatch on ``jit`` too (it
+  replays eager node evaluations; JAX fires them once, at trace time — see
+  :mod:`repro_torch.core.faults`).  ``check_numerics`` on ``jit`` reads a
+  dispatch's flags with one host sync, and its attribution re-run replays
+  the dispatch's injected NaNs instead of consulting the injector again
+  (see :mod:`repro_torch.core.guards`).
 * ``chunk`` defaults to ``None`` (the bytes-based default of
   :func:`repro_torch.core.tra.fused_join_agg`); ``"auto"``, the JAX
   default, autotunes from the out-of-core memory model (slice 6) and
@@ -61,6 +67,8 @@ import torch
 
 from repro_torch.core import kernels_registry as kr
 from repro_torch.core.compile import compile_tra
+from repro_torch.core.guards import (ExecContext, NumericsError,
+                                     finite_flag, label_nodes)
 from repro_torch.core.interp import (_evaluate_ia, _evaluate_tra,
                                      consumer_counts, eval_ia_node,
                                      eval_tra_node, fusable)
@@ -251,6 +259,10 @@ class CompiledExpr:
     # engine at compile time; serving layers report which artifact served
     # a request by this id (see Engine.cache_info)
     artifact_id: Optional[str] = None
+    # the engine's FaultInjector (run-scoped faults hook every dispatch)
+    faults: Optional[object] = None
+    # the same dispatch with no fault hook and no numerics check (warm())
+    _bare: Optional[Callable] = None
 
     @property
     def plan(self):
@@ -271,6 +283,20 @@ class CompiledExpr:
         return "\n".join(describe(r) for r in self.roots)
 
     def run(self, **inputs) -> Union[TensorRelation, Tuple, Dict]:
+        if self.faults is not None:
+            self.faults.on_run()
+        outs = self._call(self._env(inputs))
+        if self.root_names is not None:
+            return dict(zip(self.root_names, outs))
+        return outs if self.multi else outs[0]
+
+    def warm(self, **inputs) -> None:
+        """Dispatch once as :meth:`run` does, but past the engine's fault
+        injector and numerics guard: a serving warmup pays the device's
+        first-run costs without spending the injector's run counts."""
+        self._bare(self._env(inputs))
+
+    def _env(self, inputs) -> Dict[str, TensorRelation]:
         unknown = [n for n in inputs if n not in self.input_rtypes]
         if unknown:
             raise ValueError(f"unexpected inputs: {unknown}; expected "
@@ -292,10 +318,7 @@ class CompiledExpr:
                     f"(mask-free) input relations; inputs {holey} carry "
                     f"masks — run on executor=\"reference\", or express "
                     f"the filter inside the plan")
-        outs = self._call(env)
-        if self.root_names is not None:
-            return dict(zip(self.root_names, outs))
-        return outs if self.multi else outs[0]
+        return env
 
     __call__ = run
 
@@ -392,6 +415,9 @@ def _schedule_call(plans, out_infos, device, fuse: bool, chunk) -> Callable:
     subexpression elimination merges under ``jax.jit`` in the JAX package.
     A step's value is dropped after its last reader has run (XLA's buffer
     liveness), unless it is an output.
+
+    The returned ``call(env, ctx=None)`` passes every step's value through
+    ``ctx.on_node`` when an active :class:`ExecContext` is given.
     """
     consumers = consumer_counts(plans) if fuse else {}
     slot: Dict[int, int] = {}
@@ -423,17 +449,19 @@ def _schedule_call(plans, out_infos, device, fuse: bool, chunk) -> Callable:
                    if last_read[k] == i and k not in keep)
              for i, (_, kids, _) in enumerate(steps)]
 
-    def call(env):
+    def call(env, ctx=None):
+        hook = ctx is not None and ctx.active
         vals = []
         for (n, kids, fused), drop in zip(steps, drops):
             if isinstance(n, (IAInput, TraInput)):
-                vals.append(env[n.name])
+                val = env[n.name]
             elif isinstance(n, IANode):
-                vals.append(eval_ia_node(n, [vals[k] for k in kids], device,
-                                         chunk))
+                val = eval_ia_node(n, [vals[k] for k in kids], device, chunk,
+                                   ctx)
             else:
-                vals.append(eval_tra_node(n, [vals[k] for k in kids], device,
-                                          fused=fused, chunk=chunk))
+                val = eval_tra_node(n, [vals[k] for k in kids], device,
+                                    fused=fused, chunk=chunk, ctx=ctx)
+            vals.append(ctx.on_node(n, val) if hook else val)
             for k in drop:
                 vals[k] = None
         return tuple(TensorRelation(vals[s].data, oi.rtype, oi.mask)
@@ -477,8 +505,20 @@ class Engine:
         chunk=...)`` overrides it per program.
     validate:
         ``"off"`` only (the default here; the verifier is slice 4).
-    memory_budget / store / fault_injector / check_numerics / degrade:
-        Not ported yet; setting any raises ``NotImplementedError``.
+    fault_injector:
+        Optional :class:`repro_torch.core.faults.FaultInjector`: simulated
+        site failures, device OOM, compile failures, stragglers and NaN
+        poisoning fire at deterministic plan-addressable points.
+    check_numerics:
+        ``True`` adds finite checks; a NaN/Inf raises
+        :class:`repro_torch.core.guards.NumericsError` naming the first
+        producing plan node.  On ``jit`` the guard is two-tier: a dispatch
+        flags its outputs (one host sync), and a trip re-runs the same
+        inputs once with every node flagged to name the node.  ``"all"``
+        flags every node in the dispatch itself.
+    memory_budget / store / degrade:
+        Not ported yet (slice 6); setting any raises
+        ``NotImplementedError``.
     """
 
     def __init__(self, mesh=None, executor: str = "auto",
@@ -512,9 +552,12 @@ class Engine:
         if memory_budget is not None or store is not None:
             raise _not_ported("the out-of-core tier (memory_budget, store)",
                               6)
-        if fault_injector is not None or check_numerics or degrade:
+        if degrade:
             raise _not_ported(
-                "fault injection, check_numerics and degrade", 5)
+                "degrade (the OOM ladder of streamed chunks)", 6)
+        if check_numerics not in (False, True, "all"):
+            raise ValueError(f"check_numerics must be False, True or 'all', "
+                             f"got {check_numerics!r}")
         _check_chunk(chunk)
         self.device = resolve_device(device)
         self.validate = validate
@@ -525,6 +568,8 @@ class Engine:
         self.chunk = chunk
         self.accounting = accounting
         self.try_logical_rewrites = try_logical_rewrites
+        self.fault_injector = fault_injector
+        self.check_numerics = check_numerics
         self.input_placements = dict(input_placements or {})
         self.site_axes = tuple(site_axes or ("sites",))
         self.axis_sizes = dict(axis_sizes or {a: 1 for a in self.site_axes})
@@ -607,11 +652,15 @@ class Engine:
         placements = dict(self.input_placements)
         placements.update(input_placements or {})
         executor = self._resolve_executor()
+        # the robustness fields are keyed because they are baked into the
+        # compiled callable
+        inj = self.fault_injector
         key = (tuple(plan_sig(r) for r in roots), executor, self.optimize,
                self.fuse, self.accounting, self.try_logical_rewrites,
                _placements_sig(placements),
                _placements_sig({"·": target} if target else None),
-               multi, chunk, root_names)
+               multi, chunk, root_names, self.check_numerics,
+               None if inj is None else id(inj))
         hit = self._cache.get(key)
         if hit is not None:
             self.cache_hits += 1
@@ -621,6 +670,7 @@ class Engine:
         compiled = self._compile(roots, placements, target, executor, multi,
                                  chunk)
         compiled.root_names = root_names
+        compiled.faults = inj
         compiled.artifact_id = (
             f"{compiled.executor}:"
             f"{hashlib.sha1(repr(key).encode()).hexdigest()[:10]}")
@@ -678,8 +728,27 @@ class Engine:
                 phys.append(compile_tra(r, placements, self.site_axes))
         return tuple(phys), tuple(opts)
 
+    def _make_ctx(self, plans, executor) -> Optional[ExecContext]:
+        """The :class:`ExecContext` threaded through the executor walks, or
+        ``None`` when no robustness feature is active (the walks then run
+        exactly as without one).  ``reference`` checks every node eagerly;
+        ``jit`` flags nodes in the dispatch only under
+        ``check_numerics="all"`` (``True`` flags outputs, and attributes on
+        a lazily built re-run)."""
+        if executor == "reference":
+            per_node = self.check_numerics
+        else:
+            per_node = "all" if self.check_numerics == "all" else False
+        if self.fault_injector is None and not per_node:
+            return None
+        return ExecContext(faults=self.fault_injector, check=per_node,
+                           labels=label_nodes(plans),
+                           defer=executor == "jit")
+
     def _compile(self, roots, placements, target, executor,
                  multi, chunk) -> CompiledExpr:
+        if self.fault_injector is not None:
+            self.fault_injector.on_compile(executor)
         # logical roots run the eager TRA walk (optimized ones run the
         # physical walk), as in the JAX package
         if self.optimize or any(isinstance(r, IANode) for r in roots):
@@ -688,18 +757,75 @@ class Engine:
             plans, opts = roots, ()
         out_infos = tuple(infer(p) for p in plans)
         device, fuse = self.device, self.fuse
+        ctx = self._make_ctx(plans, executor)
         if executor == "reference":
-            def call(env):
+            def walk(env, ctx):
                 # shared subexpressions are evaluated once via the id-keyed
                 # cache shared across roots
+                if ctx is not None:
+                    ctx.begin()
                 cache: dict = {}
                 return tuple(
-                    _evaluate_ia(p, env, cache, device, chunk)
+                    _evaluate_ia(p, env, cache, device, chunk, ctx)
                     if isinstance(p, IANode) else
                     _evaluate_tra(p, env, cache, fuse=fuse, device=device,
-                                  chunk=chunk)
+                                  chunk=chunk, ctx=ctx)
                     for p in plans)
+
+            def call(env):
+                return walk(env, ctx)
         else:
-            call = _schedule_call(plans, out_infos, device, fuse, chunk)
+            walk = _schedule_call(plans, out_infos, device, fuse, chunk)
+            call = self._jit_call(walk, plans, ctx)
         return CompiledExpr(executor, plans, _input_nodes(plans), out_infos,
-                            call, device, opts, multi)
+                            call, device, opts, multi,
+                            _bare=lambda env: walk(env, None))
+
+    def _jit_call(self, sched, plans, ctx) -> Callable:
+        """The ``jit`` dispatch with its two-tier numerics guard.
+
+        A checked dispatch gathers finite flags — its outputs' (``True``)
+        or every node's (``"all"``) — and reads them with ONE host sync.
+        When that trips under ``True``, the same inputs run once more with
+        every node flagged, replaying the dispatch's injected NaNs, and the
+        error names the first non-finite node in plan postorder.
+        """
+        check = self.check_numerics
+        if not check:
+            def plain(env):
+                if ctx is not None:
+                    ctx.begin()
+                return sched(env, ctx)
+            return plain
+        labels = ctx.labels if ctx is not None else label_nodes(plans)
+
+        def call(env):
+            if ctx is not None:
+                ctx.begin()
+            outs = sched(env, ctx)
+            if check == "all":
+                pairs = ctx.take_flags()
+            else:
+                pairs = [(f"output[{i}]", finite_flag(r.data, r.mask))
+                         for i, r in enumerate(outs)]
+                pairs = [(la, fl) for la, fl in pairs if fl is not None]
+            # one host sync for every flag of the dispatch
+            if not pairs or bool(torch.stack([f for _, f in pairs]).all()):
+                return outs
+            if check != "all":
+                poisoned = () if ctx is None else ctx.poisoned
+                again = ExecContext(check="all", labels=labels, defer=True,
+                                    replay=frozenset(poisoned))
+                sched(env, again)
+                pairs = again.take_flags()
+            for lab, fl in pairs:
+                if not bool(fl):
+                    raise NumericsError(
+                        f"non-finite values first produced by node {lab} "
+                        f"(jit finite-flags; plan postorder attribution)",
+                        node_label=lab)
+            raise NumericsError(
+                "non-finite values in jit outputs (attribution re-run did "
+                "not reproduce the failure)")
+
+        return call

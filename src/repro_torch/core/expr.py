@@ -1,10 +1,8 @@
 """Lazy expression frontend for the TRA — the user-facing API.
 
 Port of ``repro.core.expr``.  Builders (``input``, ``const``, ``join``,
-``agg``, ``map``, ``@``, ``+``/``-``/``*``, ``scale_by``, ``grad``,
-``einsum``, ``describe`` …) are unchanged apart from torch dtypes.
-``Expr.slot_update`` (decode state) raises ``NotImplementedError`` until
-the decode slice (3, see ``ROADMAP.md``).
+``agg``, ``map``, ``@``, ``+``/``-``/``*``, ``scale_by``, ``slot_update``,
+``grad``, ``einsum``, ``describe`` …) are unchanged apart from torch dtypes.
 
 The paper's point is that the TRA is *declarative*: a computation written
 once against the logical algebra can be re-optimized and retargeted across
@@ -175,10 +173,32 @@ class Expr:
         return j.agg(tuple(range(k)), "matAdd")
 
     def slot_update(self, rows: "Expr", mask: "Expr") -> "Expr":
-        """Masked in-plan slot update — not ported yet (decode slice, 3)."""
-        raise NotImplementedError(
-            "Expr.slot_update is not ported to repro_torch yet (slice 3; "
-            "see ROADMAP.md)")
+        """Masked in-plan slot update: ``mask·rows + (1−mask)·self``.
+
+        The carrier of continuous-batching decode state
+        (:mod:`repro_torch.serve`): ``self`` is a fixed-capacity slot-keyed
+        state relation, ``rows`` the freshly computed per-slot values
+        (keyed identically), and ``mask`` an activity relation over the
+        same key grid with ``(1, 1)`` blocks — ``1.0`` rows take the new
+        value, ``0.0`` rows keep the old state unchanged.  Built from
+        keywise ``scaleBy`` joins and a ``matAdd`` — no new plan node, so
+        every executor, the optimizer, and autodiff see plain algebra.
+        """
+        rows = _as_expr(rows)
+        mask = _as_expr(mask)
+        if rows.key_shape != self.key_shape:
+            raise ExprTypeError(
+                f"slot_update: rows key grid {rows.key_shape} != state "
+                f"key grid {self.key_shape}")
+        if mask.key_shape != self.key_shape or mask.bound != (1, 1):
+            raise ExprTypeError(
+                f"slot_update: mask must be keyed {self.key_shape} with "
+                f"(1, 1) blocks, got {_describe_rtype(mask.info)}")
+        on = tuple(range(self.key_arity))
+        inv = const(1.0, mask.key_shape, mask.bound, mask.rtype.dtype) - mask
+        take = rows.join(mask, on=on, kernel="scaleBy")
+        keep = self.join(inv, on=on, kernel="scaleBy")
+        return take + keep
 
     # -- differentiation ---------------------------------------------------
     def grad(self, wrt, seed: "Expr" = None):

@@ -10,9 +10,13 @@ Port of ``repro.core.interp`` for one device:
 The JAX package's SPMD mode (``_evaluate_ia(spmd=True)``, ``_jit_ia_plans``)
 and the deprecated ``evaluate_*`` / ``jit_ia_plan`` shims wait for the
 distributed slice (7, see ``ROADMAP.md``).  The walks take ``chunk`` (the
-chunked fused lowering's slices per step) but no ``budget`` / ``ctx``: they
-steer the out-of-core store and the fault hooks, which later slices bring.
-Constants are materialized on ``device``.
+chunked fused lowering's slices per step) and ``ctx``, the engine's
+:class:`~repro_torch.core.guards.ExecContext`: when it is active every
+computed node value — inputs included — passes through ``ctx.on_node``
+(fault injection and per-node finite checks with plan provenance), and the
+fused Σ∘⋈ calls ``ctx.on_contraction``.  They take no ``budget``: it steers
+the out-of-core store (slice 6).  Constants are materialized on
+``device``.
 """
 from __future__ import annotations
 
@@ -60,10 +64,11 @@ def consumer_counts(roots) -> Dict[int, int]:
 
 
 def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
-                  chunk=None) -> TensorRelation:
+                  chunk=None, ctx=None) -> TensorRelation:
     """One logical node's value from its children's values.  With
     ``fused`` the node is a ``TraAgg`` and ``kids`` are its join child's
-    two operands (see :func:`fusable`)."""
+    two operands (see :func:`fusable`).  ``ctx`` reaches the fused Σ∘⋈'s
+    contraction hook; the caller applies ``ctx.on_node``."""
     if isinstance(n, TraInput):
         raise TypeError("TraInput values come from the input environment")
     if isinstance(n, TraConst):
@@ -78,7 +83,8 @@ def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
             c = n.child
             return tra.fused_join_agg(kids[0], kids[1], c.join_keys_l,
                                       c.join_keys_r, c.kernel, n.group_by,
-                                      n.kernel, chunk=chunk)
+                                      n.kernel, chunk=chunk, ctx=ctx,
+                                      node=n)
         return tra.agg(kids[0], n.group_by, n.kernel)
     if isinstance(n, TraReKey):
         return tra.rekey(kids[0], n.key_func)
@@ -96,7 +102,7 @@ def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
 def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
                   _cache: Optional[dict] = None,
                   fuse: bool = True,
-                  device="cpu", chunk=None) -> TensorRelation:
+                  device="cpu", chunk=None, ctx=None) -> TensorRelation:
     """Walk a logical plan with the dense eager ops.
 
     With ``fuse=True`` (default) every ``TraAgg(TraJoin(...))`` pair whose
@@ -108,6 +114,7 @@ def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
     node = as_node(node)
     cache = _cache if _cache is not None else {}
     consumers = consumer_counts([node]) if fuse else {}
+    hook = ctx is not None and ctx.active
 
     def rec(n):
         if id(n) in cache:
@@ -116,19 +123,25 @@ def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
             out = env[n.name]
         elif fuse and fusable(n, consumers) and id(n.child) not in cache:
             out = eval_tra_node(n, [rec(n.child.left), rec(n.child.right)],
-                                device, fused=True, chunk=chunk)
+                                device, fused=True, chunk=chunk, ctx=ctx)
         else:
-            out = eval_tra_node(n, [rec(c) for c in children(n)], device)
+            out = eval_tra_node(n, [rec(c) for c in children(n)], device,
+                                ctx=ctx)
+        if hook:
+            out = ctx.on_node(n, out)
         cache[id(n)] = out
         return out
 
     return rec(node)
 
 
-def eval_ia_node(node: IANode, kids, device, chunk=None) -> TensorRelation:
+def eval_ia_node(node: IANode, kids, device, chunk=None,
+                 ctx=None) -> TensorRelation:
     """One physical node's value from its children's values (``kids`` in
     :func:`repro_torch.core.plan.children` order) — shared by the
-    recursive walk below and the engine's ``jit`` schedule."""
+    recursive walk below and the engine's ``jit`` schedule.  ``ctx``
+    reaches the fused Σ∘⋈'s contraction hook; the caller applies
+    ``ctx.on_node``."""
     if isinstance(node, IAInput):
         raise TypeError("IAInput values come from the input environment")
     if isinstance(node, IAConst):
@@ -146,7 +159,7 @@ def eval_ia_node(node: IANode, kids, device, chunk=None) -> TensorRelation:
         return tra.fused_join_agg(kids[0], kids[1], node.join_keys_l,
                                   node.join_keys_r, node.join_kernel,
                                   node.group_by, node.agg_kernel,
-                                  chunk=chunk)
+                                  chunk=chunk, ctx=ctx, node=node)
     if isinstance(node, LocalFilter):
         return tra.filt(kids[0], node.bool_func)
     if isinstance(node, LocalMap):
@@ -165,7 +178,7 @@ def eval_ia_node(node: IANode, kids, device, chunk=None) -> TensorRelation:
 
 def _evaluate_ia(node: IANode, env: Dict[str, TensorRelation],
                  _cache: Optional[dict] = None,
-                 device="cpu", chunk=None) -> TensorRelation:
+                 device="cpu", chunk=None, ctx=None) -> TensorRelation:
     """Evaluate a physical plan on one device (sites ignored)."""
     node = as_node(node)
     cache = _cache if _cache is not None else {}
@@ -174,8 +187,10 @@ def _evaluate_ia(node: IANode, env: Dict[str, TensorRelation],
     if isinstance(node, IAInput):
         out = env[node.name]
     else:
-        kids = [_evaluate_ia(c, env, cache, device, chunk)
+        kids = [_evaluate_ia(c, env, cache, device, chunk, ctx)
                 for c in children(node)]
-        out = eval_ia_node(node, kids, device, chunk)
+        out = eval_ia_node(node, kids, device, chunk, ctx)
+    if ctx is not None and ctx.active:
+        out = ctx.on_node(node, out)
     cache[id(node)] = out
     return out

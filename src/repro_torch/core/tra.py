@@ -568,7 +568,8 @@ DEFAULT_CHUNK_BYTES = 16 * 1024 * 1024
 def fused_join_agg(left: TensorRelation, right: TensorRelation,
                    join_keys_l: Sequence[int], join_keys_r: Sequence[int],
                    join_kernel: Kernel, group_by: Sequence[int],
-                   agg_kernel: Kernel, *, chunk=None) -> TensorRelation:
+                   agg_kernel: Kernel, *, chunk=None,
+                   ctx=None, node=None) -> TensorRelation:
     """Σ_(groupBy, aggOp) ∘ ⋈_(jkl, jkr, projOp) without the grid.
 
     Semantically identical to ``agg(join(left, right, ...), group_by, ...)``
@@ -584,6 +585,14 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
       ``None`` derives it from :data:`DEFAULT_CHUNK_BYTES`.  ``"auto"``
       (the JAX engine's autotuner over a device memory budget) belongs to
       the out-of-core slice and raises.
+
+    ``ctx`` (an :class:`~repro_torch.core.guards.ExecContext`, ``node`` the
+    plan node being evaluated) hooks the fault injector's device-OOM model
+    before the contraction runs, with the live bytes of the one-shot
+    contraction (inputs + output) or of the streamed one (inputs, ``chunk``
+    slices, accumulator and partial).  JAX's ``ctx.stream``, which forces
+    the streamed lowering for the OOM ladder, comes with the out-of-core
+    slice (6).
 
     Falls back to the unfused pair when nothing is actually reduced or when
     holes cannot be identity-filled — the unfused path remains the
@@ -603,8 +612,16 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
     out_bound = tuple(join_kernel.out_bound(left.bound, right.bound))
     out_key_shape = tuple(g.out_key_shape[d] for d in gb)
     out_mask = _fused_out_mask(g, gb, reduce_dims)
+    itemsize = left.data.element_size()
+    out_floats = (math.prod(out_key_shape) if out_key_shape else 1) \
+        * (math.prod(out_bound) if out_bound else 1)
+    in_bytes = (g.ldata.numel() + g.rdata_t.numel()) * itemsize
+    out_bytes = out_floats * itemsize
 
     if agg_kernel.name == "matAdd" and join_kernel.name in _CONTRACTION_JOINS:
+        if ctx is not None:
+            ctx.on_contraction(stream=False, chunk=None, node=node,
+                               bytes_live=in_bytes + out_bytes)
         if (join_kernel.name == "matMul" and g.lmask is None
                 and g.rmask_t is None and set(reduce_dims) == set(jkl)):
             data = _fused_matmul_2d(g, left, right, jkl, gb)
@@ -618,10 +635,11 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
         # cannot identity-fill holes — mirror tra.agg's requirement
         return agg(join(left, right, jkl, jkr, join_kernel), gb, agg_kernel)
     if chunk is None:
-        out_floats = (math.prod(out_key_shape) if out_key_shape else 1) \
-            * (math.prod(out_bound) if out_bound else 1)
-        slice_bytes = max(1, out_floats * left.data.element_size())
-        chunk = max(1, DEFAULT_CHUNK_BYTES // slice_bytes)
+        chunk = max(1, DEFAULT_CHUNK_BYTES // max(1, out_bytes))
+    if ctx is not None:
+        ctx.on_contraction(
+            stream=True, chunk=chunk, node=node,
+            bytes_live=in_bytes + chunk * out_bytes + 2 * out_bytes)
     data = _fused_chunked(g, left, right, join_kernel, gb, reduce_dims,
                           agg_kernel, chunk)
     return TensorRelation(

@@ -335,9 +335,11 @@ class TraTrainer:
     relations come back by name and become the next step's inputs.
 
     **Numerics policy.**  ``skip_nonfinite=N`` skips a step whose loss is
-    non-finite: params/state/step-count do not advance, the event is
-    recorded in ``self.skipped``, and more than ``N`` *consecutive* skips
-    raise :class:`~repro_torch.core.guards.NumericsError` — a bounded
+    non-finite (or that raised
+    :class:`~repro_torch.core.guards.NumericsError` under the engine's
+    ``check_numerics``): params/state/step-count do not advance, the event
+    is recorded in ``self.skipped``, and more than ``N`` *consecutive*
+    skips raise :class:`~repro_torch.core.guards.NumericsError` — a bounded
     budget, not a silent spin.  ``0`` (default) disables the policy.
     """
 
@@ -363,25 +365,31 @@ class TraTrainer:
     def step(self, **data) -> float:
         """Run one train step; returns the scalar loss (total over the
         loss relation's arrays) and advances params/state in place."""
-        outs = self.engine.run(self.program.roots, **self.params,
-                               **self.state, **data)
-        loss = float(torch.sum(outs[LOSS_ROOT].data))
-        if math.isfinite(loss) or self.skip_nonfinite <= 0:
-            self._consec_skips = 0
-            self.params = {nm: outs[nm] for nm in self.program.param_names}
-            self.state = {nm: outs[nm] for nm in self.program.state_names}
-            self.history.append(loss)
-            self.step_count += 1
-            return loss
-        self._consec_skips += 1
-        self.skipped.append((self.step_count, loss))
-        if self._consec_skips > self.skip_nonfinite:
-            raise NumericsError(
-                f"{self._consec_skips} consecutive non-finite train "
-                f"steps at step {self.step_count} (budget "
-                f"skip_nonfinite={self.skip_nonfinite}); params/state "
-                f"remain at the last finite step")
-        return loss                         # params/state do NOT advance
+        try:
+            outs = self.engine.run(self.program.roots, **self.params,
+                                   **self.state, **data)
+            loss = float(torch.sum(outs[LOSS_ROOT].data))
+            bad = not math.isfinite(loss)
+        except NumericsError:
+            if self.skip_nonfinite <= 0:
+                raise
+            outs, loss, bad = None, float("nan"), True
+        if bad and self.skip_nonfinite > 0:
+            self._consec_skips += 1
+            self.skipped.append((self.step_count, loss))
+            if self._consec_skips > self.skip_nonfinite:
+                raise NumericsError(
+                    f"{self._consec_skips} consecutive non-finite train "
+                    f"steps at step {self.step_count} (budget "
+                    f"skip_nonfinite={self.skip_nonfinite}); params/state "
+                    f"remain at the last finite step")
+            return loss                     # params/state do NOT advance
+        self._consec_skips = 0
+        self.params = {nm: outs[nm] for nm in self.program.param_names}
+        self.state = {nm: outs[nm] for nm in self.program.state_names}
+        self.history.append(loss)
+        self.step_count += 1
+        return loss
 
     def save_checkpoint(self, store=None, *, sync: bool = False) -> None:
         raise _no_store("TraTrainer.save_checkpoint")

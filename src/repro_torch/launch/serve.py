@@ -1,6 +1,8 @@
 """Serving launcher of the port: TraServer with continuous batching, and the
 model zoo's prefill + decode loop.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --servable lm \\
+        --arch gemma2-2b --requests 40 --mode poisson --rate 50
     PYTHONPATH=src python -m repro_torch.launch.serve --servable scorer \\
         --requests 40 --mode poisson --rate 50
     PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
@@ -10,12 +12,14 @@ model zoo's prefill + decode loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --dense-oracle \\
         --arch zamba2-7b --batch 2 --prompt-len 8192 --gen 32
 
-Port of ``repro.launch.serve`` with two of its paths:
+Port of ``repro.launch.serve``:
 
-* ``--servable scorer``: the §5.3 FFNN scorer served through
-  :class:`~repro_torch.serve.server.TraServer` (zero compile-cache misses
-  after warmup), printing tokens/s and p50/p95/p99 of total / queue-wait /
-  service latency;
+* ``--servable lm`` / ``--servable scorer``: the step-decode
+  ``RecurrentLM`` sized from ``--arch`` (``--capacity`` slots; prompts of 1
+  to ``--prompt-len`` tokens, 1 to ``--gen`` new tokens) or the §5.3 FFNN
+  scorer, served through :class:`~repro_torch.serve.server.TraServer`
+  (zero compile-cache misses after warmup), printing tokens/s and
+  p50/p95/p99 of total / queue-wait / service latency;
 * ``--dense-oracle``: the model zoo's prefill + greedy decode loop
   (:func:`dense_generate`) over a dense-family arch (KV cache), the
   ssm family's mamba2-130m (conv and SSM state caches) or the hybrid
@@ -28,9 +32,9 @@ The flags are the JAX launcher's, plus ``--device`` (default ``cuda``;
 without a card it fails — pass ``--device cpu`` to run on the CPU).
 ``--servable`` defaults to ``scorer`` here.  Not ported yet, each exits 2
 with a "not ported" message naming its slice (``ROADMAP.md``):
-``--servable lm`` (the decode slice), ``--dense-oracle`` for an arch
-outside the dense, ssm and hybrid families (MoE, MLA and embedding-input
-archs), and ``--dense-oracle --mesh`` (the distributed slice).
+``--dense-oracle`` for an arch outside the dense, ssm and hybrid families
+(MoE, MLA and embedding-input archs), and ``--dense-oracle --mesh`` (the
+distributed slice).
 """
 from __future__ import annotations
 
@@ -167,22 +171,28 @@ def main(argv=None) -> int:
 
     if args.dense_oracle:
         return _dense_oracle(args)
-    if args.servable == "lm":
-        print("[serve] --servable lm is not ported to repro_torch yet: it "
-              "comes with the decode slice (ROADMAP A3); use --servable "
-              "scorer", file=sys.stderr)
-        return 2
 
     import numpy as np
 
     from repro_torch.core import Engine
-    from repro_torch.serve import (FFNNScorer, TraServer, closed_loop,
-                                   open_loop, poisson_arrivals, scorer_mix)
+    from repro_torch.serve import (FFNNScorer, RecurrentLM, TraServer,
+                                   closed_loop, lm_mix, open_loop,
+                                   poisson_arrivals, scorer_mix)
 
     rng = np.random.default_rng(args.seed)
     engine = Engine(executor=args.executor, device=args.device)
-    servable = FFNNScorer(seed=args.seed, device=args.device)
-    payloads = scorer_mix(servable, rng, args.requests)
+    if args.servable == "scorer":
+        servable = FFNNScorer(seed=args.seed, device=args.device)
+        payloads = scorer_mix(servable, rng, args.requests)
+    else:
+        from repro_torch.configs import get_config
+        cfg = get_config(args.arch, smoke=args.smoke)
+        servable = RecurrentLM.from_config(cfg, capacity=args.capacity,
+                                           seed=args.seed,
+                                           device=args.device)
+        payloads = lm_mix(servable, rng, args.requests,
+                          prompt_len=(1, max(1, args.prompt_len)),
+                          new_tokens=(1, max(1, args.gen)))
 
     server = TraServer(engine, servable,
                        max_pending=args.max_pending,

@@ -2,30 +2,32 @@
 relational plans (the counterpart of ``repro.serve``).
 
 * :class:`~repro_torch.serve.server.TraServer` — admission queue,
-  bucket-batching scheduler, pinned compile-cache artifacts, and the
-  resilience layer (shedding, cancellation/deadlines, transient-fault
-  retry, crash containment, watchdog, ``health``).
-* :class:`~repro_torch.serve.servable.FFNNScorer` — the paper-native §5.3
-  scorer.
-* :mod:`repro_torch.serve.loadgen` — Poisson / closed-loop drivers.
-
-``RecurrentLM``, ``LmRequest``, ``lm_mix`` and ``chaos_injector`` come
-with later slices (see ``ROADMAP.md``).
+  bucket-batching and continuous-batching decode schedulers, pinned
+  compile-cache artifacts, and the resilience layer (shedding,
+  cancellation/deadlines, transient-fault retry with decode-state
+  snapshots, crash containment, watchdog, ``health``).
+* :class:`~repro_torch.serve.servable.FFNNScorer` /
+  :class:`~repro_torch.serve.servable.RecurrentLM` — the paper-native §5.3
+  scorer and the smoke step-decode LM.
+* :mod:`repro_torch.serve.loadgen` — Poisson / closed-loop drivers, the
+  payload mixes, and :func:`chaos_injector` for fault-schedule runs.
 """
-from repro_torch.serve.loadgen import (LoadReport, closed_loop, open_loop,
+from repro_torch.serve.loadgen import (LoadReport, chaos_injector,
+                                       closed_loop, lm_mix, open_loop,
                                        poisson_arrivals, scorer_mix)
-from repro_torch.serve.servable import (BatchServable, FFNNScorer, Servable,
-                                        StepServable, pick_bucket)
+from repro_torch.serve.servable import (BatchServable, FFNNScorer, LmRequest,
+                                        RecurrentLM, Servable, StepServable,
+                                        pick_bucket)
 from repro_torch.serve.server import (DeadlineExceeded, RequestCancelled,
                                       RequestHandle, RetryBudgetExceeded,
                                       ServerOverloaded, ServerStopped,
                                       TraServer)
 
 __all__ = [
-    "LoadReport", "closed_loop", "open_loop", "poisson_arrivals",
-    "scorer_mix",
-    "BatchServable", "FFNNScorer", "Servable", "StepServable",
-    "pick_bucket",
+    "LoadReport", "chaos_injector", "closed_loop", "lm_mix", "open_loop",
+    "poisson_arrivals", "scorer_mix",
+    "BatchServable", "FFNNScorer", "LmRequest", "RecurrentLM",
+    "Servable", "StepServable", "pick_bucket",
     "DeadlineExceeded", "RequestCancelled", "RequestHandle",
     "RetryBudgetExceeded", "ServerOverloaded", "ServerStopped",
     "TraServer",

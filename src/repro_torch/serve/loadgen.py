@@ -1,7 +1,6 @@
 """Load generation for :class:`~repro_torch.serve.server.TraServer`.
 
-Port of ``repro.serve.loadgen`` (``poisson_arrivals``, ``scorer_mix``,
-``LoadReport``, ``open_loop``, ``closed_loop``).  Two drive modes, both
+Port of ``repro.serve.loadgen``.  Two drive modes, both
 running the scheduler *in-thread* so a run is deterministic modulo the
 clock:
 
@@ -12,10 +11,13 @@ clock:
 * :func:`closed_loop` — a fixed number of outstanding requests; each
   completion immediately resubmits (peak-throughput mode).
 
+The payload mix helpers (:func:`scorer_mix`, :func:`lm_mix`) draw the
+request shapes the bucket and slot schedulers are exercised against, and
+:func:`chaos_injector` scripts periodic faults so a load run doubles as a
+resilience drill.
+
 Both return a :class:`LoadReport` built from the server's
-:class:`~repro_torch.launch.metering.SpanMeter` summary.  ``lm_mix`` (the
-decode diet) and ``chaos_injector`` (fault schedules) come with the
-decode (3) and guards-and-faults (5) slices, see ``ROADMAP.md``.
+:class:`~repro_torch.launch.metering.SpanMeter` summary.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.serve.servable import BatchServable
+from repro_torch.core.faults import FaultInjector
+from repro_torch.serve.servable import BatchServable, LmRequest, StepServable
 from repro_torch.serve.server import (RequestHandle, ServerOverloaded,
                                       TraServer)
 
@@ -43,6 +46,59 @@ def scorer_mix(sv: BatchServable, rng: np.random.Generator,
                n: int) -> List[np.ndarray]:
     """Random feature-vector payloads for a batch servable."""
     return [sv.random_payload(rng) for _ in range(n)]
+
+
+def lm_mix(sv: StepServable, rng: np.random.Generator, n: int,
+           prompt_len: tuple = (1, 8),
+           new_tokens: tuple = (1, 12)) -> List[LmRequest]:
+    """Mixed prompt/generation lengths — the continuous-batching diet."""
+    vocab = getattr(sv, "vocab", 2)
+    reqs = []
+    for _ in range(n):
+        plen = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+        reqs.append(LmRequest(
+            prompt=[int(t) for t in rng.integers(0, vocab, plen)],
+            max_new_tokens=int(rng.integers(new_tokens[0],
+                                            new_tokens[1] + 1))))
+    return reqs
+
+
+def chaos_injector(*, site_every: Optional[int] = None,
+                   nan_node: Optional[str] = None,
+                   nan_every: Optional[int] = None,
+                   oom_times: int = 0, oom_ok_chunk: int = 1,
+                   straggler_every: Optional[int] = None,
+                   straggler_delay_s: float = 0.05) -> FaultInjector:
+    """Script a periodic fault schedule for a chaos load run.
+
+    * ``site_every`` — a :class:`~repro_torch.core.faults.SimulatedFailure`
+      kills every N-th dispatch (run-scoped).
+    * ``nan_node`` + ``nan_every`` — NaN-poison the named plan node on
+      every N-th dispatch (per run on ``reference`` and ``jit`` alike, see
+      :mod:`repro_torch.core.faults`); ``Engine(check_numerics=True)``
+      turns the silent corruption into a retryable
+      :class:`~repro_torch.core.guards.NumericsError`.
+    * ``oom_times`` — the first N fused contractions OOM unless streamed
+      at ``oom_ok_chunk``.  Without ``Engine(degrade=True)`` (slice 6) the
+      :class:`~repro_torch.core.faults.DeviceOOM` propagates and a server
+      retries it as transient.
+    * ``straggler_every`` — delay every N-th dispatch by
+      ``straggler_delay_s`` (watchdog drills).
+
+    All periodic faults are unlimited (``times=-1``): the schedule runs
+    as long as the load does.
+    """
+    inj = FaultInjector()
+    if site_every is not None:
+        inj.inject_site_failure(every=site_every, times=-1)
+    if nan_node is not None:
+        inj.inject_nan(node=nan_node, every=nan_every, times=-1)
+    if oom_times > 0:
+        inj.inject_oom(ok_chunk=oom_ok_chunk, times=oom_times)
+    if straggler_every is not None:
+        inj.inject_straggler(every=straggler_every,
+                             delay=straggler_delay_s, times=-1)
+    return inj
 
 
 @dataclasses.dataclass

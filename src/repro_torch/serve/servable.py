@@ -11,23 +11,34 @@ the server compiles once per shape and dispatches forever:
   engine's structural compile cache serves every request count from a
   small artifact set.  :class:`FFNNScorer`, the §5.3 FFNN, is the
   paper-native instance.
-* :class:`StepServable` — stateful step decode over a fixed-capacity
-  slot-keyed state relation.  Only the interface is ported: ``RecurrentLM``
-  and the server's decode path come with the decode slice (3, see
-  ``ROADMAP.md``).
+* :class:`StepServable` — stateful step decode.  ONE program over a
+  **fixed-capacity slot-keyed state relation**: the leading key dim indexes
+  decode slots, admission/eviction are functional row writes
+  (``tra.scatter_rows`` / ``tra.zero_rows``), and the compiled step is
+  re-dispatched every tick with state threaded state-out → state-in by
+  name.  :class:`RecurrentLM` is the smoke LM — an Elman-style recurrence
+  sized from any model config.
 
 Every servable carries a dense per-request **oracle** (plain torch, no
 Engine) — the correctness reference for batched serving.
 
 Deviations from the JAX module: servables take a ``device`` (default
 ``"cuda"``; without a card that default raises — pass ``device="cpu"``);
-``FFNNScorer`` draws its weights from a ``torch.Generator`` seeded with
-``seed`` (other numbers than ``jax.random`` gives; carry JAX weights over
-with :meth:`FFNNScorer.from_numpy`); ``snapshot_state``/``restore_state``
-come with the decode slice.
+``FFNNScorer`` and ``RecurrentLM`` draw their weights from a
+``torch.Generator`` on that device seeded with ``seed`` (other numbers than
+``jax.random`` gives; carry JAX weights over with ``from_numpy``).
+``RecurrentLM`` keeps its embedding table on the device, where JAX keeps a
+host numpy table and gathers the live slots' rows in numpy: at gemma2-2b
+width the table is 256000×2304 f32 (2.36 GB), which numpy draws slowly, and
+each tick would copy its (capacity, d) rows to the card.  Each tick gathers
+a fixed-size index
+— one entry a slot, free slots masked to zero rows — so the device shapes
+still never depend on how many slots are live, as JAX's reason for the
+host table requires.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -95,10 +106,11 @@ class BatchServable(Servable):
 class StepServable(Servable):
     """Fixed-capacity slot-keyed step decode (continuous batching).
 
-    Interface only in this slice: :class:`~repro_torch.serve.server.
-    TraServer` refuses step servables until the decode slice (3)."""
+    Subclasses set ``device``: where the state lives and
+    :meth:`restore_state` puts it back."""
 
     capacity: int = 8
+    device: torch.device
 
     def step_program(self) -> Dict[str, Expr]:
         """Named roots; must include ``"state"`` (threaded) and
@@ -120,6 +132,21 @@ class StepServable(Servable):
     def oracle_decode(self, prompt: Sequence[int], max_new_tokens: int
                       ) -> Tuple[List[int], List[np.ndarray]]:
         raise NotImplementedError
+
+    # -- fault recovery ----------------------------------------------------
+    def snapshot_state(self, state: TensorRelation) -> TensorRelation:
+        """Host copy of the slot-keyed state — the recovery point the
+        server commits after every good tick.  A copy in host memory,
+        detached from the device tensor, so a faulted dispatch can neither
+        corrupt nor free it.  Reading it synchronises with the device."""
+        return TensorRelation(state.data.detach().to("cpu", copy=True),
+                              state.rtype, state.mask)
+
+    def restore_state(self, snapshot: TensorRelation) -> TensorRelation:
+        """A fresh device copy of a :meth:`snapshot_state` copy, on the
+        servable's device (the snapshot itself stays untouched)."""
+        return TensorRelation(snapshot.data.to(self.device, copy=True),
+                              snapshot.rtype, snapshot.mask)
 
     def programs(self) -> List[Dict[str, Expr]]:
         return [self.step_program()]
@@ -243,3 +270,184 @@ class FFNNScorer(BatchServable):
         x = torch.as_tensor(payload, dtype=torch.float32, device=self.device)
         out = torch.sigmoid(torch.relu(x @ w1) @ w2)
         return out.cpu().numpy()
+
+
+# ==========================================================================
+# Smoke LM — an Elman recurrence sized from a model config
+# ==========================================================================
+
+@dataclasses.dataclass
+class LmRequest:
+    """A decode request: prompt token ids + generation budget."""
+
+    prompt: List[int]
+    max_new_tokens: int
+
+    def __post_init__(self):
+        if not self.prompt:
+            raise ValueError("LmRequest needs a non-empty prompt")
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+
+
+class RecurrentLM(StepServable):
+    """Elman-style recurrent LM as ONE fixed-capacity TRA step program.
+
+    Per slot: ``h' = relu(h @ Wh + emb(tok) @ Wx)``, ``logits = h' @ Wo``
+    — greedy sampling happens host-side, the recurrent state lives in the
+    slot-keyed relation ``lm.state`` (key ``(capacity, 1)``, bound ``(1,
+    d)``).  The step program updates state through
+    :meth:`~repro_torch.core.expr.Expr.slot_update` with the ``lm.active``
+    mask relation, so free / mid-eviction slots hold their rows bit-exactly
+    while neighbours decode.
+
+    Sized from any model config via :meth:`from_config` (``d_model`` /
+    ``vocab_size``); the weights are seeded Gaussians with sub-unit
+    recurrent gain so long decodes stay bounded.  The embedding table
+    (``embedding``, (vocab, d) f32) lives on the device (see the module
+    docstring).
+    """
+
+    name = "recurrent-lm"
+
+    def __init__(self, d_model: int = 64, vocab_size: int = 256,
+                 capacity: int = 8, seed: int = 0, *,
+                 device: DeviceLike = "cuda",
+                 weights: Optional[Mapping[str, np.ndarray]] = None,
+                 embedding: Optional[np.ndarray] = None):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.device = resolve_device(device)
+        self.d = int(d_model)
+        self.vocab = int(vocab_size)
+        self.capacity = int(capacity)
+        d, v = self.d, self.vocab
+        rtypes = {"lm.Wh": RelType((1, 1), (d, d)),
+                  "lm.Wx": RelType((1, 1), (d, d)),
+                  "lm.Wo": RelType((1, 1), (d, v))}
+        if weights is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+
+            def draw(shape, scale):
+                return torch.randn(shape, generator=gen,
+                                   device=self.device) * scale
+
+            # sub-unit recurrent gain: relu(h·Wh + e·Wx) stays bounded over
+            # arbitrarily long decodes
+            wh = draw((d, d), 0.5 * d ** -0.5)
+            wx = draw((d, d), d ** -0.5)
+            wo = draw((d, v), d ** -0.5)
+            self._weights = {
+                name: TensorRelation(w[None, None], rtypes[name])
+                for name, w in (("lm.Wh", wh), ("lm.Wx", wx), ("lm.Wo", wo))}
+            self.embedding = draw((v, d), d ** -0.5)
+        else:
+            from repro_torch.weights import lm_weights_from_numpy
+            self._weights, self.embedding = lm_weights_from_numpy(
+                weights, embedding, rtypes, self.device)
+        self._program: Optional[Dict[str, Expr]] = None
+        self._state_rtype = RelType((self.capacity, 1), (1, d))
+
+    @classmethod
+    def from_config(cls, cfg, capacity: int = 8, seed: int = 0, *,
+                    device: DeviceLike = "cuda") -> "RecurrentLM":
+        """Size the LM from a model config."""
+        return cls(d_model=cfg.d_model, vocab_size=cfg.vocab_size,
+                   capacity=capacity, seed=seed, device=device)
+
+    @classmethod
+    def from_numpy(cls, arrays: Mapping[str, np.ndarray],
+                   embedding: np.ndarray, *, capacity: int = 8,
+                   device: DeviceLike = "cuda") -> "RecurrentLM":
+        """An LM over given weights — ``{"lm.Wh": (1, 1, d, d), "lm.Wx":
+        (1, 1, d, d), "lm.Wo": (1, 1, d, vocab)}`` numpy arrays, the JAX
+        LM's ``weights()[k].data``, and its ``embedding`` (vocab, d) —
+        instead of seeded random ones (see
+        :func:`repro_torch.weights.lm_weights_from_numpy`)."""
+        if "lm.Wo" not in arrays:
+            raise ValueError(f"weights {sorted(arrays)} lack lm.Wo")
+        d, v = np.shape(arrays["lm.Wo"])[-2:]
+        return cls(d_model=d, vocab_size=v, capacity=capacity,
+                   device=device, weights=arrays, embedding=embedding)
+
+    def weights(self) -> Dict[str, TensorRelation]:
+        return self._weights
+
+    def step_program(self) -> Dict[str, Expr]:
+        if self._program is None:
+            c, d, v = self.capacity, self.d, self.vocab
+            s = E.input("lm.state", (c, 1), (1, d))
+            emb = E.input("lm.emb", (c, 1), (1, d))
+            active = E.input("lm.active", (c, 1), (1, 1))
+            wh = E.input("lm.Wh", (1, 1), (d, d))
+            wx = E.input("lm.Wx", (1, 1), (d, d))
+            wo = E.input("lm.Wo", (1, 1), (d, v))
+            h = ((s @ wh) + (emb @ wx)).map("relu")
+            self._program = {"state": s.slot_update(h, active),
+                             "logits": h @ wo}
+        return self._program
+
+    def init_state(self) -> TensorRelation:
+        c, d = self.capacity, self.d
+        return TensorRelation(
+            torch.zeros((c, 1, 1, d), dtype=torch.float32,
+                        device=self.device), self._state_rtype)
+
+    def step_inputs(self, tokens: Sequence[Optional[int]]
+                    ) -> Dict[str, TensorRelation]:
+        """``lm.emb`` and ``lm.active`` for one tick: one gather of
+        ``capacity`` table rows on the device (a free slot reads row 0 and
+        is masked to zeros) from one host-to-device copy of the slots'
+        token ids."""
+        c, d = self.capacity, self.d
+        if len(tokens) != c:
+            raise ValueError(f"need {c} per-slot tokens, got {len(tokens)}")
+        ids = [-1 if t is None else int(t) for t in tokens]
+        bad = [t for t, i in zip(tokens, ids)
+               if t is not None and not 0 <= i < self.vocab]
+        if bad:
+            raise ValueError(f"token ids {bad} outside the vocabulary of "
+                             f"{self.vocab}")
+        idx = torch.tensor(ids, dtype=torch.int64).to(self.device)
+        live = (idx >= 0)[:, None]
+        emb = torch.where(live, self.embedding[idx.clamp(min=0)],
+                          torch.zeros((), dtype=self.embedding.dtype,
+                                      device=self.device))
+        return {"lm.emb": TensorRelation(emb.reshape(c, 1, 1, d),
+                                         RelType((c, 1), (1, d))),
+                "lm.active": TensorRelation(
+                    live.to(torch.float32).reshape(c, 1, 1, 1),
+                    RelType((c, 1), (1, 1)))}
+
+    def next_token(self, logits_row: np.ndarray) -> int:
+        return int(np.argmax(logits_row))
+
+    # -- dense oracle ------------------------------------------------------
+    def oracle_step(self, h: torch.Tensor, token: int
+                    ) -> Tuple[torch.Tensor, np.ndarray]:
+        """One dense recurrence step (plain torch on the LM's device):
+        ``(h', logits)`` for one sequence."""
+        wh = self._weights["lm.Wh"].data[0, 0]
+        wx = self._weights["lm.Wx"].data[0, 0]
+        wo = self._weights["lm.Wo"].data[0, 0]
+        h2 = torch.relu(h @ wh + self.embedding[token][None, :] @ wx)
+        return h2, (h2 @ wo)[0].cpu().numpy()
+
+    def oracle_decode(self, prompt: Sequence[int], max_new_tokens: int
+                      ) -> Tuple[List[int], List[np.ndarray]]:
+        """Greedy per-request dense decode: ``(tokens, per-token logits)``,
+        one logits row per *generated* token — the reference the
+        continuously batched server must match regardless of which slots
+        its neighbours occupied."""
+        h = torch.zeros((1, self.d), dtype=torch.float32, device=self.device)
+        for t in prompt[:-1]:
+            h, _ = self.oracle_step(h, int(t))
+        tok = int(prompt[-1])
+        out_tokens: List[int] = []
+        out_logits: List[np.ndarray] = []
+        for _ in range(max_new_tokens):
+            h, logits = self.oracle_step(h, tok)
+            tok = self.next_token(logits)
+            out_tokens.append(tok)
+            out_logits.append(logits)
+        return out_tokens, out_logits

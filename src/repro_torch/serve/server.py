@@ -1,7 +1,7 @@
 """TraServer — continuous batching over long-lived compiled TRA plans.
 
-Port of ``repro.serve.server`` with the batch path: the server owns an
-:class:`~repro_torch.core.engine.Engine` plus one batch servable
+Port of ``repro.serve.server``: the server owns an
+:class:`~repro_torch.core.engine.Engine` plus one servable
 (:mod:`repro_torch.serve.servable`) and turns the engine's structural
 compile cache into a serving artifact store:
 
@@ -11,22 +11,34 @@ compile cache into a serving artifact store:
   after warmup* no matter how request shapes interleave;
 * requests enter through a thread-safe queue (:meth:`submit` returns a
   :class:`RequestHandle` the caller blocks on) and the scheduler
-  (:meth:`step`) drains up to the largest bucket, pads to the smallest
-  fitting bucket with zero rows (:func:`~repro_torch.core.tra.pack_rows`),
-  dispatches, and unpacks the first *k* rows — the batch key dim is never
-  contracted, so padding is inert.
+  (:meth:`step`) packs whatever is waiting into batched tensor relations:
+
+  - **batch servables** (stateless scoring): drain up to the largest
+    bucket, pad to the smallest fitting bucket with zero rows
+    (:func:`~repro_torch.core.tra.pack_rows`), dispatch, and unpack the
+    first *k* rows — the batch key dim is never contracted, so padding is
+    inert;
+  - **step servables** (LM decode): token-level continuous batching over
+    a fixed-capacity slot-keyed state relation.  Each tick admits pending
+    requests into free slots, feeds every active slot one token (its next
+    prompt token while prefilling, its last sampled token while decoding),
+    dispatches ONE compiled step for all slots, rethreads ``state``
+    out→in by name, and evicts finished sequences — zeroing their state
+    rows — before the next tick.
 
 Resilience, as in the JAX server: admission control (``max_pending``
 sheds fast with :class:`ServerOverloaded`; ``max_queue_wait_s`` sheds
-stale requests), cancellation and deadlines, transient-fault retry
+stale requests), cancellation and deadlines (mid-decode too: the slot is
+freed and its state row zeroed), transient-fault retry
 (:func:`repro_torch.core.faults.is_transient`) with capped exponential
-backoff under a per-request budget, crash containment of the background
-scheduler, a tick watchdog, :meth:`health` and :meth:`stats`.
-
-Not ported yet: the step-decode path (slot admission/eviction, state
-snapshots and rewind).  A :class:`~repro_torch.serve.servable.
-StepServable` raises ``NotImplementedError`` until the decode slice (3,
-see ``ROADMAP.md``) brings ``RecurrentLM``.
+backoff under a per-request budget — on the decode path the state is
+copied to the host after every good tick and restored on a fault, so a
+fault rewinds the *tick*, not the sequences' progress —, crash containment
+of the background scheduler, a tick watchdog, :meth:`health` and
+:meth:`stats`.  On the card each decode tick synchronises twice with the
+host: the logits it copies for sampling and the state snapshot, the
+recovery point.  The background scheduler is one thread, so its CUDA work
+stays on one stream.
 
 Per-request admission→completion spans are metered through
 :class:`~repro_torch.launch.metering.SpanMeter`, splitting queue wait from
@@ -40,10 +52,13 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 
+import numpy as np
+
 from repro_torch.core.engine import CompiledExpr, Engine
 from repro_torch.core.faults import is_transient
+from repro_torch.core.tra import TensorRelation, zero_rows
 from repro_torch.launch.metering import RequestSpan, SpanMeter
-from repro_torch.serve.servable import (BatchServable, Servable,
+from repro_torch.serve.servable import (BatchServable, LmRequest, Servable,
                                         StepServable, pick_bucket)
 
 
@@ -61,7 +76,7 @@ class RequestCancelled(RuntimeError):
 
 class DeadlineExceeded(TimeoutError):
     """The request's deadline passed before it completed; its pending
-    count was released."""
+    count and any decode slot were released."""
 
 
 class RetryBudgetExceeded(RuntimeError):
@@ -97,7 +112,7 @@ class RequestHandle:
         """Block until served; raises the server-side error if it failed.
 
         A timeout here only stops *waiting* — to actually withdraw the
-        request (freeing its pending count) call
+        request (freeing its pending count and decode slot) call
         :meth:`cancel`, or submit with ``deadline_s=`` so the scheduler
         enforces the bound server-side.
         """
@@ -111,8 +126,8 @@ class RequestHandle:
         """Withdraw the request; returns False if it already finished.
 
         Still-queued requests fail immediately with
-        :class:`RequestCancelled`; a request already packed into a batch
-        completes with that batch.
+        :class:`RequestCancelled`; a request mid-decode is evicted at
+        the next scheduler tick (slot freed, state row zeroed).
         """
         if self.done():
             return False
@@ -128,6 +143,26 @@ class RequestHandle:
     def _fail(self, err: BaseException) -> None:
         self._error = err
         self._event.set()
+
+
+class _Seq:
+    """One in-flight decode sequence occupying a slot."""
+
+    def __init__(self, handle: RequestHandle, req: LmRequest):
+        self.handle = handle
+        self.req = req
+        self.pos = 0                      # prompt tokens consumed
+        self.generated: List[int] = []
+        self.logits: List[np.ndarray] = []
+
+    def next_input_token(self) -> int:
+        if self.pos < len(self.req.prompt):
+            return int(self.req.prompt[self.pos])     # prefill
+        return self.generated[-1]                     # decode
+
+    @property
+    def finished(self) -> bool:
+        return len(self.generated) >= self.req.max_new_tokens
 
 
 _COUNTERS = ("shed", "cancelled", "deadline_expired", "retries",
@@ -178,11 +213,12 @@ class TraServer:
         self._crashed: Optional[BaseException] = None
         self._last_tick: Optional[float] = None
         self._last_fault: Optional[float] = None
+        self._decode_attempt = 0          # consecutive failed decode ticks
         if isinstance(servable, StepServable):
-            raise NotImplementedError(
-                "TraServer's step-decode path is not ported to repro_torch "
-                "yet (slice 3; see ROADMAP.md)")
-        if not isinstance(servable, BatchServable):
+            self._state: TensorRelation = servable.init_state()
+            self._slots: List[Optional[_Seq]] = [None] * servable.capacity
+            self._state_snapshot = servable.snapshot_state(self._state)
+        elif not isinstance(servable, BatchServable):
             raise TypeError(f"unsupported servable {type(servable).__name__}")
 
     # -- admission ---------------------------------------------------------
@@ -199,6 +235,9 @@ class TraServer:
         if self._crashed is not None:
             raise ServerStopped(
                 f"server stopped: {self._crashed!r}") from self._crashed
+        if isinstance(self.servable, StepServable) and \
+                not isinstance(payload, LmRequest):
+            raise TypeError("step servables take LmRequest payloads")
         span = self.meter.open("request")
         deadline = None if deadline_s is None else span.t_submit + deadline_s
         with self._pending_lock:
@@ -223,7 +262,8 @@ class TraServer:
 
     def _on_cancel(self, handle: RequestHandle) -> None:
         """Called from :meth:`RequestHandle.cancel`.  Queued (never
-        scheduled) requests finalize immediately."""
+        scheduled) requests finalize immediately; scheduled ones are
+        evicted by the scheduler at the next tick."""
         if handle.span.t_start is not None:
             return
         if self._finalize(handle, error=RequestCancelled(
@@ -239,25 +279,38 @@ class TraServer:
     # -- artifact lifecycle ------------------------------------------------
     def warmup(self) -> Dict[str, CompiledExpr]:
         """Compile and pin every program the servable declares, and
-        dispatch each once on the servable's warmup payload.
+        dispatch each once: a batch servable's buckets on its warmup
+        payload, a step servable's step on a zero state with every slot
+        free.
 
         The dispatch is a port addition: on the card, compiling touches no
         device, and the first run of each program pays CUDA's lazy kernel
         loading and the allocator's growth — without it the first requests
-        after warmup wait tens of milliseconds.  It is not counted in
-        :attr:`dispatches`.  After this returns, steady-state dispatch must
-        be hit-only: :attr:`cache_misses_since_warmup` staying 0 is the
-        serving acceptance invariant.
+        after warmup wait tens of milliseconds.  It goes through
+        :meth:`CompiledExpr.warm`, past the engine's fault injector and
+        numerics guard, and is not counted in :attr:`dispatches`.  After
+        this returns, steady-state dispatch must be hit-only:
+        :attr:`cache_misses_since_warmup` staying 0 is the serving
+        acceptance invariant.
         """
         sv = self.servable
-        warm = sv.warmup_payload()
-        for bucket in sv.buckets:
-            compiled = self.engine.compile(sv.program(bucket))
-            self.engine.pin(compiled)
-            self.artifacts[compiled.artifact_id] = compiled
-            if warm is not None:
-                compiled.run(**sv.pack([warm] * bucket, bucket),
-                             **sv.weights())
+        if isinstance(sv, StepServable):
+            for prog in sv.programs():
+                compiled = self.engine.compile(prog)
+                self.engine.pin(compiled)
+                self.artifacts[compiled.artifact_id] = compiled
+                compiled.warm(**sv.step_inputs([None] * sv.capacity),
+                              **sv.weights(),
+                              **{"lm.state": sv.init_state()})
+        else:
+            warm = sv.warmup_payload()
+            for bucket in sv.buckets:
+                compiled = self.engine.compile(sv.program(bucket))
+                self.engine.pin(compiled)
+                self.artifacts[compiled.artifact_id] = compiled
+                if warm is not None:
+                    compiled.warm(**sv.pack([warm] * bucket, bucket),
+                                  **sv.weights())
         self.warmup_misses = self.engine.cache_misses
         return dict(self.artifacts)
 
@@ -277,7 +330,10 @@ class TraServer:
         with self._step_lock:
             now = self.meter.now()
             swept = self._sweep_queue(now)
-            progressed = self._step_batch(now)
+            if isinstance(self.servable, BatchServable):
+                progressed = self._step_batch(now)
+            else:
+                progressed = self._step_decode(now)
             self._last_tick = self.meter.now()
             return swept + progressed
 
@@ -392,7 +448,7 @@ class TraServer:
 
     def _fail_all_inflight(
             self, make_err: Callable[[RequestHandle], BaseException]) -> int:
-        """Fail every queued request (crash/watchdog path)."""
+        """Fail every queued and slotted request (crash/watchdog path)."""
         failed = 0
         while True:
             with self._queue_lock:
@@ -402,6 +458,16 @@ class TraServer:
             if self._finalize(handle, error=make_err(handle),
                               outcome="failed"):
                 failed += 1
+        if isinstance(self.servable, StepServable):
+            for i, seq in enumerate(self._slots):
+                if seq is None:
+                    continue
+                if self._finalize(seq.handle, error=make_err(seq.handle),
+                                  outcome="failed"):
+                    failed += 1
+                self._slots[i] = None
+            self._state = self.servable.init_state()
+            self._commit_state()
         return failed
 
     def stop(self, join_timeout_s: Optional[float] = 5.0) -> None:
@@ -568,6 +634,124 @@ class TraServer:
             break
         return progressed
 
+    def _commit_state(self) -> None:
+        """Host-copy recovery point: the state every retry rewinds to."""
+        sv: StepServable = self.servable  # type: ignore[assignment]
+        self._state_snapshot = sv.snapshot_state(self._state)
+
+    def _reclaim_slots(self, now: float) -> int:
+        """Evict cancelled / deadline-expired sequences: free the slot,
+        zero the state row, fail the handle."""
+        reclaimed: List[int] = []
+        for i, seq in enumerate(self._slots):
+            if seq is None:
+                continue
+            handle = seq.handle
+            if handle._cancelled and not handle.done():
+                if self._fail(handle, RequestCancelled(
+                        f"request {handle.rid} cancelled mid-decode "
+                        f"(slot {i} freed)"), outcome="cancelled"):
+                    self.counters["cancelled"] += 1
+            elif handle.deadline is not None and now > handle.deadline \
+                    and not handle.done():
+                if self._fail(handle, DeadlineExceeded(
+                        f"request {handle.rid} missed its deadline "
+                        f"mid-decode (slot {i} freed)"),
+                        outcome="deadline"):
+                    self.counters["deadline_expired"] += 1
+            if handle.done():
+                self._slots[i] = None
+                reclaimed.append(i)
+        if reclaimed:
+            self._state = zero_rows(self._state, reclaimed)
+            self._commit_state()
+        return len(reclaimed)
+
+    def _on_decode_failure(self, live, err: BaseException) -> None:
+        """Fault-isolated decode recovery: restore the last good state
+        snapshot, so surviving sequences resume from the previous tick
+        instead of a full-state reset."""
+        sv: StepServable = self.servable  # type: ignore[assignment]
+        self._state = sv.restore_state(self._state_snapshot)
+        if not is_transient(err):
+            dead = []
+            for i, seq in live:          # permanent: fail only the victims
+                self._fail(seq.handle, err)
+                self._slots[i] = None
+                dead.append(i)
+            self._state = zero_rows(self._state, dead)
+            self._commit_state()
+            return
+        self.counters["transient_faults"] += 1
+        self._last_fault = self.meter.now()
+        dead = []
+        for i, seq in live:
+            if not self._charge_retry(seq.handle, err):
+                self._slots[i] = None
+                dead.append(i)
+        if dead:
+            self._state = zero_rows(self._state, dead)
+        self._commit_state()
+        self._backoff(self._decode_attempt)
+        self._decode_attempt += 1
+
+    def _step_decode(self, now: float) -> int:
+        sv: StepServable = self.servable  # type: ignore[assignment]
+        # 0. reclaim slots of cancelled / expired sequences
+        reclaimed = self._reclaim_slots(now)
+        # 1. admit pending requests into the lowest free slots
+        for i in range(sv.capacity):
+            if self._slots[i] is not None:
+                continue
+            handle = self._pop_next(now)
+            if handle is None:
+                break
+            self.meter.start(handle.span)
+            self._slots[i] = _Seq(handle, handle.payload)
+        live = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        if not live:
+            return reclaimed
+        # 2. one token per active slot: prompt token while prefilling,
+        #    last sampled token while decoding
+        tokens: List[Optional[int]] = [None] * sv.capacity
+        for i, seq in live:
+            tokens[i] = seq.next_input_token()
+        # 3. ONE batched step for every slot; state threads out -> in
+        try:
+            compiled = self.engine.compile(sv.step_program())
+            self._record_dispatch(compiled, [s.handle.span for _, s in live])
+            outs = compiled.run(**sv.step_inputs(tokens), **sv.weights(),
+                                **{"lm.state": self._state})
+            logits = outs["logits"].data.cpu().numpy()
+        except Exception as err:  # noqa: BLE001 — classify and retry
+            self._on_decode_failure(live, err)
+            return reclaimed + len(live)
+        self._state = outs["state"]
+        self._decode_attempt = 0
+        # 4. advance sequences; sample once prefill is done
+        evicted: List[int] = []
+        for i, seq in live:
+            seq.pos += 1
+            if seq.pos >= len(seq.req.prompt):
+                row = logits[i].reshape(-1)
+                seq.generated.append(sv.next_token(row))
+                if self.collect_logits:
+                    seq.logits.append(row.copy())
+            if seq.finished:
+                result = {"tokens": list(seq.generated)}
+                if self.collect_logits:
+                    result["logits"] = list(seq.logits)
+                self._finish(seq.handle, result,
+                             tokens=len(seq.generated))
+                self._slots[i] = None
+                evicted.append(i)
+        # 5. zero evicted state rows so reused slots start clean, then
+        #    commit the post-tick state as the new recovery point
+        if evicted:
+            self._state = zero_rows(self._state, evicted)
+        self._commit_state()
+        return reclaimed + len(live)
+
     # -- reporting ---------------------------------------------------------
     def health(self) -> Dict[str, Any]:
         """Liveness snapshot: status, depths, ages, resilience counters."""
@@ -575,6 +759,9 @@ class TraServer:
         with self._queue_lock:
             queued = [h for h in self._waiting if not h.done()]
         submits = [h.span.t_submit for h in queued]
+        if isinstance(self.servable, StepServable):
+            submits += [s.handle.span.t_submit for s in self._slots
+                        if s is not None and not s.handle.done()]
         with self._pending_lock:
             pending = self._pending
         if self._crashed is not None or self._stopped:

@@ -21,6 +21,16 @@ two therefore goes through the weights themselves, as numpy arrays:
       tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
       model = model_from_numpy(cfg, tree, device="cpu")
 
+* the recurrent LM's weight relations and its embedding table
+  (``repro.serve.RecurrentLM``: ``weights()`` and ``embedding``) become
+  the port's (:func:`lm_weights_from_numpy`, through
+  ``RecurrentLM.from_numpy``):
+
+      jax_lm = repro.serve.RecurrentLM(d_model=16, vocab_size=32)
+      arrays = {k: np.asarray(r.data) for k, r in jax_lm.weights().items()}
+      lm = repro_torch.serve.RecurrentLM.from_numpy(
+          arrays, jax_lm.embedding, capacity=4, device="cpu")
+
 * a train step's state — its parameter and optimizer-state relations
   (``W1``, ``W2``, ``W1.m``, ``W1.v``, ``opt.step``, …, as
   ``repro.core.TraTrainer`` holds them in ``params`` and ``state``) —
@@ -63,6 +73,23 @@ def relations_from_numpy(arrays: Mapping[str, np.ndarray],
         data = torch.tensor(arr, dtype=rt.dtype)       # a copy
         out[name] = TensorRelation(data.to(device), rt)
     return out
+
+
+def lm_weights_from_numpy(arrays: Mapping[str, np.ndarray],
+                          embedding: np.ndarray,
+                          rtypes: Mapping[str, RelType], device
+                          ) -> Tuple[Dict[str, TensorRelation], torch.Tensor]:
+    """The recurrent LM's weight relations (``rtypes``: ``lm.Wh``,
+    ``lm.Wx``, ``lm.Wo``) and its (vocab, d) f32 embedding table, copied
+    onto ``device``.  A missing or extra weight, or a shape that does not
+    fit, raises ``ValueError``."""
+    rels = relations_from_numpy(arrays, rtypes, device)
+    d, v = rtypes["lm.Wo"].bound
+    table = np.asarray(embedding)
+    if table.shape != (v, d):
+        raise ValueError(f"embedding of shape {table.shape} does not fit "
+                         f"(vocab, d) = {(v, d)}")
+    return rels, torch.tensor(table, dtype=torch.float32).to(device)
 
 
 def train_state_from_numpy(step, arrays: Mapping[str, np.ndarray],

@@ -1282,3 +1282,76 @@ def test_tile_kernel_at_the_train_second_product_on_card(cuda, rows):
     k = hb * bh
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * k ** 0.5)
+
+
+def _all_counts():
+    return (_counts(), _tc_counts(), _narrow_counts(), flash_ops.LAUNCHES,
+            ssd_ops.LAUNCHES)
+
+
+def _lm_on_card(cuda, **engine_kw):
+    from repro_torch.core import Engine
+    from repro_torch.serve import RecurrentLM
+    lm = RecurrentLM(d_model=256, vocab_size=4096, capacity=4, seed=3,
+                     device=cuda)
+    eng = Engine(executor="jit", device=cuda, **engine_kw)
+    return lm, eng.compile(lm.step_program())
+
+
+@pytest.mark.gpu
+def test_recurrent_lm_step_on_card(cuda):
+    """One ``RecurrentLM`` step program on the card (three live slots of
+    four, a non-zero state) against its plain oracle step per slot, f32 at
+    1e-5; the free slot's row kept bit-exactly; the plan runs no
+    hand-written kernel (JAX's unfused plan: cuBLAS products)."""
+    lm, compiled = _lm_on_card(cuda)
+    tokens = [7, None, 4095, 0]
+    r = np.random.default_rng(9)
+    state = torch.tensor(r.standard_normal((4, 1, 1, 256)) * 0.1,
+                         dtype=torch.float32, device=cuda)
+    before = _all_counts()
+    outs = compiled.run(**lm.step_inputs(tokens), **lm.weights(),
+                        **{"lm.state": state})
+    torch.cuda.synchronize()
+    assert _all_counts() == before
+    got_state = outs["state"].data.reshape(4, 256)
+    got_logits = outs["logits"].data.reshape(4, 4096)
+    for i, tok in enumerate(tokens):
+        if tok is None:
+            assert torch.equal(got_state[i], state.reshape(4, 256)[i])
+            continue
+        h, logits = lm.oracle_step(state.reshape(4, 256)[i:i + 1], tok)
+        np.testing.assert_allclose(got_state[i].cpu().numpy(),
+                                   h[0].cpu().numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got_logits[i].cpu().numpy(), logits,
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_injected_nan_named_on_card_weights_unchanged(cuda):
+    """A NaN injected into the step's relu on the card: ``check_numerics``
+    names that node (the jit re-run replays the dispatch's NaN), the
+    weights and the input state are unchanged, and the next dispatch is
+    finite and equal to an unfaulted one."""
+    from repro_torch.core.faults import FaultInjector
+    from repro_torch.core.guards import NumericsError
+    inj = FaultInjector().inject_nan(node="relu", times=1)
+    lm, compiled = _lm_on_card(cuda, fault_injector=inj,
+                               check_numerics=True)
+    weights = {k: r.data.clone() for k, r in lm.weights().items()}
+    state = lm.init_state()
+    inputs = {**lm.step_inputs([1, 2, None, 3]), **lm.weights(),
+              "lm.state": state}
+    with pytest.raises(NumericsError) as ei:
+        compiled.run(**inputs)
+    assert "relu" in ei.value.node_label
+    assert inj.log == [("nan", ei.value.node_label)]
+    for k, w in weights.items():
+        assert torch.equal(lm.weights()[k].data, w)
+    assert torch.equal(state.data, torch.zeros_like(state.data))
+    outs = compiled.run(**inputs)
+    _, clean = _lm_on_card(cuda)
+    want = clean.run(**inputs)
+    for name in ("state", "logits"):
+        assert bool(torch.isfinite(outs[name].data).all())
+        assert torch.equal(outs[name].data, want[name].data)

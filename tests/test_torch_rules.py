@@ -109,7 +109,6 @@ def test_flash_kernel_impl_on_cpu_raises():
 
 def test_unported_launcher_paths_exit_cleanly(capsys):
     from repro_torch.launch.serve import main
-    assert main(["--servable", "lm"]) == 2
     assert main(["--dense-oracle", "--arch", "llama4-scout-17b-a16e"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert main(["--dense-oracle", "--mesh", "2x2"]) == 2

@@ -18,7 +18,6 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 import repro.serve as jserve  # noqa: E402
-import repro_torch.serve as tserve  # noqa: E402
 from repro_torch.core import Engine  # noqa: E402
 from repro_torch.core.plan import FusedJoinAgg, postorder  # noqa: E402
 from repro_torch.launch.metering import SpanMeter, percentiles  # noqa: E402
@@ -280,11 +279,3 @@ class TestMeteringAndLoadgen:
                           n_requests=4, concurrency=2)
         assert rep.requests == 4 and rep.errors >= 1
         assert server.idle()
-
-
-def test_step_servables_wait_for_the_decode_slice():
-    class Lm(tserve.StepServable):
-        pass
-
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TraServer(Engine(device=CPU), Lm())

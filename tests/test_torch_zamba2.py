@@ -65,11 +65,13 @@ def _models(dtype, swap=False):
     """The JAX model and the port's holding the same weights; with
     ``swap``, the two shared weight sets exchanged in the JAX tree first
     (made once per process: the tests only read them)."""
-    jc, tc = _cfgs(dtype)
-    jparams = jmodels.init_params(jc, jax.random.PRNGKey(0))
     if swap:
+        jc, jparams, tc, _ = _models(dtype)
         jparams = {**jparams, "shared": jax.tree.map(lambda a: a[::-1],
                                                      jparams["shared"])}
+    else:
+        jc, tc = _cfgs(dtype)
+        jparams = jmodels.init_params(jc, jax.random.PRNGKey(0))
     return jc, jparams, tc, model_from_numpy(tc, _np_tree(jparams), "cpu")
 
 
@@ -241,7 +243,8 @@ def test_jax_bf16_silu_alone_moves_zamba2_logits_past_the_bound():
 def test_zamba2_forward_matches_jax_f32():
     jc, jparams, tc, model = _models("float32")
     prompts, _ = _tokens(jc, seed=8)
-    want = jmodels.forward(jc, jparams, {"tokens": jnp.asarray(prompts)})
+    want = jax.jit(lambda p, b: jmodels.forward(jc, p, b))(
+        jparams, {"tokens": jnp.asarray(prompts)})
     got = TM.forward(tc, model, {"tokens": torch.from_numpy(prompts).long()})
     assert tuple(got.shape) == (B, S, jc.vocab_size)
     _close(got, want)
@@ -266,9 +269,9 @@ def test_zamba2_init_cache_then_decode_matches_jax_f32():
     jcache = jmodels.init_cache(jc, B, GEN)
     tcache = TM.init_cache(tc, B, GEN, device="cpu")
     assert [set(e) for e in tcache["blocks"]] == [{"mamba", "attn"}] * 2
+    _, step = _jax_steps("float32")
     for tok in steps:
-        jl, jcache = jmodels.decode_step(jc, jparams, jcache,
-                                         {"token": jnp.asarray(tok)})
+        jl, jcache = step(jparams, jcache, {"token": jnp.asarray(tok)})
         tl, tcache = TM.decode_step(tc, model, tcache,
                                     {"token": torch.from_numpy(tok).long()})
         _close(tl, jl)
@@ -287,8 +290,8 @@ def test_zamba2_cpu_model_never_launches_a_kernel():
 
 # ------------------------------------------------------------------ weights
 def _shared_tree():
-    jc, tc = _cfgs("float32")
-    return tc, _np_tree(jmodels.init_params(jc, jax.random.PRNGKey(0)))
+    _, jparams, tc, _ = _models("float32")
+    return tc, _np_tree(jparams)
 
 
 def test_model_from_numpy_refuses_a_tree_without_a_shared_leaf():
@@ -311,20 +314,24 @@ def test_model_from_numpy_refuses_a_misshapen_shared_leaf():
 # ------------------------------------------------- layers at zamba2's widths
 def test_gqa_at_zamba2_head_dim_matches_jax():
     """MHA with head dim 112 (32/32 heads at full width; 4/4 here): the
-    attention's prefill and two decode steps against JAX at 1e-4."""
+    attention's prefill and two decode steps against JAX at 1e-4 (JAX's
+    layer jitted, as its model runs it: op-by-op dispatch costs ~4 s of
+    CPU beside the reference's wall-clock tests, ROADMAP C3)."""
     jc, tc = _cfgs("float32", head_dim=112)
     p = _np_tree(JL.gqa_init(jax.random.PRNGKey(3), jc))
     tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
     r = rng(4)
     x = normal(r, (B, S, jc.d_model))
-    jo, jcache = JL.gqa_prefill(p, jc, jnp.asarray(x), window=0,
-                                cache_len=S + 2)
+    prefill = jax.jit(lambda p, x: JL.gqa_prefill(p, jc, x, window=0,
+                                                  cache_len=S + 2))
+    decode = jax.jit(lambda p, x, c, pos: JL.gqa_decode(p, jc, x, c, pos))
+    jo, jcache = prefill(p, jnp.asarray(x))
     to, tcache = TL.gqa_prefill(tp, tc, torch.from_numpy(x), window=0,
                                 cache_len=S + 2)
     _close(to, jo)
     for pos in (S, S + 1):
         xt = normal(r, (B, 1, jc.d_model))
-        jo, jcache = JL.gqa_decode(p, jc, jnp.asarray(xt), jcache, pos)
+        jo, jcache = decode(p, jnp.asarray(xt), jcache, pos)
         to, tcache = TL.gqa_decode(tp, tc, torch.from_numpy(xt), tcache, pos)
         _close(to, jo)
         for k in ("k", "v"):
@@ -334,10 +341,11 @@ def test_gqa_at_zamba2_head_dim_matches_jax():
 def test_mamba2_at_zamba2_state_matches_jax():
     """One group of state 64 and heads of 64 (zamba2-7b's SSD widths, 8
     heads here): the Mamba2 layer's prefill, its cache and two decode
-    steps against JAX at 1e-4."""
+    steps against JAX at 1e-4 (JAX's layer jitted, as in the GQA test)."""
     jc, tc = _cfgs("float32", d_model=256, ssm_state=64, ssm_head_dim=64)
     assert (jc.ssm_heads, jc.ssm_state, jc.ssm_ngroups) == (8, 64, 1)
-    p = _np_tree(JL.mamba2_init(jax.random.PRNGKey(12), jc))
+    p = _np_tree(jax.jit(lambda k: JL.mamba2_init(k, jc))(
+        jax.random.PRNGKey(12)))
     r = rng(12)             # biases are zeros at init: make them bite
     p = {k: (normal(r, v.shape) if k in ("conv_bx", "conv_bbc", "dt_bias")
              else v) for k, v in p.items()}
@@ -345,14 +353,16 @@ def test_mamba2_at_zamba2_state_matches_jax():
               if isinstance(v, dict) else torch.from_numpy(np.array(v)))
           for k, v in p.items()}
     x = normal(r, (B, S, jc.d_model))
-    jo, jcache = JL.mamba2_prefill(p, jc, jnp.asarray(x))
+    prefill = jax.jit(lambda p, x: JL.mamba2_prefill(p, jc, x))
+    decode = jax.jit(lambda p, x, c: JL.mamba2_decode(p, jc, x, c))
+    jo, jcache = prefill(p, jnp.asarray(x))
     to, tcache = TL.mamba2_prefill(tp, tc, torch.from_numpy(x))
     _close(to, jo)
     for _ in range(2):
         for k in ("conv_x", "conv_bc", "ssm"):
             _close(tcache[k], jcache[k], err_msg=k)
         xt = normal(r, (B, 1, jc.d_model))
-        jo, jcache = JL.mamba2_decode(p, jc, jnp.asarray(xt), jcache)
+        jo, jcache = decode(p, jnp.asarray(xt), jcache)
         to, tcache = TL.mamba2_decode(tp, tc, torch.from_numpy(xt), tcache)
         _close(to, jo)
 
