@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's six main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's seven main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
 through ``TraServer`` on the ``jit`` executor; ``RecurrentLM``'s
 continuous-batching decode at gemma2-2b's width (d_model 2304, vocab
 256000) served through ``TraServer`` as well; the same FFNN trained at
 that width on a minibatch of 10000 through ``TraTrainer``, plan-level
-autodiff and AdamW; gemma2-2b at full width
+autodiff and AdamW; its forward at that width streamed from a host
+``RelationStore`` under a 1 GiB and a 4 GiB device budget, with the
+``degrade`` ladder recovering a real out-of-memory error; gemma2-2b at full width
 (26 layers, d_model 2304, vocab 256000), mamba2-130m at full width (24
 Mamba2 layers, d_model 768, 24 SSD heads of dim 64, state 128, chunk 128,
 vocab 50280) and zamba2-7b at full width (78 Mamba2 layers in 13 groups of
@@ -90,7 +92,31 @@ its plain PyTorch version on the card:
    plain version, ``torch.matmul`` and the bounds (X·W1: its split passes
    and the tensor-core kernel alone, too), with the split-K pass at
    a1·W2's partial sums (off the path) beside ``sum(0)``;
-7. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
+7. oocore: the same network's forward z2 = relu(X·W1)·W2 at speech-100k
+   (X, W1, W2 drawn as the train phase draws them) streamed from a host
+   ``RelationStore`` (every block page-locked) through
+   ``Engine(executor="jit", memory_budget=...)``: W1 (blocked along its
+   hidden key dim) and W2 from the host under 1 GiB — stream-reduce, 10
+   chunks a run, 644,000,000 bytes to the card a run, the model's peak
+   within the budget, 1 tensor-core + 2 split + 1 narrow launch a chunk
+   (by ``mm_ops.route`` of the chunk shapes), a second run a cache hit —
+   and X from the host under 4 GiB — stream-out, 3 chunks of 4, 4 and 2
+   keys, the output joined on the card; each within ``tolerance(100000,
+   f32)`` of the f64 z2 computed on the card, as the resident run of the
+   same engine kind is; the median of 5 synchronized runs beside the
+   resident run's, the card's peak over a run beside the model's and the
+   budget, the copy time and its hidden share from the copy stream's
+   events, and the card's page-locked and pageable host→device rates on
+   64 MB.  Then the ``degrade`` ladder: under a 4 GiB cap
+   (``set_per_process_memory_fraction``, ``REPRO_DEVICE_MEMORY_BUDGET``
+   the same) the resident z2 from numpy inputs raises
+   ``torch.OutOfMemoryError`` and ``Engine(degrade=True)`` returns it on
+   rung 1 (streamed at a quarter of the cap, one ``RuntimeWarning``), the
+   cap and the environment restored in a ``finally``; a2 = σ(z2) under
+   ``FaultInjector().inject_oom(ok_chunk=8)`` walks rung 2's chunks 64,
+   32, 16 and completes at 8 on the chunked lowering, held against σ of
+   the f64 z2;
+8. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
    before and read just after (26 launches of the tensor-core flash
    kernel, none of the FFMA kernel, no copy of q, k or v); the prefill's
@@ -98,7 +124,7 @@ its plain PyTorch version on the card:
    plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-8. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
+9. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
    exact result, :func:`exact_ssd`, as in every per-call SSD check here;
    JAX's f32 sum of C·Bᵀ is off by a few % of a row where C_i·B_i
    cancels) at the JAX kernel
@@ -115,7 +141,7 @@ its plain PyTorch version on the card:
    kernel and f32 on the FFMA one, with the plain version and the bound;
    zamba2-7b's layer shape (B=2, S=8192, H=112, P=64, N=64, L=128) the
    same ways;
-9. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
+10. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (24 launches of the tensor-core SSD kernel, none of
    the FFMA one, no cast, no other kernel); in a second prefill, every
@@ -134,7 +160,7 @@ its plain PyTorch version on the card:
    rounding changes: 24 layers without post-norms add up the bf16 noise
    of each); a profile by kernel of one prefill (24 SSD launches) and of
    8 decode steps (none);
-10. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
+11. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (13 launches of the tensor-core flash kernel, one per
    shared-block application, and 78 of the tensor-core SSD kernel, one
@@ -149,7 +175,7 @@ its plain PyTorch version on the card:
    within ``BF16_FLOOR_FACTOR`` of the rounding floor (both plain, the
    SSD in half-size chunks against full ones); a profile by kernel of one
    prefill (13 + 78 launches) and of 8 decode steps (none); peak memory;
-11. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
+12. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
    2304, vocab 256000; Wh, Wx, Wo and the embedding table drawn on the card
    from seed 0), capacity 8, through ``TraServer(Engine(device="cuda",
    executor="jit"))`` with TF32 off: 40 requests from ``lm_mix`` (prompts
@@ -184,7 +210,7 @@ its plain PyTorch version on the card:
    p50/p99, peak memory, the logits copied to the host a tick (8.2 MB)
    and the time of that copy and of the state snapshot, the chaos run's
    counters and extra wall time, and the card's name and power limit;
-12. the kernels line, the ``nvidia-smi`` line, and the last line
+13. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -220,6 +246,7 @@ from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             tf32_split_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
+from repro_torch.store.stream import StreamExecutor, _rebuild  # noqa: E402
 from repro_torch.models.model import (_window_for, group_size,  # noqa: E402
                                       n_scan_groups)
 
@@ -986,15 +1013,16 @@ def dense_f64_step(dense, z1, z1_plain) -> dict:
             "sign_flips_vs_plain": n_flips, "flip_columns": int(flips.sum())}
 
 
-def held(what: str, got, ref, k: int, where=None, gate=True) -> dict:
+def held(what: str, got, ref, k: int, where=None, gate=True,
+         phase: str = "train") -> dict:
     """``got`` (f32) against ``ref`` within ``tolerance(k, f32)``, where
-    ``where`` is true (everywhere by default); fails otherwise, unless
-    ``gate`` is false (a reading only)."""
+    ``where`` is true (everywhere by default); fails otherwise, naming
+    ``phase``, unless ``gate`` is false (a reading only)."""
     rtol, atol = tolerance(k, torch.float32)
     got = torch.as_tensor(got).double()
     ref = torch.as_tensor(ref, device=got.device).double()
     if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-        fail(f"train {what}: shape {tuple(got.shape)} against "
+        fail(f"{phase} {what}: shape {tuple(got.shape)} against "
              f"{tuple(ref.shape)}, or not finite")
     err, lim = (got - ref).abs(), atol + rtol * ref.abs()
     if where is not None:
@@ -1005,7 +1033,7 @@ def held(what: str, got, ref, k: int, where=None, gate=True) -> dict:
            if err.numel() else 0.0, "values_over": over, "rtol": rtol,
            "atol": atol, "k": k}
     if over and gate:
-        fail(f"train {what}: {over} values over rtol={rtol} atol={atol} "
+        fail(f"{phase} {what}: {over} values over rtol={rtol} atol={atol} "
              f"(max |err| {out['max_abs_err']})")
     return out
 
@@ -1317,6 +1345,386 @@ def phase_train(device) -> dict:
     del trainer, data, params, dense
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ out of core
+OOC_PATH = "ffnn-oocore-speech-100k"
+OOC_BUDGET = 2 ** 30             # stream-reduce: W1 and W2 from the host
+OOC_OUT_BUDGET = 4 * 2 ** 30     # stream-out: X from the host
+OOC_CAP = 4 * 2 ** 30            # rung 1: the process capped at this
+OOC_RUNS = 5                     # synchronized runs timed (median)
+OOC_LADDER_OK_CHUNK = 8          # rung 2: the injected OOM's ok_chunk
+#: the store's split dims: W1 by its hidden blocks (key dim 1), W2 and X
+#: by their leading key dim
+OOC_SPLIT = {"X": 0, "W1": 1, "W2": 0}
+
+
+def pinned_h2d_rate(device, nbytes: int = 64 * 2 ** 20) -> dict:
+    """The card's host→device rate from a page-locked and from a pageable
+    ``nbytes`` tensor (CUDA events over 20 copies each)."""
+    out = {}
+    dev = torch.empty(nbytes // 4, device=device)
+    for what, pin in (("pinned", True), ("pageable", False)):
+        host = torch.ones(nbytes // 4, pin_memory=pin)
+        ms = timed_ms(lambda: dev.copy_(host, non_blocking=pin), device, 20)
+        out[f"{what}_gb_s"] = nbytes / ms / 1e6
+    out["bytes"] = nbytes
+    return out
+
+
+def z2_f64(dense) -> torch.Tensor:
+    """z2 = relu(X·W1)·W2 dense in f64 on the card, by 10000 hidden
+    columns at a time (a1 in f64 is 8 GB whole)."""
+    x, w1, w2 = (dense[k].double() for k in ("X", "W1", "W2"))
+    z2 = torch.zeros(x.shape[0], w2.shape[1], dtype=torch.float64,
+                     device=x.device)
+    for c in range(0, w1.shape[1], 10_000):
+        z2 += torch.relu(x @ w1[:, c:c + 10_000]) @ w2[c:c + 10_000]
+    return z2
+
+
+def z2_relation(dims, dense2) -> torch.Tensor:
+    """A dense (N, L) result in the relation layout of z2 (nb, lb, bn,
+    bl)."""
+    nb, _, _, lb, bn, _, _, bl = dims
+    return dense2.reshape(nb, bn, lb, bl).permute(0, 2, 1, 3)
+
+
+def timed_runs(fn, device, runs: int = OOC_RUNS) -> list:
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def plan_products(compiled) -> list:
+    """``(m, k, n)`` of each product of a compiled plan that reaches the
+    matmul op: every ``FusedJoinAgg`` of ``matMul`` and ``matAdd`` (rows:
+    the left's kept key blocks × its block rows; inner: the joined key
+    blocks × the block columns; columns: the right's kept key blocks × its
+    block columns).  A join the optimizer leaves unfused — a joined key
+    dim of size 1, where the fused and unfused plans tie — runs
+    ``torch.matmul`` and reaches no hand kernel."""
+    from repro_torch.core.plan import infer
+    out = []
+    for root in compiled.roots:
+        for n in postorder(root):
+            if not (isinstance(n, FusedJoinAgg)
+                    and n.join_kernel.name == "matMul"
+                    and n.agg_kernel.name == "matAdd"):
+                continue
+            lt, rt = infer(n.left).rtype, infer(n.right).rtype
+            kept_l = [f for d, f in enumerate(lt.key_shape)
+                      if d not in n.join_keys_l]
+            kept_r = [f for d, f in enumerate(rt.key_shape)
+                      if d not in n.join_keys_r]
+            joined = [lt.key_shape[d] for d in n.join_keys_l]
+            out.append((math.prod(kept_l) * lt.bound[0],
+                        math.prod(joined) * lt.bound[1],
+                        math.prod(kept_r) * rt.bound[1]))
+    return out
+
+
+def chunk_launches(engine, splan, sms: int) -> dict:
+    """The launches one streamed run of ``splan`` should read: for each
+    chunk, the products of its program's plan that reach the matmul op
+    (:func:`plan_products`), each on the route ``mm_ops.route`` gives its
+    shape (``train_routes``, ``train_launches``).  The chunk programs are
+    the engine's cached ones (a cache hit each)."""
+    total = launches_of()
+    for lo in range(0, splan.nkeys, splan.chunk_keys):
+        n = min(splan.chunk_keys, splan.nkeys - lo)
+        prog = engine.compile(_rebuild(splan.root, splan.sliced, n))
+        one = train_launches(*train_routes(plan_products(prog), sms), 1)
+        total = {k: total[k] + one[k] for k in total}
+    return total
+
+
+def held_launches(what, launches, expected) -> None:
+    """The run's launch counts against the routes' (operand copies
+    printed, not held: a streamed chunk is a fresh contiguous tensor)."""
+    got = {k: v for k, v in launches.items() if k != "matmul_copies"}
+    want = {k: v for k, v in expected.items() if k != "matmul_copies"}
+    if got != want:
+        fail(f"oocore {what}: launches {launches}, expected {expected}")
+
+
+def stats_delta(before: dict, stats) -> dict:
+    now = stats.as_dict()
+    return {k: now[k] - before[k] for k in ("runs", "chunks", "h2d_bytes",
+                                            "copy_s", "hidden_copy_s",
+                                            "compute_s")}
+
+
+def streamed_case(what, engine, z2, inputs, device, resident_inputs,
+                  dims, ref, sms, expect) -> dict:
+    """One streamed z2 through ``engine``: the first run with every launch
+    count 0 just before and read just after, against the f64 result; then
+    ``OOC_RUNS`` timed runs (no compile), the card's peak over the first
+    run; the run's copy time and hidden share from the stream's events."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.run(z2, **inputs)
+    torch.cuda.synchronize(device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    card_peak = torch.cuda.max_memory_allocated(device) - base \
+        + resident_inputs
+    (entry,) = [c for c in engine.cache_info() if c.stream_stats]
+    stats = entry.stream_stats
+    mode, chunks, ck = expect
+    splan = StreamExecutor(engine).plan(z2)
+    if (stats.mode, stats.chunks, splan.chunk_keys) != (mode, chunks, ck):
+        fail(f"oocore {what}: mode {stats.mode}, {stats.chunks} chunks of "
+             f"{splan.chunk_keys} keys; expected {mode}, {chunks} of {ck}")
+    expected = chunk_launches(engine, splan, sms)
+    held_launches(what, launches, expected)
+    check = held(f"{what} z2 vs f64", out.data, ref, dims[2] * dims[6],
+                 phase="oocore")
+    first_stats = stats.as_dict()
+    misses = engine.cache_misses
+    before = stats.as_dict()
+    ms = timed_runs(lambda: engine.run(z2, **inputs), device)
+    delta = stats_delta(before, stats)
+    if engine.cache_misses != misses:
+        fail(f"oocore {what}: {engine.cache_misses - misses} compiles in "
+             f"{OOC_RUNS} more runs")
+    runs = delta["runs"]
+    return {"out": out, "first_run_ms": first_ms, "ms": ms,
+            "products_per_chunk": plan_products(engine.compile(_rebuild(
+                splan.root, splan.sliced, splan.chunk_keys))),
+            "median_ms": sorted(ms)[len(ms) // 2],
+            "launches": launches, "check": check,
+            "stats_first_run": first_stats,
+            "h2d_bytes_per_run": delta["h2d_bytes"] / runs,
+            "copy_ms_per_run": delta["copy_s"] * 1e3 / runs,
+            "hidden_copy_ms_per_run": delta["hidden_copy_s"] * 1e3 / runs,
+            "hidden_share": (delta["hidden_copy_s"] / delta["copy_s"]
+                             if delta["copy_s"] else None),
+            "compute_ms_per_run": delta["compute_s"] * 1e3 / runs,
+            "copy_gb_s": (delta["h2d_bytes"] / delta["copy_s"] / 1e9
+                          if delta["copy_s"] else None),
+            "model_peak_bytes": stats.peak_device_bytes,
+            "card_peak_bytes": card_peak, "budget_bytes": stats.budget_bytes,
+            "cache": {"misses": engine.cache_misses,
+                      "hits": engine.cache_hits}}
+
+
+def phase_oocore(device) -> dict:
+    """The §5.3 FFNN forward's z2 = relu(X·W1)·W2 at speech-100k streamed
+    from a host ``RelationStore`` through ``Engine(memory_budget=...)``:
+    W1 and W2 from the host under 1 GiB (stream-reduce over the hidden
+    blocks), X from the host under 4 GiB (stream-out over its rows); then
+    the ``degrade`` ladder: a real ``torch.OutOfMemoryError`` under a
+    4 GiB cap recovered on rung 1, and a2 = σ(z2) under an injected OOM
+    recovered on rung 2's halving chunks.  Every result within
+    ``tolerance(k, f32)`` of the f64 product on the card."""
+    import warnings
+    from repro_torch.core import Engine, FaultInjector, from_tensor
+    from repro_torch.core.cost import plan_peak_bytes
+    from repro_torch.core.programs import _ffnn_forward
+    from repro_torch.store import RelationStore
+    from repro_torch.store.autotune import ENV_BUDGET
+    t0 = time.perf_counter()
+    rate = pinned_h2d_rate(device)
+    cfg, dims, dense = train_problem(device)
+    del dense["Y"]
+    nb, db, hb, lb, bn, bd, bh, bl = dims
+    tiles = {"X": (bn, bd), "W1": (bd, bh), "W2": (bh, bl)}
+    rels = {k: from_tensor(dense[k], t) for k, t in tiles.items()}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fwd = _ffnn_forward(*dims)
+    z2, a2 = fwd[5], fwd[6]
+    ref = z2_relation(dims, z2_f64(dense))
+    nbytes = {k: v.data.numel() * v.data.element_size()
+              for k, v in rels.items()}
+
+    # -- the resident z2 on the same engine kind -------------------------
+    resident = Engine(executor="jit", device=device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    res_out = resident.run(z2, **rels)
+    torch.cuda.synchronize(device)
+    res_launches = read_launches()
+    res_peak = torch.cuda.max_memory_allocated(device) - base \
+        + sum(nbytes.values())
+    res_check = held("resident z2 vs f64", res_out.data, ref,
+                     dims[2] * dims[6], phase="oocore")
+    res_ms = timed_runs(lambda: resident.run(z2, **rels), device)
+    res_profile = device_profile(lambda: resident.run(z2, **rels),
+                                 TRAIN_GROUPS)
+
+    # -- 1. stream-reduce: W1 and W2 from the host under 1 GiB -----------
+    store = RelationStore()
+    p0 = time.perf_counter()
+    host = {k: store.put(k, rels[k], split_dim=OOC_SPLIT[k])
+            for k in ("W1", "W2")}
+    put_s = time.perf_counter() - p0
+    pinned = all(b.data.is_pinned() for h in host.values()
+                 for b in h._blocks)
+    if not pinned:
+        fail("oocore: a store block is not page-locked")
+    eng = Engine(executor="jit", device=device, memory_budget=OOC_BUDGET,
+                 store=store)
+    splan = StreamExecutor(eng).plan(z2)
+    planned = {"mode": splan.mode, "dim": splan.dim,
+               "input_dims": splan.input_dims,
+               "chunk_keys": splan.chunk_keys, "nkeys": splan.nkeys,
+               "chunk_plan_peak_bytes": plan_peak_bytes(_rebuild(
+                   splan.root, splan.sliced, splan.chunk_keys)),
+               "resident_plan_peak_bytes": plan_peak_bytes(z2)}
+    red = streamed_case("stream-reduce", eng, z2,
+                        {"X": rels["X"], **host}, device, nbytes["X"], dims,
+                        ref, sms, ("stream-reduce", 10, 1))
+    want_h2d = nbytes["W1"] + nbytes["W2"]
+    if red["stats_first_run"]["h2d_bytes"] != want_h2d or \
+            red["h2d_bytes_per_run"] != want_h2d:
+        fail(f"oocore stream-reduce: {red['stats_first_run']['h2d_bytes']} "
+             f"bytes to the card a run, expected {want_h2d}")
+    if not 0 < red["model_peak_bytes"] <= OOC_BUDGET:
+        fail(f"oocore stream-reduce: the model's peak "
+             f"{red['model_peak_bytes']} over the budget {OOC_BUDGET}")
+    red_profile = device_profile(lambda: eng.run(z2, X=rels["X"], **host),
+                                 TRAIN_GROUPS)
+    del eng, host, store
+
+    # -- 2. stream-out: X from the host under 4 GiB ----------------------
+    store = RelationStore()
+    hx = store.put("X", rels["X"], split_dim=OOC_SPLIT["X"])
+    eng = Engine(executor="jit", device=device,
+                 memory_budget=OOC_OUT_BUDGET, store=store)
+    out = streamed_case("stream-out", eng, z2,
+                        {"X": hx, "W1": rels["W1"], "W2": rels["W2"]},
+                        device, nbytes["W1"] + nbytes["W2"], dims, ref, sms,
+                        ("stream-out", 3, 4))
+    if out["out"].data.device != device:
+        fail("oocore stream-out: the output is not on the card")
+    if out["h2d_bytes_per_run"] != nbytes["X"]:
+        fail(f"oocore stream-out: {out['h2d_bytes_per_run']} bytes to the "
+             f"card a run, expected {nbytes['X']}")
+    del eng, hx, store
+
+    # -- 3. rung 1 on a real OOM under a 4 GiB cap -----------------------
+    host_np = {k: v.data.cpu().numpy() for k, v in rels.items()}
+    for r in (red, out):
+        del r["out"]
+    del res_out, resident
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(device).total_memory
+    env_before = os.environ.get(ENV_BUDGET)
+    rung1 = {"cap_bytes": OOC_CAP, "allocated_before":
+             torch.cuda.memory_allocated(device)}
+    try:
+        torch.cuda.set_per_process_memory_fraction(OOC_CAP / total, device)
+        os.environ[ENV_BUDGET] = str(OOC_CAP)
+        oom = None
+        reset_launches()
+        try:
+            Engine(executor="jit", device=device).run(z2, **host_np)
+        except torch.OutOfMemoryError as err:
+            oom = str(err).splitlines()[0][:160]
+        if oom is None:
+            fail("oocore rung 1: the resident z2 did not run out of memory "
+                 "under the cap")
+        # what the resident attempt launched before its allocation failed:
+        # the degrade engine makes the same attempt first
+        failed = read_launches()
+        rung1.update({"oom": oom, "failed_attempt_launches": failed})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        eng = Engine(executor="jit", device=device, degrade=True)
+        reset_launches()
+        with warnings.catch_warnings(record=True) as wlog:
+            warnings.simplefilter("always")
+            r1 = time.perf_counter()
+            got = eng.run(z2, **host_np)
+            torch.cuda.synchronize(device)
+            rung1["ms"] = (time.perf_counter() - r1) * 1e3
+        rung1["launches"] = read_launches()
+        warns = [str(w.message)[:90] for w in wlog
+                 if issubclass(w.category, RuntimeWarning)]
+        (entry,) = [c for c in eng.cache_info() if c.stream_stats]
+        st = entry.stream_stats
+        rung1.update({"warnings": warns, "stats": st.as_dict(),
+                      "peak_bytes": torch.cuda.max_memory_allocated(device)})
+        if len(warns) != 1 or "host relation store" not in warns[0]:
+            fail(f"oocore rung 1: warnings {warns}")
+        if st.budget_bytes != OOC_CAP // 4 or st.runs != 1:
+            fail(f"oocore rung 1: budget {st.budget_bytes}, runs {st.runs}")
+        splan = StreamExecutor(eng).plan(z2, force=True)
+        rung1["plan"] = {"mode": splan.mode, "chunk_keys": splan.chunk_keys,
+                         "nkeys": splan.nkeys}
+        if st.mode != splan.mode or st.chunks != splan.nchunks:
+            fail(f"oocore rung 1: {st.mode} in {st.chunks} chunks, the "
+                 f"planner's {splan.mode} in {splan.nchunks}")
+        streamed = chunk_launches(eng, splan, sms)
+        held_launches("rung 1", rung1["launches"],
+                      {k: failed[k] + streamed[k] for k in streamed})
+        rung1["check"] = held("rung 1 z2 vs f64", got.data, ref,
+                              dims[2] * dims[6], phase="oocore")
+        del got, eng
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, device)
+        if env_before is None:
+            os.environ.pop(ENV_BUDGET, None)
+        else:
+            os.environ[ENV_BUDGET] = env_before
+    torch.cuda.empty_cache()
+
+    # -- 4. rung 2: a2 under an injected OOM, down the halving chunks ----
+    inj = FaultInjector().inject_oom(ok_chunk=OOC_LADDER_OK_CHUNK)
+    eng = Engine(executor="jit", device=device, degrade=True,
+                 fault_injector=inj)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        r2 = time.perf_counter()
+        got = eng.run(a2, **rels)
+        torch.cuda.synchronize(device)
+        rung2_ms = (time.perf_counter() - r2) * 1e3
+    ooms = [d for k, d in inj.log if k == "oom"]
+    chunks_failed = [int(d.rsplit("chunk=", 1)[1].split()[0])
+                     for d in ooms if "chunk=" in d]
+    if chunks_failed != [64, 32, 16]:
+        fail(f"oocore rung 2: the ladder's failed chunks {chunks_failed}, "
+             f"expected [64, 32, 16]")
+    rung2 = {"ms": rung2_ms, "oom_log": ooms,
+             "warnings": [str(w.message)[:90] for w in wlog],
+             "launches": read_launches(),
+             "peak_bytes": torch.cuda.max_memory_allocated(device),
+             "check": held("rung 2 a2 vs sigmoid(f64 z2)", got.data,
+                           torch.sigmoid(ref), dims[2] * dims[6],
+                           phase="oocore")}
+    del got, eng
+
+    launches = {k: red["launches"].get(k, 0) + out["launches"].get(k, 0)
+                + rung1["launches"].get(k, 0) for k in red["launches"]}
+    result = {"phase": "oocore", "path": OOC_PATH,
+              "width": [cfg.d_in, cfg.d_hidden, cfg.d_out],
+              "batch": cfg.batch, "dims": list(dims), "h2d": rate,
+              "put_s": put_s, "pinned_blocks": pinned, "plan": planned,
+              "resident": {"ms": res_ms,
+                           "median_ms": sorted(res_ms)[len(res_ms) // 2],
+                           "launches": res_launches,
+                           "card_peak_bytes": res_peak,
+                           "check": res_check, "profile": res_profile},
+              "stream_reduce": {**red, "profile": red_profile},
+              "stream_out": out, "rung1": rung1, "rung2": rung2,
+              "launches": launches, "phase_s": time.perf_counter() - t0}
+    emit(result)
+    del rels, dense
+    torch.cuda.empty_cache()
+    return result
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -2556,7 +2964,8 @@ MATMUL_WGMMA_CU = "src/repro_torch/kernels/matmul/csrc/matmul_wgmma.cu"
 MATMUL_NARROW_CU = "src/repro_torch/kernels/matmul/csrc/matmul_narrow.cu"
 
 
-def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
+def matmul_entries(rows, reduce_rows, skinny, serve, train,
+                   oocore) -> list:
     """The kernels line's seven matmul entries.  The skinny kernel and its
     fold at one scorer dispatch at bucket 8 (the serving path: both
     products, read in place as the engine calls them; the fold inside the
@@ -2565,7 +2974,8 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
     N 10000), with their launches there.  The tile kernel and its split-K
     pass, off both paths, at a1·W2 (their route before the narrow kernel);
     beside the tile kernel, as before, X·W1 and the scorer's two products
-    on it."""
+    on it.  The out-of-core path's launches (its stream-reduce, stream-out
+    and rung-1 runs) join the tensor-core, split and narrow entries."""
     first, second = serve["products_b8"]
     b = first["m"]
     both = (first, second)
@@ -2588,12 +2998,16 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
     wgmma = {**common, "source": MATMUL_WGMMA_CU}
     tile_paths = {"scorer": serve["launches"]["matmul"],
                   TRAIN_PATH: train["launches"]["matmul"]}
+    ooc = oocore["launches"]
     tc_paths = {"scorer": serve["launches"]["matmul_tc"],
-                TRAIN_PATH: train["launches"]["matmul_tc"]}
+                TRAIN_PATH: train["launches"]["matmul_tc"],
+                OOC_PATH: ooc["matmul_tc"]}
     split_paths = {"scorer": serve["launches"]["matmul_tf32_split"],
-                   TRAIN_PATH: train["launches"]["matmul_tf32_split"]}
+                   TRAIN_PATH: train["launches"]["matmul_tf32_split"],
+                   OOC_PATH: ooc["matmul_tf32_split"]}
     narrow_paths = {"scorer": serve["launches"]["matmul_narrow"],
-                    TRAIN_PATH: train["launches"]["matmul_narrow"]}
+                    TRAIN_PATH: train["launches"]["matmul_narrow"],
+                    OOC_PATH: ooc["matmul_narrow"]}
     reduce_paths = {"scorer": serve["launches"]["matmul_splitk_reduce"],
                     TRAIN_PATH: train["launches"]["matmul_splitk_reduce"]}
     return [{
@@ -2678,7 +3092,8 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train) -> list:
         "launches_by_path": narrow_paths,
         "folding_launches_by_path": {
             "scorer": serve["launches"]["matmul_narrow_fold"],
-            TRAIN_PATH: train["launches"]["matmul_narrow_fold"]},
+            TRAIN_PATH: train["launches"]["matmul_narrow_fold"],
+            OOC_PATH: ooc["matmul_narrow_fold"]},
         "max_abs_err": narrow["max_abs_err"],
         "ms": narrow["kernel_ms"], "plain_ms": narrow["plain_ms"],
         "bound_ms": narrow["bound_ms"], "bound_by": narrow["bound_by"],
@@ -3101,13 +3516,14 @@ def main() -> int:
     flash = phase_flash(device, gen)
     serve = phase_serve(device)
     train = phase_train(device)
+    oocore = phase_oocore(device)
     gemma2 = phase_gemma2(device)
     ssd = phase_ssd(device, gen)
     mamba2 = phase_mamba2(device)
     zamba2 = phase_zamba2(device)
     phase_lm_serve(device, smi)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
-                                      train),
+                                      train, oocore),
                       *flash_entries(flash, gemma2, zamba2),
                       *ssd_entries(ssd, mamba2, zamba2)]})
     print(smi, flush=True)

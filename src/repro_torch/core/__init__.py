@@ -8,9 +8,9 @@ The user-facing API is the lazy frontend plus the engine:
     engine = tra.Engine(device="cuda")     # executor="jit" by default
     C = engine.run(A @ B, A=RA, B=RB)
 
-Names of ``repro.core`` that are not ported yet (the fault injector, the
-deprecated ``evaluate_*`` shims and ``TPU_V5E``, whose counterpart is
-``H100_SXM``) are absent; ``ROADMAP.md`` lists the slice that brings each.
+Names of ``repro.core`` that are not ported yet (the deprecated
+``evaluate_*`` shims and ``TPU_V5E``, whose counterpart is ``H100_SXM``)
+are absent; ``ROADMAP.md`` lists the slice that brings each.
 """
 from repro_torch.core.kernels_registry import (JoinVjp, Kernel, compose,
                                                get_kernel, register,
@@ -36,7 +36,7 @@ from repro_torch.core.expr import (Expr, ExprTypeError, const, einsum,  # noqa: 
 from repro_torch.core.autodiff import AutodiffError, grad
 from repro_torch.core.engine import CacheEntry, CompiledExpr, Engine
 from repro_torch.core.faults import (CompileFailure, DeviceOOM, FaultError,
-                                     SimulatedFailure)
+                                     FaultInjector, SimulatedFailure)
 from repro_torch.core.guards import NumericsError
 from repro_torch.core.train import (AdamW, Momentum, SGD, TrainStep,
                                     TraOptimizer, TraTrainer,
@@ -60,7 +60,8 @@ __all__ = [
     "ones_like", "scalar", "scalar_input", "wrap",
     "AutodiffError", "grad",
     "CacheEntry", "CompiledExpr", "Engine",
-    "CompileFailure", "DeviceOOM", "FaultError", "SimulatedFailure",
+    "CompileFailure", "DeviceOOM", "FaultError", "FaultInjector",
+    "SimulatedFailure",
     "NumericsError",
     "AdamW", "Momentum", "SGD", "TrainStep", "TraOptimizer", "TraTrainer",
     "make_train_step",

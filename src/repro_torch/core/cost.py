@@ -4,8 +4,8 @@ Port of ``repro.core.cost``: ``cost_plan``/``comm_cost`` unchanged, so plan
 choice still follows the paper's comm metric and the ``tmp_floats``
 tiebreak.  The hardware model describes one NVIDIA H100 SXM instead of a
 TPU v5e, and is exported as :data:`H100_SXM` in place of ``TPU_V5E``.
-``plan_peak_bytes`` (the out-of-core estimator) comes with the
-out-of-core slice (6, see ``ROADMAP.md``).
+``plan_peak_bytes``, the out-of-core estimator, is JAX's arithmetic on the
+port's torch dtypes (``_itemsize`` reads ``torch.dtype.itemsize``).
 
 Because uniqueness + continuity hold (and our masks make even the
 post-filter cardinalities *exact*), no estimation is involved:
@@ -32,6 +32,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Dict, List
+
+import numpy as np
+import torch
 
 from repro_torch.core.plan import (Bcast, FusedJoinAgg, IANode, LocalAgg,
                                    LocalJoin, LocalMap, Shuf, TypeInfo,
@@ -230,3 +233,106 @@ def comm_cost(root: IANode, axis_sizes: Dict[str, int],
     """The plan-selection metric: floats moved (wire-accurate by default;
     pass accounting="paper" for the paper's verbatim §4.3 rules)."""
     return cost_plan(root, axis_sizes, accounting).comm_floats
+
+
+# ==========================================================================
+# Compile-time liveness: peak device bytes of a plan evaluation
+# ==========================================================================
+
+def _itemsize(rtype) -> int:
+    dtype = rtype.dtype
+    try:
+        return dtype.itemsize if isinstance(dtype, torch.dtype) \
+            else np.dtype(dtype).itemsize
+    except TypeError:
+        return 4
+
+
+def plan_peak_bytes(roots, *, fuse: bool = True) -> int:
+    """Estimated peak live device bytes to evaluate ``roots``.
+
+    Walks the shared DAG in evaluation (postorder) order with exact
+    reference counts: a node's bytes stay live until its last consumer has
+    evaluated; root outputs are never released.  Relations are priced at
+    their *dense* allocation (``nfloats × itemsize`` — masks do not shrink
+    the tensor the walk materializes).  With ``fuse=True`` (the Engine
+    default) a ``TraAgg(TraJoin)`` pair that
+    :func:`repro_torch.core.tra.can_fuse` accepts — and any physical
+    :class:`FusedJoinAgg` — never materializes the join grid; the streamed
+    contraction instead holds the output accumulator plus one merged
+    partial, charged as ``2 × out_bytes``.
+
+    This is the estimator behind ``Engine(memory_budget=...)``: plans
+    whose peak exceeds the budget are routed through the host relation
+    store (:mod:`repro_torch.store`) instead of evaluated resident.  It
+    does not count the temporaries of a kernel's route (the tensor-core
+    route's two TF32 terms of each operand, for one).
+    """
+    from repro_torch.core.plan import TraAgg, TraJoin, as_node, children
+    from repro_torch.core.tra import can_fuse
+    if not isinstance(roots, (tuple, list)):
+        roots = (roots,)
+    roots = tuple(as_node(r) for r in roots)
+    cache: Dict[int, TypeInfo] = {}
+    for r in roots:
+        infer(r, cache=cache)
+    order, seen = [], set()
+    for r in roots:
+        for n in postorder(r):
+            if id(n) not in seen:
+                seen.add(id(n))
+                order.append(n)
+
+    consumers: Dict[int, int] = {}
+    for n in order:
+        for c in children(n):
+            consumers[id(c)] = consumers.get(id(c), 0) + 1
+
+    fused = set()
+    for n in order:
+        if isinstance(n, FusedJoinAgg):
+            continue                    # inherently streamed already
+        if (fuse and isinstance(n, TraAgg) and isinstance(n.child, TraJoin)
+                and consumers.get(id(n.child), 0) == 1
+                and can_fuse(n.child.kernel, n.kernel)):
+            fused.add(id(n.child))
+
+    def nbytes(n) -> int:
+        ti = cache[id(n)]
+        return ti.rtype.nfloats * _itemsize(ti.rtype)
+
+    def eff_children(n):
+        out = []
+        for c in children(n):
+            if id(c) in fused:
+                out.extend(children(c))
+            else:
+                out.append(c)
+        return out
+
+    refs: Dict[int, int] = {}
+    for n in order:
+        if id(n) in fused:
+            continue
+        for c in eff_children(n):
+            refs[id(c)] = refs.get(id(c), 0) + 1
+    for r in roots:
+        refs[id(r)] = refs.get(id(r), 0) + 1    # outputs never release
+
+    live: Dict[int, int] = {}
+    cur = peak = 0
+    for n in order:
+        if id(n) in fused:
+            continue
+        b = nbytes(n)
+        streamed_contraction = isinstance(n, FusedJoinAgg) or (
+            isinstance(n, TraAgg) and id(n.child) in fused)
+        tmp = b if streamed_contraction else 0
+        peak = max(peak, cur + b + tmp)
+        cur += b
+        live[id(n)] = b
+        for c in eff_children(n):
+            refs[id(c)] -= 1
+            if refs[id(c)] == 0:
+                cur -= live.pop(id(c), 0)
+    return max(peak, cur)

@@ -35,21 +35,30 @@ Deviations from the JAX ``Engine``:
   relation on another device is rejected rather than moved.  Without a
   card, the default raises; pass ``device="cpu"`` to run on the CPU.
 * ``validate`` accepts only ``"off"``, its default: the static verifier
-  (``repro.analysis``) is a later slice (4).
-* ``mesh`` and the ``gspmd``/``shard_map`` executors (slice 7),
-  ``memory_budget``/``store`` and ``degrade`` (slice 6: its OOM ladder
-  re-runs fused contractions as streamed chunks, out-of-core machinery)
-  raise ``NotImplementedError`` when set.
+  (``repro.analysis``) is a later slice (4, ROADMAP A4).  So a plan the
+  stream executor refuses raises :class:`~repro_torch.store.NotStreamable`
+  without the verifier's per-candidate diagnostics.
+* ``mesh`` and the ``gspmd``/``shard_map`` executors (slice 7, ROADMAP A7)
+  raise ``NotImplementedError`` when set; the executor-fallback ladder of
+  ``degrade`` therefore has one rung, ``jit`` → ``reference``, and treats
+  the injected ``CompileFailure`` and ``NotImplementedError`` as compile
+  failures (the port's ``_compile`` builds no kernel: a CUDA kernel is
+  built at its first launch).
+* A streamed artifact (``memory_budget``, ``HostRelation`` inputs) takes
+  its inputs as they come — ``HostRelation``\\ s, numpy arrays, CPU or
+  device tensors — and hands them to the stream executor untouched: a
+  host input reaches the card one chunk at a time, never whole.  A
+  resident artifact moves numpy inputs and materializes ``HostRelation``
+  inputs on the engine's device.
+* ``degrade``'s ladder lets go of a failed attempt's frames (and the
+  tensors they hold) before the next rung starts: a real
+  ``torch.OutOfMemoryError``'s traceback would otherwise keep them alive.
 * ``fault_injector`` node hooks fire on every dispatch on ``jit`` too (it
   replays eager node evaluations; JAX fires them once, at trace time — see
   :mod:`repro_torch.core.faults`).  ``check_numerics`` on ``jit`` reads a
   dispatch's flags with one host sync, and its attribution re-run replays
   the dispatch's injected NaNs instead of consulting the injector again
   (see :mod:`repro_torch.core.guards`).
-* ``chunk`` defaults to ``None`` (the bytes-based default of
-  :func:`repro_torch.core.tra.fused_join_agg`); ``"auto"``, the JAX
-  default, autotunes from the out-of-core memory model (slice 6) and
-  raises.
 * The ``jit`` schedule runs structurally identical nodes of a program
   once, across roots too, and drops each value after its last reader
   (:func:`_schedule_call`): the work XLA's common subexpression
@@ -58,7 +67,10 @@ Deviations from the JAX ``Engine``:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
+import traceback
+import warnings
 import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -74,19 +86,26 @@ from repro_torch.core.interp import (_evaluate_ia, _evaluate_tra,
                                      eval_tra_node, fusable)
 from repro_torch.core.optimize import OptimizeResult, optimize as _optimize
 from repro_torch.core.plan import (IAInput, IANode, Placement, TraInput,
-                                   TypeInfo, as_node, children, describe,
-                                   infer, postorder)
+                                   TraNode, TypeInfo, as_node, children,
+                                   describe, infer, postorder)
 from repro_torch.core.tra import TensorRelation
 from repro_torch.device import DeviceLike, resolve_device
 
 EXECUTORS = ("auto", "reference", "jit", "gspmd", "shard_map")
 VALIDATE_MODES = ("off", "warn", "strict")
 
+# graceful-degradation ladders (Engine(degrade=True)): on a *compile*
+# failure of the preferred executor, fall back left-to-right; on a device
+# OOM at *run* time, retry streamed through the host relation store, then
+# on the chunked lowering with a halving chunk starting here
+_EXECUTOR_FALLBACKS = {"jit": ("reference",)}
+DEFAULT_OOM_LADDER_START = 64
+
 
 def _not_ported(what: str, slice_no: int) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (slice {slice_no}; see "
-        f"ROADMAP.md)")
+        f"{what} is not ported to repro_torch yet (slice {slice_no}: "
+        f"ROADMAP.md item A{slice_no})")
 
 
 # ==========================================================================
@@ -263,6 +282,14 @@ class CompiledExpr:
     faults: Optional[object] = None
     # the same dispatch with no fault hook and no numerics check (warm())
     _bare: Optional[Callable] = None
+    # set when Engine(degrade=True) fell back from a failed preferred
+    # executor — names that executor so callers can see the degradation
+    degraded_from: Optional[str] = None
+    # out-of-core streamed artifacts (Engine(memory_budget=...)): inputs
+    # may be host-resident (HostRelations, numpy, CPU tensors) and reach
+    # the stream executor untouched
+    streamed: bool = False
+    stream_stats: Optional[object] = None   # metering.StreamStats
 
     @property
     def plan(self):
@@ -301,13 +328,14 @@ class CompiledExpr:
         if unknown:
             raise ValueError(f"unexpected inputs: {unknown}; expected "
                              f"{sorted(self.input_rtypes)}")
-        env = {name: _coerce(name, val, self.input_rtypes[name], self.device)
+        env = {name: _coerce(name, val, self.input_rtypes[name], self.device,
+                             keep_host=self.streamed)
                for name, val in inputs.items()}
         missing = [n for n in self.input_rtypes if n not in env]
         if missing:
             raise ValueError(f"missing inputs: {missing}; expected "
                              f"{sorted(self.input_rtypes)}")
-        if self.executor != "reference":
+        if self.executor != "reference" and not self.streamed:
             # the jit schedule types its outputs from the compile-time
             # inference, so an input-side static mask would be dropped —
             # only the eager reference walk threads per-value masks
@@ -338,7 +366,8 @@ class CacheEntry:
 
     ``signature`` is the full structural cache key; ``artifact_id`` is its
     short digest — the id a serving layer logs per request.  ``degraded``
-    is always False in this slice (no degradation ladder yet).
+    marks artifacts cached by the ``Engine(degrade=True)`` executor-fallback
+    ladder under the fallback executor's key.
     """
 
     artifact_id: str
@@ -349,32 +378,64 @@ class CacheEntry:
     root_names: Optional[Tuple[str, ...]]
     signature: Tuple
     compiled: CompiledExpr
+    # per-artifact out-of-core streaming counters
+    # (repro_torch.launch.metering.StreamStats) for artifacts compiled
+    # through the host relation store; None for resident artifacts
+    stream_stats: Optional[object] = None
 
 
 def _check_chunk(chunk) -> None:
-    """``chunk`` is ``None`` or a positive int (``"auto"``: slice 6)."""
-    if chunk == "auto":
-        raise _not_ported("chunk='auto' (the out-of-core autotuner)", 6)
-    if chunk is not None and (isinstance(chunk, bool)
-                              or not isinstance(chunk, int) or chunk < 1):
-        raise ValueError(f"chunk must be None or a positive int, got "
-                         f"{chunk!r}")
+    """``chunk`` is ``None``, ``"auto"`` or a positive int (the JAX
+    package's messages)."""
+    if chunk is None or chunk == "auto":
+        return
+    if isinstance(chunk, (str, bool)) or not isinstance(chunk, int):
+        raise ValueError(f"chunk must be a positive int, None or \"auto\"; "
+                         f"got {chunk!r}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
-def _coerce(name: str, value, rtype, device: torch.device) -> TensorRelation:
+def _check_memory_budget(budget) -> None:
+    """``memory_budget`` is ``None`` or a positive byte count (the check of
+    ``repro.analysis.inputs.check_memory_budget``)."""
+    if budget is not None and budget < 1:
+        raise ValueError(f"memory_budget must be >= 1 byte, got {budget}")
+
+
+def _is_host_relation(value) -> bool:
+    # duck-typed so the core layer does not import repro_torch.store
+    return hasattr(value, "to_relation") and hasattr(value, "split_dim")
+
+
+def _coerce(name: str, value, rtype, device: torch.device,
+            keep_host: bool = False):
+    """An input as the artifact's walk takes it.  ``keep_host`` (streamed
+    artifacts) hands host values — ``HostRelation``\\ s, numpy arrays, CPU
+    tensors and relations — through untouched, after the same checks."""
+    if _is_host_relation(value):
+        if value.rtype != rtype:
+            raise ValueError(
+                f"input {name!r}: host relation type {value.rtype} != "
+                f"declared {rtype}")
+        return value if keep_host else value.to_relation(device)
     if isinstance(value, TensorRelation):
+        if keep_host and value.data.device.type == "cpu":
+            return value
         if value.data.device != device:
             raise ValueError(
                 f"input {name!r} lies on {value.data.device}, the engine "
                 f"runs on {device}; move it explicitly")
         return value
     if isinstance(value, torch.Tensor):
-        if value.device != device:
+        if value.device != device and not (keep_host
+                                           and value.device.type == "cpu"):
             raise ValueError(
                 f"input {name!r} lies on {value.device}, the engine runs "
                 f"on {device}; move it explicitly")
     elif isinstance(value, np.ndarray):
-        value = torch.as_tensor(value, dtype=rtype.dtype, device=device)
+        if not keep_host:
+            value = torch.as_tensor(value, dtype=rtype.dtype, device=device)
     else:
         raise TypeError(f"input {name!r}: expected a TensorRelation, tensor "
                         f"or numpy array, got {type(value).__name__}")
@@ -383,6 +444,8 @@ def _coerce(name: str, value, rtype, device: torch.device) -> TensorRelation:
         raise ValueError(
             f"input {name!r}: dense shape {tuple(value.shape)} != "
             f"key_shape ++ bound {expect}")
+    if keep_host:
+        return value
     return TensorRelation(value, rtype)
 
 
@@ -401,7 +464,8 @@ def _input_nodes(roots) -> Dict[str, object]:
     return rtypes
 
 
-def _schedule_call(plans, out_infos, device, fuse: bool, chunk) -> Callable:
+def _schedule_call(plans, out_infos, device, fuse: bool, chunk,
+                   budget=None) -> Callable:
     """The ``jit`` executor: flatten the plans once into a list of
     ``(node, child slots, fused)`` steps, replayed on every dispatch.
 
@@ -457,10 +521,11 @@ def _schedule_call(plans, out_infos, device, fuse: bool, chunk) -> Callable:
                 val = env[n.name]
             elif isinstance(n, IANode):
                 val = eval_ia_node(n, [vals[k] for k in kids], device, chunk,
-                                   ctx)
+                                   ctx, budget)
             else:
                 val = eval_tra_node(n, [vals[k] for k in kids], device,
-                                    fused=fused, chunk=chunk, ctx=ctx)
+                                    fused=fused, chunk=chunk, ctx=ctx,
+                                    budget=budget)
             vals.append(ctx.on_node(n, val) if hook else val)
             for k in drop:
                 vals[k] = None
@@ -500,9 +565,34 @@ class Engine:
         Optimizer configuration (1-site ``("sites",)`` by default).
     chunk:
         Grid slices gathered per step of the chunked fused-Σ∘⋈ lowering:
-        ``None`` (default) derives it from ``tra.DEFAULT_CHUNK_BYTES``, an
-        int pins it; ``"auto"`` raises (slice 6).  ``compile(...,
-        chunk=...)`` overrides it per program.
+        ``"auto"`` (default, as in JAX) autotunes a per-shape value from
+        the device memory budget (``memory_budget`` when given, else the
+        card's memory, else the static ``tra.DEFAULT_CHUNK_BYTES`` — see
+        :mod:`repro_torch.store.autotune`); ``None`` keeps the static
+        bytes-based default; an int pins it.  ``compile(..., chunk=...)``
+        overrides it per program.
+    memory_budget:
+        Optional device live-bytes budget enabling the out-of-core mode: at
+        compile time the engine estimates each plan's peak live bytes
+        (:func:`repro_torch.core.cost.plan_peak_bytes`) and routes
+        over-budget single-root logical plans through the host relation
+        store (:mod:`repro_torch.store`) — operands stream in key-range
+        chunks, copied on a side stream while the previous chunk computes,
+        instead of materializing resident.  Plans under budget run exactly
+        as without it.
+    store:
+        Optional :class:`repro_torch.store.RelationStore` backing
+        ``HostRelation`` inputs/outputs (one is created lazily when
+        needed).  ``engine.store.put(name, rel)`` turns any relation into
+        a host-resident handle accepted by ``run``.
+    degrade:
+        ``True`` enables graceful degradation: a device OOM (injected
+        ``DeviceOOM`` or a real ``torch.OutOfMemoryError``) retries the
+        expression streamed through the host relation store, then through
+        a halving chunk ladder on the chunked lowering; a failed executor
+        compile falls back ``jit → reference`` with one
+        :class:`RuntimeWarning`.  Off by default — without it every
+        failure propagates unchanged.
     validate:
         ``"off"`` only (the default here; the verifier is slice 4).
     fault_injector:
@@ -516,9 +606,6 @@ class Engine:
         flags its outputs (one host sync), and a trip re-runs the same
         inputs once with every node flagged to name the node.  ``"all"``
         flags every node in the dispatch itself.
-    memory_budget / store / degrade:
-        Not ported yet (slice 6); setting any raises
-        ``NotImplementedError``.
     """
 
     def __init__(self, mesh=None, executor: str = "auto",
@@ -530,7 +617,7 @@ class Engine:
                  accounting: str = "wire",
                  try_logical_rewrites: bool = True,
                  fuse: bool = True,
-                 chunk: Optional[int] = None,
+                 chunk: Union[int, str, None] = "auto",
                  memory_budget: Optional[int] = None,
                  store=None,
                  fault_injector=None,
@@ -549,16 +636,11 @@ class Engine:
                 f"choose from {VALIDATE_MODES}")
         if validate != "off":
             raise _not_ported(f"Engine(validate={validate!r})", 4)
-        if memory_budget is not None or store is not None:
-            raise _not_ported("the out-of-core tier (memory_budget, store)",
-                              6)
-        if degrade:
-            raise _not_ported(
-                "degrade (the OOM ladder of streamed chunks)", 6)
         if check_numerics not in (False, True, "all"):
             raise ValueError(f"check_numerics must be False, True or 'all', "
                              f"got {check_numerics!r}")
         _check_chunk(chunk)
+        _check_memory_budget(memory_budget)
         self.device = resolve_device(device)
         self.validate = validate
         self.mesh = None
@@ -570,12 +652,25 @@ class Engine:
         self.try_logical_rewrites = try_logical_rewrites
         self.fault_injector = fault_injector
         self.check_numerics = check_numerics
+        self.degrade = degrade
+        # out-of-core mode: device live-bytes budget + host relation store
+        self.memory_budget = memory_budget
+        self._store_obj = store
         self.input_placements = dict(input_placements or {})
         self.site_axes = tuple(site_axes or ("sites",))
         self.axis_sizes = dict(axis_sizes or {a: 1 for a in self.site_axes})
         self._cache: Dict[Tuple, _CacheSlot] = {}
         self.cache_hits = 0
         self.cache_misses = 0
+
+    # -- host relation store (out-of-core tier) ---------------------------
+    @property
+    def store(self):
+        """The engine's :class:`repro_torch.store.RelationStore` (lazy)."""
+        if self._store_obj is None:
+            from repro_torch.store import RelationStore
+            self._store_obj = RelationStore()
+        return self._store_obj
 
     # -- compile-cache introspection --------------------------------------
     def cache_info(self) -> Tuple[CacheEntry, ...]:
@@ -586,10 +681,12 @@ class Engine:
             executor=slot.compiled.executor,
             hits=slot.hits,
             pinned=slot.pinned,
-            degraded=False,
+            degraded=key[-1] == "degraded",
             root_names=slot.compiled.root_names,
             signature=key,
-            compiled=slot.compiled) for key, slot in self._cache.items())
+            compiled=slot.compiled,
+            stream_stats=slot.compiled.stream_stats)
+            for key, slot in self._cache.items())
 
     def pin(self, compiled: CompiledExpr) -> CompiledExpr:
         """Pin a compiled artifact: ``cache_clear()`` keeps it by default."""
@@ -627,18 +724,152 @@ class Engine:
 
     # -- entry points ------------------------------------------------------
     def run(self, expr, **inputs) -> Union[TensorRelation, Tuple, Dict]:
-        """Compile (with caching) and execute in one call."""
+        """Compile (with caching) and execute in one call.
+
+        With ``memory_budget`` set (or ``HostRelation`` inputs) a
+        single-root logical expression is first considered for the
+        out-of-core path: when its estimated peak live bytes exceed the
+        budget it executes through the host relation store, streaming
+        key-range chunks (:class:`repro_torch.store.StreamExecutor`);
+        under-budget plans run resident exactly as without the budget.
+
+        With ``degrade=True`` a device OOM (injected
+        :class:`~repro_torch.core.faults.DeviceOOM` or a real
+        ``torch.OutOfMemoryError``) walks a two-rung recovery ladder:
+        first the whole expression is retried *streamed through the host
+        relation store* (which bounds peak operand bytes); if that cannot
+        apply or still OOMs, the fused Σ∘⋈ is forced onto the chunked
+        lowering with a halving chunk ladder until a rung fits.  Each rung
+        starts after the failed attempt's frames are cleared.
+        """
+        from repro_torch.core.guards import is_oom_error
+        from repro_torch.store.stream import NotStreamable
+        try:
+            return self._dispatch(expr, inputs)
+        except Exception as err:
+            if not (self.degrade and is_oom_error(err)):
+                raise
+            _release(err)
+        # rung 1: out-of-core streaming through the relation store —
+        # bounds peak device bytes without shrinking the fused chunk
+        warnings.warn(
+            "device OOM in fused contraction; retrying streamed "
+            "through the host relation store (out-of-core key-range "
+            "chunks) before the last-resort chunked fallback",
+            RuntimeWarning, stacklevel=2)
+        try:
+            return self._compile_streamed(expr, force=True).run(**inputs)
+        except NotStreamable:
+            pass
+        except Exception as err:
+            if not is_oom_error(err):
+                raise
+            _release(err)
+        # rung 2: force the fused Σ∘⋈ onto its chunked lowering with a
+        # halving chunk ladder
+        start = self.chunk if isinstance(self.chunk, int) \
+            else DEFAULT_OOM_LADDER_START
+        warnings.warn(
+            f"device OOM persists; degrading to the streamed chunked "
+            f"fallback (halving chunk ladder from {start}) — consider a "
+            f"smaller Engine(chunk=...), Engine(memory_budget=...), or "
+            f"more device memory",
+            RuntimeWarning, stacklevel=2)
+        c = start
+        while True:
+            try:
+                return self.compile(expr, chunk=c, _stream=True) \
+                           .run(**inputs)
+            except Exception as err:
+                if not (is_oom_error(err) and c > 1):
+                    raise
+                _release(err)
+            c = max(1, c // 2)
+
+    def _dispatch(self, expr, inputs):
+        """Route a ``run`` through the out-of-core path when applicable."""
+        if self._streaming_applicable(expr, inputs):
+            from repro_torch.store.stream import NotStreamable
+            try:
+                return self._compile_streamed(expr).run(**inputs)
+            except NotStreamable:
+                pass
         return self.compile(expr).run(**inputs)
+
+    def _streaming_applicable(self, expr, inputs) -> bool:
+        """Cheap pre-check: is the out-of-core path worth consulting?
+
+        True when the engine has a memory budget or any input is a
+        host-resident store handle, and the expression is a single-root
+        logical plan.
+        """
+        if isinstance(expr, (dict, tuple, list)):
+            return False
+        if not (self.memory_budget is not None
+                or any(_is_host_relation(v) for v in inputs.values())):
+            return False
+        try:
+            return isinstance(as_node(expr), TraNode)
+        except TypeError:
+            return False
+
+    def _compile_streamed(self, expr, force: bool = False) -> CompiledExpr:
+        """Compile ``expr`` as an out-of-core streamed artifact.
+
+        Plans the expression through
+        :class:`repro_torch.store.StreamExecutor` (raising
+        :class:`repro_torch.store.NotStreamable` when the plan has no
+        streamable axis, or — unless ``force`` — when it fits the budget
+        resident) and caches a :class:`CompiledExpr` whose call runs the
+        chunked schedule.  ``force`` (the degradation ladder's rung-1 knob)
+        streams even plans the estimator judges resident.
+        """
+        from repro_torch.launch.metering import StreamStats
+        from repro_torch.store.stream import NotStreamable, StreamExecutor
+        if isinstance(expr, (dict, tuple, list)):
+            raise NotStreamable("multi-root programs run resident")
+        root = as_node(expr)
+        if not isinstance(root, TraNode):
+            raise NotStreamable("physical IA plans run resident")
+        executor = self._resolve_executor()
+        key = ("streamed", plan_sig(root), executor, self.optimize,
+               self.fuse, self.memory_budget, bool(force))
+        hit = self._cache.get(key)
+        if hit is not None:
+            self.cache_hits += 1
+            hit.hits += 1
+            return hit.compiled
+        se = StreamExecutor(self)
+        splan = se.plan(root, force=force)       # may raise NotStreamable
+        self.cache_misses += 1
+        stats = StreamStats(mode=splan.mode, budget_bytes=splan.budget)
+
+        def call(env):
+            return (se.execute(splan, env, stats),)
+
+        compiled = CompiledExpr(
+            executor=f"{executor}+stream", roots=(root,),
+            input_rtypes=_input_nodes((root,)),
+            out_infos=(splan.out_info,), _call=call, device=self.device,
+            _bare=call, streamed=True, stream_stats=stats)
+        compiled.artifact_id = (
+            f"{compiled.executor}:"
+            f"{hashlib.sha1(repr(key).encode()).hexdigest()[:10]}")
+        self._cache[key] = _CacheSlot(compiled)
+        return compiled
 
     def compile(self, expr,
                 input_placements: Optional[Dict[str, Placement]] = None,
                 target: Optional[Placement] = None,
-                chunk: Optional[int] = None) -> CompiledExpr:
+                chunk: Union[int, str, None] = None,
+                _stream: bool = False) -> CompiledExpr:
         """Compile an expression for this engine's executor.
 
         ``input_placements`` (falling back to the engine-level default)
         seed the optimizer; ``target`` constrains the result placement;
         ``chunk`` overrides the engine-level fused-path chunk size.
+        ``_stream`` (the OOM ladder's knob) forces the fused Σ∘⋈ onto the
+        chunked lowering even for contraction kernel pairs.
         """
         _check_chunk(chunk)
         chunk = self.chunk if chunk is None else chunk
@@ -659,7 +890,7 @@ class Engine:
                self.fuse, self.accounting, self.try_logical_rewrites,
                _placements_sig(placements),
                _placements_sig({"·": target} if target else None),
-               multi, chunk, root_names, self.check_numerics,
+               multi, chunk, root_names, _stream, self.check_numerics,
                None if inj is None else id(inj))
         hit = self._cache.get(key)
         if hit is not None:
@@ -667,10 +898,25 @@ class Engine:
             hit.hits += 1
             return hit.compiled
         self.cache_misses += 1
-        compiled = self._compile(roots, placements, target, executor, multi,
-                                 chunk)
+        degraded_from = None
+        try:
+            compiled = self._compile(roots, placements, target, executor,
+                                     multi, chunk, _stream)
+        except Exception as err:
+            compiled, executor, err2 = self._compile_degraded(
+                err, roots, placements, target, executor, multi, chunk,
+                _stream)
+            if compiled is None:
+                raise err2
+            degraded_from = self._resolve_executor()
+            # the degraded artifact is cached under the *fallback*
+            # executor's key (plus a marker): the preferred key stays
+            # vacant, so the next compile() retries the preferred executor
+            # and a later successful compile is never shadowed
+            key = key[:1] + (executor,) + key[2:] + ("degraded",)
         compiled.root_names = root_names
         compiled.faults = inj
+        compiled.degraded_from = degraded_from
         compiled.artifact_id = (
             f"{compiled.executor}:"
             f"{hashlib.sha1(repr(key).encode()).hexdigest()[:10]}")
@@ -701,6 +947,43 @@ class Engine:
         return self.compile((expr,) + tuple(grads),
                             input_placements=input_placements, chunk=chunk)
 
+    def _compile_degraded(self, err, roots, placements, target, executor,
+                          multi, chunk, stream):
+        """Walk the executor fallback ladder after a failed compile.
+
+        Only *compile-class* failures degrade (the injected
+        :class:`~repro_torch.core.faults.CompileFailure`,
+        ``NotImplementedError`` from an executor's unsupported subset) —
+        user errors such as shape ``ValueError`` propagate unchanged.
+        Returns ``(compiled, executor, err)``; ``compiled`` is ``None``
+        when no rung succeeded (re-raise ``err``).
+        """
+        from repro_torch.core.faults import CompileFailure
+
+        def compile_class(e):
+            return isinstance(e, (CompileFailure, NotImplementedError))
+
+        ladder = _EXECUTOR_FALLBACKS.get(executor, ())
+        if not self.degrade or not ladder or not compile_class(err):
+            return None, executor, err
+        for fb in ladder:
+            try:
+                compiled = self._compile(roots, placements, target, fb,
+                                         multi, chunk, stream)
+            except Exception as err2:
+                if not compile_class(err2):
+                    return None, executor, err2
+                err = err2
+                continue
+            warnings.warn(
+                f"executor {executor!r} failed to compile ({err}); "
+                f"degraded to executor {fb!r} for this expression — fix "
+                f"the {executor!r} failure to restore the preferred "
+                f"executor (it is retried on the next compile)",
+                RuntimeWarning, stacklevel=3)
+            return compiled, fb, err
+        return None, executor, err
+
     # -- internals ---------------------------------------------------------
     def _resolve_executor(self) -> str:
         return "jit" if self.executor == "auto" else self.executor
@@ -728,25 +1011,27 @@ class Engine:
                 phys.append(compile_tra(r, placements, self.site_axes))
         return tuple(phys), tuple(opts)
 
-    def _make_ctx(self, plans, executor) -> Optional[ExecContext]:
+    def _make_ctx(self, plans, executor,
+                  stream: bool = False) -> Optional[ExecContext]:
         """The :class:`ExecContext` threaded through the executor walks, or
         ``None`` when no robustness feature is active (the walks then run
         exactly as without one).  ``reference`` checks every node eagerly;
         ``jit`` flags nodes in the dispatch only under
         ``check_numerics="all"`` (``True`` flags outputs, and attributes on
-        a lazily built re-run)."""
+        a lazily built re-run).  ``stream`` (the OOM ladder's rung 2)
+        forces the fused Σ∘⋈ onto the chunked lowering."""
         if executor == "reference":
             per_node = self.check_numerics
         else:
             per_node = "all" if self.check_numerics == "all" else False
-        if self.fault_injector is None and not per_node:
+        if self.fault_injector is None and not per_node and not stream:
             return None
         return ExecContext(faults=self.fault_injector, check=per_node,
                            labels=label_nodes(plans),
-                           defer=executor == "jit")
+                           defer=executor == "jit", stream=stream)
 
     def _compile(self, roots, placements, target, executor,
-                 multi, chunk) -> CompiledExpr:
+                 multi, chunk, stream: bool = False) -> CompiledExpr:
         if self.fault_injector is not None:
             self.fault_injector.on_compile(executor)
         # logical roots run the eager TRA walk (optimized ones run the
@@ -756,8 +1041,8 @@ class Engine:
         else:
             plans, opts = roots, ()
         out_infos = tuple(infer(p) for p in plans)
-        device, fuse = self.device, self.fuse
-        ctx = self._make_ctx(plans, executor)
+        device, fuse, budget = self.device, self.fuse, self.memory_budget
+        ctx = self._make_ctx(plans, executor, stream)
         if executor == "reference":
             def walk(env, ctx):
                 # shared subexpressions are evaluated once via the id-keyed
@@ -766,16 +1051,18 @@ class Engine:
                     ctx.begin()
                 cache: dict = {}
                 return tuple(
-                    _evaluate_ia(p, env, cache, device, chunk, ctx)
+                    _evaluate_ia(p, env, cache, device=device, chunk=chunk,
+                                 ctx=ctx, budget=budget)
                     if isinstance(p, IANode) else
                     _evaluate_tra(p, env, cache, fuse=fuse, device=device,
-                                  chunk=chunk, ctx=ctx)
+                                  chunk=chunk, ctx=ctx, budget=budget)
                     for p in plans)
 
             def call(env):
                 return walk(env, ctx)
         else:
-            walk = _schedule_call(plans, out_infos, device, fuse, chunk)
+            walk = _schedule_call(plans, out_infos, device, fuse, chunk,
+                                  budget)
             call = self._jit_call(walk, plans, ctx)
         return CompiledExpr(executor, plans, _input_nodes(plans), out_infos,
                             call, device, opts, multi,
@@ -815,6 +1102,7 @@ class Engine:
             if check != "all":
                 poisoned = () if ctx is None else ctx.poisoned
                 again = ExecContext(check="all", labels=labels, defer=True,
+                                    stream=ctx is not None and ctx.stream,
                                     replay=frozenset(poisoned))
                 sched(env, again)
                 pairs = again.take_flags()
@@ -829,3 +1117,13 @@ class Engine:
                 "not reproduce the failure)")
 
         return call
+
+
+def _release(err: BaseException) -> None:
+    """Let go of a failed attempt's frames before the ladder's next rung:
+    the exception's traceback keeps every frame of the attempt, and with
+    them the tensors it had allocated (a real ``torch.OutOfMemoryError``
+    from a large product holds gigabytes that way)."""
+    traceback.clear_frames(err.__traceback__)
+    if isinstance(err, torch.OutOfMemoryError):
+        gc.collect()

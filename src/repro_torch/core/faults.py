@@ -11,10 +11,10 @@ simulated failures fire at deterministic, plan-addressable points:
   per *plan node* (``node``);
 * **device OOM** (:class:`DeviceOOM`) — raised out of the fused Σ∘⋈
   contraction unless it runs streamed at a small enough chunk
-  (``ok_chunk``) or under a live-bytes budget (``ok_bytes``).  Without
-  ``Engine(degrade=True)`` — the halving chunk ladder, which comes with
-  the out-of-core slice (6) — the fault propagates, and a server retries
-  it as transient;
+  (``ok_chunk``) or under a live-bytes budget (``ok_bytes``).  With
+  ``Engine(degrade=True)`` the engine recovers it: streamed through the
+  host relation store, then down the halving chunk ladder; without it
+  the fault propagates, and a server retries it as transient;
 * **compile failures** (:class:`CompileFailure`) before an executor builds
   its artifact;
 * **stragglers** — a node or run delayed by ``delay`` seconds;

@@ -16,19 +16,19 @@ Port of ``repro.core.guards``:
 * :class:`ExecContext` — the per-compile context the
   :class:`~repro_torch.core.engine.Engine` threads through its executor
   walks: the fault injector (:mod:`repro_torch.core.faults`), the
-  ``check_numerics`` level, and the node-id/label table
+  ``check_numerics`` level, the node-id/label table
   (:func:`label_nodes`, numbered as :func:`repro_torch.core.engine.plan_sig`
-  numbers nodes).
+  numbers nodes), and the ``stream`` flag of the OOM degradation ladder
+  (force the fused Σ∘⋈ onto the chunked streaming lowering).
 
 Deviations from the JAX module: flags are 0-dim bool tensors collected
 during an eager dispatch (``ExecContext.defer``) where JAX collects traced
 flags at trace time.  The attribution re-run does not consult the injector
 again: the dispatch records which nodes it poisoned (``poisoned``) and the
 re-run poisons those same nodes (``replay``), so it sees the same injected
-faults whatever their ``times`` budget, and spends none of it.  The
-``stream`` flag of the OOM degradation ladder and ``on_array`` (the
-``shard_map`` walk) come with the out-of-core (6) and distributed (7)
-slices; :func:`is_oom_error` keys on ``torch.OutOfMemoryError`` where JAX
+faults whatever their ``times`` budget, and spends none of it.
+``on_array`` (the ``shard_map`` walk) comes with the distributed slice
+(A7); :func:`is_oom_error` keys on ``torch.OutOfMemoryError`` where JAX
 matches XLA's ``RESOURCE_EXHAUSTED``.
 """
 from __future__ import annotations
@@ -137,6 +137,7 @@ class ExecContext:
     labels: Dict[int, Tuple[int, str]] = dataclasses.field(
         default_factory=dict)
     defer: bool = False
+    stream: bool = False                     # force chunked fused streaming
     replay: Optional[FrozenSet[int]] = None
     flags: List[Tuple[str, torch.Tensor]] = dataclasses.field(
         default_factory=list)
@@ -145,7 +146,7 @@ class ExecContext:
     @property
     def active(self) -> bool:
         return (self.faults is not None or bool(self.check)
-                or self.replay is not None)
+                or self.stream or self.replay is not None)
 
     def begin(self) -> None:
         """Start of a dispatch: forget the previous one's flags and

@@ -9,14 +9,15 @@ Port of ``repro.core.interp`` for one device:
 
 The JAX package's SPMD mode (``_evaluate_ia(spmd=True)``, ``_jit_ia_plans``)
 and the deprecated ``evaluate_*`` / ``jit_ia_plan`` shims wait for the
-distributed slice (7, see ``ROADMAP.md``).  The walks take ``chunk`` (the
-chunked fused lowering's slices per step) and ``ctx``, the engine's
-:class:`~repro_torch.core.guards.ExecContext`: when it is active every
-computed node value — inputs included — passes through ``ctx.on_node``
-(fault injection and per-node finite checks with plan provenance), and the
-fused Σ∘⋈ calls ``ctx.on_contraction``.  They take no ``budget``: it steers
-the out-of-core store (slice 6).  Constants are materialized on
-``device``.
+distributed slice (A7, see ``ROADMAP.md``).  The walks take ``chunk`` (the
+chunked fused lowering's slices per step), ``budget`` (the device
+live-bytes budget ``chunk="auto"`` solves against) and ``ctx``, the
+engine's :class:`~repro_torch.core.guards.ExecContext`: when it is active
+every computed node value — inputs included — passes through
+``ctx.on_node`` (fault injection and per-node finite checks with plan
+provenance), and the fused Σ∘⋈ calls ``ctx.on_contraction``.  Constants
+are materialized on ``device``, which every walk takes explicitly (no
+default: a caller that forgets it fails instead of running on the CPU).
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ def consumer_counts(roots) -> Dict[int, int]:
 
 
 def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
-                  chunk=None, ctx=None) -> TensorRelation:
+                  chunk=None, ctx=None, budget=None) -> TensorRelation:
     """One logical node's value from its children's values.  With
     ``fused`` the node is a ``TraAgg`` and ``kids`` are its join child's
     two operands (see :func:`fusable`).  ``ctx`` reaches the fused Σ∘⋈'s
@@ -83,8 +84,8 @@ def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
             c = n.child
             return tra.fused_join_agg(kids[0], kids[1], c.join_keys_l,
                                       c.join_keys_r, c.kernel, n.group_by,
-                                      n.kernel, chunk=chunk, ctx=ctx,
-                                      node=n)
+                                      n.kernel, chunk=chunk,
+                                      budget=budget, ctx=ctx, node=n)
         return tra.agg(kids[0], n.group_by, n.kernel)
     if isinstance(n, TraReKey):
         return tra.rekey(kids[0], n.key_func)
@@ -101,8 +102,9 @@ def eval_tra_node(n: TraNode, kids, device, fused: bool = False,
 
 def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
                   _cache: Optional[dict] = None,
-                  fuse: bool = True,
-                  device="cpu", chunk=None, ctx=None) -> TensorRelation:
+                  fuse: bool = True, *,
+                  device, chunk=None, ctx=None,
+                  budget=None) -> TensorRelation:
     """Walk a logical plan with the dense eager ops.
 
     With ``fuse=True`` (default) every ``TraAgg(TraJoin(...))`` pair whose
@@ -123,7 +125,8 @@ def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
             out = env[n.name]
         elif fuse and fusable(n, consumers) and id(n.child) not in cache:
             out = eval_tra_node(n, [rec(n.child.left), rec(n.child.right)],
-                                device, fused=True, chunk=chunk, ctx=ctx)
+                                device, fused=True, chunk=chunk, ctx=ctx,
+                                budget=budget)
         else:
             out = eval_tra_node(n, [rec(c) for c in children(n)], device,
                                 ctx=ctx)
@@ -136,7 +139,7 @@ def _evaluate_tra(node: TraNode, env: Dict[str, TensorRelation],
 
 
 def eval_ia_node(node: IANode, kids, device, chunk=None,
-                 ctx=None) -> TensorRelation:
+                 ctx=None, budget=None) -> TensorRelation:
     """One physical node's value from its children's values (``kids`` in
     :func:`repro_torch.core.plan.children` order) — shared by the
     recursive walk below and the engine's ``jit`` schedule.  ``ctx``
@@ -159,7 +162,8 @@ def eval_ia_node(node: IANode, kids, device, chunk=None,
         return tra.fused_join_agg(kids[0], kids[1], node.join_keys_l,
                                   node.join_keys_r, node.join_kernel,
                                   node.group_by, node.agg_kernel,
-                                  chunk=chunk, ctx=ctx, node=node)
+                                  chunk=chunk, budget=budget, ctx=ctx,
+                                  node=node)
     if isinstance(node, LocalFilter):
         return tra.filt(kids[0], node.bool_func)
     if isinstance(node, LocalMap):
@@ -177,8 +181,9 @@ def eval_ia_node(node: IANode, kids, device, chunk=None,
 
 
 def _evaluate_ia(node: IANode, env: Dict[str, TensorRelation],
-                 _cache: Optional[dict] = None,
-                 device="cpu", chunk=None, ctx=None) -> TensorRelation:
+                 _cache: Optional[dict] = None, *,
+                 device, chunk=None, ctx=None,
+                 budget=None) -> TensorRelation:
     """Evaluate a physical plan on one device (sites ignored)."""
     node = as_node(node)
     cache = _cache if _cache is not None else {}
@@ -187,9 +192,10 @@ def _evaluate_ia(node: IANode, env: Dict[str, TensorRelation],
     if isinstance(node, IAInput):
         out = env[node.name]
     else:
-        kids = [_evaluate_ia(c, env, cache, device, chunk, ctx)
+        kids = [_evaluate_ia(c, env, cache, device=device, chunk=chunk,
+                             ctx=ctx, budget=budget)
                 for c in children(node)]
-        out = eval_ia_node(node, kids, device, chunk, ctx)
+        out = eval_ia_node(node, kids, device, chunk, ctx, budget)
     if ctx is not None and ctx.active:
         out = ctx.on_node(node, out)
     cache[id(node)] = out

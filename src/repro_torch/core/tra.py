@@ -15,13 +15,13 @@ three lowerings — the 2-D matmul (through the hand-written CUDA kernel,
 streaming reduction — and the serving helpers ``pack_rows`` /
 ``unpack_rows`` / ``scatter_rows`` / ``zero_rows``.
 
-Deviations: ``fused_join_agg`` takes ``chunk`` but no ``budget``, ``ctx``
-or ``node`` — they steer the out-of-core autotuner and the fault hooks
-(slices 6 and 5, see ``ROADMAP.md``), so ``chunk="auto"`` raises
-``NotImplementedError``.  The chunked lowering is a Python loop over the
-chunks of the reduce-key grid that gathers each chunk's cells at once
-(JAX traces a ``lax.fori_loop`` over ``vmap``-ed cells); it folds in the
-same order.
+Deviations: the chunked lowering is a Python loop over the chunks of the
+reduce-key grid that gathers each chunk's cells at once (JAX traces a
+``lax.fori_loop`` over ``vmap``-ed cells); it folds in the same order.
+``chunk="auto"`` solves the live-slice model of
+:mod:`repro_torch.store.autotune` against the budget of the device the
+operands lie on (the card's memory, where JAX reads XLA's
+``bytes_limit``).
 """
 from __future__ import annotations
 
@@ -128,12 +128,6 @@ def _full_mask_and(a: Optional[np.ndarray], b: Optional[np.ndarray],
 
 def _device_mask(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(mask), device=like.device)
-
-
-def _not_ported(what: str, slice_no: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (slice {slice_no}; "
-        f"see ROADMAP.md)")
 
 
 # ==========================================================================
@@ -569,6 +563,7 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
                    join_keys_l: Sequence[int], join_keys_r: Sequence[int],
                    join_kernel: Kernel, group_by: Sequence[int],
                    agg_kernel: Kernel, *, chunk=None,
+                   budget: Optional[int] = None,
                    ctx=None, node=None) -> TensorRelation:
     """Σ_(groupBy, aggOp) ∘ ⋈_(jkl, jkr, projOp) without the grid.
 
@@ -582,17 +577,17 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
       (matMul / matTranMulL / matTranMulR / elemMul with matAdd);
     * a chunked streaming reduction for every other associative kernel
       pair.  ``chunk`` is the number of grid slices each step gathers;
-      ``None`` derives it from :data:`DEFAULT_CHUNK_BYTES`.  ``"auto"``
-      (the JAX engine's autotuner over a device memory budget) belongs to
-      the out-of-core slice and raises.
+      ``None`` derives it from :data:`DEFAULT_CHUNK_BYTES`, and ``"auto"``
+      (the Engine default) autotunes it from the device memory ``budget``
+      via the live-slice bytes model in :mod:`repro_torch.store.autotune`.
 
     ``ctx`` (an :class:`~repro_torch.core.guards.ExecContext`, ``node`` the
     plan node being evaluated) hooks the fault injector's device-OOM model
     before the contraction runs, with the live bytes of the one-shot
     contraction (inputs + output) or of the streamed one (inputs, ``chunk``
-    slices, accumulator and partial).  JAX's ``ctx.stream``, which forces
-    the streamed lowering for the OOM ladder, comes with the out-of-core
-    slice (6).
+    slices, accumulator and partial).  When ``ctx.stream`` is set (the
+    engine's OOM degradation ladder) even contraction-shaped pairs take the
+    chunked lowering, so peak live memory is bounded by ``chunk`` slices.
 
     Falls back to the unfused pair when nothing is actually reduced or when
     holes cannot be identity-filled — the unfused path remains the
@@ -602,8 +597,6 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
     gb = tuple(group_by)
     if not agg_kernel.is_associative:
         raise ValueError(f"agg kernel {agg_kernel.name} must be associative")
-    if chunk == "auto":
-        raise _not_ported("chunk='auto' (the out-of-core autotuner)", 6)
     g = _join_align(left, right, jkl, jkr)
     reduce_dims = tuple(d for d in range(g.k_out) if d not in gb)
     if not reduce_dims or not can_fuse(join_kernel, agg_kernel):
@@ -618,7 +611,9 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
     in_bytes = (g.ldata.numel() + g.rdata_t.numel()) * itemsize
     out_bytes = out_floats * itemsize
 
-    if agg_kernel.name == "matAdd" and join_kernel.name in _CONTRACTION_JOINS:
+    streaming = ctx is not None and ctx.stream
+    if (not streaming and agg_kernel.name == "matAdd"
+            and join_kernel.name in _CONTRACTION_JOINS):
         if ctx is not None:
             ctx.on_contraction(stream=False, chunk=None, node=node,
                                bytes_live=in_bytes + out_bytes)
@@ -634,8 +629,14 @@ def fused_join_agg(left: TensorRelation, right: TensorRelation,
     if has_mask and agg_kernel.identity is None:
         # cannot identity-fill holes — mirror tra.agg's requirement
         return agg(join(left, right, jkl, jkr, join_kernel), gb, agg_kernel)
-    if chunk is None:
-        chunk = max(1, DEFAULT_CHUNK_BYTES // max(1, out_bytes))
+    if chunk is None or chunk == "auto":
+        slice_bytes = max(1, out_bytes)
+        if chunk == "auto":
+            from repro_torch.store.autotune import chunk_slices
+            chunk = chunk_slices(slice_bytes, out_bytes, budget,
+                                 device=left.data.device)
+        else:
+            chunk = max(1, DEFAULT_CHUNK_BYTES // slice_bytes)
     if ctx is not None:
         ctx.on_contraction(
             stream=True, chunk=chunk, node=node,

@@ -5,7 +5,7 @@ Port of ``repro.core.train``.  Deviations:
 * optimizer state (the moment buffers and the ``opt.step`` scalar) is made
   on the parameters' device — the JAX package makes it on the default
   device — so a trainer on the card keeps every relation there;
-* the checkpoint store is the out-of-core slice's (6, see ``ROADMAP.md``):
+* the checkpoint store is not ported yet (ROADMAP A6.2):
   ``TraTrainer(store=...)``, ``fit(store=, ckpt_every=, resume=)``,
   ``save_checkpoint`` and ``restore_checkpoint`` raise
   ``NotImplementedError``, and ``fit`` recovers from no fault.
@@ -58,7 +58,7 @@ LOSS_ROOT = "loss"                       # reserved root name
 def _no_store(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: the checkpoint store "
-        f"comes with the out-of-core slice (slice 6, ROADMAP A6)")
+        f"(checkpoint/store.py) is ROADMAP A6.2")
 
 
 def _cokey(a: Expr, b: Expr, kernel) -> Expr:

@@ -1,9 +1,10 @@
 """Request-span metering for the serving layer: admission → completion.
 
 Port of the request-span part of ``repro.launch.metering``
-(``RequestSpan``, ``percentiles``, ``SpanMeter``), which the server needs.
-The structural roofline meters of the JAX module (and its ``StreamStats``
-for the out-of-core store) price TPU cells and come with later slices.
+(``RequestSpan``, ``percentiles``, ``SpanMeter``), which the server needs,
+and of ``StreamStats``, the out-of-core store's counters.  The structural
+roofline meters of the JAX module price TPU cells and come with a later
+slice (A8.3).
 
 Spans are split into queue wait (submit → first scheduled step) and
 service (first step → completion), so a serving run reports latency
@@ -146,4 +147,65 @@ class SpanMeter:
                 [s.queue_wait_s for s in served]).items()},
             "service_ms": {k: round(v * ms, 3) for k, v in percentiles(
                 [s.service_s for s in served]).items()},
+        }
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Per-plan out-of-core streaming counters (``repro_torch.store``).
+
+    One instance lives on each streamed compile-cache artifact
+    (``Engine.cache_info()`` surfaces it) and accumulates across ``run``
+    calls of that artifact.  ``peak_device_bytes`` is the analytic live set
+    (resident operands + current chunk + prefetched chunk + output side),
+    the quantity the memory-budget planner bounds.  Spill counters are
+    deltas of the backing :class:`repro_torch.store.RelationStore`'s disk
+    tier over this plan's runs.
+
+    Deviation from the JAX counters, whose ``copy_s`` is the host wall
+    spent issuing ``device_put`` and ``hidden_copy_s`` the part issued
+    while a chunk's compute was in flight: on a card, ``copy_s`` is the
+    time the host→device copies took on the executor's copy stream
+    (CUDA events around each chunk's copies) and ``hidden_copy_s`` is that
+    time less what the compute stream waited for them (an event pair
+    around each wait), so ``overlap_efficiency`` is the share of copy time
+    that ran under compute.  On the CPU the host clock fills both, as in
+    JAX.  ``compute_s`` is host wall per chunk, synchronized, as in JAX.
+    """
+
+    mode: str = "resident"          # resident | stream-out | stream-reduce
+    budget_bytes: Optional[int] = None
+    runs: int = 0
+    chunks: int = 0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    copy_s: float = 0.0
+    hidden_copy_s: float = 0.0
+    compute_s: float = 0.0
+    spill_events: int = 0
+    spill_bytes: int = 0
+    peak_device_bytes: int = 0
+
+    @property
+    def overlap_efficiency(self) -> float:
+        """Fraction of transfer time hidden behind in-flight compute."""
+        if self.copy_s <= 0.0:
+            return 1.0
+        return min(1.0, self.hidden_copy_s / self.copy_s)
+
+    def as_dict(self) -> Dict[str, object]:
+        return {
+            "mode": self.mode,
+            "budget_bytes": self.budget_bytes,
+            "runs": self.runs,
+            "chunks": self.chunks,
+            "h2d_bytes": self.h2d_bytes,
+            "d2h_bytes": self.d2h_bytes,
+            "copy_s": round(self.copy_s, 6),
+            "hidden_copy_s": round(self.hidden_copy_s, 6),
+            "compute_s": round(self.compute_s, 6),
+            "overlap_efficiency": round(self.overlap_efficiency, 4),
+            "spill_events": self.spill_events,
+            "spill_bytes": self.spill_bytes,
+            "peak_device_bytes": self.peak_device_bytes,
         }

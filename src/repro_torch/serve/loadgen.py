@@ -79,7 +79,8 @@ def chaos_injector(*, site_every: Optional[int] = None,
       turns the silent corruption into a retryable
       :class:`~repro_torch.core.guards.NumericsError`.
     * ``oom_times`` — the first N fused contractions OOM unless streamed
-      at ``oom_ok_chunk``.  Without ``Engine(degrade=True)`` (slice 6) the
+      at ``oom_ok_chunk``.  Without ``Engine(degrade=True)`` (whose ladder
+      recovers it inside the engine) the
       :class:`~repro_torch.core.faults.DeviceOOM` propagates and a server
       retries it as transient.
     * ``straggler_every`` — delay every N-th dispatch by

@@ -4,8 +4,8 @@ Same outputs as the JAX ``Engine`` on the ``reference`` and ``jit``
 executors for single-root, tuple and dict programs (optimized and not),
 the same ``cache_hits`` / ``cache_misses`` sequence over a program stream,
 ``pin`` / ``cache_clear`` / ``cache_info``, the chunked lowering of a
-fused plan, and a loud ``NotImplementedError`` for every option not
-ported yet.
+fused plan (``chunk="auto"`` too), and a loud ``NotImplementedError`` for
+every option not ported yet.
 """
 import pytest
 
@@ -127,8 +127,7 @@ def test_input_checks():
 @pytest.mark.parametrize("kwargs,slice_no", [
     ({"executor": "gspmd"}, 7), ({"executor": "shard_map"}, 7),
     ({"mesh": object()}, 7), ({"validate": "warn"}, 4),
-    ({"validate": "strict"}, 4), ({"memory_budget": 1 << 20}, 6),
-    ({"degrade": True}, 6),
+    ({"validate": "strict"}, 4),
 ])
 def test_unported_options_raise(kwargs, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
@@ -154,8 +153,11 @@ def test_chunked_fused_plan_matches_jax(executor):
     assert eng.cache_misses == 3
     with pytest.raises(ValueError, match="chunk"):
         tcore.Engine(chunk=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tcore.Engine(chunk="auto", device=CPU)
+    # chunk="auto" (the JAX default): the JAX engine's values
+    got = tcore.Engine(executor=executor, chunk="auto",
+                       device=CPU).run(prog, A=x["A"], B=x["B"])
+    np.testing.assert_allclose(as_np(got), np.asarray(want.data),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_unported_frontend_raises():

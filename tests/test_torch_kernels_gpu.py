@@ -1355,3 +1355,103 @@ def test_injected_nan_named_on_card_weights_unchanged(cuda):
     for name in ("state", "logits"):
         assert bool(torch.isfinite(outs[name].data).all())
         assert torch.equal(outs[name].data, want[name].data)
+
+
+# ------------------------------------------------------------ out-of-core
+OOC_DIMS = (4, 3, 8, 1, 64, 64, 64, 10)   # N 256, D 192, H 512, L 10
+
+
+def _ooc_problem(device):
+    """The §5.3 forward's z2 at small width: the expression and the dense
+    X, W1, W2 on the card."""
+    from repro_torch.core import programs
+    nb, db, hb, lb, bn, bd, bh, bl = OOC_DIMS
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(nb * bn, db * bd, generator=g, device=device)
+    w1 = torch.randn(db * bd, hb * bh, generator=g, device=device) * 0.1
+    w2 = torch.randn(hb * bh, lb * bl, generator=g, device=device) * 0.1
+    z2 = programs._ffnn_forward(*OOC_DIMS)[5]
+    return z2, {"X": x, "W1": w1, "W2": w2}
+
+
+def _ooc_rel(dense, name):
+    from repro_torch.core import from_tensor
+    nb, db, hb, lb, bn, bd, bh, bl = OOC_DIMS
+    tiles = {"X": (bn, bd), "W1": (bd, bh), "W2": (bh, bl)}
+    return from_tensor(dense[name], tiles[name])
+
+
+@pytest.mark.gpu
+def test_store_blocks_are_page_locked_on_card(cuda, tmp_path):
+    """With a card every block is page-locked at admit, a spilled block
+    reloads page-locked, and a relation materializes on the card equal to
+    its host data."""
+    from repro_torch.store import RelationStore
+    _, dense = _ooc_problem(cuda)
+    w1 = _ooc_rel(dense, "W1")
+    blk = w1.data.numel() * 4 // 8              # one key of dim 1 a block
+    store = RelationStore(ram_limit_bytes=4 * blk, block_bytes=blk,
+                          spill_dir=str(tmp_path))
+    hr = store.put("W1", w1, split_dim=1)
+    assert store.pin_memory and store.spill_events > 0
+    assert all(b.data.is_pinned() for b in hr._blocks if b.data is not None)
+    host = hr.to_tensor()                       # faults spilled blocks in
+    assert store.unspill_events > 0
+    assert all(b.data.is_pinned() for b in hr._blocks if b.data is not None)
+    assert torch.equal(host, w1.data.cpu())
+    assert torch.equal(hr.to_relation(cuda).data, w1.data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,budget,chunks,narrow_", [
+    ("stream-reduce", 500 * 1024, 8, 0), ("stream-out", 1200 * 1024, 2, 2)])
+def test_streamed_ffnn_forward_on_card(cuda, mode, budget, chunks,
+                                       narrow_):
+    """z2 streamed from page-locked host blocks (W1 and W2 under 500 KiB,
+    X under 1200 KiB) through the hand kernels, against the resident run
+    on the card and the f64 product.  X·W1 takes the tensor-core route
+    once a chunk; a1·W2 the narrow kernel once a chunk in stream-out, and
+    none in stream-reduce, where a chunk holds one hidden block: with a
+    joined key dim of size 1 the optimizer keeps the join unfused (its
+    plans tie), which runs ``torch.matmul``.  Copy times from events, the
+    hidden share within [0, 1]; a second run is a cache hit."""
+    from repro_torch.core import Engine
+    from repro_torch.store import RelationStore
+    z2, dense = _ooc_problem(cuda)
+    rels = {k: _ooc_rel(dense, k) for k in dense}
+    resident = Engine(executor="jit", device=cuda).run(z2, **rels)
+    split = {"X": 0, "W1": 1, "W2": 0}
+    host = ("W1", "W2") if mode == "stream-reduce" else ("X",)
+    store = RelationStore()
+    eng = Engine(executor="jit", device=cuda, memory_budget=budget,
+                 store=store)
+    inputs = {k: store.put(k, v, split_dim=split[k]) if k in host else v
+              for k, v in rels.items()}
+    assert all(b.data.is_pinned() for k in host
+               for b in inputs[k]._blocks)
+    before = _counts(), _tc_counts(), _narrow_counts()
+    got = eng.run(z2, **inputs)
+    torch.cuda.synchronize()
+    (skinny, tile, reduces, _, copies), (tc, passes), (narrow, _) = (
+        tuple(x - y for x, y in zip(now, was)) for now, was in zip(
+            (_counts(), _tc_counts(), _narrow_counts()), before))
+    assert (skinny, tile, reduces, tc, passes, narrow) == (
+        0, 0, 0, chunks, 2 * chunks, narrow_)
+    (stats,) = [c.stream_stats for c in eng.cache_info() if c.stream_stats]
+    assert (stats.mode, stats.chunks, stats.runs) == (mode, chunks, 1)
+    assert stats.h2d_bytes == sum(dense[k].numel() * 4 for k in host)
+    assert 0 < stats.peak_device_bytes <= budget
+    assert stats.copy_s > 0 and 0 <= stats.overlap_efficiency <= 1
+    exact = torch.relu(dense["X"].double() @ dense["W1"].double()) \
+        @ dense["W2"].double()
+    assert copies == 0
+    want = exact.reshape(4, 64, 1, 10).permute(0, 2, 1, 3)
+    np.testing.assert_allclose(got.data.cpu().numpy(),
+                               resident.data.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * math.sqrt(512))
+    np.testing.assert_allclose(got.data.double().cpu().numpy(),
+                               want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * math.sqrt(512))
+    hits = eng.cache_hits
+    eng.run(z2, **inputs)
+    assert eng.cache_hits > hits and stats.runs == 2

@@ -195,9 +195,18 @@ def test_chunked_lowering_matches_the_reference_executor():
 
 
 def test_chunk_auto_is_the_out_of_core_slice():
+    """``chunk="auto"`` (the out-of-core slice's autotuner) on the chunked
+    lowering: JAX's values, with and without a budget (a 1-slice budget
+    gathers one slice a step)."""
     r = rng(22)
-    _, tl = rel_pair(r, (3, 4), (2, 5))
-    _, tr = rel_pair(r, (4, 5), (2, 5))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ttra.fused_join_agg(tl, tr, (1,), (0,), tkr.get_kernel("matAdd"),
-                            (0, 2), tkr.get_kernel("elemMax"), chunk="auto")
+    jl, tl = rel_pair(r, (3, 4), (2, 5))
+    jr, tr = rel_pair(r, (4, 5), (2, 5))
+    args = ((1,), (0,), "matAdd", (0, 2), "elemMax")
+    for budget in (None, 1):
+        want = jtra.fused_join_agg(
+            jl, jr, *args[:2], jkr.get_kernel(args[2]), args[3],
+            jkr.get_kernel(args[4]), chunk="auto", budget=budget)
+        got = ttra.fused_join_agg(
+            tl, tr, *args[:2], tkr.get_kernel(args[2]), args[3],
+            tkr.get_kernel(args[4]), chunk="auto", budget=budget)
+        assert_rel_close(want, got, TOL)

@@ -24,7 +24,7 @@
 * A step resumed from the JAX trainer's state through
   ``weights.train_state_from_numpy``; optimizer state made on the
   parameters' device; the non-finite-loss budget; the checkpoint store's
-  refusal (slice 6).
+  refusal (ROADMAP A6.2).
 * The other programs of ``programs``: §5.2's nearest-neighbour search,
   §5.1's matmul with its hand-compiled IA plans (run on one device), the
   RMM cost and the FFNN placements, against the JAX package's.
