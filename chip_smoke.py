@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's seven main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's eight main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
 through ``TraServer`` on the ``jit`` executor; ``RecurrentLM``'s
 continuous-batching decode at gemma2-2b's width (d_model 2304, vocab
 256000) served through ``TraServer`` as well; the same FFNN trained at
 that width on a minibatch of 10000 through ``TraTrainer``, plan-level
-autodiff and AdamW; its forward at that width streamed from a host
+autodiff and AdamW, and again with a ``CheckpointStore``, killed,
+recovered and resumed; its forward at that width streamed from a host
 ``RelationStore`` under a 1 GiB and a 4 GiB device budget, with the
 ``degrade`` ladder recovering a real out-of-memory error; gemma2-2b at full width
 (26 layers, d_model 2304, vocab 256000), mamba2-130m at full width (24
@@ -26,7 +27,10 @@ its plain PyTorch version on the card:
    ``nvcc`` per source, all started together), and counts the ``HGMMA``
    instructions (``wgmma``) in the flash, SSD and matmul libraries' SASS
    and the ``UTMALDG`` (TMA loads) in the matmul library's: none fails;
-3. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
+3. lint: ``python -m repro_torch.analysis.lint`` on the card — every
+   verifier pass over the program corpus and the strict engine compile of
+   the §5.3 train step — exits 0;
+4. kernels: ``matmul`` against ``matmul_ref`` at the shapes of the JAX
    package's kernel tests, a ragged shape (M, N and K off the tiles) and
    the scorer's two products (f32 with at most 16 rows through the skinny
    kernel, f32 with more rows and more than 32 columns through the
@@ -41,7 +45,7 @@ its plain PyTorch version on the card:
    copy) and on an operand off 16 bytes (one copy), and its split-K fold
    bit-equal to ``splitk_reduce_ref`` on its own partial tiles (drawn from
    a generator of their own, so the flash phase draws what it drew);
-4. flash: ``attention`` against ``attention_ref`` at the JAX kernel
+5. flash: ``attention`` against ``attention_ref`` at the JAX kernel
    tests' cases (f32 at 2e-4, bf16 at 3e-2), ragged lengths, ``sq <
    skv``, ``dv != d`` and gemma2-2b's two layer shapes (B=2, S=8192,
    D=256, soft-cap 50: window 4096 and global; bf16 within half a bf16
@@ -58,7 +62,7 @@ its plain PyTorch version on the card:
    version's count; timed at the gemma2 shapes in bf16 and at the global
    shape in f32, with the bound, and ``scaled_dot_product_attention``
    beside each kernel at the global shape without soft-cap;
-5. serve: 64 Poisson-arriving requests through ``TraServer`` with every
+6. serve: 64 Poisson-arriving requests through ``TraServer`` with every
    kernel launch count set to 0 just before and read just after (per
    dispatch 2 launches of the skinny kernel, 1 of them folding, and no
    tile kernel, reduction or copy); each response is checked against the
@@ -66,9 +70,14 @@ its plain PyTorch version on the card:
    copy the parent tree made, and each product at bucket 8 timed in place
    as the engine calls it, beside ``torch.matmul`` on the copied 2-D
    operands, the tile kernel there (the parent's path) and the bound;
-6. train: ``ffnn_train_step_tra`` at speech-100k (N 10000, D 1600, H
+7. train: ``ffnn_train_step_tra`` at speech-100k (N 10000, D 1600, H
    100000, L 10, f32, blocked nb 10, db 4, hb 10, lb 1) through
-   ``TraTrainer(Engine(device="cuda", executor="jit"), ...)`` with
+   ``TraTrainer(Engine(device="cuda", executor="jit",
+   validate="strict"), ...)`` (every engine of the train, ckpt, serve and
+   oocore phases compiles under ``"strict"``; the step plan's diagnostics
+   by pass and severity, the verifier's host ms — the median of 5
+   ``verify_plans`` calls on the compiled plans — and the memory pass's
+   two peak models beside ``max_memory_allocated`` printed) with
    AdamW(``TRAIN_LR``, 1e-5), data and weights drawn on the card as
    ``benchmarks/train.py`` draws them, for 5 steps with every launch
    count set to 0 just before and read just after: 1 compile and 4 cached
@@ -92,7 +101,19 @@ its plain PyTorch version on the card:
    plain version, ``torch.matmul`` and the bounds (X·W1: its split passes
    and the tensor-core kernel alone, too), with the split-K pass at
    a1·W2's partial sums (off the path) beside ``sum(0)``;
-7. oocore: the same network's forward z2 = relu(X·W1)·W2 at speech-100k
+8. ckpt: the same training on a ``CheckpointStore`` (a temporary
+   directory, ``keep=2``; removed at the end): 8 uninterrupted steps; a
+   run checkpointed every 2 steps whose dispatch 5 (the 6th) raises an
+   injected ``SimulatedFailure``, recovered from step 4 and ending at
+   step 6; a fresh trainer on a fresh strict engine resuming to step 8 —
+   the injector's log holds the one failure, the recovered and resumed
+   losses, parameters and AdamW moments equal the uninterrupted run's
+   bit for bit, and each run launches 1 tensor-core + 2 split + 1 narrow
+   a dispatched step (the failed dispatch launches nothing); the
+   snapshot's bytes and device-to-host ms, the writer's seconds a save,
+   the stall in ``wait()`` at each save, each restore's ms from disk to
+   the card, and the recovered run's wall time against 6 steps;
+9. oocore: the same network's forward z2 = relu(X·W1)·W2 at speech-100k
    (X, W1, W2 drawn as the train phase draws them) streamed from a host
    ``RelationStore`` (every block page-locked) through
    ``Engine(executor="jit", memory_budget=...)``: W1 (blocked along its
@@ -115,8 +136,11 @@ its plain PyTorch version on the card:
    cap and the environment restored in a ``finally``; a2 = σ(z2) under
    ``FaultInjector().inject_oom(ok_chunk=8)`` walks rung 2's chunks 64,
    32, 16 and completes at 8 on the chunked lowering, held against σ of
-   the f64 z2;
-8. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
+   the f64 z2; a ``TraReKey`` over z2 compiled streamed with ``force``
+   under 1 GiB refuses with the streaming pass's ``[streaming]``
+   diagnostic naming the rekey (under ``validate="off"``, the bare
+   refusal);
+10. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
    before and read just after (26 launches of the tensor-core flash
    kernel, none of the FFMA kernel, no copy of q, k or v); the prefill's
@@ -124,7 +148,7 @@ its plain PyTorch version on the card:
    plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-9. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
+11. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
    exact result, :func:`exact_ssd`, as in every per-call SSD check here;
    JAX's f32 sum of C·Bᵀ is off by a few % of a row where C_i·B_i
    cancels) at the JAX kernel
@@ -141,7 +165,7 @@ its plain PyTorch version on the card:
    kernel and f32 on the FFMA one, with the plain version and the bound;
    zamba2-7b's layer shape (B=2, S=8192, H=112, P=64, N=64, L=128) the
    same ways;
-10. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
+12. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (24 launches of the tensor-core SSD kernel, none of
    the FFMA one, no cast, no other kernel); in a second prefill, every
@@ -160,7 +184,7 @@ its plain PyTorch version on the card:
    rounding changes: 24 layers without post-norms add up the bf16 noise
    of each); a profile by kernel of one prefill (24 SSD launches) and of
    8 decode steps (none);
-11. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
+13. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (13 launches of the tensor-core flash kernel, one per
    shared-block application, and 78 of the tensor-core SSD kernel, one
@@ -175,10 +199,11 @@ its plain PyTorch version on the card:
    within ``BF16_FLOOR_FACTOR`` of the rounding floor (both plain, the
    SSD in half-size chunks against full ones); a profile by kernel of one
    prefill (13 + 78 launches) and of 8 decode steps (none); peak memory;
-12. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
+14. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
    2304, vocab 256000; Wh, Wx, Wo and the embedding table drawn on the card
    from seed 0), capacity 8, through ``TraServer(Engine(device="cuda",
-   executor="jit"))`` with TF32 off: 40 requests from ``lm_mix`` (prompts
+   executor="jit"))`` (the default ``validate``, ``"warn"``: its
+   diagnostics counted) with TF32 off: 40 requests from ``lm_mix`` (prompts
    of 1-8 tokens, 1-12 new tokens) arriving by ``open_loop`` at a Poisson
    50 requests/s — the JAX launcher's documented run
    (``src/repro/launch/serve.py:3-4``) at full width — with every launch
@@ -210,7 +235,7 @@ its plain PyTorch version on the card:
    p50/p99, peak memory, the logits copied to the host a tick (8.2 MB)
    and the time of that copy and of the state snapshot, the chaos run's
    counters and extra wall time, and the card's name and power limit;
-13. the kernels line, the ``nvidia-smi`` line, and the last line
+15. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -218,12 +243,15 @@ device the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -232,8 +260,10 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.ffnn_paper import speech  # noqa: E402
+from repro_torch.core import TraTrainer  # noqa: E402
 from repro_torch.core.cost import H100_SXM  # noqa: E402
 from repro_torch.core.plan import FusedJoinAgg, postorder  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -704,7 +734,7 @@ def phase_serve(device) -> dict:
     scorer = make_scorer(device)
     torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t0
-    engine = Engine(executor="jit", device=device)
+    engine = Engine(executor="jit", device=device, validate="strict")
     server = TraServer(engine, scorer)
     t0 = time.perf_counter()
     artifacts = server.warmup()
@@ -765,6 +795,7 @@ def phase_serve(device) -> dict:
            "dispatches_by_artifact": dict(server.dispatches),
            "launches": launches, "max_abs_err_vs_oracle": worst,
            "cache_misses_since_warmup": server.cache_misses_since_warmup,
+           "diagnostics": diag_counts(engine),
            "setup_s": setup_s, "warmup_s": warmup_s}
     out.update(dispatch_breakdown(server, scorer, device))
     emit(out)
@@ -924,12 +955,72 @@ def train_relations(dims, dense) -> tuple:
             {k: rel[k] for k in ("W1", "W2")})
 
 
-def train_trainer(dims, params, optimizer, device):
-    from repro_torch.core import Engine, TraTrainer
+def train_trainer(dims, params, optimizer, device, trainer=TraTrainer,
+                  **engine_kw):
+    """A ``trainer`` of the §5.3 step on a fresh
+    ``Engine(validate="strict")`` (``engine_kw``: more of the engine's
+    options)."""
+    from repro_torch.core import Engine
     from repro_torch.core.programs import ffnn_train_step_tra
-    return TraTrainer(Engine(executor="jit", device=device),
-                      ffnn_train_step_tra(*dims, optimizer=optimizer),
-                      params=params)
+    return trainer(Engine(executor="jit", device=device,
+                          validate="strict", **engine_kw),
+                   ffnn_train_step_tra(*dims, optimizer=optimizer),
+                   params=params)
+
+
+def diag_counts(engine) -> dict:
+    """The engine's last verified compile's diagnostics, counted by pass
+    and severity (``"memory/info": 1``); fails on an error."""
+    diags = engine.last_diagnostics
+    if diags is None:
+        return {}
+    if diags.errors:
+        fail(f"verifier errors:\n{diags.render()}")
+    return dict(collections.Counter(f"{d.pass_name}/{d.severity}"
+                                    for d in diags))
+
+
+def verify_ms(engine, roots, phase: str) -> list:
+    """The verifier's host ms for the engine's one compile: 5
+    ``verify_plans`` calls on the compiled plans with the logical
+    ``roots``, as ``Engine._verify_compile`` makes them; fails on an
+    error."""
+    from repro_torch.analysis import verify_plans
+    from repro_torch.core.plan import as_node
+    (entry,) = engine.cache_info()
+    logical = tuple(as_node(r) for r in roots.values())
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        diags = verify_plans(entry.compiled.roots, executor=entry.executor,
+                             axis_sizes=engine.axis_sizes,
+                             memory_budget=engine.memory_budget,
+                             fuse=engine.fuse, logical_roots=logical)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if diags.errors:
+        fail(f"{phase}: the step plan's verifier errors\n{diags.render()}")
+    return times
+
+
+def verifier_readings(engine, roots, peak: int) -> dict:
+    """The step plan's diagnostics by pass and severity, the verifier's
+    host ms for the step's compile (the median of ``verify_ms``), and
+    the memory pass's two peak models beside the card's
+    ``max_memory_allocated`` and the tensor-core route's TF32 terms of
+    X·W1, which neither model counts (``cost.plan_peak_bytes``)."""
+    from repro_torch.analysis.memory import independent_peak_bytes
+    from repro_torch.core.cost import plan_peak_bytes
+    times = verify_ms(engine, roots, "train")
+    (entry,) = engine.cache_info()
+    plans = entry.compiled.roots
+    model = plan_peak_bytes(plans, fuse=engine.fuse)
+    independent = independent_peak_bytes(plans, fuse=engine.fuse)
+    return {"diagnostics": diag_counts(engine),
+            "verify_ms": times, "verify_ms_median": sorted(times)[2],
+            "plan_peak_bytes": model,
+            "independent_peak_bytes": independent,
+            "max_memory_allocated": peak,
+            "card_minus_model_bytes": peak - model}
 
 
 def dense_f64_step(dense, z1, z1_plain) -> dict:
@@ -1299,6 +1390,8 @@ def phase_train(device) -> dict:
     if launches != expected:
         fail(f"train: launches {launches} in {TRAIN_STEPS} steps, "
              f"expected {expected}")
+    verifier = verifier_readings(eng, trainer.program.roots, peak)
+    verifier["tf32_terms_bytes"] = 2 * (n + h) * mm_ops.tc_kp(d) * 4
 
     checks = first_step_checks(cfg, dims, dense, data, params, device)
 
@@ -1338,12 +1431,253 @@ def phase_train(device) -> dict:
            "matmul_copies_per_step": copies,
            "routes": routes, "splits": splits,
            "max_memory_allocated_gb": peak / 1e9, "checks": checks,
+           "verifier": verifier,
            "profile_step": profile, "products": rows,
            "splitk_reduce": reduce, "setup_s": setup_s,
            "phase_s": time.perf_counter() - t0}
     emit(out)
     del trainer, data, params, dense
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------- checkpoint store
+CKPT_PATH = "ffnn-ckpt-speech-100k"
+CKPT_STEPS = 8                   # the uninterrupted run and the resumed one
+CKPT_FAILED_RUN = 5              # the failing dispatch, counted from 0
+CKPT_KILLED_AT = 6               # the recovering run's fit(...)
+CKPT_EVERY = 2
+CKPT_KEEP = 2
+
+
+class TimedTrainer(TraTrainer):
+    """The trainer with each restore's ms from disk to the card (as
+    ``fit`` calls it), ending in a synchronize, in ``restores``."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.restores = []
+
+    def restore_checkpoint(self, store=None, step=None) -> int:
+        t0 = time.perf_counter()
+        out = super().restore_checkpoint(store, step)
+        torch.cuda.synchronize(self.engine.device)
+        self.restores.append({"step": out,
+                              "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+
+def host_state(trainer) -> dict:
+    """The trainer's parameters and optimizer state copied to the host."""
+    return {k: r.data.cpu() for k, r in
+            {**trainer.params, **trainer.state}.items()}
+
+
+def uninterrupted(dims, params, data, device) -> dict:
+    """``CKPT_STEPS`` steps on a fresh trainer, each timed: the losses,
+    the host copies of the parameters and AdamW moments after step
+    ``CKPT_KILLED_AT`` and after the last, the launches."""
+    from repro_torch.core import AdamW
+    tr = train_trainer(dims, params, AdamW(TRAIN_LR), device)
+    step_ms, at_kill = [], None
+    reset_launches()
+    for i in range(CKPT_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        tr.step(**data)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == CKPT_KILLED_AT:
+            at_kill = host_state(tr)
+    out = {"launches": read_launches(), "losses": list(tr.history),
+           "step_ms": step_ms, "at_kill": at_kill, "final": host_state(tr)}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def differing(got: dict, want: dict) -> list:
+    """The names of the tensors of ``got`` not bit-equal to ``want``'s."""
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+def phase_ckpt(device) -> dict:
+    """The §5.3 FFNN trained at speech-100k through ``TraTrainer`` with a
+    ``CheckpointStore`` (``tests/test_robustness.py:93-112`` at full
+    width): an uninterrupted 8-step run; a run on a store keeping 2 steps,
+    checkpointed every 2 steps, with a site failure injected at its
+    dispatch 5 (``FaultInjector`` counts runs from 0: the 6th, step 6),
+    recovered from the last committed step (4) and ending at step 6; a
+    fresh trainer on a fresh ``Engine(validate="strict")`` resuming to
+    step 8.  The recovered and resumed runs' losses, parameters and
+    AdamW moments equal the uninterrupted run's bit for bit."""
+    from repro_torch.core import AdamW, FaultInjector
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(device)
+    allocated = torch.cuda.memory_allocated(device)
+    cfg, dims, dense = train_problem(device)
+    data, params = train_relations(dims, dense)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n, d, h, l_ = cfg.batch, cfg.d_in, cfg.d_hidden, cfg.d_out
+    routes, splits = train_routes([(n, d, h), (n, h, l_)], sms)
+
+    # -- 1. the uninterrupted run ---------------------------------------
+    run1 = uninterrupted(dims, params, data, device)
+    snapshot_bytes = sum(t.numel() * t.element_size()
+                         for t in run1["final"].values())
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # -- 2. killed at its 5th dispatch, recovered, ends at step 6 ----
+        store = CheckpointStore(base, keep=CKPT_KEEP)
+        inj = FaultInjector().inject_site_failure(step=CKPT_FAILED_RUN)
+        tr = train_trainer(dims, params, AdamW(TRAIN_LR), device,
+                           trainer=TimedTrainer, fault_injector=inj)
+        reset_launches()
+        torch.cuda.synchronize(device)
+        r0 = time.perf_counter()
+        tr.fit(CKPT_KILLED_AT, store=store, ckpt_every=CKPT_EVERY, **data)
+        torch.cuda.synchronize(device)
+        run2_s = time.perf_counter() - r0
+        run2 = {"launches": read_launches(), "losses": list(tr.history),
+                "state": host_state(tr), "log": list(inj.log),
+                "steps": tr.step_count, "restores": tr.restores,
+                "committed": store.committed_steps(),
+                "cache": {"misses": tr.engine.cache_misses,
+                          "hits": tr.engine.cache_hits},
+                "diagnostics": diag_counts(tr.engine)}
+        del tr
+        torch.cuda.empty_cache()
+
+        # -- 3. a fresh trainer on a fresh strict engine resumes to 8 ----
+        tr = train_trainer(dims, params, AdamW(TRAIN_LR), device,
+                           trainer=TimedTrainer)
+        reset_launches()
+        r0 = time.perf_counter()
+        tr.fit(CKPT_STEPS, store=store, resume=True, **data)
+        torch.cuda.synchronize(device)
+        run3_s = time.perf_counter() - r0
+        run3 = {"launches": read_launches(), "losses": list(tr.history),
+                "final": host_state(tr), "steps": tr.step_count,
+                "restores": tr.restores}
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    if run2["log"] != [("site", f"run {CKPT_FAILED_RUN}")]:
+        fail(f"ckpt: the injector fired {run2['log']}, expected the one "
+             f"site failure at run {CKPT_FAILED_RUN}")
+    if run2["steps"] != CKPT_KILLED_AT or run3["steps"] != CKPT_STEPS:
+        fail(f"ckpt: the runs ended at steps {run2['steps']} and "
+             f"{run3['steps']}")
+    # the last step committed before the failure: every CKPT_EVERY steps
+    restored = CKPT_FAILED_RUN // CKPT_EVERY * CKPT_EVERY
+    restores, resumes = run2["restores"], run3["restores"]
+    if [r["step"] for r in restores] != [restored] or \
+            [r["step"] for r in resumes] != [CKPT_KILLED_AT]:
+        fail(f"ckpt: restored steps {restores} and {resumes}")
+    # the failed dispatch raises in CompiledExpr.run before its schedule
+    # runs: it launches nothing, so each run's launches are its dispatched
+    # steps' (run 2: 5 before the failure, then steps 5 and 6 again from
+    # the restored step 4)
+    for what, got, steps in (("uninterrupted", run1, CKPT_STEPS),
+                             ("recovered", run2, CKPT_FAILED_RUN
+                              + CKPT_KILLED_AT - restored),
+                             ("resumed", run3,
+                              CKPT_STEPS - CKPT_KILLED_AT)):
+        want = train_launches(routes, splits, steps)
+        if got["launches"] != want:
+            fail(f"ckpt {what}: launches {got['launches']}, expected "
+                 f"{want} ({steps} steps)")
+    bitwise = {
+        "recovered_losses": run2["losses"] == run1["losses"][:CKPT_KILLED_AT],
+        "recovered_state": differing(run2["state"], run1["at_kill"]),
+        "resumed_losses": run3["losses"] == run1["losses"],
+        "resumed_state": differing(run3["final"], run1["final"])}
+    if not (bitwise["recovered_losses"] and bitwise["resumed_losses"]) or \
+            bitwise["recovered_state"] or bitwise["resumed_state"]:
+        again = uninterrupted(dims, params, data, device)
+        agree = again["losses"] == run1["losses"] and not differing(
+            again["final"], run1["final"])
+        emit({"phase": "ckpt", "bitwise": bitwise,
+              "losses": {"uninterrupted": run1["losses"],
+                         "recovered": run2["losses"],
+                         "resumed": run3["losses"],
+                         "second_uninterrupted": again["losses"]},
+              "uninterrupted_runs_agree": agree})
+        fail("ckpt: the recovered or resumed run differs from the "
+             "uninterrupted one; " + (
+                 "two uninterrupted runs agree, so the store or the restore "
+                 "is at fault" if agree else
+                 "two uninterrupted runs differ too: a kernel of the step "
+                 "is not deterministic"))
+    med = sorted(run1["step_ms"][1:])
+    step_ms = (med[len(med) // 2] + med[(len(med) - 1) // 2]) / 2
+    launches = {k: run1["launches"][k] + run2["launches"][k]
+                + run3["launches"][k] for k in run1["launches"]}
+    out = {"phase": "ckpt", "path": CKPT_PATH,
+           "width": [d, h, l_], "batch": n, "dims": list(dims),
+           "optimizer": f"AdamW({TRAIN_LR})", "keep": CKPT_KEEP,
+           "ckpt_every": CKPT_EVERY, "failed_run": CKPT_FAILED_RUN,
+           "losses": run1["losses"], "bitwise": bitwise,
+           "launches": launches,
+           "launches_by_run": {"uninterrupted": run1["launches"],
+                               "recovered": run2["launches"],
+                               "resumed": run3["launches"]},
+           "recovered": {k: run2[k] for k in ("committed", "cache",
+                                              "diagnostics", "log")},
+           "snapshot_bytes": snapshot_bytes,
+           "snapshot_d2h_ms": [s * 1e3 for s in store.stats.snapshot_s],
+           "snapshot_gb_s": [snapshot_bytes / s / 1e9
+                             for s in store.stats.snapshot_s],
+           "writer_s": store.stats.write_s,
+           "stall_ms": [s * 1e3 for s in store.stats.stall_s],
+           "restore_ms": restores + resumes,
+           "step_ms": run1["step_ms"], "step_ms_median_2_to_8": step_ms,
+           "recovered_run_s": run2_s,
+           "recovered_dispatched_steps": CKPT_FAILED_RUN + CKPT_KILLED_AT
+           - restored,
+           "recovered_run_over_6_steps": run2_s * 1e3 / (
+               CKPT_KILLED_AT * step_ms),
+           "resumed_run_s": run3_s,
+           "phase_s": time.perf_counter() - t0}
+    del run1, run2, run3, data, params, dense
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    out["allocated_after_bytes"] = \
+        torch.cuda.memory_allocated(device) - allocated
+    emit(out)
+    if out["allocated_after_bytes"] > 0:
+        fail(f"ckpt: {out['allocated_after_bytes']} bytes still allocated "
+             f"on the card after the phase")
+    return out
+
+
+def phase_lint() -> dict:
+    """``python -m repro_torch.analysis.lint`` (on the card, its default):
+    every verifier pass over the program corpus and the strict engine
+    compile of the §5.3 train step; exit 0 required."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(root, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.splitlines()
+    out = {"phase": "lint", "rc": proc.returncode,
+           "s": time.perf_counter() - t0,
+           "programs": [ln.strip() for ln in lines
+                        if ln.startswith("  ") and not
+                        ln.startswith("    ")],
+           "summary": lines[-1] if lines else ""}
+    emit(out)
+    if proc.returncode != 0:
+        fail(f"lint: exit {proc.returncode}\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-2000:]}")
     return out
 
 
@@ -1517,6 +1851,38 @@ def streamed_case(what, engine, z2, inputs, device, resident_inputs,
                       "hits": engine.cache_hits}}
 
 
+def streamed_refusal(z2, store, device) -> dict:
+    """A ``TraReKey`` over the over-budget z2, compiled streamed with
+    ``force=True`` (the ``degrade`` ladder's rung 1) under 1 GiB: under
+    ``validate="strict"`` the ``NotStreamable`` carries the streaming
+    pass's ``[streaming]`` diagnostic naming the rekey node; under
+    ``"off"`` the bare refusal (``tests/test_analysis.py:435``)."""
+    from repro_torch.core import Engine
+    from repro_torch.core.guards import label_nodes
+    from repro_torch.core.plan import TraReKey, as_node
+    from repro_torch.store import NotStreamable
+    rk = TraReKey(as_node(z2), lambda k: k)
+    label = label_nodes((rk,))[id(rk)][1]
+    texts = {}
+    for mode in ("strict", "off"):
+        eng = Engine(executor="jit", device=device, memory_budget=OOC_BUDGET,
+                     store=store, validate=mode)
+        try:
+            eng._compile_streamed(rk, force=True)
+        except NotStreamable as err:
+            texts[mode] = str(err)
+        else:
+            fail(f"oocore: the rekeyed z2 streamed under validate={mode!r}")
+    if "[streaming]" not in texts["strict"] or label not in texts["strict"]:
+        fail(f"oocore: the strict refusal lacks [streaming] at {label}: "
+             f"{texts['strict']!r}")
+    if "[streaming]" in texts["off"]:
+        fail(f"oocore: the refusal under validate='off' carries the "
+             f"verifier's text: {texts['off']!r}")
+    return {"label": label, "strict": texts["strict"].splitlines()[:3],
+            "off": texts["off"]}
+
+
 def phase_oocore(device) -> dict:
     """The §5.3 FFNN forward's z2 = relu(X·W1)·W2 at speech-100k streamed
     from a host ``RelationStore`` through ``Engine(memory_budget=...)``:
@@ -1547,7 +1913,7 @@ def phase_oocore(device) -> dict:
               for k, v in rels.items()}
 
     # -- the resident z2 on the same engine kind -------------------------
-    resident = Engine(executor="jit", device=device)
+    resident = Engine(executor="jit", device=device, validate="strict")
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
@@ -1573,7 +1939,7 @@ def phase_oocore(device) -> dict:
     if not pinned:
         fail("oocore: a store block is not page-locked")
     eng = Engine(executor="jit", device=device, memory_budget=OOC_BUDGET,
-                 store=store)
+                 store=store, validate="strict")
     splan = StreamExecutor(eng).plan(z2)
     planned = {"mode": splan.mode, "dim": splan.dim,
                "input_dims": splan.input_dims,
@@ -1594,13 +1960,15 @@ def phase_oocore(device) -> dict:
              f"{red['model_peak_bytes']} over the budget {OOC_BUDGET}")
     red_profile = device_profile(lambda: eng.run(z2, X=rels["X"], **host),
                                  TRAIN_GROUPS)
+    red["diagnostics"] = diag_counts(eng)
+    refusal = streamed_refusal(z2, store, device)
     del eng, host, store
 
     # -- 2. stream-out: X from the host under 4 GiB ----------------------
     store = RelationStore()
     hx = store.put("X", rels["X"], split_dim=OOC_SPLIT["X"])
     eng = Engine(executor="jit", device=device,
-                 memory_budget=OOC_OUT_BUDGET, store=store)
+                 memory_budget=OOC_OUT_BUDGET, store=store, validate="strict")
     out = streamed_case("stream-out", eng, z2,
                         {"X": hx, "W1": rels["W1"], "W2": rels["W2"]},
                         device, nbytes["W1"] + nbytes["W2"], dims, ref, sms,
@@ -1610,6 +1978,7 @@ def phase_oocore(device) -> dict:
     if out["h2d_bytes_per_run"] != nbytes["X"]:
         fail(f"oocore stream-out: {out['h2d_bytes_per_run']} bytes to the "
              f"card a run, expected {nbytes['X']}")
+    out["diagnostics"] = diag_counts(eng)
     del eng, hx, store
 
     # -- 3. rung 1 on a real OOM under a 4 GiB cap -----------------------
@@ -1629,7 +1998,8 @@ def phase_oocore(device) -> dict:
         oom = None
         reset_launches()
         try:
-            Engine(executor="jit", device=device).run(z2, **host_np)
+            Engine(executor="jit", device=device,
+                   validate="strict").run(z2, **host_np)
         except torch.OutOfMemoryError as err:
             oom = str(err).splitlines()[0][:160]
         if oom is None:
@@ -1641,7 +2011,8 @@ def phase_oocore(device) -> dict:
         rung1.update({"oom": oom, "failed_attempt_launches": failed})
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-        eng = Engine(executor="jit", device=device, degrade=True)
+        eng = Engine(executor="jit", device=device, degrade=True,
+                     validate="strict")
         reset_launches()
         with warnings.catch_warnings(record=True) as wlog:
             warnings.simplefilter("always")
@@ -1683,7 +2054,7 @@ def phase_oocore(device) -> dict:
     # -- 4. rung 2: a2 under an injected OOM, down the halving chunks ----
     inj = FaultInjector().inject_oom(ok_chunk=OOC_LADDER_OK_CHUNK)
     eng = Engine(executor="jit", device=device, degrade=True,
-                 fault_injector=inj)
+                 fault_injector=inj, validate="strict")
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     with warnings.catch_warnings(record=True) as wlog:
@@ -1720,6 +2091,7 @@ def phase_oocore(device) -> dict:
                            "check": res_check, "profile": res_profile},
               "stream_reduce": {**red, "profile": red_profile},
               "stream_out": out, "rung1": rung1, "rung2": rung2,
+              "streamed_refusal": refusal,
               "launches": launches, "phase_s": time.perf_counter() - t0}
     emit(result)
     del rels, dense
@@ -2965,7 +3337,7 @@ MATMUL_NARROW_CU = "src/repro_torch/kernels/matmul/csrc/matmul_narrow.cu"
 
 
 def matmul_entries(rows, reduce_rows, skinny, serve, train,
-                   oocore) -> list:
+                   oocore, ckpt) -> list:
     """The kernels line's seven matmul entries.  The skinny kernel and its
     fold at one scorer dispatch at bucket 8 (the serving path: both
     products, read in place as the engine calls them; the fold inside the
@@ -2975,7 +3347,9 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train,
     pass, off both paths, at a1·W2 (their route before the narrow kernel);
     beside the tile kernel, as before, X·W1 and the scorer's two products
     on it.  The out-of-core path's launches (its stream-reduce, stream-out
-    and rung-1 runs) join the tensor-core, split and narrow entries."""
+    and rung-1 runs) and the checkpoint path's (its uninterrupted,
+    recovered and resumed runs) join the tensor-core, split and narrow
+    entries."""
     first, second = serve["products_b8"]
     b = first["m"]
     both = (first, second)
@@ -2998,16 +3372,18 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train,
     wgmma = {**common, "source": MATMUL_WGMMA_CU}
     tile_paths = {"scorer": serve["launches"]["matmul"],
                   TRAIN_PATH: train["launches"]["matmul"]}
-    ooc = oocore["launches"]
+    ooc, ck = oocore["launches"], ckpt["launches"]
     tc_paths = {"scorer": serve["launches"]["matmul_tc"],
                 TRAIN_PATH: train["launches"]["matmul_tc"],
-                OOC_PATH: ooc["matmul_tc"]}
+                OOC_PATH: ooc["matmul_tc"], CKPT_PATH: ck["matmul_tc"]}
     split_paths = {"scorer": serve["launches"]["matmul_tf32_split"],
                    TRAIN_PATH: train["launches"]["matmul_tf32_split"],
-                   OOC_PATH: ooc["matmul_tf32_split"]}
+                   OOC_PATH: ooc["matmul_tf32_split"],
+                   CKPT_PATH: ck["matmul_tf32_split"]}
     narrow_paths = {"scorer": serve["launches"]["matmul_narrow"],
                     TRAIN_PATH: train["launches"]["matmul_narrow"],
-                    OOC_PATH: ooc["matmul_narrow"]}
+                    OOC_PATH: ooc["matmul_narrow"],
+                    CKPT_PATH: ck["matmul_narrow"]}
     reduce_paths = {"scorer": serve["launches"]["matmul_splitk_reduce"],
                     TRAIN_PATH: train["launches"]["matmul_splitk_reduce"]}
     return [{
@@ -3093,7 +3469,8 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train,
         "folding_launches_by_path": {
             "scorer": serve["launches"]["matmul_narrow_fold"],
             TRAIN_PATH: train["launches"]["matmul_narrow_fold"],
-            OOC_PATH: ooc["matmul_narrow_fold"]},
+            OOC_PATH: ooc["matmul_narrow_fold"],
+            CKPT_PATH: ck["matmul_narrow_fold"]},
         "max_abs_err": narrow["max_abs_err"],
         "ms": narrow["kernel_ms"], "plain_ms": narrow["plain_ms"],
         "bound_ms": narrow["bound_ms"], "bound_by": narrow["bound_by"],
@@ -3415,6 +3792,9 @@ def phase_lm_serve(device, smi) -> dict:
         fail("lm_serve: the drained server holds a slot or a non-zero "
              "state row")
     checks = lm_token_checks(lm, reqs, report.results)
+    # the one compile (and its verification) is warmup's, before the
+    # timed ticks: cache_misses_since_warmup is 0 above
+    lm_verify_ms = verify_ms(engine, lm.step_program(), "lm_serve")
 
     # -- the chaos run: same requests, periodic faults, numeric guards
     inj = chaos_injector(**LM_CHAOS)
@@ -3479,8 +3859,12 @@ def phase_lm_serve(device, smi) -> dict:
            "p99_ms": summary["total_ms"]["p99"],
            "queue_wait_p50_ms": summary["queue_wait_ms"]["p50"],
            "launches": launches,
+           "validate": engine.validate,
+           "diagnostics": diag_counts(engine),
            "compiles": engine.cache_misses,
            "cache_misses_since_warmup": server.cache_misses_since_warmup,
+           "verify_ms": lm_verify_ms,
+           "verify_ms_median": sorted(lm_verify_ms)[2],
            "max_memory_allocated_gb": peak / 1e9,
            **checks,
            "precision_control": control,
@@ -3508,6 +3892,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device(device)
     phase_build()
+    phase_lint()
     gen = torch.Generator(device=device).manual_seed(SEED)
     cfg = speech(100_000)
     d_in, d_hidden, d_out = cfg.d_in, cfg.d_hidden, cfg.d_out
@@ -3516,6 +3901,7 @@ def main() -> int:
     flash = phase_flash(device, gen)
     serve = phase_serve(device)
     train = phase_train(device)
+    ckpt = phase_ckpt(device)
     oocore = phase_oocore(device)
     gemma2 = phase_gemma2(device)
     ssd = phase_ssd(device, gen)
@@ -3523,7 +3909,7 @@ def main() -> int:
     zamba2 = phase_zamba2(device)
     phase_lm_serve(device, smi)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
-                                      train, oocore),
+                                      train, oocore, ckpt),
                       *flash_entries(flash, gemma2, zamba2),
                       *ssd_entries(ssd, mamba2, zamba2)]})
     print(smi, flush=True)

@@ -34,10 +34,6 @@ Deviations from the JAX ``Engine``:
   inputs are placed there, constants are made there, and an input
   relation on another device is rejected rather than moved.  Without a
   card, the default raises; pass ``device="cpu"`` to run on the CPU.
-* ``validate`` accepts only ``"off"``, its default: the static verifier
-  (``repro.analysis``) is a later slice (4, ROADMAP A4).  So a plan the
-  stream executor refuses raises :class:`~repro_torch.store.NotStreamable`
-  without the verifier's per-candidate diagnostics.
 * ``mesh`` and the ``gspmd``/``shard_map`` executors (slice 7, ROADMAP A7)
   raise ``NotImplementedError`` when set; the executor-fallback ladder of
   ``degrade`` therefore has one rung, ``jit`` → ``reference``, and treats
@@ -69,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import hashlib
+import os
 import traceback
 import warnings
 import weakref
@@ -77,6 +74,10 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis.inputs import (check_chunk, check_memory_budget,
+                                         masked_inputs_error,
+                                         missing_inputs_error,
+                                         unexpected_inputs_error)
 from repro_torch.core import kernels_registry as kr
 from repro_torch.core.compile import compile_tra
 from repro_torch.core.guards import (ExecContext, NumericsError,
@@ -326,26 +327,20 @@ class CompiledExpr:
     def _env(self, inputs) -> Dict[str, TensorRelation]:
         unknown = [n for n in inputs if n not in self.input_rtypes]
         if unknown:
-            raise ValueError(f"unexpected inputs: {unknown}; expected "
-                             f"{sorted(self.input_rtypes)}")
+            raise unexpected_inputs_error(unknown, self.input_rtypes)
         env = {name: _coerce(name, val, self.input_rtypes[name], self.device,
                              keep_host=self.streamed)
                for name, val in inputs.items()}
         missing = [n for n in self.input_rtypes if n not in env]
         if missing:
-            raise ValueError(f"missing inputs: {missing}; expected "
-                             f"{sorted(self.input_rtypes)}")
+            raise missing_inputs_error(missing, self.input_rtypes)
         if self.executor != "reference" and not self.streamed:
             # the jit schedule types its outputs from the compile-time
             # inference, so an input-side static mask would be dropped —
             # only the eager reference walk threads per-value masks
             holey = [n for n, r in env.items() if r.mask is not None]
             if holey:
-                raise NotImplementedError(
-                    f"executor {self.executor!r} requires continuous "
-                    f"(mask-free) input relations; inputs {holey} carry "
-                    f"masks — run on executor=\"reference\", or express "
-                    f"the filter inside the plan")
+                raise masked_inputs_error(self.executor, holey)
         return env
 
     __call__ = run
@@ -382,25 +377,6 @@ class CacheEntry:
     # (repro_torch.launch.metering.StreamStats) for artifacts compiled
     # through the host relation store; None for resident artifacts
     stream_stats: Optional[object] = None
-
-
-def _check_chunk(chunk) -> None:
-    """``chunk`` is ``None``, ``"auto"`` or a positive int (the JAX
-    package's messages)."""
-    if chunk is None or chunk == "auto":
-        return
-    if isinstance(chunk, (str, bool)) or not isinstance(chunk, int):
-        raise ValueError(f"chunk must be a positive int, None or \"auto\"; "
-                         f"got {chunk!r}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-
-
-def _check_memory_budget(budget) -> None:
-    """``memory_budget`` is ``None`` or a positive byte count (the check of
-    ``repro.analysis.inputs.check_memory_budget``)."""
-    if budget is not None and budget < 1:
-        raise ValueError(f"memory_budget must be >= 1 byte, got {budget}")
 
 
 def _is_host_relation(value) -> bool:
@@ -594,7 +570,19 @@ class Engine:
         :class:`RuntimeWarning`.  Off by default — without it every
         failure propagates unchanged.
     validate:
-        ``"off"`` only (the default here; the verifier is slice 4).
+        Static plan verification mode (:mod:`repro_torch.analysis`): on
+        every compile-cache miss the post-optimization plans run the
+        verifier passes (placement/exchange soundness, collective
+        consistency, out-of-core streamability, memory-model audit).
+        ``"warn"`` (default) emits one :class:`RuntimeWarning` carrying the
+        rendered error diagnostics; ``"strict"`` raises
+        :class:`repro_torch.analysis.PlanVerificationError` (a
+        ``ValueError``) instead of handing the plan to the executor;
+        ``"off"`` skips verification.  Defaults from the ``REPRO_VALIDATE``
+        environment variable when unset.  The last run's findings — errors
+        or not — are kept on ``engine.last_diagnostics``; a streamed
+        refusal (:class:`~repro_torch.store.NotStreamable`) carries the
+        streaming pass's per-candidate diagnostics unless ``"off"``.
     fault_injector:
         Optional :class:`repro_torch.core.faults.FaultInjector`: simulated
         site failures, device OOM, compile failures, stragglers and NaN
@@ -623,26 +611,28 @@ class Engine:
                  fault_injector=None,
                  check_numerics=False,
                  degrade: bool = False,
-                 validate: str = "off"):
+                 validate: Optional[str] = None):
         if executor not in EXECUTORS:
             raise ValueError(
                 f"unknown executor {executor!r}; choose from {EXECUTORS}")
         if executor in ("gspmd", "shard_map") or mesh is not None:
             raise _not_ported("the mesh and the gspmd/shard_map executors",
                               7)
+        if validate is None:
+            validate = os.environ.get("REPRO_VALIDATE", "warn")
         if validate not in VALIDATE_MODES:
             raise ValueError(
                 f"unknown validate mode {validate!r}; "
                 f"choose from {VALIDATE_MODES}")
-        if validate != "off":
-            raise _not_ported(f"Engine(validate={validate!r})", 4)
         if check_numerics not in (False, True, "all"):
             raise ValueError(f"check_numerics must be False, True or 'all', "
                              f"got {check_numerics!r}")
-        _check_chunk(chunk)
-        _check_memory_budget(memory_budget)
+        check_chunk(chunk)
+        check_memory_budget(memory_budget)
         self.device = resolve_device(device)
         self.validate = validate
+        # Diagnostics of the most recent verified compile (any severity)
+        self.last_diagnostics = None
         self.mesh = None
         self.executor = executor
         self.optimize = optimize
@@ -840,7 +830,23 @@ class Engine:
             hit.hits += 1
             return hit.compiled
         se = StreamExecutor(self)
-        splan = se.plan(root, force=force)       # may raise NotStreamable
+        try:
+            splan = se.plan(root, force=force)
+        except NotStreamable as err:
+            if self.validate == "off":
+                raise
+            # the refusal gains the streaming pass's per-candidate
+            # provenance; its type stays, so _dispatch's resident fallback
+            # and the degrade ladder's rung 1 behave as before
+            from repro_torch.analysis.streaming import explain_unstreamable
+            diags = explain_unstreamable(root, budget=self.memory_budget,
+                                         fuse=self.fuse, device=self.device)
+            self.last_diagnostics = diags
+            if diags.errors:
+                raise NotStreamable(
+                    f"{err}\n{diags.render(min_severity='warning')}"
+                ) from err
+            raise
         self.cache_misses += 1
         stats = StreamStats(mode=splan.mode, budget_bytes=splan.budget)
 
@@ -871,7 +877,7 @@ class Engine:
         ``_stream`` (the OOM ladder's knob) forces the fused Σ∘⋈ onto the
         chunked lowering even for contraction kernel pairs.
         """
-        _check_chunk(chunk)
+        check_chunk(chunk)
         chunk = self.chunk if chunk is None else chunk
         root_names = None
         if isinstance(expr, dict):
@@ -1030,6 +1036,35 @@ class Engine:
                            labels=label_nodes(plans),
                            defer=executor == "jit", stream=stream)
 
+    def _verify_compile(self, plans, executor, logical_roots) -> None:
+        """Run the static verifier over the executor-bound plans.
+
+        Called once per compile-cache miss (cache hits re-dispatch
+        already-verified artifacts).  ``"warn"`` surfaces error
+        diagnostics as one RuntimeWarning; ``"strict"`` raises
+        :class:`~repro_torch.analysis.PlanVerificationError` before the
+        executor's schedule is built.  All findings (any severity) are
+        kept on ``self.last_diagnostics``.
+        """
+        if self.validate == "off":
+            return
+        from repro_torch.analysis.diagnostics import PlanVerificationError
+        from repro_torch.analysis.manager import verify_plans
+        diags = verify_plans(
+            plans, executor=executor, axis_sizes=self.axis_sizes,
+            memory_budget=self.memory_budget, fuse=self.fuse,
+            logical_roots=logical_roots)
+        self.last_diagnostics = diags
+        if not diags.errors:
+            return
+        if self.validate == "strict":
+            raise PlanVerificationError(diags)
+        warnings.warn(
+            f"plan verification found {len(diags.errors)} error(s) "
+            f"(Engine(validate=\"warn\") — compiling anyway):\n"
+            f"{diags.render(min_severity='warning')}",
+            RuntimeWarning, stacklevel=4)
+
     def _compile(self, roots, placements, target, executor,
                  multi, chunk, stream: bool = False) -> CompiledExpr:
         if self.fault_injector is not None:
@@ -1040,6 +1075,7 @@ class Engine:
             plans, opts = self._physical_roots(roots, placements, target)
         else:
             plans, opts = roots, ()
+        self._verify_compile(plans, executor, roots)
         out_infos = tuple(infer(p) for p in plans)
         device, fuse, budget = self.device, self.fuse, self.memory_budget
         ctx = self._make_ctx(plans, executor, stream)

@@ -5,10 +5,10 @@ Port of ``repro.core.train``.  Deviations:
 * optimizer state (the moment buffers and the ``opt.step`` scalar) is made
   on the parameters' device — the JAX package makes it on the default
   device — so a trainer on the card keeps every relation there;
-* the checkpoint store is not ported yet (ROADMAP A6.2):
-  ``TraTrainer(store=...)``, ``fit(store=, ckpt_every=, resume=)``,
-  ``save_checkpoint`` and ``restore_checkpoint`` raise
-  ``NotImplementedError``, and ``fit`` recovers from no fault.
+* a restored checkpoint's leaves are rebuilt on the engine's device (the
+  JAX package leaves them where ``jnp.asarray`` puts them);
+  :class:`repro_torch.checkpoint.CheckpointStore` writes JAX's layout, so
+  either package restores the other's checkpoints.
 
 The whole train step is one TRA program.  An optimizer is a builder of
 ``Expr`` programs over three families of relations:
@@ -53,12 +53,6 @@ from repro_torch.core.tra import RelType, TensorRelation
 
 STEP_STATE = "opt.step"                  # shared scalar step-count input
 LOSS_ROOT = "loss"                       # reserved root name
-
-
-def _no_store(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: the checkpoint store "
-        f"(checkpoint/store.py) is ROADMAP A6.2")
 
 
 def _cokey(a: Expr, b: Expr, kernel) -> Expr:
@@ -334,6 +328,20 @@ class TraTrainer:
     loop owns the state threading: updated parameter and optimizer-state
     relations come back by name and become the next step's inputs.
 
+    **Fault tolerance.**  With a
+    :class:`repro_torch.checkpoint.CheckpointStore` (``store=`` here or per
+    ``fit`` call), ``fit(..., ckpt_every=N)`` snapshots params + optimizer
+    state (including the scalar ``opt.step`` relation) every N applied
+    steps through the store's atomic async writer, and recovers from a
+    :class:`~repro_torch.core.faults.SimulatedFailure` raised mid-``fit``
+    by restoring the last committed step and continuing.  ``fit(steps)``
+    counts *total* applied steps (``self.step_count``), so
+    ``fit(steps=K, resume=True)`` on a freshly constructed trainer — a new
+    process, a new engine — restores and finishes the remaining
+    ``K − restored`` steps.  The replay is reproducible from the restore
+    point because the entire optimizer state is relation-valued and
+    snapshot by root name.
+
     **Numerics policy.**  ``skip_nonfinite=N`` skips a step whose loss is
     non-finite (or that raised
     :class:`~repro_torch.core.guards.NumericsError` under the engine's
@@ -346,8 +354,6 @@ class TraTrainer:
     def __init__(self, engine, step: TrainStep,
                  params: Dict[str, TensorRelation], *,
                  store=None, skip_nonfinite: int = 0):
-        if store is not None:
-            raise _no_store("TraTrainer(store=...)")
         missing = [nm for nm in step.param_names if nm not in params]
         if missing:
             raise ValueError(f"missing initial parameters: {missing}")
@@ -356,7 +362,7 @@ class TraTrainer:
         self.params = {nm: params[nm] for nm in step.param_names}
         self.state = step.optimizer.init_state(self.params)
         self.history: List[float] = []
-        self.store = None
+        self.store = store
         self.skip_nonfinite = skip_nonfinite
         self.step_count = 0
         self.skipped: List[Tuple[int, float]] = []
@@ -391,21 +397,92 @@ class TraTrainer:
         self.step_count += 1
         return loss
 
+    # -- checkpointing -----------------------------------------------------
+    def _snapshot(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {"params": {nm: r.data for nm, r in self.params.items()},
+                "state": {nm: r.data for nm, r in self.state.items()}}
+
     def save_checkpoint(self, store=None, *, sync: bool = False) -> None:
-        raise _no_store("TraTrainer.save_checkpoint")
+        """Snapshot params + optimizer state at ``self.step_count``.
+
+        Async by default (the atomic COMMIT protocol makes a crash
+        mid-write unreadable rather than corrupt); ``sync=True`` blocks.
+        """
+        store = store if store is not None else self.store
+        if store is None:
+            raise ValueError("no CheckpointStore configured")
+        extra = {"step_count": self.step_count,
+                 "history": list(self.history)}
+        if sync:
+            store.save(self.step_count, self._snapshot(), extra)
+        else:
+            store.save_async(self.step_count, self._snapshot(), extra)
 
     def restore_checkpoint(self, store=None,
                            step: Optional[int] = None) -> int:
-        raise _no_store("TraTrainer.restore_checkpoint")
+        """Restore params/state by root name from the last committed step
+        (or ``step``), rebuilt as relations of the *program's* declared
+        rtypes on the engine's device.  Returns the restored step count."""
+        store = store if store is not None else self.store
+        if store is None:
+            raise ValueError("no CheckpointStore configured")
+        tree, extra = store.restore(self._snapshot(), step)
+        device = self.engine.device
+
+        def rel(arr, like: TensorRelation) -> TensorRelation:
+            return TensorRelation(
+                torch.from_numpy(arr).to(device=device,
+                                         dtype=like.rtype.dtype),
+                like.rtype)
+
+        self.params = {nm: rel(tree["params"][nm], r)
+                       for nm, r in self.params.items()}
+        self.state = {nm: rel(tree["state"][nm], r)
+                      for nm, r in self.state.items()}
+        self.step_count = int(extra["step_count"])
+        self.history = [float(x) for x in extra.get("history", [])]
+        self._consec_skips = 0
+        return self.step_count
 
     def fit(self, steps: int, *, store=None,
             ckpt_every: Optional[int] = None, resume: bool = False,
             max_recoveries: int = 3, **data) -> List[float]:
-        """Train until ``step_count`` reaches ``steps`` on fixed data;
-        returns the loss history.  ``max_recoveries`` bounds the restores
-        from a checkpoint store, so without one it has no effect."""
-        if store is not None or ckpt_every or resume:
-            raise _no_store("fit(store=, ckpt_every=, resume=)")
+        """Train until ``step_count`` reaches ``steps`` on fixed data.
+
+        ``ckpt_every`` snapshots every N applied steps (async, atomic);
+        ``resume=True`` first restores the last committed checkpoint (a
+        store with no committed step starts fresh); an in-flight
+        :class:`~repro_torch.core.faults.SimulatedFailure` triggers
+        restore + continue, at most ``max_recoveries`` times.  Returns the
+        loss history (restored prefix included).
+        """
+        from repro_torch.core.faults import SimulatedFailure
+        store = store if store is not None else self.store
+        if (resume or ckpt_every) and store is None:
+            raise ValueError("fit(ckpt_every=/resume=) needs a store")
+        if resume:
+            try:
+                self.restore_checkpoint(store)
+            except FileNotFoundError:
+                pass                        # nothing committed: fresh start
+        if store is not None and ckpt_every and store.latest_step() is None:
+            # commit the initial state so a failure before the first
+            # periodic snapshot still has a restore point
+            self.save_checkpoint(store, sync=True)
+        recoveries = 0
         while self.step_count < steps:
-            self.step(**data)
+            try:
+                self.step(**data)
+            except SimulatedFailure:
+                if store is None or recoveries >= max_recoveries:
+                    raise
+                recoveries += 1
+                store.wait()                # surface a failed async write
+                self.restore_checkpoint(store)
+                continue
+            if store is not None and ckpt_every \
+                    and self.step_count % ckpt_every == 0:
+                self.save_checkpoint(store)
+        if store is not None:
+            store.wait()
         return self.history

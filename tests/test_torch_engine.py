@@ -126,8 +126,7 @@ def test_input_checks():
 
 @pytest.mark.parametrize("kwargs,slice_no", [
     ({"executor": "gspmd"}, 7), ({"executor": "shard_map"}, 7),
-    ({"mesh": object()}, 7), ({"validate": "warn"}, 4),
-    ({"validate": "strict"}, 4),
+    ({"mesh": object()}, 7),
 ])
 def test_unported_options_raise(kwargs, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):

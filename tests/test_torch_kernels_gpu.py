@@ -1455,3 +1455,32 @@ def test_streamed_ffnn_forward_on_card(cuda, mode, budget, chunks,
     hits = eng.cache_hits
     eng.run(z2, **inputs)
     assert eng.cache_hits > hits and stats.runs == 2
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_through_page_locked_buffers_on_card(
+        cuda, tmp_path):
+    """``save_async`` copies card tensors into page-locked host buffers
+    before it returns (the source may change at once) and reuses them at
+    the next save; ``restore`` then puts the leaves back on the card
+    bit-equal."""
+    from repro_torch.checkpoint import CheckpointStore
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"params": {"W1": torch.randn(64, 3000, generator=gen,
+                                         device=cuda)},
+            "state": {"opt.step": torch.ones(1, 1, 1, device=cuda)}}
+    want = {k: {n: t.clone() for n, t in v.items()} for k, v in
+            tree.items()}
+    store = CheckpointStore(str(tmp_path))
+    store.save_async(1, tree)
+    tree["params"]["W1"].add_(1.0)          # the snapshot is already taken
+    buffers = list(store._buffers)
+    assert all(b.is_pinned() for b in buffers)
+    store.save_async(2, want)
+    assert [id(b) for b in store._buffers] == [id(b) for b in buffers]
+    store.wait()
+    for step in (1, 2):
+        got, _ = store.restore(want, step)
+        for k, v in want.items():
+            for n, t in v.items():
+                assert torch.equal(torch.from_numpy(got[k][n]).to(cuda), t)

@@ -23,8 +23,9 @@
   and its forward products run once a step across the program's roots.
 * A step resumed from the JAX trainer's state through
   ``weights.train_state_from_numpy``; optimizer state made on the
-  parameters' device; the non-finite-loss budget; the checkpoint store's
-  refusal (ROADMAP A6.2).
+  parameters' device; the non-finite-loss budget; a trainer refusing
+  missing initial parameters (the checkpoint store's cases are in
+  ``test_torch_checkpoint.py``).
 * The other programs of ``programs``: §5.2's nearest-neighbour search,
   §5.1's matmul with its hand-compiled IA plans (run on one device), the
   RMM cost and the FFNN placements, against the JAX package's.
@@ -601,21 +602,10 @@ def test_nonfinite_loss_budget():
     assert trainer.step_count == 1
 
 
-def test_checkpoint_store_is_the_out_of_core_slice():
-    trainer, data = _port_trainer("sgd")
-    step = trainer.program
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcore.TraTrainer(trainer.engine, step, params=trainer.params,
-                         store=object())
-    for kw in ({"ckpt_every": 1}, {"resume": True}, {"store": object()}):
-        with pytest.raises(NotImplementedError, match="A6"):
-            trainer.fit(2, **kw, **data)
-    with pytest.raises(NotImplementedError, match="A6"):
-        trainer.save_checkpoint()
-    with pytest.raises(NotImplementedError, match="A6"):
-        trainer.restore_checkpoint()
+def test_trainer_refuses_missing_initial_parameters():
+    trainer, _ = _port_trainer("sgd")
     with pytest.raises(ValueError, match="missing initial parameters"):
-        tcore.TraTrainer(trainer.engine, step, params={})
+        tcore.TraTrainer(trainer.engine, trainer.program, params={})
 
 
 # ---------------------------------------------- the other paper programs
