@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's eight main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's nine main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
 through ``TraServer`` on the ``jit`` executor; ``RecurrentLM``'s
 continuous-batching decode at gemma2-2b's width (d_model 2304, vocab
 256000) served through ``TraServer`` as well; the same FFNN trained at
 that width on a minibatch of 10000 through ``TraTrainer``, plan-level
 autodiff and AdamW, and again with a ``CheckpointStore``, killed,
-recovered and resumed; its forward at that width streamed from a host
+recovered and resumed, and again through ``Engine(mesh,
+executor="shard_map" | "gspmd")`` on ``torch.distributed`` (one rank over
+NCCL, two ranks sharing the card over gloo); its forward at that width
+streamed from a host
 ``RelationStore`` under a 1 GiB and a 4 GiB device budget, with the
 ``degrade`` ladder recovering a real out-of-memory error; gemma2-2b at full width
 (26 layers, d_model 2304, vocab 256000), mamba2-130m at full width (24
@@ -113,7 +116,31 @@ its plain PyTorch version on the card:
    snapshot's bytes and device-to-host ms, the writer's seconds a save,
    the stall in ``wait()`` at each save, each restore's ms from disk to
    the card, and the recovered run's wall time against 6 steps;
-9. oocore: the same network's forward z2 = relu(X·W1)·W2 at speech-100k
+9. mesh: the same training through ``Engine(mesh, executor=...)`` on a
+   ``("sites",)`` mesh, X and Y partitioned by rows and W1, W2 replicated
+   (``tests/_distributed_checks.py:229``'s plan), on both executors:
+   ``mesh1`` at world size 1 over NCCL in this process, ``mesh2`` at world
+   size 2, two processes sharing the card over gloo (``run_sites``, a
+   deadline; NCCL refuses two ranks on one card).  Each run: step 1 at
+   AdamW(``CHECK_LR``) held by ``train_checks`` against the dense f64 step
+   and the plain-matmul step (computed once for both sizes); then 3 steps
+   at ``TRAIN_LR`` on a fresh strict engine with every launch count and
+   ``shardmap_exec.COLLECTIVES`` 0 just before and read just after: 1
+   compile and 2 cached dispatches, each rank's launches equal to the
+   routes of its dispatch's products (``mesh_products``: at one rank the
+   train path's 1 tensor-core + 2 split + 1 narrow, at two ranks the
+   plan's 3 products a rank), on ``shard_map`` each step's executed
+   collectives equal to ``expected_schedule`` (the static lowering), the
+   ranks' step-1 losses alike; mesh1's losses, parameters and moments
+   equal to the ``jit`` engine's same steps bit for bit, mesh2's
+   losses within ``MESH_LOSS_RTOL`` of mesh1's.  Printed beside the card's
+   name and power limit: ms a step (median of steps 2–3), each step's
+   bytes by collective kind, the re-placed inputs' and the staged bytes,
+   the exchange's ms, each rank's peak, ``compiled.cost``.  Not a scaling
+   figure: two ranks share one card.  The phase frees every byte it
+   allocated (``cublas_warm``, ``phase_allocated``: cuBLAS's workspace
+   and the fold tickets are kept for the process);
+10. oocore: the same network's forward z2 = relu(X·W1)·W2 at speech-100k
    (X, W1, W2 drawn as the train phase draws them) streamed from a host
    ``RelationStore`` (every block page-locked) through
    ``Engine(executor="jit", memory_budget=...)``: W1 (blocked along its
@@ -140,7 +167,7 @@ its plain PyTorch version on the card:
    under 1 GiB refuses with the streaming pass's ``[streaming]``
    diagnostic naming the rekey (under ``validate="off"``, the bare
    refusal);
-10. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
+11. gemma2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``launch.serve.dense_generate`` with every launch count set to 0 just
    before and read just after (26 launches of the tensor-core flash
    kernel, none of the FFMA kernel, no copy of q, k or v); the prefill's
@@ -148,7 +175,7 @@ its plain PyTorch version on the card:
    plain attention, within ``0.02·(max|logit| + 1)``;
    a profile by kernel of one prefill (26 flash launches) and of 8 decode
    steps (none), so the main path's 26 were all its prefill's;
-11. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
+12. ssd: ``ssd_scan`` against ``ssd_chunked_ref`` computed in f64 (the
    exact result, :func:`exact_ssd`, as in every per-call SSD check here;
    JAX's f32 sum of C·Bᵀ is off by a few % of a row where C_i·B_i
    cancels) at the JAX kernel
@@ -165,7 +192,7 @@ its plain PyTorch version on the card:
    kernel and f32 on the FFMA one, with the plain version and the bound;
    zamba2-7b's layer shape (B=2, S=8192, H=112, P=64, N=64, L=128) the
    same ways;
-12. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
+13. mamba2: prefill of 8×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (24 launches of the tensor-core SSD kernel, none of
    the FFMA one, no cast, no other kernel); in a second prefill, every
@@ -184,7 +211,7 @@ its plain PyTorch version on the card:
    rounding changes: 24 layers without post-norms add up the bf16 noise
    of each); a profile by kernel of one prefill (24 SSD launches) and of
    8 decode steps (none);
-13. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
+14. zamba2: prefill of 2×8192 tokens and 32 greedy decode steps through
    ``dense_generate`` with every launch count set to 0 just before and
    read just after (13 launches of the tensor-core flash kernel, one per
    shared-block application, and 78 of the tensor-core SSD kernel, one
@@ -199,7 +226,7 @@ its plain PyTorch version on the card:
    within ``BF16_FLOOR_FACTOR`` of the rounding floor (both plain, the
    SSD in half-size chunks against full ones); a profile by kernel of one
    prefill (13 + 78 launches) and of 8 decode steps (none); peak memory;
-14. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
+15. lm_serve: ``RecurrentLM.from_config(gemma2-2b)`` at full width (d_model
    2304, vocab 256000; Wh, Wx, Wo and the embedding table drawn on the card
    from seed 0), capacity 8, through ``TraServer(Engine(device="cuda",
    executor="jit"))`` (the default ``validate``, ``"warn"``: its
@@ -235,7 +262,7 @@ its plain PyTorch version on the card:
    p50/p99, peak memory, the logits copied to the host a tick (8.2 MB)
    and the time of that copy and of the state snapshot, the chaos run's
    counters and extra wall time, and the card's name and power limit;
-15. the kernels line, the ``nvidia-smi`` line, and the last line
+16. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -361,6 +388,31 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def cublas_warm(device) -> int:
+    """One small product on the current stream; the bytes it leaves
+    allocated.  torch keeps a cuBLAS workspace for each stream from its
+    first product to the end of the process, so a phase that checks that
+    it frees every byte it allocates calls this before it reads its
+    baseline: the check then holds whether or not a phase ran before it."""
+    before = torch.cuda.memory_allocated(device)
+    a = torch.ones(16, 16, device=device)
+    (a @ a).sum().item()
+    del a
+    return torch.cuda.memory_allocated(device) - before
+
+
+def phase_allocated(device) -> int:
+    """Bytes allocated on the card less those the matmul ops keep for the
+    process by design: the fold tickets, one zeroed buffer a stream made
+    at the stream's first split-K launch (``mm_ops._TICKETS``).  A phase
+    that checks that it frees every byte it allocates reads this before
+    and after, so the check holds whether or not a phase ran before it."""
+    kept = sum(t.numel() * t.element_size()
+               for (index, _), t in mm_ops._TICKETS.items()
+               if index == device.index)
+    return torch.cuda.memory_allocated(device) - kept
 
 
 def tile_kernel(a, b):
@@ -958,12 +1010,12 @@ def train_relations(dims, dense) -> tuple:
 def train_trainer(dims, params, optimizer, device, trainer=TraTrainer,
                   **engine_kw):
     """A ``trainer`` of the §5.3 step on a fresh
-    ``Engine(validate="strict")`` (``engine_kw``: more of the engine's
-    options)."""
+    ``Engine(executor="jit", validate="strict")`` (``engine_kw``: more of
+    the engine's options, another executor among them)."""
     from repro_torch.core import Engine
     from repro_torch.core.programs import ffnn_train_step_tra
-    return trainer(Engine(executor="jit", device=device,
-                          validate="strict", **engine_kw),
+    engine_kw.setdefault("executor", "jit")
+    return trainer(Engine(device=device, validate="strict", **engine_kw),
                    ffnn_train_step_tra(*dims, optimizer=optimizer),
                    params=params)
 
@@ -1149,7 +1201,6 @@ def train_checks(first: dict, plain: dict, ref: dict, dense, cfg,
     and against the plain run outside the ``flips`` columns of
     :func:`dense_f64_step` (a reading inside them); the counts are
     reported."""
-    from repro_torch.core import to_tensor
     k_loss, k_grad = cfg.d_hidden, cfg.batch
     _, atol = tolerance(k_grad, torch.float32)
     lr = CHECK_LR if adam else SGD_LR
@@ -1168,8 +1219,7 @@ def train_checks(first: dict, plain: dict, ref: dict, dense, cfg,
         else:
             gate, exact = None, {name: w - lr * g}
         for key, value in exact.items():
-            got = to_tensor(first[key])
-            want = to_tensor(plain[key])
+            got, want = dense_of(first[key]), dense_of(plain[key])
             where = gate if key == name else \
                 same_sign if key == "W1.m" else None
             checks[f"{prefix}{key}_vs_plain"] = held(
@@ -1214,6 +1264,13 @@ def first_step_checks(cfg, dims, dense, data, params, device) -> dict:
 
 def step_outputs(trainer, loss) -> dict:
     return {"loss": loss, **trainer.params, **trainer.state}
+
+
+def dense_of(value):
+    """A relation's dense tensor (its global value if the data is a
+    DTensor); a tensor as it is."""
+    from repro_torch.core import to_tensor
+    return to_tensor(value) if hasattr(value, "rtype") else value
 
 
 def narrow_plan(m: int, k: int, n: int, sms: int):
@@ -1513,8 +1570,9 @@ def phase_ckpt(device) -> dict:
     AdamW moments equal the uninterrupted run's bit for bit."""
     from repro_torch.core import AdamW, FaultInjector
     t0 = time.perf_counter()
+    warm = cublas_warm(device)
     torch.cuda.synchronize(device)
-    allocated = torch.cuda.memory_allocated(device)
+    allocated = phase_allocated(device)
     cfg, dims, dense = train_problem(device)
     data, params = train_relations(dims, dense)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -1641,15 +1699,380 @@ def phase_ckpt(device) -> dict:
            "recovered_run_over_6_steps": run2_s * 1e3 / (
                CKPT_KILLED_AT * step_ms),
            "resumed_run_s": run3_s,
-           "phase_s": time.perf_counter() - t0}
+           "phase_s": time.perf_counter() - t0,
+           "cublas_warm_bytes": warm}
     del run1, run2, run3, data, params, dense
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
-    out["allocated_after_bytes"] = \
-        torch.cuda.memory_allocated(device) - allocated
+    out["allocated_after_bytes"] = phase_allocated(device) - allocated
     emit(out)
     if out["allocated_after_bytes"] > 0:
         fail(f"ckpt: {out['allocated_after_bytes']} bytes still allocated "
+             f"on the card after the phase")
+    return out
+
+
+# ------------------------------------------------------- mesh executors
+MESH_PATH = "ffnn-train-mesh-speech-100k"
+MESH_STEPS = 3
+MESH_EXECUTORS = ("shard_map", "gspmd")
+MESH_AXES = ("sites",)
+MESH_WORLD = 2                  # two ranks sharing the card, over gloo
+MESH_TIMEOUT = 420.0            # the two-rank run's deadline (s), and its
+#                                 group's collective timeout
+MESH_LOSS_RTOL = 1e-5           # mesh2's losses against mesh1's
+
+
+def mesh_places() -> dict:
+    """``tests/_distributed_checks.py:229``'s plan: X and Y partitioned on
+    key dim 0 over the sites, W1 and W2 replicated."""
+    from repro_torch.core import Placement
+    part = Placement.partitioned((0,), MESH_AXES)
+    rep = Placement.replicated()
+    return {"X": part, "Y": part, "W1": rep, "W2": rep}
+
+
+def mesh_products(compiled, axis_sizes) -> list:
+    """``(m, k, n)`` of each product a rank's dispatch hands the matmul op:
+    every ``FusedJoinAgg`` of ``matMul`` and ``matAdd`` among the
+    executor's steps (structurally identical nodes once, as the executor
+    runs them), at the operands' local key windows (a partitioned key dim
+    divided by its axis; a joined dim at the sharded side's window)."""
+    from repro_torch.core.engine import schedule_steps
+    from repro_torch.core.plan import infer
+
+    def local(info) -> list:
+        ks, p = list(info.rtype.key_shape), info.placement
+        if p is not None and p.kind == "partitioned":
+            for d, ax in zip(p.dims, p.axes):
+                ks[d] //= axis_sizes[ax]
+        return ks
+
+    out = []
+    steps, _, _ = schedule_steps(compiled.roots, fuse=False)
+    for n, _, _ in steps:
+        if not (isinstance(n, FusedJoinAgg) and n.join_kernel.name == "matMul"
+                and n.agg_kernel.name == "matAdd"):
+            continue
+        lt, rt = infer(n.left), infer(n.right)
+        lk, rk = local(lt), local(rt)
+        kept_l = [f for d, f in enumerate(lk) if d not in n.join_keys_l]
+        kept_r = [f for d, f in enumerate(rk) if d not in n.join_keys_r]
+        joined = [min(lk[a], rk[b]) for a, b in zip(n.join_keys_l,
+                                                    n.join_keys_r)]
+        out.append((math.prod(kept_l) * lt.rtype.bound[0],
+                    math.prod(joined) * lt.rtype.bound[1],
+                    math.prod(kept_r) * rt.rtype.bound[1]))
+    return out
+
+
+MESH_STATE = ("W1", "W2", "W1.m", "W1.v", "W2.m", "W2.v")
+
+
+def mesh_state(trainer, dense: bool = True) -> dict:
+    """The trainer's parameters and AdamW moments: dense global tensors,
+    or (``dense=False``) the relations as they are (DTensor data on a
+    mesh engine)."""
+    rels = {**trainer.params, **trainer.state}
+    return {k: dense_of(rels[k]) if dense else rels[k] for k in MESH_STATE}
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_train(mesh, executor, dims, data, params, device, sms) -> dict:
+    """The §5.3 step on ``Engine(mesh, executor=...)``: step 1 at the
+    check rate (its loss, parameters and moments, for ``train_checks``),
+    then ``MESH_STEPS`` steps at ``TRAIN_LR`` on a fresh strict engine with
+    every launch count and ``shardmap_exec.COLLECTIVES`` 0 just before and
+    read just after: host ms a step (synchronized), each step's
+    collectives (bytes by kind, re-placed inputs, staged bytes, exchange
+    ms), the schedule against ``expected_schedule``, the launches against
+    the plan's products' routes, the peak, the optimizer's cost."""
+    from repro_torch.core import AdamW
+    from repro_torch.core.shardmap_exec import COLLECTIVES, expected_schedule
+    kw = {"mesh": mesh, "executor": executor,
+          "input_placements": mesh_places()}
+    check = train_trainer(dims, params, AdamW(CHECK_LR), device, **kw)
+    first = {"loss": check.step(**data), **mesh_state(check, dense=False)}
+    del check
+    trainer = train_trainer(dims, params, AdamW(TRAIN_LR), device, **kw)
+    eng = trainer.engine
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    COLLECTIVES.clear()
+    steps = []
+    for _ in range(MESH_STEPS):
+        sync(device)
+        t0 = time.perf_counter()
+        trainer.step(**data)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        (entry,) = eng.cache_info()
+        ex = entry.compiled.exchange
+        steps.append({"ms": ms, "bytes_by_kind": ex.bytes_by_kind(),
+                      "reshard_bytes": ex.reshard_bytes,
+                      "staged_bytes": ex.staged_bytes,
+                      "exchange_ms": ex.ms(),
+                      "collectives": len(ex.log),
+                      "schedule": [o.describe() for o in ex.schedule()]})
+    launches = read_launches()
+    collectives = dict(COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else None
+    compiled = entry.compiled
+    want = [o.describe() for o in expected_schedule(compiled.roots,
+                                                    eng.axis_sizes)]
+    products = mesh_products(compiled, eng.axis_sizes)
+    expected = train_launches(*train_routes(products, sms), MESH_STEPS)
+    ms = sorted(s["ms"] for s in steps[1:])
+    out = {"executor": executor, "first": first,
+           "losses": list(trainer.history),
+           "state": mesh_state(trainer, dense=False),
+           "steps": steps, "step_ms_median_2_to_3": ms[len(ms) // 2]
+           if len(ms) % 2 else (ms[0] + ms[-1]) / 2,
+           "launches": launches, "expected_launches": expected,
+           "products": products, "collectives_by_kind": collectives,
+           "schedule_ok": executor == "gspmd" or all(
+               st["schedule"] == want for st in steps),
+           "expected_schedule": want,
+           "cache": {"misses": eng.cache_misses, "hits": eng.cache_hits},
+           "max_memory_allocated_gb": None if peak is None else peak / 1e9,
+           "cost": compiled.cost}
+    del trainer
+    return out
+
+
+def mesh_reference(cfg, dims, dense, data, params, device) -> tuple:
+    """Step 1's references, computed once for both mesh runs: the dense
+    f64 step (relu' from the kernel's z1) and the step on the plain
+    matmul, both at AdamW(``CHECK_LR``) (:func:`first_step_checks`)."""
+    from repro_torch.core import AdamW
+    z1 = mm_ops.matmul(dense["X"], dense["W1"], impl="kernel") \
+        if device.type == "cuda" else matmul_ref(dense["X"], dense["W1"])
+    z1_plain = matmul_ref(dense["X"], dense["W1"])
+    ref = dense_f64_step(dense, z1, z1_plain)
+    del z1, z1_plain
+    with plain_matmul():
+        tr = train_trainer(dims, params, AdamW(CHECK_LR), device)
+        plain = {"loss": tr.step(**data), **mesh_state(tr)}
+    return ref, plain
+
+
+def mesh_checks(runs, ref, plain, dense, cfg, prefix) -> dict:
+    """Each executor's step 1 against the plain run and f64
+    (:func:`train_checks`, AdamW)."""
+    return {ex: train_checks(r["first"], plain, ref, dense, cfg,
+                             f"{prefix}{ex}_", adam=True)
+            for ex, r in runs.items()}
+
+
+def mesh_gates(what: str, run: dict) -> None:
+    if run["launches"] != run["expected_launches"]:
+        fail(f"mesh {what} {run['executor']}: launches {run['launches']}, "
+             f"expected {run['expected_launches']}")
+    if not run["schedule_ok"]:
+        fail(f"mesh {what} {run['executor']}: executed collectives "
+             f"{[s['schedule'] for s in run['steps']]} against the "
+             f"lowering's {run['expected_schedule']}")
+    if run["cache"] != {"misses": 1, "hits": MESH_STEPS - 1}:
+        fail(f"mesh {what} {run['executor']}: cache {run['cache']}")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        fail(f"mesh {what} {run['executor']}: losses {run['losses']}")
+
+
+def local_block(rel, path: str) -> tuple:
+    """A relation's block on this rank, saved to ``path`` (``.npy``; a
+    gigabyte crosses a file far faster than the ranks' result queue), with
+    the tensor dim its mesh shards (``None``: replicated) and its type's
+    shapes."""
+    from repro_torch.core.shardmap_exec import placement_of
+    data, dim = rel.data, None
+    if hasattr(data, "device_mesh"):
+        p = placement_of(data)
+        dim = p.dims[0] if p.dims else None
+        data = data.to_local()
+    np.save(path, data.cpu().numpy())
+    return (path, dim, tuple(rel.rtype.key_shape), tuple(rel.rtype.bound))
+
+
+def joined_blocks(blocks, device):
+    """The dense global tensor of one relation from every rank's
+    :func:`local_block` (a 1-D mesh: blocks laid in rank order)."""
+    from repro_torch.core import RelType, TensorRelation, to_tensor
+    arrays = [np.load(b[0]) for b in blocks]
+    _, dim, key_shape, bound = blocks[0]
+    data = arrays[0] if dim is None else np.concatenate(arrays, axis=dim)
+    return to_tensor(TensorRelation(torch.from_numpy(data).to(device),
+                                    RelType(key_shape, bound)))
+
+
+def mesh_rank(rank: int, world: int, out_dir: str) -> dict:
+    """One rank of the two-rank run (gloo, the ranks sharing the card):
+    the same problem drawn on the card from the seed, both executors on a
+    ``("sites",)`` mesh of ``world`` ranks.  Each rank saves its blocks
+    of step 1's parameters and moments under ``out_dir``
+    (:func:`local_block`; the parent lays them together for its checks)
+    and returns its own readings."""
+    from repro_torch.launch.mesh import make_mesh
+    entered = time.time()
+    t0 = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dims, dense = train_problem(device)
+    data, params = train_relations(dims, dense)
+    del dense
+    mesh = make_mesh((world,), MESH_AXES)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {"setup_s": time.perf_counter() - t0, "entered": entered}
+    for ex in MESH_EXECUTORS:
+        t1 = time.perf_counter()
+        run = mesh_train(mesh, ex, dims, data, params, device, sms)
+        first = run.pop("first")
+        del run["state"]
+        run["first"] = {k: v if k == "loss" else local_block(
+            v, os.path.join(out_dir, f"{ex}.{k}.rank{rank}.npy"))
+            for k, v in first.items()}
+        del first
+        torch.cuda.empty_cache()
+        run["run_s"] = time.perf_counter() - t1
+        out[ex] = run
+    out["left"] = time.time()
+    return out
+
+
+def mesh1(dims, data, params, device, sms) -> dict:
+    """World size 1 over NCCL in this process: both executors, then the
+    ``jit`` engine's same steps (same placements) for the bit-for-bit
+    comparison."""
+    import torch.distributed as dist
+
+    from repro_torch.core import AdamW
+    from repro_torch.launch.mesh import init_sites, make_mesh
+    with tempfile.TemporaryDirectory(prefix="mesh1-") as tmp:
+        init_sites("nccl", store=dist.FileStore(os.path.join(tmp, "store"),
+                                                1),
+                   rank=0, world_size=1, device=device,
+                   timeout=MESH_TIMEOUT)
+        try:
+            mesh = make_mesh((1,), MESH_AXES)
+            runs = {ex: mesh_train(mesh, ex, dims, data, params, device,
+                                   sms) for ex in MESH_EXECUTORS}
+            for run in runs.values():       # read while the group lives
+                for key in ("first", "state"):
+                    run[key] = {k: dense_of(v) for k, v in run[key].items()}
+        finally:
+            dist.destroy_process_group()
+    jit = train_trainer(dims, params, AdamW(TRAIN_LR), device,
+                        input_placements=mesh_places())
+    for _ in range(MESH_STEPS):
+        jit.step(**data)
+    jit_state, jit_losses = mesh_state(jit), list(jit.history)
+    del jit
+    for run in runs.values():
+        state = run.pop("state")
+        run["bit_equal_to_jit"] = {
+            "losses": run["losses"] == jit_losses,
+            **{k: bool(torch.equal(state[k], jit_state[k]))
+               for k in MESH_STATE}}
+        run["max_abs_diff_to_jit"] = {
+            k: (state[k] - jit_state[k]).abs().max().item()
+            for k in MESH_STATE}
+        del state
+    return runs
+
+
+def mesh_reading(run: dict) -> dict:
+    """A run's readings for the phase's line (tensors left out)."""
+    return {k: v for k, v in run.items() if k not in ("first", "state")}
+
+
+def phase_mesh(device, smi: str) -> dict:
+    """The §5.3 FFNN trains at speech-100k through ``Engine(mesh,
+    executor="shard_map" | "gspmd")`` on ``torch.distributed``: at world
+    size 1 over NCCL in this process (``mesh1``), and at world size 2 with
+    two processes sharing the card over gloo (``mesh2``), X and Y
+    partitioned by rows, W1 and W2 replicated.  Step 1 of each executor
+    at each size against the f64 step and the plain run (computed once);
+    mesh1 beside the ``jit`` engine bit for bit; mesh2's losses within
+    ``MESH_LOSS_RTOL`` of mesh1's; on shard_map every rank's executed
+    collectives equal the lowering's; each rank's launches equal its
+    products' routes.  Not a scaling figure: two ranks share one card."""
+    from repro_torch.launch.mesh import run_sites
+    t0 = time.perf_counter()
+    warm = cublas_warm(device)
+    allocated = phase_allocated(device)
+    cfg, dims, dense = train_problem(device)
+    data, params = train_relations(dims, dense)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ref, plain = mesh_reference(cfg, dims, dense, data, params, device)
+    one = mesh1(dims, data, params, device, sms)
+    del data, params
+    torch.cuda.empty_cache()
+    checks = {"mesh1": mesh_checks(one, ref, plain, dense, cfg, "mesh1_")}
+    for ex, run in one.items():
+        mesh_gates("mesh1", run)
+        if not all(run["bit_equal_to_jit"].values()):
+            fail(f"mesh1 {ex}: not bit-equal to the jit engine's steps "
+                 f"({run['bit_equal_to_jit']}; largest differences "
+                 f"{run['max_abs_diff_to_jit']})")
+
+    t1 = time.perf_counter()
+    blocks_dir = tempfile.TemporaryDirectory(prefix="mesh2-")
+    t2, spawned = time.perf_counter(), time.time()
+    ranks = run_sites(mesh_rank, MESH_WORLD, backend="gloo", device=device,
+                      timeout=MESH_TIMEOUT, args=(blocks_dir.name,))
+    mesh2_s, returned = time.perf_counter() - t2, time.time()
+    firsts = {}
+    for ex in MESH_EXECUTORS:
+        runs = [r[ex] for r in ranks]
+        for rank, run in enumerate(runs):
+            mesh_gates(f"mesh2 rank {rank}", run)
+            rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                       one[ex]["losses"])]
+            run["loss_rel_diff_to_mesh1"] = rel
+            if max(rel) > MESH_LOSS_RTOL or \
+                    run["first"]["loss"] != runs[0]["first"]["loss"]:
+                fail(f"mesh2 {ex} rank {rank}: losses {run['losses']} "
+                     f"against mesh1's {one[ex]['losses']}, or step 1's "
+                     f"loss unlike rank 0's")
+        firsts[ex] = {"first": {k: runs[0]["first"]["loss"] if k == "loss"
+                                else joined_blocks([r["first"][k]
+                                                    for r in runs], device)
+                                for k in runs[0]["first"]}}
+        for run in runs:
+            del run["first"]
+    blocks_dir.cleanup()
+    checks["mesh2"] = mesh_checks(firsts, ref, plain, dense, cfg, "mesh2_")
+    mesh2_checks_s = time.perf_counter() - t2 - mesh2_s
+    del firsts
+    two = {ex: [r[ex] for r in ranks] for ex in MESH_EXECUTORS}
+    out = {"phase": "mesh", "path": MESH_PATH, "nvidia_smi": smi,
+           "dims": list(dims), "steps": MESH_STEPS,
+           "placements": {k: p.describe() for k, p in mesh_places().items()},
+           "mesh1": {ex: mesh_reading(r) for ex, r in one.items()},
+           "mesh2": {ex: [mesh_reading(r) for r in runs]
+                     for ex, runs in two.items()},
+           "mesh1_s": t1 - t0, "mesh2_run_s": mesh2_s,
+           "mesh2_rank_start_s": [r["entered"] - spawned for r in ranks],
+           "mesh2_rank_setup_s": [r["setup_s"] for r in ranks],
+           "mesh2_results_s": [returned - r["left"] for r in ranks],
+           "mesh2_checks_s": mesh2_checks_s,
+           "checks": checks,
+           "scaling": "none: the two ranks of mesh2 share one card",
+           "phase_s": time.perf_counter() - t0,
+           "cublas_warm_bytes": warm}
+    del ref, plain, dense, one, two, ranks
+    sync(device)
+    torch.cuda.empty_cache()
+    out["allocated_after_bytes"] = phase_allocated(device) - allocated
+    emit(out)
+    if out["allocated_after_bytes"] > 0:
+        fail(f"mesh: {out['allocated_after_bytes']} bytes still allocated "
              f"on the card after the phase")
     return out
 
@@ -3337,7 +3760,7 @@ MATMUL_NARROW_CU = "src/repro_torch/kernels/matmul/csrc/matmul_narrow.cu"
 
 
 def matmul_entries(rows, reduce_rows, skinny, serve, train,
-                   oocore, ckpt) -> list:
+                   oocore, ckpt, mesh) -> list:
     """The kernels line's seven matmul entries.  The skinny kernel and its
     fold at one scorer dispatch at bucket 8 (the serving path: both
     products, read in place as the engine calls them; the fold inside the
@@ -3347,9 +3770,10 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train,
     pass, off both paths, at a1·W2 (their route before the narrow kernel);
     beside the tile kernel, as before, X·W1 and the scorer's two products
     on it.  The out-of-core path's launches (its stream-reduce, stream-out
-    and rung-1 runs) and the checkpoint path's (its uninterrupted,
-    recovered and resumed runs) join the tensor-core, split and narrow
-    entries."""
+    and rung-1 runs), the checkpoint path's (its uninterrupted,
+    recovered and resumed runs) and the mesh path's (both executors' timed
+    steps at world size 1, and at world size 2 summed over the ranks) join
+    the tensor-core, split and narrow entries."""
     first, second = serve["products_b8"]
     b = first["m"]
     both = (first, second)
@@ -3373,17 +3797,28 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train,
     tile_paths = {"scorer": serve["launches"]["matmul"],
                   TRAIN_PATH: train["launches"]["matmul"]}
     ooc, ck = oocore["launches"], ckpt["launches"]
+
+    def on_mesh(key) -> dict:
+        return {f"{MESH_PATH}-world1": sum(
+                    r["launches"][key] for r in mesh["mesh1"].values()),
+                f"{MESH_PATH}-world2": sum(
+                    r["launches"][key] for runs in mesh["mesh2"].values()
+                    for r in runs)}
+
     tc_paths = {"scorer": serve["launches"]["matmul_tc"],
                 TRAIN_PATH: train["launches"]["matmul_tc"],
-                OOC_PATH: ooc["matmul_tc"], CKPT_PATH: ck["matmul_tc"]}
+                OOC_PATH: ooc["matmul_tc"], CKPT_PATH: ck["matmul_tc"],
+                **on_mesh("matmul_tc")}
     split_paths = {"scorer": serve["launches"]["matmul_tf32_split"],
                    TRAIN_PATH: train["launches"]["matmul_tf32_split"],
                    OOC_PATH: ooc["matmul_tf32_split"],
-                   CKPT_PATH: ck["matmul_tf32_split"]}
+                   CKPT_PATH: ck["matmul_tf32_split"],
+                   **on_mesh("matmul_tf32_split")}
     narrow_paths = {"scorer": serve["launches"]["matmul_narrow"],
                     TRAIN_PATH: train["launches"]["matmul_narrow"],
                     OOC_PATH: ooc["matmul_narrow"],
-                    CKPT_PATH: ck["matmul_narrow"]}
+                    CKPT_PATH: ck["matmul_narrow"],
+                    **on_mesh("matmul_narrow")}
     reduce_paths = {"scorer": serve["launches"]["matmul_splitk_reduce"],
                     TRAIN_PATH: train["launches"]["matmul_splitk_reduce"]}
     return [{
@@ -3470,7 +3905,8 @@ def matmul_entries(rows, reduce_rows, skinny, serve, train,
             "scorer": serve["launches"]["matmul_narrow_fold"],
             TRAIN_PATH: train["launches"]["matmul_narrow_fold"],
             OOC_PATH: ooc["matmul_narrow_fold"],
-            CKPT_PATH: ck["matmul_narrow_fold"]},
+            CKPT_PATH: ck["matmul_narrow_fold"],
+            **on_mesh("matmul_narrow_fold")},
         "max_abs_err": narrow["max_abs_err"],
         "ms": narrow["kernel_ms"], "plain_ms": narrow["plain_ms"],
         "bound_ms": narrow["bound_ms"], "bound_by": narrow["bound_by"],
@@ -3902,6 +4338,7 @@ def main() -> int:
     serve = phase_serve(device)
     train = phase_train(device)
     ckpt = phase_ckpt(device)
+    mesh = phase_mesh(device, smi)
     oocore = phase_oocore(device)
     gemma2 = phase_gemma2(device)
     ssd = phase_ssd(device, gen)
@@ -3909,7 +4346,7 @@ def main() -> int:
     zamba2 = phase_zamba2(device)
     phase_lm_serve(device, smi)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
-                                      train, oocore, ckpt),
+                                      train, oocore, ckpt, mesh),
                       *flash_entries(flash, gemma2, zamba2),
                       *ssd_entries(ssd, mamba2, zamba2)]})
     print(smi, flush=True)

@@ -1,9 +1,11 @@
 """Collective-consistency (race) detector.
 
-Port of ``repro.analysis.collectives``, unchanged.  The port has no mesh
-executor yet (ROADMAP A7); the schedule below is the one the JAX
-package's shard_map lowering (``repro.core.shardmap_exec``) emits, so a
-plan the port verifies clean is one that lowering would run.
+Port of ``repro.analysis.collectives``, unchanged.  The schedule below is
+the one the ``shard_map`` executor (:mod:`repro_torch.core.shardmap_exec`)
+issues — each of its collectives is recorded as a :class:`CollectiveOp`,
+and a dispatch's record equals this schedule op for op
+(``shardmap_exec.expected_schedule``) — so a plan the port verifies clean
+is one that executor runs.
 
 Symbolically lowers a physical plan's exchanges exactly the way
 the shard_map lowering does — ``Bcast`` → ``all_gather``,

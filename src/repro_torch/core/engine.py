@@ -1,7 +1,7 @@
 """Unified evaluation entry point for the TRA: the :class:`Engine`.
 
-Port of ``repro.core.engine`` for one device.  One object owns everything
-between a logical expression and a result:
+Port of ``repro.core.engine``.  One object owns everything between a
+logical expression and a result:
 
 * the **optimizer invocation** (cost-based placement DP + logical rewrites,
   including the fused Σ∘⋈ contraction selection);
@@ -13,7 +13,13 @@ between a logical expression and a result:
     flattened once into a schedule of node evaluations (postorder,
     shared nodes once), and every dispatch replays that schedule.  It is
     not ``torch.compile`` and captures no CUDA graph (a later slice);
-  - ``"auto"``      — ``"jit"`` (there is no mesh in this slice);
+  - ``"gspmd"``     — the same steps on every rank of a ``DeviceMesh``,
+    each node's value a DTensor redistributed to its placement, DTensor
+    choosing the collectives (:func:`repro_torch.core.interp.
+    _jit_ia_plans`; requires ``mesh``);
+  - ``"shard_map"`` — paper-faithful explicit collectives
+    (:mod:`repro_torch.core.shardmap_exec`; requires ``mesh``);
+  - ``"auto"``      — ``"gspmd"`` when a mesh is given, else ``"jit"``;
 
 * a **keyed compile cache** — structurally identical expressions (same
   shapes, kernels, placements, executor) reuse the compiled artifact
@@ -34,12 +40,19 @@ Deviations from the JAX ``Engine``:
   inputs are placed there, constants are made there, and an input
   relation on another device is rejected rather than moved.  Without a
   card, the default raises; pass ``device="cpu"`` to run on the CPU.
-* ``mesh`` and the ``gspmd``/``shard_map`` executors (slice 7, ROADMAP A7)
-  raise ``NotImplementedError`` when set; the executor-fallback ladder of
-  ``degrade`` therefore has one rung, ``jit`` → ``reference``, and treats
-  the injected ``CompileFailure`` and ``NotImplementedError`` as compile
-  failures (the port's ``_compile`` builds no kernel: a CUDA kernel is
-  built at its first launch).
+* ``mesh`` is a ``torch.distributed`` ``DeviceMesh``
+  (:func:`repro_torch.launch.mesh.make_mesh`) whose dimension names are
+  the mesh axes.  Every rank runs the same program with the same engine
+  and the same *global* inputs; the mesh executors take each rank's block
+  by its input placement and return DTensor results (see
+  :mod:`repro_torch.core.shardmap_exec`).  The engine's ``device``
+  defaults to the mesh's device type.  A mesh engine's ``CompiledExpr``
+  carries ``exchange``, the log of its last dispatch's collectives.
+* The executor-fallback ladder of ``degrade`` treats the injected
+  ``CompileFailure`` and ``NotImplementedError`` as compile failures (the
+  port's ``_compile`` builds no kernel: a CUDA kernel is built at its
+  first launch).  A mesh engine that falls back to ``jit`` or
+  ``reference`` runs the whole program on every rank, on global inputs.
 * A streamed artifact (``memory_budget``, ``HostRelation`` inputs) takes
   its inputs as they come — ``HostRelation``\\ s, numpy arrays, CPU or
   device tensors — and hands them to the stream executor untouched: a
@@ -89,7 +102,7 @@ from repro_torch.core.optimize import OptimizeResult, optimize as _optimize
 from repro_torch.core.plan import (IAInput, IANode, Placement, TraInput,
                                    TraNode, TypeInfo, as_node, children,
                                    describe, infer, postorder)
-from repro_torch.core.tra import TensorRelation
+from repro_torch.core.tra import TensorRelation, global_data, is_dtensor
 from repro_torch.device import DeviceLike, resolve_device
 
 EXECUTORS = ("auto", "reference", "jit", "gspmd", "shard_map")
@@ -99,14 +112,13 @@ VALIDATE_MODES = ("off", "warn", "strict")
 # failure of the preferred executor, fall back left-to-right; on a device
 # OOM at *run* time, retry streamed through the host relation store, then
 # on the chunked lowering with a halving chunk starting here
-_EXECUTOR_FALLBACKS = {"jit": ("reference",)}
+_EXECUTOR_FALLBACKS = {
+    "shard_map": ("jit", "reference"),
+    "gspmd": ("jit", "reference"),
+    "jit": ("reference",),
+}
+MESH_EXECUTORS = ("gspmd", "shard_map")
 DEFAULT_OOM_LADDER_START = 64
-
-
-def _not_ported(what: str, slice_no: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (slice {slice_no}: "
-        f"ROADMAP.md item A{slice_no})")
 
 
 # ==========================================================================
@@ -291,6 +303,11 @@ class CompiledExpr:
     # the stream executor untouched
     streamed: bool = False
     stream_stats: Optional[object] = None   # metering.StreamStats
+    # value_and_grad artifacts: the names differentiated against
+    grad_wrt: Optional[Tuple[str, ...]] = None
+    # mesh executors: the collectives of the last dispatch
+    # (repro_torch.core.shardmap_exec.Exchange)
+    exchange: Optional[object] = None
 
     @property
     def plan(self):
@@ -329,7 +346,8 @@ class CompiledExpr:
         if unknown:
             raise unexpected_inputs_error(unknown, self.input_rtypes)
         env = {name: _coerce(name, val, self.input_rtypes[name], self.device,
-                             keep_host=self.streamed)
+                             keep_host=self.streamed,
+                             mesh=self.executor in MESH_EXECUTORS)
                for name, val in inputs.items()}
         missing = [n for n in self.input_rtypes if n not in env]
         if missing:
@@ -385,10 +403,18 @@ def _is_host_relation(value) -> bool:
 
 
 def _coerce(name: str, value, rtype, device: torch.device,
-            keep_host: bool = False):
+            keep_host: bool = False, mesh: bool = False):
     """An input as the artifact's walk takes it.  ``keep_host`` (streamed
     artifacts) hands host values — ``HostRelation``\\ s, numpy arrays, CPU
-    tensors and relations — through untouched, after the same checks."""
+    tensors and relations — through untouched, after the same checks.  A
+    DTensor (a mesh executor's result) reaches a mesh executor as it is
+    and any other executor as its global tensor."""
+    if not mesh:
+        if isinstance(value, TensorRelation) and is_dtensor(value.data):
+            value = TensorRelation(global_data(value.data), value.rtype,
+                                   value.mask)
+        elif is_dtensor(value):
+            value = global_data(value)
     if _is_host_relation(value):
         if value.rtype != rtype:
             raise ValueError(
@@ -440,10 +466,11 @@ def _input_nodes(roots) -> Dict[str, object]:
     return rtypes
 
 
-def _schedule_call(plans, out_infos, device, fuse: bool, chunk,
-                   budget=None) -> Callable:
-    """The ``jit`` executor: flatten the plans once into a list of
-    ``(node, child slots, fused)`` steps, replayed on every dispatch.
+def schedule_steps(plans, fuse: bool):
+    """Flatten ``plans`` once into ``(steps, drops, out_slots)``: the
+    ``(node, child slots, fused)`` evaluations in postorder, the slots
+    whose last reader each step is (dropped after it), and each plan's
+    output slot.
 
     Logical plans get the eager walk's Σ∘⋈ fusion (a ``TraAgg`` over a
     single-consumer fusable ``TraJoin`` becomes one step over the join's
@@ -454,10 +481,8 @@ def _schedule_call(plans, out_infos, device, fuse: bool, chunk,
     eight roots hold eight copies of the forward pass, which XLA's common
     subexpression elimination merges under ``jax.jit`` in the JAX package.
     A step's value is dropped after its last reader has run (XLA's buffer
-    liveness), unless it is an output.
-
-    The returned ``call(env, ctx=None)`` passes every step's value through
-    ``ctx.on_node`` when an active :class:`ExecContext` is given.
+    liveness), unless it is an output.  The ``jit`` schedule and the mesh
+    executors replay these steps.
     """
     consumers = consumer_counts(plans) if fuse else {}
     slot: Dict[int, int] = {}
@@ -488,6 +513,17 @@ def _schedule_call(plans, out_infos, device, fuse: bool, chunk,
     drops = [tuple(k for k in set(kids)
                    if last_read[k] == i and k not in keep)
              for i, (_, kids, _) in enumerate(steps)]
+    return steps, drops, out_slots
+
+
+def _schedule_call(plans, out_infos, device, fuse: bool, chunk,
+                   budget=None) -> Callable:
+    """The ``jit`` executor: the steps of :func:`schedule_steps`, replayed
+    on every dispatch.  The returned ``call(env, ctx=None)`` passes every
+    step's value through ``ctx.on_node`` when an active
+    :class:`ExecContext` is given.
+    """
+    steps, drops, out_slots = schedule_steps(plans, fuse)
 
     def call(env, ctx=None):
         hook = ctx is not None and ctx.active
@@ -521,18 +557,19 @@ class Engine:
     Parameters
     ----------
     mesh:
-        Must be ``None`` in this slice (the distributed executors come in
-        slice 7).
+        Optional ``DeviceMesh`` (:func:`repro_torch.launch.mesh.make_mesh`)
+        for the distributed executors; its dimension names and sizes
+        default ``site_axes`` and ``axis_sizes``.
     executor:
-        ``"auto" | "reference" | "jit"`` (``"gspmd"``/``"shard_map"``
-        raise ``NotImplementedError``).
+        ``"auto" | "reference" | "jit" | "gspmd" | "shard_map"``.
     optimize:
         ``True`` (default) runs the cost-based optimizer on logical roots
         (fused Σ∘⋈ selection included).  ``False`` walks the logical tree
         directly.
     device:
-        Where the engine runs (default ``"cuda"``; raises without a card —
-        pass ``"cpu"`` explicitly to run on the CPU).
+        Where the engine runs (default: the mesh's device type, else
+        ``"cuda"``; raises without a card — pass ``"cpu"`` explicitly to
+        run on the CPU).
     fuse:
         Only meaningful with ``optimize=False`` on logical walks: ``False``
         forces the unfused pair (the correctness oracle).
@@ -598,7 +635,7 @@ class Engine:
 
     def __init__(self, mesh=None, executor: str = "auto",
                  optimize: bool = True, *,
-                 device: DeviceLike = "cuda",
+                 device: Optional[DeviceLike] = None,
                  input_placements: Optional[Dict[str, Placement]] = None,
                  site_axes: Optional[Sequence[str]] = None,
                  axis_sizes: Optional[Dict[str, int]] = None,
@@ -615,9 +652,6 @@ class Engine:
         if executor not in EXECUTORS:
             raise ValueError(
                 f"unknown executor {executor!r}; choose from {EXECUTORS}")
-        if executor in ("gspmd", "shard_map") or mesh is not None:
-            raise _not_ported("the mesh and the gspmd/shard_map executors",
-                              7)
         if validate is None:
             validate = os.environ.get("REPRO_VALIDATE", "warn")
         if validate not in VALIDATE_MODES:
@@ -629,11 +663,17 @@ class Engine:
                              f"got {check_numerics!r}")
         check_chunk(chunk)
         check_memory_budget(memory_budget)
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device_type
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh's ranks compute on "
+                             f"{mesh.device_type}, the engine on "
+                             f"{self.device}")
         self.validate = validate
         # Diagnostics of the most recent verified compile (any severity)
         self.last_diagnostics = None
-        self.mesh = None
+        self.mesh = mesh
         self.executor = executor
         self.optimize = optimize
         self.fuse = fuse
@@ -647,8 +687,15 @@ class Engine:
         self.memory_budget = memory_budget
         self._store_obj = store
         self.input_placements = dict(input_placements or {})
-        self.site_axes = tuple(site_axes or ("sites",))
-        self.axis_sizes = dict(axis_sizes or {a: 1 for a in self.site_axes})
+        if site_axes is None:
+            site_axes = tuple(mesh.mesh_dim_names) if mesh is not None \
+                else ("sites",)
+        self.site_axes = tuple(site_axes)
+        if axis_sizes is None:
+            from repro_torch.core.interp import mesh_sizes
+            sizes = mesh_sizes(mesh) if mesh is not None else {}
+            axis_sizes = {a: sizes.get(a, 1) for a in self.site_axes}
+        self.axis_sizes = dict(axis_sizes)
         self._cache: Dict[Tuple, _CacheSlot] = {}
         self.cache_hits = 0
         self.cache_misses = 0
@@ -795,6 +842,8 @@ class Engine:
         """
         if isinstance(expr, (dict, tuple, list)):
             return False
+        if self._resolve_executor() in MESH_EXECUTORS:
+            return False
         if not (self.memory_budget is not None
                 or any(_is_host_relation(v) for v in inputs.values())):
             return False
@@ -822,6 +871,10 @@ class Engine:
         if not isinstance(root, TraNode):
             raise NotStreamable("physical IA plans run resident")
         executor = self._resolve_executor()
+        if executor in MESH_EXECUTORS:
+            raise NotStreamable(
+                "out-of-core streaming chunks compile on the host "
+                "executors (reference/jit) only")
         key = ("streamed", plan_sig(root), executor, self.optimize,
                self.fuse, self.memory_budget, bool(force))
         hit = self._cache.get(key)
@@ -868,6 +921,7 @@ class Engine:
                 input_placements: Optional[Dict[str, Placement]] = None,
                 target: Optional[Placement] = None,
                 chunk: Union[int, str, None] = None,
+                _grad_wrt: Optional[Tuple[str, ...]] = None,
                 _stream: bool = False) -> CompiledExpr:
         """Compile an expression for this engine's executor.
 
@@ -896,8 +950,8 @@ class Engine:
                self.fuse, self.accounting, self.try_logical_rewrites,
                _placements_sig(placements),
                _placements_sig({"·": target} if target else None),
-               multi, chunk, root_names, _stream, self.check_numerics,
-               None if inj is None else id(inj))
+               multi, chunk, _grad_wrt, root_names, _stream,
+               self.check_numerics, None if inj is None else id(inj))
         hit = self._cache.get(key)
         if hit is not None:
             self.cache_hits += 1
@@ -920,6 +974,7 @@ class Engine:
             # vacant, so the next compile() retries the preferred executor
             # and a later successful compile is never shadowed
             key = key[:1] + (executor,) + key[2:] + ("degraded",)
+        compiled.grad_wrt = _grad_wrt
         compiled.root_names = root_names
         compiled.faults = inj
         compiled.degraded_from = degraded_from
@@ -950,8 +1005,11 @@ class Engine:
             expr = wrap(as_node(expr))
         wrt_list = list(wrt) if isinstance(wrt, (tuple, list)) else [wrt]
         grads = _grad(expr, wrt=wrt_list, seed=seed)
+        names = tuple(w if isinstance(w, str) else w.node.name
+                      for w in wrt_list)
         return self.compile((expr,) + tuple(grads),
-                            input_placements=input_placements, chunk=chunk)
+                            input_placements=input_placements,
+                            chunk=chunk, _grad_wrt=names)
 
     def _compile_degraded(self, err, roots, placements, target, executor,
                           multi, chunk, stream):
@@ -992,7 +1050,9 @@ class Engine:
 
     # -- internals ---------------------------------------------------------
     def _resolve_executor(self) -> str:
-        return "jit" if self.executor == "auto" else self.executor
+        if self.executor != "auto":
+            return self.executor
+        return "gspmd" if self.mesh is not None else "jit"
 
     def _physical_roots(self, roots, placements, target):
         """Lower logical roots to physical plans; pass IANodes through.
@@ -1024,12 +1084,16 @@ class Engine:
         exactly as without one).  ``reference`` checks every node eagerly;
         ``jit`` flags nodes in the dispatch only under
         ``check_numerics="all"`` (``True`` flags outputs, and attributes on
-        a lazily built re-run).  ``stream`` (the OOM ladder's rung 2)
-        forces the fused Σ∘⋈ onto the chunked lowering."""
+        a lazily built re-run); the mesh executors get output checks only
+        (per-node probes would perturb the collective schedule under
+        test).  ``stream`` (the OOM ladder's rung 2) forces the fused Σ∘⋈
+        onto the chunked lowering."""
         if executor == "reference":
             per_node = self.check_numerics
-        else:
+        elif executor == "jit":
             per_node = "all" if self.check_numerics == "all" else False
+        else:
+            per_node = False
         if self.fault_injector is None and not per_node and not stream:
             return None
         return ExecContext(faults=self.fault_injector, check=per_node,
@@ -1069,6 +1133,9 @@ class Engine:
                  multi, chunk, stream: bool = False) -> CompiledExpr:
         if self.fault_injector is not None:
             self.fault_injector.on_compile(executor)
+        if executor in MESH_EXECUTORS:
+            return self._compile_mesh(roots, placements, target, executor,
+                                      multi, chunk, stream)
         # logical roots run the eager TRA walk (optimized ones run the
         # physical walk), as in the JAX package
         if self.optimize or any(isinstance(r, IANode) for r in roots):
@@ -1103,6 +1170,40 @@ class Engine:
         return CompiledExpr(executor, plans, _input_nodes(plans), out_infos,
                             call, device, opts, multi,
                             _bare=lambda env: walk(env, None))
+
+    def _compile_mesh(self, roots, placements, target, executor, multi,
+                      chunk, stream) -> CompiledExpr:
+        """The ``gspmd`` / ``shard_map`` artifact: physical plans (the
+        optimizer's, or Table 1's defaults with ``optimize=False``) built
+        once into the executor's program; output finite checks under
+        ``check_numerics``."""
+        if self.mesh is None:
+            raise ValueError(f"executor {executor!r} requires a mesh")
+        plans, opts = self._physical_roots(roots, placements, target)
+        self._verify_compile(plans, executor, roots)
+        ctx = self._make_ctx(plans, executor, stream)
+        kw = dict(chunk=chunk, budget=self.memory_budget, ctx=ctx,
+                  device=self.device)
+        if executor == "gspmd":
+            from repro_torch.core.interp import _jit_ia_plans
+            run, _, exchange = _jit_ia_plans(plans, self.mesh, **kw)
+        else:
+            from repro_torch.core.shardmap_exec import _build_shardmap
+            run, _, _, exchange = _build_shardmap(plans, self.mesh, **kw)
+        call = run
+        if self.check_numerics:
+            from repro_torch.core.guards import check_output_rel
+
+            def call(env):
+                outs = run(env)
+                for i, r in enumerate(outs):
+                    check_output_rel(r, f"output[{i}]")
+                return outs
+        compiled = CompiledExpr(executor, plans, _input_nodes(plans),
+                                tuple(infer(p) for p in plans), call,
+                                self.device, opts, multi, _bare=run)
+        compiled.exchange = exchange
+        return compiled
 
     def _jit_call(self, sched, plans, ctx) -> Callable:
         """The ``jit`` dispatch with its two-tier numerics guard.

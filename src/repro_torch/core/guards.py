@@ -27,9 +27,10 @@ flags at trace time.  The attribution re-run does not consult the injector
 again: the dispatch records which nodes it poisoned (``poisoned``) and the
 re-run poisons those same nodes (``replay``), so it sees the same injected
 faults whatever their ``times`` budget, and spends none of it.
-``on_array`` (the ``shard_map`` walk) comes with the distributed slice
-(A7); :func:`is_oom_error` keys on ``torch.OutOfMemoryError`` where JAX
-matches XLA's ``RESOURCE_EXHAUSTED``.
+``on_array`` (the mesh executors' local walks) applies node faults to a
+rank's block as each node is dispatched (JAX: at trace time).
+:func:`is_oom_error` keys on ``torch.OutOfMemoryError`` where JAX matches
+XLA's ``RESOURCE_EXHAUSTED``.
 """
 from __future__ import annotations
 
@@ -184,6 +185,15 @@ class ExecContext:
                         node_label=label)
         return rel
 
+    def on_array(self, node, data):
+        """Array-valued variant (the mesh executors' local walks): faults
+        only — per-node finite checks would add per-shard probes; the
+        engine checks the mesh executors' outputs instead."""
+        if self.faults is None:
+            return data
+        nid, label = self.ids_of(node)
+        return self.faults.on_node(nid, label, data)
+
     def on_contraction(self, *, stream: bool, chunk: Optional[int],
                        node=None, bytes_live: Optional[int] = None) -> None:
         if self.faults is None or self.replay is not None:
@@ -198,12 +208,27 @@ class ExecContext:
 
 
 def check_output_rel(rel, label: str) -> None:
-    """Output-level finite check: eager raise.
-
-    No executor of the port calls it yet: in the JAX package it guards the
-    ``gspmd`` and ``shard_map`` executors' outputs, which come with the
-    distributed slice; it is kept, and tested, for them."""
-    flag = finite_flag(rel.data, rel.mask)
+    """Output-level finite check (the mesh executors): eager raise, on
+    every rank alike.  A DTensor output is checked as JAX checks a sharded
+    array: each rank's local block reduced to one flag, then the flags
+    reduced (``MIN``) over each mesh dimension's group — one 4-byte
+    all-reduce a dimension, outside the program's recorded schedule.  A
+    masked or pending (``Partial``) output is read whole instead."""
+    from repro_torch.core.tra import global_data, is_dtensor
+    data = rel.data
+    if is_dtensor(data) and rel.mask is None and \
+            not any(p.is_partial() for p in data.placements):
+        flag = finite_flag(data.to_local())
+        if flag is None:
+            return
+        import torch.distributed as dist
+        flag = flag.to(torch.int32).reshape(1)
+        mesh = data.device_mesh
+        for d in range(mesh.ndim):
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                            group=mesh.get_group(d))
+    else:
+        flag = finite_flag(global_data(data), rel.mask)
     if flag is not None and not bool(flag):
         raise NumericsError(
             f"non-finite values in executor output {label} (per-node "

@@ -134,6 +134,23 @@ def _device_mask(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 # Constructors
 # ==========================================================================
 
+def is_dtensor(x) -> bool:
+    """Is ``x`` a ``torch.distributed.tensor.DTensor`` (a mesh executor's
+    result)?  Duck-typed: this module does not import the distributed
+    package."""
+    return hasattr(x, "full_tensor") and hasattr(x, "device_mesh")
+
+
+def global_data(x: torch.Tensor) -> torch.Tensor:
+    """The global value of a relation's data: a DTensor's full tensor (a
+    collective when it is sharded: every rank must ask), any other tensor
+    as it is."""
+    if not is_dtensor(x):
+        return x
+    from repro_torch.core.interp import full_value
+    return full_value(x)
+
+
 def from_tensor(tensor: torch.Tensor, tile: Sequence[int]) -> TensorRelation:
     """Chunk a dense tensor into a tensor relation with block-index keys.
 
@@ -168,6 +185,8 @@ def to_tensor(rel: TensorRelation,
     """
     if not rel.is_continuous():
         raise ValueError("cannot reassemble a relation with holes")
+    if is_dtensor(rel.data):
+        rel = TensorRelation(global_data(rel.data), rel.rtype)
     k, r = rel.rtype.key_arity, rel.rtype.rank
     if key_dims is None:
         if k != r:

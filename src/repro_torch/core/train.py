@@ -8,7 +8,15 @@ Port of ``repro.core.train``.  Deviations:
 * a restored checkpoint's leaves are rebuilt on the engine's device (the
   JAX package leaves them where ``jnp.asarray`` puts them);
   :class:`repro_torch.checkpoint.CheckpointStore` writes JAX's layout, so
-  either package restores the other's checkpoints.
+  either package restores the other's checkpoints;
+* on a mesh engine every rank runs the same trainer: parameters and state
+  come back as DTensors and feed the next step as they are; the loss and
+  a snapshot read their global values (a collective where they are
+  sharded, which every rank makes at the same step).  Each rank writes
+  the global leaves, so give each rank a store of its own; a restore
+  rebuilds them as plain tensors, and the engine re-places them on its
+  mesh at the next step — so a checkpoint written on one mesh restores
+  onto another (the elastic path).
 
 The whole train step is one TRA program.  An optimizer is a builder of
 ``Expr`` programs over three families of relations:
@@ -49,7 +57,7 @@ from repro_torch.core.kernels_registry import (make_adam_dir, make_axpy,
                                                make_ema_sq, make_momentum,
                                                make_scale_mul)
 from repro_torch.core.plan import TraInput, postorder
-from repro_torch.core.tra import RelType, TensorRelation
+from repro_torch.core.tra import RelType, TensorRelation, global_data
 
 STEP_STATE = "opt.step"                  # shared scalar step-count input
 LOSS_ROOT = "loss"                       # reserved root name
@@ -374,7 +382,7 @@ class TraTrainer:
         try:
             outs = self.engine.run(self.program.roots, **self.params,
                                    **self.state, **data)
-            loss = float(torch.sum(outs[LOSS_ROOT].data))
+            loss = float(torch.sum(global_data(outs[LOSS_ROOT].data)))
             bad = not math.isfinite(loss)
         except NumericsError:
             if self.skip_nonfinite <= 0:
@@ -399,8 +407,10 @@ class TraTrainer:
 
     # -- checkpointing -----------------------------------------------------
     def _snapshot(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {"params": {nm: r.data for nm, r in self.params.items()},
-                "state": {nm: r.data for nm, r in self.state.items()}}
+        return {"params": {nm: global_data(r.data)
+                           for nm, r in self.params.items()},
+                "state": {nm: global_data(r.data)
+                          for nm, r in self.state.items()}}
 
     def save_checkpoint(self, store=None, *, sync: bool = False) -> None:
         """Snapshot params + optimizer state at ``self.step_count``.

@@ -926,6 +926,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
     are its rows: it stands for ``a.reshape(rows, -1)``."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
+    if any(hasattr(x, "device_mesh") for x in (a, b)):
+        # the op has no sharding rule: the mesh executors hand it local
+        # blocks, so a DTensor here is a caller's mistake, not a fallback
+        raise TypeError("matmul takes plain tensors; a DTensor reached it "
+                        "(run the op on to_local() blocks)")
     out_dtype, m, k, n = _check(a, b, out_dtype, a_rows, b_rows)
     where = _route(a, b, impl, m, n)
     if where == "plain":

@@ -50,6 +50,11 @@ Execution is rewritten for CUDA (the JAX version relies on
 * **Prefetch order.**  Chunk ``i + 1``'s copies are issued *before* chunk
   ``i``'s program is launched: the port's program run does host work and
   may synchronize, which would serialize a copy issued after it.
+* **Mesh engines.**  A streamed run driven through a ``gspmd`` or
+  ``shard_map`` engine compiles its chunk programs on the engine's mesh:
+  every rank passes the same global chunk, the executor takes its block
+  by the placement (the streamed key dim partitioned across sites), and
+  each chunk's result is read as its global value (``global_data``).
 * **Timing.**  ``StreamStats.copy_s`` / ``hidden_copy_s`` come from CUDA
   events on a card (see :class:`repro_torch.launch.metering.StreamStats`);
   ``compute_s`` is host wall to the compute stream's synchronize, which
@@ -71,7 +76,7 @@ from repro_torch.core.plan import (TraAgg, TraConcat, TraConst, TraFilter,
                                    TraInput, TraJoin, TraNode, TraPad,
                                    TraReKey, TraTile, TraTransform, TypeInfo,
                                    as_node, infer, postorder)
-from repro_torch.core.tra import TensorRelation, can_fuse
+from repro_torch.core.tra import TensorRelation, can_fuse, global_data
 from repro_torch.store.autotune import stream_budget_bytes
 from repro_torch.store.relation import HostRelation, RelationStore, copy_into
 
@@ -585,20 +590,21 @@ class StreamExecutor:
             pending = self._load_chunk(splan, env, *spans[i + 1], stats,
                                        hidden=True) \
                 if i + 1 < len(spans) else None
-            out = progs[hi - lo].run(**self._ready(cur), **resident)
+            out = global_data(
+                progs[hi - lo].run(**self._ready(cur), **resident).data)
             self._sync(stats, t0, cur)
-            out_bytes = out.data.numel() * out.data.element_size()
+            out_bytes = out.numel() * out.element_size()
             peak = (resident_bytes + cur.nbytes
                     + (pending.nbytes if pending is not None else 0)
                     + out_bytes + kept_bytes)
             stats.peak_device_bytes = max(stats.peak_device_bytes, peak)
             del cur
             if out_hr is not None:
-                host = out.data.cpu()                   # D2H
+                host = out.cpu()                        # D2H
                 stats.d2h_bytes += host.numel() * host.element_size()
                 out_hr.append(host)
             else:
-                collected.append(out.data)
+                collected.append(out)
                 kept_bytes += out_bytes
         if out_hr is not None:
             return out_hr
@@ -623,9 +629,10 @@ class StreamExecutor:
             pending = self._load_chunk(splan, env, *spans[i + 1], stats,
                                        hidden=True) \
                 if i + 1 < len(spans) else None
-            part = progs[hi - lo].run(**self._ready(cur), **resident)
-            acc = part.data if acc is None \
-                else splan.agg_kernel.apply(acc, part.data)
+            part = global_data(
+                progs[hi - lo].run(**self._ready(cur), **resident).data)
+            acc = part if acc is None \
+                else splan.agg_kernel.apply(acc, part)
             del part
             self._sync(stats, t0, cur)
             peak = (resident_bytes + cur.nbytes

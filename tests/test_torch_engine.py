@@ -3,9 +3,9 @@
 Same outputs as the JAX ``Engine`` on the ``reference`` and ``jit``
 executors for single-root, tuple and dict programs (optimized and not),
 the same ``cache_hits`` / ``cache_misses`` sequence over a program stream,
-``pin`` / ``cache_clear`` / ``cache_info``, the chunked lowering of a
-fused plan (``chunk="auto"`` too), and a loud ``NotImplementedError`` for
-every option not ported yet.
+``pin`` / ``cache_clear`` / ``cache_info``, and the chunked lowering of a
+fused plan (``chunk="auto"`` too).  The mesh executors are held in
+``tests/test_torch_mesh.py`` and ``tests/test_torch_mesh_sites.py``.
 """
 import pytest
 
@@ -122,15 +122,6 @@ def test_input_checks():
     # numpy inputs are placed on the engine's device
     out = eng.run(prog, A=x["A"], B=x["B"])
     assert out.data.device == CPU
-
-
-@pytest.mark.parametrize("kwargs,slice_no", [
-    ({"executor": "gspmd"}, 7), ({"executor": "shard_map"}, 7),
-    ({"mesh": object()}, 7),
-])
-def test_unported_options_raise(kwargs, slice_no):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        tcore.Engine(device=CPU, **kwargs)
 
 
 @pytest.mark.parametrize("executor", EXECUTORS)

@@ -1484,3 +1484,46 @@ def test_checkpoint_round_trip_through_page_locked_buffers_on_card(
         for k, v in want.items():
             for n, t in v.items():
                 assert torch.equal(torch.from_numpy(got[k][n]).to(cuda), t)
+
+
+def _cpmm_on_card(rank, world):
+    """One rank's CPMM product on the ``shard_map`` executor over CUDA
+    tensors."""
+    from repro_torch.core import (Engine, Placement, from_tensor,
+                                  input as tra_input, to_tensor)
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(32, 64, generator=gen).to(dev)
+    b = torch.randn(64, 32, generator=gen).to(dev)
+    s = ("sites",)
+    eng = Engine(make_mesh((world,), s), executor="shard_map",
+                 input_placements={"A": Placement.partitioned((1,), s),
+                                   "B": Placement.partitioned((0,), s)})
+    expr = tra_input("A", (8, 8), (4, 8)) @ tra_input("B", (8, 8), (8, 4))
+    compiled = eng.compile(expr)
+    env = {"A": from_tensor(a, (4, 8)), "B": from_tensor(b, (8, 4))}
+    out = {"C": to_tensor(compiled.run(**env)).cpu().numpy(),
+           "want": (a.cpu() @ b.cpu()).numpy(),
+           "schedule": [o.describe() for o in compiled.exchange.schedule()],
+           "device": str(compiled.run(**env).data.to_local().device)}
+    return out
+
+
+@pytest.mark.gpu
+def test_cpmm_shard_map_on_two_gloo_ranks_sharing_the_card(cuda):
+    """Two ranks share ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card): the CPMM plan's reduce-scatter moves CUDA tensors between them,
+    and the product equals the one-rank run and the plain one."""
+    from repro_torch.launch.mesh import run_sites
+    two = run_sites(_cpmm_on_card, 2, backend="gloo", device="cuda",
+                    timeout=300)
+    (one,) = run_sites(_cpmm_on_card, 1, backend="gloo", device="cuda",
+                       timeout=300)
+    for got in two:
+        assert got["device"].startswith("cuda")
+        assert got["schedule"] == one["schedule"] and got["schedule"]
+        np.testing.assert_allclose(got["C"], one["C"], rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got["C"], got["want"], rtol=2e-4,
+                                   atol=2e-4)

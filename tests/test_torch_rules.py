@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "tra.py", "server.py", "ops.py", "model.py",
-            "layers.py", "chip_smoke.py"} <= names
+            "layers.py", "chip_smoke.py", "shardmap_exec.py", "mesh.py",
+            "sites.py"} <= names
     for kernel in ("flash_attention", "ssd_scan"):
         assert ROOT / "src" / "repro_torch" / "kernels" / kernel \
             / "ops.py" in PORT_FILES
