@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's nine main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's ten main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
 through ``TraServer`` on the ``jit`` executor; ``RecurrentLM``'s
 continuous-batching decode at gemma2-2b's width (d_model 2304, vocab
@@ -262,7 +262,40 @@ its plain PyTorch version on the card:
    p50/p99, peak memory, the logits copied to the host a tick (8.2 MB)
    and the time of that copy and of the state snapshot, the chaos run's
    counters and extra wall time, and the card's name and power limit;
-16. the kernels line, the ``nvidia-smi`` line, and the last line
+16. lm_train: first the earlier phases' memory is freed and the card's
+   allocated bytes printed before and after the phase.  The two flash
+   backward kernels (``flash_attention_bwd_dq_kernel``,
+   ``flash_attention_bwd_dkdv_kernel``) against ``attention_bwd_ref``
+   (autograd through the plain attention) at gemma2-2b's train shapes (B 8,
+   S 128, Hq 8, Hkv 4, D 256, soft-cap 50: the window-4096 and the global
+   layer; each kernel timed alone with CUDA events, beside the plain backward,
+   the bounds and SDPA's backward without soft-cap), a longer gemma2-head
+   case (B 1, S 2048, window 1024), a ragged S (200), GQA 4:1 and two f32
+   cases: dq, dk and dv each within the forward's limits (``FLASH_TOL``
+   elementwise, ``ROW_REL_TOL`` a row: bf16 1e-2, f32 1e-4), one launch of
+   each kernel.  Then gemma2-2b at full width (26 layers, d_model 2304,
+   vocab 256000, tied embedding, random weights from seed 0) trained
+   through ``repro_torch.launch.train`` (``run``: ``main``'s code, which
+   also returns the trainer) for ``LM_TRAIN_STEPS`` steps of AdamW at
+   batch 8 × 128 tokens (the launcher's defaults; no checkpoint written),
+   with every launch count set to 0 just before and read just after: per
+   step 26 launches of the tensor-core flash kernel and 26 of each backward
+   kernel, none of the FFMA kernels or the SSD scan, no copy; every loss
+   and grad norm finite; step 1 recomputed from the same seed and batch
+   with the kernels and with the plain attention (``attn_impl="plain"``),
+   the kernel run's loss within ``LM_TRAIN_LOSS_RTOL`` and its grad norm
+   within ``LM_TRAIN_GNORM_RTOL`` of the plain one's.  Printed: ms a step
+   (median of steps 2-6, host clock, each step ending in a synchronizing
+   read of the step counter), the first step, the peak
+   ``max_memory_allocated``, the bounds of the step's products (6·N·tokens
+   at the bf16 peak) and of AdamW's bytes, and a profile of one more step
+   by group (flash backward, flash forward, GEMMs, elementwise and AdamW,
+   other) with the busy share.  Last the card restart of
+   ``tests/test_runtime.py`` at the qwen2.5-14b smoke width (checkpoints
+   every 2 steps, a ``SimulatedFailure`` at step 3, 6 steps): losses and
+   the final master params and moments bit-equal to the uninterrupted
+   run's;
+17. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -272,10 +305,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -296,7 +331,7 @@ from repro_torch.core.plan import FusedJoinAgg, postorder  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_ref)
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref,
@@ -505,6 +540,7 @@ def tolerance(k: int, dtype) -> tuple:
 
 def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
+    flash_ops.BWD_DQ_LAUNCHES = flash_ops.BWD_DKDV_LAUNCHES = 0
     mm_ops.SKINNY_LAUNCHES = mm_ops.FOLDS = mm_ops.COPIES = 0
     mm_ops.TC_LAUNCHES = mm_ops.SPLIT_LAUNCHES = 0
     mm_ops.NARROW_LAUNCHES = mm_ops.NARROW_FOLDS = 0
@@ -530,6 +566,8 @@ def read_launches() -> dict:
             "flash_attention": flash_ops.LAUNCHES,
             "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
             "flash_attention_ffma": flash_ops.FFMA_LAUNCHES,
+            "flash_attention_bwd_dq": flash_ops.BWD_DQ_LAUNCHES,
+            "flash_attention_bwd_dkdv": flash_ops.BWD_DKDV_LAUNCHES,
             "flash_copies": flash_ops.COPIES,
             "ssd_scan": ssd_ops.LAUNCHES,
             "ssd_scan_wgmma": ssd_ops.TC_LAUNCHES,
@@ -2522,13 +2560,18 @@ def phase_oocore(device) -> dict:
     return result
 
 
-def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """Unmasked (query, key) pairs of one head: the work this input needs
-    (row i stands at key position i + skv - sq)."""
+def visible_keys(sq: int, skv: int, causal: bool, window: int) -> np.ndarray:
+    """The unmasked keys of each query row (row i stands at key position
+    i + skv - sq)."""
     pos = np.arange(sq, dtype=np.int64) + (skv - sq)
     hi = np.minimum(skv - 1, pos) if causal else np.full(sq, skv - 1)
     lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq)
-    return int(np.maximum(0, hi - lo + 1).sum())
+    return np.maximum(0, hi - lo + 1)
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: the work this input needs."""
+    return int(visible_keys(sq, skv, causal, window).sum())
 
 
 def flash_bound_times(b, hq, hkv, sq, skv, d, dv, dtype, causal,
@@ -2565,18 +2608,19 @@ def exact_gate(o, exact, delta=GEMMA2_BF16_DELTA) -> dict:
             "delta": delta}
 
 
-def flash_errors(o, r, dtype, atol=None, exact=None) -> dict:
+def flash_errors(o, r, dtype, atol=None, exact=None, rows=None) -> dict:
     """``o`` (the kernel's output) against ``r`` (the plain version's),
     both f32: elementwise within ``atol + rtol·|r|`` (both ``FLASH_TOL``,
     or ``atol`` alone when given) — or, when ``exact`` (the f64 attention)
     is given, within :func:`exact_gate` of it — and each row's error
-    within ``ROW_REL_TOL`` of that row's norm.  ``fault`` says what
-    failed, or is None."""
+    within ``ROW_REL_TOL`` of that row's norm (only the rows where
+    ``rows``, a bool mask over the second-last dim, is true, when given).
+    ``fault`` says what failed, or is None."""
     rtol, atol = (FLASH_TOL[dtype],) * 2 if atol is None else (0.0, atol)
     err = (o - r).abs()
     # a fully masked row is 0 in both: 0 / tiny = 0
-    row_rel = ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
-               ).max().item()
+    row_err = (o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+    row_rel = (row_err if rows is None else row_err[..., rows]).max().item()
     gate = exact_gate(o, exact) if exact is not None else None
     out = gate if gate else {"rtol": rtol, "atol": atol}
     fault = None
@@ -4317,6 +4361,387 @@ def phase_lm_serve(device, smi) -> dict:
     emit(out)
     return out
 
+# ------------------------------------------------------------- lm_train
+LM_TRAIN_ARCH = "gemma2-2b"
+LM_TRAIN_STEPS = 6
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128    # launch/train.py's defaults
+LM_TRAIN_PATH = "gemma2-2b-train-8x128"
+# Step 1 of the kernel run against the same step with the plain attention
+# (same weights, same batch): the loss within LM_TRAIN_LOSS_RTOL of it and
+# the gradient's global norm within LM_TRAIN_GNORM_RTOL.  Set before the
+# first card run: the two attentions agree to an f32 rounding before their
+# bf16 outputs and gradients are rounded, so a step-1 loss (a mean over
+# 1024 tokens of ~12.5 nats) moves by far less than 1e-3 of itself, and the
+# norm over 2.6 B bf16 gradients by far less than 1e-2.
+LM_TRAIN_LOSS_RTOL = 1e-3
+LM_TRAIN_GNORM_RTOL = 1e-2
+# The card restart (tests/test_runtime.py::test_restart_reproduces_
+# uninterrupted_run at the qwen2.5-14b smoke width): checkpoints every 2
+# steps, a SimulatedFailure at step 3, 6 steps, held bit for bit.
+RESTART_ARCH = "qwen2.5-14b"
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 6, 2, 3
+LM_TRAIN_GROUPS = (("flash_backward", ("flash_attention_bwd",)),
+                   ("flash_forward", ("flash_attention_kernel",)),
+                   ("gemm", GEMM_NAMES),
+                   ("elementwise_and_adamw", ("elementwise", "reduce",
+                                              "foreach", "index", "gather",
+                                              "scatter", "cat", "copy",
+                                              "softmax", "norm", "fill")))
+
+
+def bwd_bound_times(b, hq, hkv, sq, skv, d, dv, dtype, causal,
+                    window) -> dict:
+    """(bytes_ms, operations_ms) of each backward kernel on an H100 SXM.
+    dq: q, k, v, dO read once, dq and the f32 row statistics (LSE, D)
+    written once, against 2·(2d + dv) operations an unmasked pair (S = QKᵀ,
+    dP = dO·Vᵀ, dQ = dS·K).  dkdv: q, k, v, dO and the statistics read once,
+    dk and dv written once, against 2·(2d + 2dv) an unmasked pair (S, dP,
+    dV = Pᵀ·dO, dK = dSᵀ·Q).  The pass that computes LSE and D is the
+    kernel's choice, not work the function needs: not counted."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    q_el, kv_el = b * hq * sq, b * hkv * skv
+    stats = 2 * q_el * 4
+    pairs = b * hq * attention_pairs(sq, skv, causal, window)
+    dq_bytes = (q_el * (2 * d + dv) + kv_el * (d + dv)) * isz + stats
+    dkdv_bytes = (q_el * (d + dv) + 2 * kv_el * (d + dv)) * isz + stats
+    return {"dq": (dq_bytes / H100_SXM.hbm_bw * 1e3,
+                   2.0 * (2 * d + dv) * pairs / PEAK[dtype] * 1e3),
+            "dkdv": (dkdv_bytes / H100_SXM.hbm_bw * 1e3,
+                     2.0 * (2 * d + 2 * dv) * pairs / PEAK[dtype] * 1e3)}
+
+
+def bwd_kernel_ms(q, k, v, do, kw, device, iters: int = 20) -> dict:
+    """Device ms of one launch of each backward kernel alone: CUDA events
+    around ``iters`` back-to-back launches through its C entry point (the
+    dq kernel first, so the dk/dv kernel reads its statistics); these
+    launches are not counted."""
+    _, call = flash_ops._bwd_call(q, k, v, do, kw["causal"], kw["window"],
+                                  kw["softcap"], q.shape[3] ** -0.5)
+    args = call[0]
+    lib = flash_ops._lib()
+    out = {}
+    for which, fn in (("dq", lib.repro_flash_attention_bwd_dq),
+                      ("dkdv", lib.repro_flash_attention_bwd_dkdv)):
+        def launch(fn=fn, which=which):
+            rc = fn(*args)
+            if rc != 0:
+                fail(f"backward {which} kernel: launch error {rc}")
+        out[which] = timed_ms(launch, device, iters)
+    return out
+
+
+def sdpa_backward_ms(q, k, v, do, device) -> float:
+    """Device ms of one backward of ``scaled_dot_product_attention`` (causal,
+    no window, no soft-cap: the nearest function one PyTorch call computes)
+    at these shapes; the yardstick, used nowhere in the port."""
+    import torch.nn.functional as F
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=q.shape[1] != k.shape[1])
+    return timed_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True),
+                    device, 10)
+
+
+def bwd_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
+             timed=False) -> dict:
+    """The two backward kernels against ``attention_bwd_ref`` (autograd
+    through the plain attention) on one input and output gradient: dq, dk
+    and dv each within :func:`flash_errors`' limits (the forward's:
+    elementwise ``FLASH_TOL``, each row within ``ROW_REL_TOL`` of its
+    norm, but the dq rows of queries that see one key); one launch of each
+    kernel.  ``timed``: each kernel's device ms (:func:`bwd_kernel_ms`),
+    the plain backward's ms, the bounds, and SDPA's backward at the same
+    shapes without soft-cap or window."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, dv)
+    do = rnd(b, hq, sq, dv)
+    before = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+    got = flash_ops.attention_bwd(q, k, v, do, impl="kernel", **kw)
+    launched = (flash_ops.BWD_DQ_LAUNCHES - before[0],
+                flash_ops.BWD_DKDV_LAUNCHES - before[1])
+    want = attention_bwd_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize(device)
+    name = (f"attention backward b{b} h{hq}/{hkv} s{sq}/{skv} d{d}/{dv} "
+            f"{dtype} {kw}")
+    if launched != (1, 1):
+        fail(f"{name}: (dq, dkdv) launches {launched}")
+    row = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "skv": skv, "d": d,
+           "dv": dv, "dtype": str(dtype).split(".")[-1], **kw}
+    # a query that sees one key has dq = 0 exactly (a softmax over one
+    # element has no derivative): both sides hold rounding noise there, so
+    # those rows are held elementwise only
+    seen = visible_keys(sq, skv, kw["causal"], kw["window"])
+    for which, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != dtype:
+            fail(f"{name}: {which} {tuple(g.shape)} {g.dtype}")
+        errs = flash_errors(g.float(), w.float(), dtype,
+                            rows=torch.from_numpy(seen > 1).to(device)
+                            if which == "dq" else None)
+        fault = errs.pop("fault")
+        if fault is not None:
+            fail(f"{name}: {which}: {fault}")
+        row[which] = {**errs, "max_abs_ref": w.float().abs().max().item()}
+    row["max_abs_err"] = max(row[w]["max_abs_err"] for w in ("dq", "dk",
+                                                             "dv"))
+    del got, want
+    if timed:
+        bounds = bwd_bound_times(b, hq, hkv, sq, skv, d, dv, dtype,
+                                 kw["causal"], kw["window"])
+        row["kernel_ms"] = bwd_kernel_ms(q, k, v, do, kw, device)
+        row["bound_ms"], row["bound_by"] = {}, {}
+        for which, (t_bytes, t_ops) in bounds.items():
+            row["bound_ms"][which], row["bound_by"][which] = bound_of(
+                t_bytes, t_ops)
+        row["both_kernels_ms"] = timed_ms(lambda: flash_ops.attention_bwd(
+            q, k, v, do, impl="kernel", **kw), device, 10)
+        row["plain_ms"] = timed_ms(lambda: attention_bwd_ref(
+            q, k, v, do, **kw), device, 5)
+        row["library_ms"] = sdpa_backward_ms(q, k, v, do, device)
+        row["library_call"] = ("torch.autograd.grad of F.scaled_dot_product_"
+                               "attention(is_causal=True) (no soft-cap, no "
+                               "window)")
+    return row
+
+
+def lm_train_bwd_cases(cfg, device, gen) -> dict:
+    """The backward kernels at gemma2-2b's train shapes (both layer kinds),
+    a longer gemma2-head case, a ragged S, GQA 4:1 and f32."""
+    hq, hkv, hd, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.attn_softcap
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    win = {"causal": True, "window": cfg.attn_window, "softcap": cap}
+    glob = {"causal": True, "window": 0, "softcap": cap}
+    bf, f32 = torch.bfloat16, torch.float32
+    layers = {"window": bwd_case(B, hq, hkv, S, S, hd, hd, bf, win, device,
+                                 gen, timed=True),
+              "global": bwd_case(B, hq, hkv, S, S, hd, hd, bf, glob, device,
+                                 gen, timed=True)}
+    rows = [bwd_case(1, hq, hkv, 2048, 2048, hd, hd, bf,
+                     {**glob, "window": 1024}, device, gen),
+            bwd_case(2, hq, hkv, 200, 200, hd, hd, bf, glob, device, gen),
+            bwd_case(2, 8, 2, 256, 256, 64, 64, bf,
+                     {"causal": True, "window": 64, "softcap": 0.0}, device,
+                     gen),
+            bwd_case(B, hq, hkv, S, S, hd, hd, f32, glob, device, gen),
+            bwd_case(2, 8, 2, 200, 200, 64, 64, f32,
+                     {"causal": True, "window": 64, "softcap": 30.0},
+                     device, gen)]
+    return {"layers": layers, "rows": rows}
+
+
+def lm_train_run(ckpt_dir: str) -> tuple:
+    """gemma2-2b at full width through the launcher: LM_TRAIN_STEPS AdamW
+    steps on batch x seq, no checkpoint written (every 1000 steps)."""
+    from repro_torch.launch import train as train_launcher
+    rc, trainer = train_launcher.run([
+        "--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+        "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+        "--ckpt-every", "1000", "--ckpt-dir", ckpt_dir])
+    if rc != 0:
+        fail(f"lm_train: repro_torch.launch.train exited {rc}")
+    return trainer
+
+
+def plain_step_one(trainer, batch) -> dict:
+    """Step 1's loss and gradient norm from a fresh trainer of the same
+    config (the same seed: the same weights) on the same batch, with the
+    kernels' route (``auto``) and with the plain attention, the optimizer
+    not applied."""
+    from repro_torch.optim import adamw
+    step = trainer._step_fn
+    out = {}
+    for impl in ("auto", "plain"):
+        step.cast_params(trainer.opt_state["master"]).attn_impl = impl
+        loss, _, grads = step.grads(trainer.opt_state, batch)
+        out[impl] = {"loss": float(loss),
+                     "grad_norm": float(adamw.global_norm(grads))}
+        del grads
+    step.model.attn_impl = "auto"
+    return out
+
+
+def lm_train_restart(device) -> dict:
+    """tests/test_runtime.py's restart test on the card: the uninterrupted
+    run and the run failing at RESTART_FAIL_AT, recovered from its last
+    checkpoint; losses and final state held bit for bit."""
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+    cfg = get_config(RESTART_ARCH, smoke=True)
+    runs = []
+    for fail_at in (set(), {RESTART_FAIL_AT}):
+        with tempfile.TemporaryDirectory() as d:
+            tr = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=16, global_batch=4, seed=7),
+                         TrainerConfig(steps=RESTART_STEPS,
+                                       ckpt_every=RESTART_EVERY, ckpt_dir=d,
+                                       warmup=2,
+                                       adamw=AdamWConfig(lr=1e-3)),
+                         device=device)
+
+            def inject(step, fail_at=fail_at):
+                if step in fail_at:
+                    fail_at.discard(step)
+                    raise SimulatedFailure()
+
+            t0 = time.perf_counter()
+            hist = tr.train(failure_injector=inject)
+            runs.append((hist, tr.opt_state, time.perf_counter() - t0))
+    (h1, s1, w1), (h2, s2, w2) = runs
+    a = {h["step"]: h["loss"] for h in h1}
+    b = {h["step"]: h["loss"] for h in h2}
+    differ = [f"{part}/{n}" for part in ("master", "m", "v")
+              for n, t in s1[part].items() if not torch.equal(t, s2[part][n])]
+    if a != {s: b[s] for s in a} or differ or len(h2) != len(h1) + 1:
+        fail(f"lm_train restart: losses {a} vs {b}, {len(h2)} records, "
+             f"differing leaves {differ[:5]}")
+    return {"arch": RESTART_ARCH, "steps": RESTART_STEPS,
+            "ckpt_every": RESTART_EVERY, "failed_at": RESTART_FAIL_AT,
+            "losses": [a[s] for s in sorted(a)], "records_recovered": len(h2),
+            "bit_equal": True, "wall_s": w1, "recovered_wall_s": w2}
+
+
+def phase_lm_train(device, smi) -> dict:
+    from repro_torch.data import make_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cublas_warm(device)
+    bytes_before = torch.cuda.memory_allocated(device)
+    cfg = get_config(LM_TRAIN_ARCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    bwd = lm_train_bwd_cases(cfg, device, gen)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        # -- the main path: every launch count is 0 just before, read after
+        reset_launches()
+        trainer = lm_train_run(ckpt_dir)
+        launches = read_launches()
+        # -----------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated(device)
+        hist = trainer.history
+        n = cfg.n_layers * LM_TRAIN_STEPS
+        expected = launches_of(flash_attention=3 * n,
+                               flash_attention_wgmma=n,
+                               flash_attention_bwd_dq=n,
+                               flash_attention_bwd_dkdv=n)
+        if launches != expected:
+            fail(f"lm_train: launches {launches}; expected {expected}")
+        if len(hist) != LM_TRAIN_STEPS or not all(
+                math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist):
+            fail(f"lm_train: history {hist}")
+        walls = [h["wall"] * 1e3 for h in hist]
+        batch7 = trainer._batch(make_batch(trainer.data_cfg, LM_TRAIN_STEPS))
+        profile = device_profile(lambda: trainer._step_fn(trainer.opt_state,
+                                                          batch7),
+                                 LM_TRAIN_GROUPS)
+        params = sum(t.numel() for t in trainer.opt_state["master"].values())
+        dcfg, tcfg = trainer.data_cfg, trainer.tcfg
+        del trainer, batch7
+        gc.collect()
+        torch.cuda.empty_cache()
+        # step 1 again from the same seed and batch: kernels, plain attention
+        from repro_torch.runtime import Trainer
+        fresh = Trainer(cfg, dcfg, tcfg, device=device)
+        fresh.init_state()
+        one = plain_step_one(fresh, fresh._batch(make_batch(dcfg, 0)))
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    k1 = {"loss": hist[0]["loss"], "grad_norm": hist[0]["grad_norm"]}
+    pl = one["plain"]
+    dl = abs(k1["loss"] - pl["loss"])
+    dg = abs(k1["grad_norm"] - pl["grad_norm"])
+    if not (dl <= LM_TRAIN_LOSS_RTOL * abs(pl["loss"])
+            and dg <= LM_TRAIN_GNORM_RTOL * pl["grad_norm"]):
+        fail(f"lm_train: step 1 on the kernels {k1} against the plain "
+             f"attention {pl}: over rtol {LM_TRAIN_LOSS_RTOL} (loss) / "
+             f"{LM_TRAIN_GNORM_RTOL} (grad norm)")
+    restart = lm_train_restart(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bytes_after = torch.cuda.memory_allocated(device)
+
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out = {"phase": "lm_train", "arch": LM_TRAIN_ARCH, "path": LM_TRAIN_PATH,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": params,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "steps": LM_TRAIN_STEPS, "launches": launches,
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": walls,
+           "ms_per_step_median_2_6": statistics.median(walls[1:]),
+           "first_step_ms": walls[0],
+           "max_memory_allocated_gb": peak / 1e9,
+           "bounds_ms": {
+               "products_6ND_bf16": 6.0 * params * tokens
+               / H100_SXM.peak_flops * 1e3,
+               "adamw_bytes": lm_adamw_bytes(params) / H100_SXM.hbm_bw
+               * 1e3},
+           "profile_step": profile,
+           "step1": {"kernels": k1, "plain_attention": pl,
+                     "kernels_recomputed": one["auto"],
+                     "loss_rtol": LM_TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": LM_TRAIN_GNORM_RTOL},
+           "backward_kernels": bwd, "restart": restart,
+           "card_bytes_before": bytes_before, "card_bytes_after":
+               bytes_after, "nvidia_smi": smi}
+    emit(out)
+    return out
+
+
+def lm_adamw_bytes(params: int) -> int:
+    """Bytes one AdamW step must move for ``params`` parameters with bf16
+    weights and gradients: the bf16 gradient read, master, m and v (f32)
+    read and written, the bf16 weight written for the next forward."""
+    return params * (2 + 3 * 4 * 2 + 2)
+
+
+def flash_bwd_entries(lm_train: dict) -> list:
+    """The kernels line's two backward-kernel entries: one launch each at
+    gemma2-2b's global-layer train shape (the window layer beside it), the
+    plain backward and SDPA's backward (both kernels' work) at that
+    shape."""
+    glob = lm_train["backward_kernels"]["layers"]["global"]
+    win = lm_train["backward_kernels"]["layers"]["window"]
+    rows = [glob, win] + lm_train["backward_kernels"]["rows"]
+    shape = (f"B={glob['b']}, Hq={glob['hq']}, Hkv={glob['hkv']}, "
+             f"S={glob['sq']}, D={glob['d']}, causal, soft-cap "
+             f"{glob['softcap']}, bf16")
+    out = []
+    for which, kernel in (("dq", "flash_attention_bwd_dq"),
+                          ("dkdv", "flash_attention_bwd_dkdv")):
+        parts = ("dq",) if which == "dq" else ("dk", "dv")
+        out.append({
+            "name": f"{kernel}_kernel", "route": "cuda",
+            "source": FLASH_CSRC + "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+            "function": "the gradient of flash_attention_pallas (the JAX "
+                        "package differentiates its route; it has no "
+                        "backward kernel)",
+            "launches": lm_train["launches"][kernel],
+            "launches_by_path": {LM_TRAIN_PATH: lm_train["launches"][kernel]},
+            "max_abs_err": max(r[w]["max_abs_err"] for r in rows
+                               for w in parts),
+            "ms": glob["kernel_ms"][which],
+            "plain_ms": glob["plain_ms"],
+            "bound_ms": glob["bound_ms"][which],
+            "bound_by": glob["bound_by"][which],
+            "library_ms": glob["library_ms"],
+            "library_call": glob["library_call"],
+            "window_layer": {"ms": win["kernel_ms"][which],
+                             "bound_ms": win["bound_ms"][which]},
+            "at": f"one launch at the {LM_TRAIN_ARCH} global-layer train "
+                  f"shape ({shape}); plain_ms and library_ms: the whole "
+                  f"backward (dq and dk/dv) of the plain version and of "
+                  f"SDPA (no soft-cap); max_abs_err: the largest "
+                  f"{' and '.join(parts)} error over every case"})
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4345,9 +4770,11 @@ def main() -> int:
     mamba2 = phase_mamba2(device)
     zamba2 = phase_zamba2(device)
     phase_lm_serve(device, smi)
+    lm_train = phase_lm_train(device, smi)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
                                       train, oocore, ckpt, mesh),
                       *flash_entries(flash, gemma2, zamba2),
+                      *flash_bwd_entries(lm_train),
                       *ssd_entries(ssd, mamba2, zamba2)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -37,7 +37,8 @@ SOURCES: Dict[str, Tuple[Path, ...]] = {
                _ROOT / "matmul" / "csrc" / "matmul_narrow.cu"),
     "flash_attention": (
         _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
-        _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu"),
+        _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
+        _ROOT / "flash_attention" / "csrc" / "flash_attention_bwd.cu"),
     "ssd_scan": (_ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",
                  _ROOT / "ssd_scan" / "csrc" / "ssd_scan_wgmma.cu"),
 }

@@ -42,9 +42,29 @@ a V head dim ``dv`` that differs from ``d`` (both at most 256).  The
 output is a ``(B, Hq, Sq, Dv)`` view of a ``(B, Sq, Hq, Dv)`` buffer, so
 the model's ``transpose(1, 2).reshape(B, S, Hq·Dv)`` is free.
 
-:data:`LAUNCHES` counts every kernel launch, :data:`TC_LAUNCHES` and
-:data:`FFMA_LAUNCHES` those of each kernel, so a run can show that its
-main path went through them.
+The gradient (the train path).  The kernels write their output through
+ctypes, outside autograd.  So a CUDA call whose q, k or v requires grad
+(with grad mode on) goes through :class:`_FlashAttention`, a
+``torch.autograd.Function``: its forward is the launch above, unchanged,
+and it saves q, k and v; its backward is :func:`attention_bwd`, which
+launches the two kernels of ``csrc/flash_attention_bwd.cu`` (bf16 and f32
+inputs, f32 accumulation): ``flash_attention_bwd_dq_kernel`` (dQ, and
+each row's log-sum-exp and D = rowsum(P ⊙ dP)) and then
+``flash_attention_bwd_dkdv_kernel`` (dK, dV).  They need no forward
+output: D is summed from P and dP in f32, where a bf16 output would move
+it (the kernel's header says by how much).
+They replace no TPU kernel — the JAX package differentiates its forward's
+route — and give the gradient of the same function: GQA by ratio, scale,
+soft-cap, causal and window masks, ragged lengths.  No output element is
+summed with atomics, so two runs are bit-equal.  The gradients come back
+in the input dtype, as a ``(B, S, H, D)`` buffer's ``(B, H, S, D)`` view.
+The plain version is :func:`.ref.attention_bwd_ref` (autograd through
+:func:`.ref.attention_ref`), the CPU route of :func:`attention_bwd`.
+
+:data:`LAUNCHES` counts every kernel launch of the library, forward and
+backward; :data:`TC_LAUNCHES`, :data:`FFMA_LAUNCHES`,
+:data:`BWD_DQ_LAUNCHES` and :data:`BWD_DKDV_LAUNCHES` those of each
+kernel, so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
@@ -54,13 +74,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                      attention_ref)
 
-#: kernel launches made by :func:`attention` in this process: every one,
-#: the tensor-core (bf16) kernel's and the FFMA (f32) kernel's
+#: kernel launches made in this process: every one, the tensor-core (bf16)
+#: kernel's, the FFMA (f32) kernel's and the two backward kernels'
 LAUNCHES = 0
 TC_LAUNCHES = 0
 FFMA_LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKDV_LAUNCHES = 0
 
 #: copies of a bf16 q, k or v that TMA cannot read in place
 COPIES = 0
@@ -199,6 +222,13 @@ def _lib() -> ctypes.CDLL:
         lib.repro_flash_attention_tc.restype = i32
         lib.repro_flash_tc_error_string.argtypes = [i32]
         lib.repro_flash_tc_error_string.restype = ctypes.c_char_p
+        for fn in (lib.repro_flash_attention_bwd_dq,
+                   lib.repro_flash_attention_bwd_dkdv):
+            fn.argtypes = [ptr] * 9 + [strides] + [i32] * 10 + [
+                ctypes.c_float, ctypes.c_float, ptr]
+            fn.restype = i32
+        lib.repro_flash_bwd_error_string.argtypes = [i32]
+        lib.repro_flash_bwd_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
 
@@ -258,6 +288,11 @@ def _run_ffma(lib, q, k, v, out, causal, window, softcap, scale, stream):
     return rc, lib.repro_flash_error_string
 
 
+def _window(window: int, sq: int, skv: int) -> int:
+    """rows - cols < sq + skv always holds: a wider window masks nothing."""
+    return max(0, min(int(window), sq + skv))
+
+
 def _launch(q, k, v, causal: bool, window: int, softcap: float,
             scale: float, kernel: str) -> torch.Tensor:
     global LAUNCHES, TC_LAUNCHES, FFMA_LAUNCHES
@@ -279,8 +314,7 @@ def _launch(q, k, v, causal: bool, window: int, softcap: float,
         return out
     if skv == 0:                           # no key: every row is masked
         return out.zero_()
-    # rows - cols < sq + skv always holds: a wider window masks nothing
-    window = max(0, min(int(window), sq + skv))
+    window = _window(window, sq, skv)
     run = _run_tc if kernel == "tc" else _run_ffma
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -300,13 +334,104 @@ def _launch(q, k, v, causal: bool, window: int, softcap: float,
     return out
 
 
+def _heads_view(b: int, h: int, s: int, d: int, like: torch.Tensor
+                ) -> torch.Tensor:
+    """A ``(B, H, S, D)`` view of a fresh ``(B, S, H, D)`` buffer, the
+    layout the model's ``transpose(1, 2)`` views have."""
+    return torch.empty((b, s, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _bwd_call(q, k, v, do, causal: bool, window: int, softcap: float,
+              scale: float):
+    """The backward kernels' outputs ``(dq, dk, dv)``, fresh, and the
+    arguments both C entry points take — None when there is nothing to
+    launch (no query or no key: the gradients are zeros)."""
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in (k, v, do)):
+        raise ValueError(f"the flash attention backward kernels take q, k, "
+                         f"v, do on one CUDA device, got {q.device}, "
+                         f"{k.device}, {v.device}, {do.device}")
+    b, hq, sq, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(do.shape) != (b, hq, sq, dv):
+        raise ValueError(f"attention backward: do {tuple(do.shape)} must be "
+                         f"{(b, hq, sq, dv)}")
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"the flash attention kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got d={d}, dv={dv}")
+    if b > 65535 or hq > 65535:
+        raise ValueError(f"batch {b} or heads {hq} exceed the kernel's grid")
+    do = do.to(q.dtype)
+    outs = (_heads_view(b, hq, sq, d, q), _heads_view(b, hkv, skv, d, q),
+            _heads_view(b, hkv, skv, dv, q))
+    if outs[0].numel() == 0 or outs[1].numel() == 0:
+        return tuple(t.zero_() for t in outs), None
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    tensors = (q, k, v, do, *outs)
+    strides = (ctypes.c_longlong * 28)(*(s for t in tensors
+                                         for s in t.stride()))
+    # lse and delta ride along: the arguments keep them alive
+    args = (*(t.data_ptr() for t in tensors), lse.data_ptr(),
+            delta.data_ptr(), strides, b, hq, hkv, sq, skv, d, dv,
+            int(q.dtype == torch.bfloat16), int(causal),
+            _window(window, sq, skv), float(softcap), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return outs, (args, lse, delta, do)
+
+
+def _launch_bwd(q, k, v, do, causal: bool, window: int, softcap: float,
+                scale: float):
+    """dq, dk, dv from the two backward kernels, one launch each."""
+    global LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKDV_LAUNCHES
+    outs, call = _bwd_call(q, k, v, do, causal, window, softcap, scale)
+    if call is None:
+        return outs
+    args = call[0]
+    with torch.cuda.device(q.device):
+        lib = _lib()
+        for name, fn in (("dq", lib.repro_flash_attention_bwd_dq),
+                         ("dkdv", lib.repro_flash_attention_bwd_dkdv)):
+            rc = fn(*args)
+            if rc != 0:
+                raise KernelLaunchError(
+                    f"flash attention backward launch failed ({name} "
+                    f"kernel; q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                    f"{tuple(v.shape)}, {q.dtype}): error {rc}: "
+                    f"{lib.repro_flash_bwd_error_string(rc).decode()}")
+            LAUNCHES += 1
+            if name == "dq":
+                BWD_DQ_LAUNCHES += 1
+            else:
+                BWD_DKDV_LAUNCHES += 1
+    return outs
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel (``kernel`` = ``"tc"`` or ``"ffma"``) with the
+    backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.settings = (causal, window, softcap, scale)
+        return _launch(q, k, v, causal, window, softcap, scale, kernel)
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _launch_bwd(*ctx.saved_tensors, do, *ctx.settings)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
               scale: Optional[float] = None,
               impl: str = "auto") -> torch.Tensor:
     """Attention over ``q (B,Hq,Sq,D)``, ``k (B,Hkv,Skv,D)``,
     ``v (B,Hkv,Skv,Dv)`` → ``(B,Hq,Sq,Dv)`` in ``q.dtype``; GQA by ratio,
-    ``scale`` defaults to ``D**-0.5``."""
+    ``scale`` defaults to ``D**-0.5``.  Differentiable on every route: a
+    kernel call that needs a gradient runs the backward kernels."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
     _check(q, k, v)
@@ -315,4 +440,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if where == "plain":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                     where)
     return _launch(q, k, v, causal, window, softcap, scale, where)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, scale: Optional[float] = None,
+                  impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`attention` at ``q, k, v`` for the output
+    gradient ``do``; routed as :func:`attention` is (the CPU and
+    ``impl="plain"`` take :func:`.ref.attention_bwd_ref`, a CUDA tensor the
+    two backward kernels)."""
+    if impl not in ("auto", "kernel", "plain"):
+        raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
+    _check(q, k, v)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    if route(q, k, v, impl) == "plain":
+        return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
+                                 softcap=softcap, scale=scale)
+    return _launch_bwd(q, k, v, do, causal, window, softcap, scale)

@@ -18,6 +18,9 @@ another: unblocked, the plain version would not fit beside the model on an
 80 GB card.  On the CPU the blocks give the unblocked result to the bit
 (``tests/test_torch_zamba2.py``); blocks of 1 to 4 rows would not, where
 the CPU's matrix product takes another kernel for so few rows.
+
+:func:`attention_bwd_ref` is the plain version of the backward kernels:
+autograd through :func:`attention_ref`.
 """
 from __future__ import annotations
 
@@ -62,3 +65,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.nan_to_num(p, nan=0.0)
         out[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", p, vf)
     return out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0,
+                      scale: float | None = None):
+    """``(dq, dk, dv)`` of :func:`attention_ref` at ``q, k, v`` for the
+    output gradient ``do``, in the inputs' dtypes: autograd through the
+    forward, recomputed here."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window,
+                            softcap=softcap, scale=scale)
+        return torch.autograd.grad(out, leaves, do.to(out.dtype))

@@ -52,6 +52,12 @@ for the state.
 :func:`ssd_final_state` and :func:`ssd_decode_step` are plain torch, as
 they are jnp in JAX (no Pallas kernel).
 
+The kernels have no backward yet: a CUDA call (``impl="auto"`` or
+``"kernel"``) whose inputs require grad, with grad mode on, raises
+``NotImplementedError`` — the SSD backward kernel comes with mamba2 and
+zamba2 training on the card (``ROADMAP.md`` A7.2c).  On the CPU the plain
+route keeps autograd.
+
 :data:`LAUNCHES` counts every kernel launch, :data:`TC_LAUNCHES` and
 :data:`FFMA_LAUNCHES` those of each kernel, so a run can show that its
 main path went through them.
@@ -218,6 +224,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     where = route(x, dt, A, Bm, Cm, impl)
     if where == "plain":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, return_final_state)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm)):
+        raise NotImplementedError(
+            "the SSD scan kernels have no backward yet: training through "
+            "the scan on the card (mamba2, zamba2) comes with the SSD "
+            "backward kernel, a later slice (ROADMAP A7.2c)")
     return _launch(x, dt, A, Bm, Cm, chunk, where, return_final_state)
 
 

@@ -34,7 +34,7 @@ without a card it fails — pass ``--device cpu`` to run on the CPU).
 with a "not ported" message naming its slice (``ROADMAP.md``):
 ``--dense-oracle`` for an arch outside the dense, ssm and hybrid families
 (MoE, MLA and embedding-input archs), and ``--dense-oracle --mesh`` (the
-distributed slice).
+model zoo's sharding, A7.2b).
 """
 from __future__ import annotations
 
@@ -103,7 +103,7 @@ def _dense_oracle(args) -> int:
     from repro_torch.models import init_params
     if args.mesh:
         print("[serve] --dense-oracle --mesh is not ported to repro_torch "
-              "yet: it comes with the distributed slice (ROADMAP A7)",
+              "yet: it comes with the model zoo's sharding (ROADMAP A7.2b)",
               file=sys.stderr)
         return 2
     try:

@@ -2,7 +2,7 @@
 (``repro.models`` counterpart)."""
 from repro_torch.models.model import (DenseLM, count_params, decode_step,
                                       forward, init_cache, init_params,
-                                      prefill)
+                                      loss_fn, param_shapes, prefill)
 
 __all__ = ["DenseLM", "count_params", "decode_step", "forward", "init_cache",
-           "init_params", "prefill"]
+           "init_params", "loss_fn", "param_shapes", "prefill"]

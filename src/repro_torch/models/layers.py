@@ -11,8 +11,8 @@ norm scales in f32, activations keep the JAX layout ((B, S, d), caches
 * init functions take an explicit ``torch.Generator`` (its device is the
   device of the weights; ``None`` draws from the default generator, for
   models built on the ``meta`` device) in place of a PRNG key;
-* no ``shard`` argument: the port runs on one card (``--mesh`` is the
-  distributed slice's, ROADMAP A7);
+* no ``shard`` argument: the model zoo runs on one card (its sharding,
+  ``--mesh``, is ROADMAP A7.2b's);
 * ``gqa_attention``/``gqa_prefill`` take ``impl`` and hand it to
   :func:`repro_torch.kernels.flash_attention.ops.attention`: ``"auto"``
   runs a CUDA kernel for CUDA tensors (bf16 on the tensor cores, f32 on

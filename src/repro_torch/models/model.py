@@ -35,9 +35,20 @@ Deviations from the JAX module:
   ``preferred_element_type=float32`` does: on the card one
   ``torch.mm(…, out_dtype=torch.float32)`` (f32 accumulation, no bf16
   rounding of the logits), on the CPU — where ``aten::mm.dtype`` has no
-  kernel — the same product taken in f32;
-* no ``shard`` argument, remat policy or ``loss_fn``/``param_shapes``/
-  ``cache_spec`` (training and the dry-run are later slices);
+  kernel — the same product taken in f32.  ``aten::mm.dtype`` has no
+  derivative, so on the card the product is :class:`_F32Logits`, whose
+  backward takes the f32 logit gradient as three bf16 terms (their sum is
+  the f32 value to ~2^-24) through the same bf16 product with f32
+  outputs: the gradient JAX's dot gives (f32 products of the f32
+  cotangent and the bf16 operand, cast to the operand's dtype) at the
+  tensor cores' bf16 rate.  On the CPU autograd differentiates the f32
+  product;
+* no ``shard`` argument and no ``cache_spec`` (the dry-run slice);
+* no remat policy (``cfg.remat``): the backward keeps what autograd saves.
+  gemma2-2b at batch 8 × 128 tokens needs no recomputation on an 80 GB
+  card;
+* :func:`param_shapes` gives the parameters as ``meta`` tensors by their
+  dotted names (JAX: a ``ShapeDtypeStruct`` tree);
 * :attr:`DenseLM.attn_impl` and :attr:`DenseLM.ssd_impl` (``"auto"``)
   are handed to every prefill attention and every SSD scan: ``"plain"``
   runs the model with that kernel's plain version.
@@ -60,6 +71,47 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import dtype_of
 
 Cache = Dict[str, object]
+
+
+def _bf16_terms(x: torch.Tensor) -> List[torch.Tensor]:
+    """f32 ``x`` as three bf16 terms, largest first, each the rounding of
+    what the earlier ones leave: they sum to ``x`` within ~2^-24 of it."""
+    terms, rest = [], x
+    for _ in range(3):
+        terms.append(rest.to(torch.bfloat16))
+        rest = rest - terms[-1].float()
+    return terms
+
+
+class _F32Logits(torch.autograd.Function):
+    """``x2 @ w`` as f32 on the card (``torch.mm(…, out_dtype=float32)``),
+    with its gradient.  For bf16 operands the f32 cotangent goes through
+    the same product as three bf16 terms, summed in f32, smallest first;
+    the gradients are cast to the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.float()
+        terms = [g] if x2.dtype == torch.float32 else _bf16_terms(g)[::-1]
+
+        def summed(pairs):
+            out = None
+            for a, b in pairs:
+                part = torch.mm(a, b, out_dtype=torch.float32)
+                out = part if out is None else out.add_(part)
+            return out
+
+        dx = summed((t, w.t()) for t in terms).to(x2.dtype) \
+            if ctx.needs_input_grad[0] else None
+        dw = summed((x2.t(), t) for t in terms).to(w.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -273,12 +325,16 @@ class DenseLM(nn.Module):
         return x.to(dtype_of(self.cfg.dtype))
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        return self.logits(L.rmsnorm(self.final_norm, x, self.cfg.rms_eps))
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final-normed ``x``: the unembedding product,
+        then the soft-cap."""
         cfg = self.cfg
-        x = L.rmsnorm(self.final_norm, x, cfg.rms_eps)
         w = self.embed["w"].t() if cfg.tie_embeddings else self.lm_head["w"]
         x2 = x.reshape(-1, x.shape[-1])
         if x.device.type == "cuda":
-            logits = torch.mm(x2, w, out_dtype=torch.float32)
+            logits = _F32Logits.apply(x2, w)
         else:
             logits = x2.float() @ w.float()
         logits = logits.reshape(*x.shape[:-1], w.shape[1])
@@ -319,8 +375,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return DenseLM(cfg, gen, dev)
 
 
-def count_params(cfg: ModelConfig) -> int:
-    return sum(p.numel() for p in DenseLM(cfg, None, "meta").parameters())
+def param_shapes(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The parameters as ``meta`` tensors (shape and dtype, no storage) by
+    their dotted names."""
+    return dict(DenseLM(cfg, None, "meta").named_parameters())
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``; ``active_only`` counts only the routed
+    experts a token uses.  The ported families route no experts (MoE
+    raises in :class:`DenseLM`), so both counts are the total."""
+    del active_only
+    return sum(p.numel() for p in param_shapes(cfg).values())
 
 
 # ==========================================================================
@@ -354,6 +420,21 @@ def unembed(cfg: ModelConfig, params: DenseLM,
 def forward(cfg: ModelConfig, params: DenseLM, batch: Dict) -> torch.Tensor:
     """Full-sequence forward → logits (B, S, vocab) in f32."""
     return _module(cfg, params)(_tokens(batch, "tokens"))
+
+
+def loss_fn(cfg: ModelConfig, params: DenseLM,
+            batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL plus 1e-4 of the mean squared log-normalizer
+    (the z-loss, which keeps the softmax normalizer bounded in bf16), and
+    the metrics ``nll``, ``zloss`` and ``accuracy``."""
+    logits = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    zloss = 1e-4 * logz.square().mean()
+    accuracy = (logits.argmax(-1) == labels).float().mean()
+    return nll + zloss, {"nll": nll, "zloss": zloss, "accuracy": accuracy}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -392,5 +473,5 @@ def decode_step(cfg: ModelConfig, params: DenseLM, cache: Cache,
 
 
 __all__ = ["DenseLM", "count_params", "decode_step", "embed_in",
-           "forward", "group_size", "init_cache", "init_params",
-           "n_scan_groups", "prefill", "unembed"]
+           "forward", "group_size", "init_cache", "init_params", "loss_fn",
+           "n_scan_groups", "param_shapes", "prefill", "unembed"]

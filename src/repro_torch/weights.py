@@ -42,6 +42,14 @@ two therefore goes through the weights themselves, as numpy arrays:
       params, state = train_state_from_numpy(step, arrays, device="cpu")
       trainer = repro_torch.core.TraTrainer(engine, step, params=params)
       trainer.state = state
+
+* the model zoo's optimizer state (``repro.optim.adamw``: ``{"step",
+  "master", "m", "v"}``, layers stacked) becomes the port's, parameters
+  by dotted name (:func:`opt_state_from_numpy`):
+
+      jstate = repro.optim.adamw.init(params)
+      state = opt_state_from_numpy(
+          cfg, jax.tree.map(np.asarray, jstate), device="cpu")
 """
 from __future__ import annotations
 
@@ -124,6 +132,45 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
     return out
 
 
+def _jax_leaf(cfg, name: str) -> Tuple[Tuple[str, ...], tuple, tuple]:
+    """Where the port's parameter ``name`` lies in the JAX tree: (the leaf's
+    path, the index of this layer in it, the leading stacked dims)."""
+    from repro_torch.models.model import group_size, n_scan_groups
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        layer, gsz = int(parts[1]), group_size(cfg)
+        return (("blocks",) + tuple(parts[2:]), (layer // gsz, layer % gsz),
+                (n_scan_groups(cfg), gsz))
+    if parts[0] == "shared":
+        return (("shared",) + tuple(parts[2:]), (int(parts[1]),),
+                (cfg.n_shared_blocks,))
+    return tuple(parts), (), ()
+
+
+def _jax_leaves(cfg, tree: Mapping, shapes: Mapping[str, tuple]
+                ) -> Dict[str, np.ndarray]:
+    """Each port parameter's array (of ``shapes``, by name) cut out of the
+    JAX tree ``tree``.  Exactly the model's leaves: a missing or extra
+    leaf, or one whose shape does not fit, raises ``ValueError``."""
+    flat = _flatten(tree)
+    used, out = set(), {}
+    for name, shape in shapes.items():
+        path, index, lead = _jax_leaf(cfg, name)
+        if path not in flat:
+            raise ValueError(f"parameter tree has no leaf {'/'.join(path)}")
+        arr = flat[path]
+        if arr.shape != lead + tuple(shape):
+            raise ValueError(f"leaf {'/'.join(path)} of shape {arr.shape} "
+                             f"does not fit {lead + tuple(shape)}")
+        used.add(path)
+        out[name] = arr[index]
+    extra = sorted("/".join(p) for p in set(flat) - used)
+    if extra:
+        raise ValueError(f"parameter tree has leaves the model does not: "
+                         f"{extra}")
+    return out
+
+
 def model_from_numpy(cfg, tree: Mapping, device: DeviceLike = "cuda"):
     """The port's model of ``cfg`` holding the JAX parameter tree ``tree``
     (nested dicts of numpy arrays, as ``repro.models.init_params`` gives
@@ -136,36 +183,33 @@ def model_from_numpy(cfg, tree: Mapping, device: DeviceLike = "cuda"):
     (n_shared_blocks, …), so shared block ``s`` takes ``[s]``
     (``shared/attn/wq``).  Exactly the model's leaves: a missing or extra
     leaf, or one whose shape does not fit, raises ``ValueError``."""
-    from repro_torch.models.model import DenseLM, group_size, n_scan_groups
-    dev = resolve_device(device)
-    model = DenseLM(cfg, None, "meta").to_empty(device=dev)
-    gsz, groups = group_size(cfg), n_scan_groups(cfg)
-    flat = _flatten(tree)
-    used = set()
-    for name, param in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            layer = int(parts[1])
-            path, index = ("blocks",) + tuple(parts[2:]), (layer // gsz,
-                                                            layer % gsz)
-            lead = (groups, gsz)
-        elif parts[0] == "shared":
-            path, index = ("shared",) + tuple(parts[2:]), (int(parts[1]),)
-            lead = (cfg.n_shared_blocks,)
-        else:
-            path, index, lead = tuple(parts), (), ()
-        if path not in flat:
-            raise ValueError(f"parameter tree has no leaf {'/'.join(path)}")
-        arr = flat[path]
-        if arr.shape != lead + tuple(param.shape):
-            raise ValueError(f"leaf {'/'.join(path)} of shape {arr.shape} "
-                             f"does not fit {lead + tuple(param.shape)}")
-        used.add(path)
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(arr[index],
+    from repro_torch.models.model import DenseLM
+    model = DenseLM(cfg, None, "meta").to_empty(device=resolve_device(device))
+    params = dict(model.named_parameters())
+    arrays = _jax_leaves(cfg, tree, {n: p.shape for n, p in params.items()})
+    with torch.no_grad():
+        for name, param in params.items():
+            param.copy_(torch.from_numpy(np.array(arrays[name],
                                                   dtype=np.float32)))
-    extra = sorted("/".join(p) for p in set(flat) - used)
-    if extra:
-        raise ValueError(f"parameter tree has leaves the model does not: "
-                         f"{extra}")
     return model
+
+
+def opt_state_from_numpy(cfg, state_np: Mapping,
+                         device: DeviceLike = "cuda") -> Dict:
+    """The port's optimizer state (``repro_torch.optim.adamw``'s
+    ``{"step", "master", "m", "v"}``, parameters by dotted name) from the
+    JAX package's (``repro.optim.adamw.init`` or a train step's output, as
+    numpy arrays: ``jax.tree.map(np.asarray, state)``), copied onto
+    ``device`` in f32 (the step as an int32 scalar).  Each of ``master``,
+    ``m`` and ``v`` is cut per layer as :func:`model_from_numpy` cuts the
+    params, and must hold exactly the model's leaves."""
+    from repro_torch.models.model import param_shapes
+    dev = resolve_device(device)
+    shapes = {n: p.shape for n, p in param_shapes(cfg).items()}
+    out: Dict = {"step": torch.tensor(int(np.asarray(state_np["step"])),
+                                      dtype=torch.int32, device=dev)}
+    for part in ("master", "m", "v"):
+        arrays = _jax_leaves(cfg, state_np[part], shapes)
+        out[part] = {n: torch.tensor(np.asarray(a, np.float32), device=dev)
+                     for n, a in arrays.items()}
+    return out

@@ -59,7 +59,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.matmul import ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref,
@@ -1023,18 +1024,65 @@ def test_mamba2_through_the_kernel_on_card(cuda):
 @pytest.mark.gpu
 def test_unembed_f32_logits_on_card(cuda):
     """``torch.mm(…, out_dtype=float32)`` of the bf16 unembedding gives the
-    f32 product of the bf16 values, as the CPU path computes it."""
+    f32 product of the bf16 values, as the CPU path computes it: the
+    logits of one and the same normed input within 1e-5 on both devices,
+    over 8 seeded draws.  The two devices' bf16 final norms are compared
+    apart: each output within one bf16 rounding (2^-8 of its magnitude) of
+    the other's; how many differ is printed (run with ``-s``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    from repro_torch.models.layers import rmsnorm
     cfg = get_config("mamba2-130m", smoke=True)
     model = init_params(cfg, 0, device=cuda)
-    x = torch.randn((2, 5, cfg.d_model), device=cuda).bfloat16()
-    got = model.unembed(x)
-    assert got.dtype == torch.float32
-    model_cpu = model.to("cpu")
-    want = model_cpu.unembed(x.cpu())
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    model_cpu = init_params(cfg, 0, device=cuda).to("cpu")
+    differ, total = 0, 0
+    for seed in range(8):
+        r = np.random.default_rng(seed)
+        x = torch.tensor(r.standard_normal((2, 5, cfg.d_model)),
+                         dtype=torch.float32).bfloat16()
+        h_card = rmsnorm(model.final_norm, x.to(cuda), cfg.rms_eps).cpu()
+        h_cpu = rmsnorm(model_cpu.final_norm, x, cfg.rms_eps)
+        hc, hh = h_card.double(), h_cpu.double()
+        assert bool(((hc - hh).abs() <= 2.0 ** -8 * hh.abs()).all())
+        differ += int((hc != hh).sum())
+        total += hh.numel()
+        got = model.logits(h_cpu.to(cuda))
+        assert got.dtype == torch.float32
+        want = model_cpu.logits(h_cpu)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    print(f"[unembed] bf16 final norms differing card vs CPU: {differ} of "
+          f"{total}")
+
+
+@pytest.mark.gpu
+def test_unembed_gradients_on_card_match_cpu(cuda):
+    """``DenseLM.unembed``'s backward on the card (``_F32Logits``: the f32
+    cotangent as three bf16 terms through ``torch.mm(…, out_dtype=f32)``)
+    against autograd of the CPU's f32 product, at gemma2-smoke (tied,
+    soft-capped) in bf16: the gradients of the normed input and of the
+    tied embedding within one bf16 rounding (2^-7 of the element, plus
+    1e-6 of the largest) — both devices round the same f32 products."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("gemma2-2b", smoke=True)
+    r = np.random.default_rng(3)
+    h = torch.tensor(r.standard_normal((2, 7, cfg.d_model)),
+                     dtype=torch.float32).bfloat16()
+    cot = torch.tensor(r.standard_normal((2, 7, cfg.vocab_size)),
+                       dtype=torch.float32)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        model = init_params(cfg, 0, device=cuda).to(dev)
+        w = model.embed["w"].requires_grad_(True)
+        x = h.to(dev).requires_grad_(True)
+        logits = model.logits(x)
+        grads.append([g.float().cpu() for g in torch.autograd.grad(
+            (logits * cot.to(dev)).sum(), (x, w))])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(
+            got.numpy(), want.numpy(), rtol=2.0 ** -7,
+            atol=1e-6 * float(want.abs().max()))
 
 
 # ------------------------------------------------------- zamba2-7b's shapes
@@ -1527,3 +1575,173 @@ def test_cpmm_shard_map_on_two_gloo_ranks_sharing_the_card(cuda):
         np.testing.assert_allclose(got["C"], one["C"], rtol=2e-4, atol=2e-4)
         np.testing.assert_allclose(got["C"], got["want"], rtol=2e-4,
                                    atol=2e-4)
+
+
+# ------------------------------------------------- flash attention backward
+BWD_ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _single_key_rows(sq, skv, causal, window):
+    """The query rows that see at most one key (row i at key position
+    i + skv - sq): their dq is 0 exactly, a softmax over one element
+    having no derivative."""
+    pos = np.arange(sq) + (skv - sq)
+    hi = np.minimum(skv - 1, pos) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq)
+    return hi - lo + 1 <= 1
+
+
+def _bwd_check(q, k, v, dtype, seed=1, **kw):
+    """The two backward kernels against ``attention_bwd_ref`` (autograd
+    through ``attention_ref``) for an output gradient drawn from ``seed``:
+    each of dq, dk, dv elementwise within the forward's limits
+    (``FLASH_TOL``: f32 2e-4, bf16 3e-2) and each row within
+    ``BWD_ROW_TOL`` (the forward's row limit: f32 1e-4, bf16 1e-2) of its
+    norm — but the dq rows of queries that see one key, whose exact
+    gradient is 0 and which both sides fill with rounding noise: those are
+    held elementwise only; one launch of each kernel."""
+    r = np.random.default_rng(seed)
+    shape = (*q.shape[:3], v.shape[3])
+    do = torch.tensor(r.standard_normal(shape),
+                      dtype=torch.float32).to(q.device, q.dtype)
+    before = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+    got = flash_ops.attention_bwd(q, k, v, do, impl="kernel", **kw)
+    want = attention_bwd_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    tol = FLASH_TOL[dtype]
+    keep = torch.from_numpy(~_single_key_rows(
+        q.shape[2], k.shape[2], kw["causal"], kw["window"])).to(q.device)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape, name
+        g, w = g.float(), w.float()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=tol, atol=tol, err_msg=name)
+        row = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+        row = (row[..., keep] if name == "dq" else row).max()
+        assert float(row) <= BWD_ROW_TOL[dtype], (name, float(row))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(FLASH_TOL))
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 64, 0.0), (True, 0, 30.0), (False, 0, 0.0)])
+def test_flash_backward_matches_plain_on_card(cuda, dtype, hq, hkv, causal,
+                                              window, softcap):
+    q, k, v = _qkv(2, hq, hkv, 256, 256, 64, 64, dtype, cuda)
+    _bwd_check(q, k, v, dtype, causal=causal, window=window,
+               softcap=softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(FLASH_TOL))
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,dv,kw", [
+    (2, 4, 2, 200, 200, 64, 64, dict(causal=True, window=0, softcap=0.0)),
+    (1, 2, 1, 1000, 1000, 64, 64, dict(causal=True, window=100,
+                                       softcap=30.0)),
+    (2, 4, 4, 100, 300, 64, 64, dict(causal=True, window=0, softcap=0.0)),
+    (2, 4, 2, 77, 77, 64, 40, dict(causal=True, window=0, softcap=0.0)),
+    (2, 2, 2, 70, 70, 112, 112, dict(causal=True, window=0, softcap=0.0)),
+    # gemma2-2b's train shapes: window and global layers, soft-cap 50
+    (8, 8, 4, 128, 128, 256, 256, dict(causal=True, window=4096,
+                                       softcap=50.0)),
+    (8, 8, 4, 128, 128, 256, 256, dict(causal=True, window=0, softcap=50.0)),
+    (1, 8, 4, 2048, 2048, 256, 256, dict(causal=True, window=1024,
+                                         softcap=50.0))])
+def test_flash_backward_shapes_on_card(cuda, dtype, b, hq, hkv, sq, skv, d,
+                                       dv, kw):
+    """Ragged lengths, ``sq < skv``, ``dv != d``, head dim 112, GQA and
+    gemma2-2b's train shapes (B 8, S 128; B 1, S 2048 with a window of
+    1024)."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, dv, dtype, cuda)
+    _bwd_check(q, k, v, dtype, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(FLASH_TOL))
+def test_flash_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
+    """``attention`` on CUDA inputs that require grad returns an output with
+    a ``grad_fn``; its backward launches each backward kernel once, no
+    plain version, and gives ``attention_bwd``'s gradients; two backward
+    runs are bit-equal (no atomics).  The model's transposed views go in
+    as they are."""
+    x = [torch.tensor(np.random.default_rng(i).standard_normal(
+        (2, 96, h, 64)), dtype=torch.float32).to(cuda, getattr(torch, dtype))
+        for i, h in enumerate((8, 4, 4))]
+    q, k, v = (t.transpose(1, 2).requires_grad_(True) for t in x)
+    kw = dict(causal=True, window=32, softcap=20.0)
+    before = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+    o = flash_ops.attention(q, k, v, **kw)
+    assert o.grad_fn is not None
+    do = torch.ones_like(o) / 7
+    g1 = torch.autograd.grad(o, (q, k, v), do)
+    g2 = torch.autograd.grad(flash_ops.attention(q, k, v, **kw), (q, k, v),
+                             do)
+    torch.cuda.synchronize()
+    assert (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    want = flash_ops.attention_bwd(q.detach(), k.detach(), v.detach(), do,
+                                   **kw)
+    for a, b, w in zip(g1, g2, want):
+        assert torch.equal(a, b) and torch.equal(a, w)
+    with torch.no_grad():
+        assert flash_ops.attention(q, k, v, **kw).grad_fn is None
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_route_refuses_grad_on_card(cuda):
+    """The SSD kernels have no backward yet: a CUDA call whose inputs
+    require grad raises and names the later slice; without grad it runs."""
+    x = torch.randn(1, 32, 2, 16, device=cuda)
+    dt = torch.rand(1, 32, 2, device=cuda)
+    a = -torch.rand(2, device=cuda)
+    bc = torch.randn(1, 32, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="A7.2c"):
+        ssd_ops.ssd_scan(x.requires_grad_(True), dt, a, bc, bc, chunk=16)
+    with torch.no_grad():
+        assert ssd_ops.ssd_scan(x, dt, a, bc, bc, chunk=16).shape == x.shape
+    with pytest.raises(NotImplementedError, match="A7.2c"):
+        ssd_ops.ssd_scan(x.detach(), dt, a, bc.requires_grad_(True), bc,
+                         chunk=16, impl="kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(cuda, dtype):
+    """One ``make_train_step`` at gemma2-smoke width from the same weights
+    and batch on the card (flash forward and backward kernels, the card's
+    unembedding backward) and on the CPU (plain versions): f32 loss, grad
+    norm and master params within 1e-4 (relative, and absolute of the
+    leaf's largest); bf16 loss and grad norm within 5e-2."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.runtime import make_train_step
+    cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True),
+                              dtype=dtype)
+    r = np.random.default_rng(4)
+    batch = {k: torch.tensor(r.integers(0, cfg.vocab_size, (2, 32)))
+             for k in ("tokens", "labels")}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        state = adamw.init(init_params(cfg, 0, device=cuda).to(dev))
+        before = flash_ops.BWD_DKDV_LAUNCHES
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), schedule.constant)
+        state, m = step(state, {k: t.to(dev) for k, t in batch.items()})
+        if dev.type == "cuda":
+            assert flash_ops.BWD_DKDV_LAUNCHES == before + cfg.n_layers
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {n: t.cpu() for n, t in state["master"].items()}))
+    (loss, gn, master), (loss_c, gn_c, master_c) = out
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    assert abs(loss - loss_c) <= tol * abs(loss_c)
+    assert abs(gn - gn_c) <= tol * abs(gn_c)
+    if dtype == "float32":
+        for name, t in master_c.items():
+            np.testing.assert_allclose(
+                master[name].numpy(), t.numpy(), rtol=tol,
+                atol=tol * float(t.abs().max()), err_msg=name)

@@ -52,7 +52,14 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "tra.py", "server.py", "ops.py", "model.py",
             "layers.py", "chip_smoke.py", "shardmap_exec.py", "mesh.py",
-            "sites.py"} <= names
+            "sites.py", "adamw.py", "schedule.py", "compression.py",
+            "pipeline.py", "trainer.py", "train.py"} <= names
+    port = ROOT / "src" / "repro_torch"
+    for module in ("optim/adamw.py", "optim/schedule.py",
+                   "optim/compression.py", "data/pipeline.py",
+                   "runtime/trainer.py", "runtime/pipeline.py",
+                   "launch/train.py"):
+        assert port / module in PORT_FILES
     for kernel in ("flash_attention", "ssd_scan"):
         assert ROOT / "src" / "repro_torch" / "kernels" / kernel \
             / "ops.py" in PORT_FILES
@@ -156,3 +163,30 @@ def test_chip_smoke_refuses_without_card(no_card):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_train_launcher_mesh_is_not_ported(capsys):
+    from repro_torch.launch.train import main
+    assert main(["--arch", "gemma2-2b", "--smoke", "--mesh", "2x2",
+                 "--device", "cpu"]) == 2
+    assert "not ported" in capsys.readouterr().err
+    assert main(["--arch", "llama4-scout-17b-a16e", "--smoke",
+                 "--device", "cpu"]) == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_train_launcher_without_device_raises(no_card, tmp_path):
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "gemma2-2b", "--smoke", "--steps", "1",
+              "--ckpt-dir", str(tmp_path)])
+
+
+def test_train_launcher_runs_on_cpu_when_asked(capsys, tmp_path):
+    from repro_torch.launch.train import main
+    assert main(["--arch", "gemma2-2b", "--smoke", "--steps", "2",
+                 "--batch", "2", "--seq", "16", "--device", "cpu",
+                 "--ckpt-every", "1", "--ckpt-dir", str(tmp_path)]) == 0
+    assert "gemma2-2b on cpu: 2 steps, loss" in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_000000001", "step_000000002"]
