@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                 # on a machine with one H100
 
-Drives the port's ten main paths — the §5.3 FFNN scorer at the paper's
+Drives the port's twelve main paths — the §5.3 FFNN scorer at the paper's
 speech-100k width (1600 features, 100000 hidden units, 10 labels) served
 through ``TraServer`` on the ``jit`` executor; ``RecurrentLM``'s
 continuous-batching decode at gemma2-2b's width (d_model 2304, vocab
@@ -22,8 +22,9 @@ vocab 50280) and zamba2-7b at full width (78 Mamba2 layers in 13 groups of
 112 SSD heads of dim 64, state 64, chunk 128, 32/32 attention heads of dim
 112, d_ff 14336, vocab 32000; 6.72 B parameters), each model through the
 ``--dense-oracle`` prefill + greedy decode loop with random bf16 weights
-from seed 0 — and holds every hand-written kernel of those paths against
-its plain PyTorch version on the card:
+from seed 0; gemma2-2b, mamba2-130m and zamba2-7b (cut to 12 Mamba2
+layers) trained for 6 AdamW steps — and holds every hand-written kernel
+of those paths against its plain PyTorch version on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the CUDA sources of ``src/repro_torch/kernels/`` (one
@@ -295,7 +296,49 @@ its plain PyTorch version on the card:
    every 2 steps, a ``SimulatedFailure`` at step 3, 6 steps): losses and
    the final master params and moments bit-equal to the uninterrupted
    run's;
-17. the kernels line, the ``nvidia-smi`` line, and the last line
+17. ssm_train: the earlier phases' memory freed first, as lm_train's.  The
+   four SSD backward kernels (``ssd_scan_bwd_{state,dstate,chunk,reduce}
+   _kernel``, ``csrc/ssd_scan_bwd.cu``) through ``ssd_scan_bwd`` against
+   ``ssd_scan_bwd_ref`` computed in f64 (autograd through the chunked
+   scan), all five gradients, in bf16 and f32: the JAX kernel tests'
+   cases, a ragged S (200 at chunk 128), S < chunk, the default chunk 256
+   (run at 128), N and P off the tiles, B and C contiguous and strided, a
+   strong decay (dt·A near -20 a step), and mamba2-130m's (B 8, S 2048,
+   H 24, P 64, N 128) and zamba2-7b's (B 4, S 1024, H 112, P 64, N 64)
+   layers at their train shapes — each gradient within ``SSD_TOL`` of its
+   largest |value| and each row within ``SSD_ROW_TOL`` of its norm, one
+   launch of each kernel, a second call bit-equal; at the two train
+   layers in bf16 each kernel timed alone with CUDA events beside its
+   bound, the four together and the plain backward; the flash backward at
+   zamba2-7b's shared attention (B 4, S 1024, 32 heads of 112, causal)
+   against ``attention_bwd_ref``.  Then mamba2-130m at full width and
+   depth (24 layers, d_model 768, vocab 50280, N 128) through
+   ``repro_torch.launch.train``'s ``run`` at batch 8 × 2048 (16 chunks a
+   row), and zamba2-7b at full width cut to 12 Mamba2 layers (2 groups
+   of 6, each shared block applied once; d_model 3584, 112 SSD heads,
+   N 64, 32 attention heads of 112, d_ff 14336, vocab 32000) through
+   ``runtime.Trainer`` as the launcher builds it, at batch 4 × 1024: each
+   6 AdamW steps with every launch count set to 0 just before and read
+   just after — per step one SSD forward (tensor-core kernel) and one
+   launch of each backward kernel a Mamba2 layer, for zamba2 also one
+   flash forward and one of each flash backward kernel a shared-block
+   application, no cast, copy or other kernel; every loss and grad norm
+   finite; step 1 recomputed from weight seeds 0, 1 and 2
+   (:func:`ssd_step_one`), each time the loss within
+   ``LM_TRAIN_LOSS_RTOL`` and the grad norm within
+   ``LM_TRAIN_GNORM_RTOL``: in bf16 the kernels against their own forward
+   with the plain backward, in f32 (the same config) the kernels against
+   the plain SSD scan (``ssd_impl="plain"``), and the bf16 loss against
+   the plain SSD's (its grad norm printed beside, not gated: the random
+   model's bf16 rounding alone moves it by several %).  Printed for
+   each: ms a step (median of steps 2-6, host clock), the first step, the
+   peak ``max_memory_allocated``, the bounds (6·N·tokens at the bf16 peak,
+   AdamW's bytes), a profile of one more step by group (SSD backward, SSD
+   forward, flash backward and forward, GEMMs, elementwise and AdamW,
+   other) with the busy share.  Last the card restart at the mamba2
+   smoke width (40 tokens a row: the state crosses two chunk boundaries),
+   held bit for bit as lm_train's;
+18. the kernels line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -305,6 +348,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -546,12 +590,15 @@ def reset_launches() -> None:
     mm_ops.NARROW_LAUNCHES = mm_ops.NARROW_FOLDS = 0
     flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
     ssd_ops.LAUNCHES = ssd_ops.TC_LAUNCHES = ssd_ops.FFMA_LAUNCHES = 0
-    ssd_ops.COPIES = 0
+    ssd_ops.COPIES = ssd_ops.BWD_LAUNCHES = 0
+    for _, _, counter in ssd_ops.BWD_KERNELS:
+        setattr(ssd_ops, counter, 0)
 
 
 def read_launches() -> dict:
     """Every kernel's launch count (``flash_attention`` and ``ssd_scan``
-    are the sums of their two kernels'), the skinny and narrow matmul
+    are the sums of their forward and backward kernels', ``ssd_scan_bwd``
+    of the four SSD backward kernels'), the skinny and narrow matmul
     launches that folded a split-K sum, and the copies of operands the
     matmul, flash and SSD ops made."""
     return {"matmul_skinny": mm_ops.SKINNY_LAUNCHES,
@@ -572,6 +619,9 @@ def read_launches() -> dict:
             "ssd_scan": ssd_ops.LAUNCHES,
             "ssd_scan_wgmma": ssd_ops.TC_LAUNCHES,
             "ssd_scan_ffma": ssd_ops.FFMA_LAUNCHES,
+            "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES,
+            **{f"ssd_scan_bwd_{name}": getattr(ssd_ops, counter)
+               for name, _, counter in ssd_ops.BWD_KERNELS},
             "ssd_copies": ssd_ops.COPIES}
 
 
@@ -3728,11 +3778,13 @@ def phase_zamba2(device) -> dict:
 SSD_CSRC = "src/repro_torch/kernels/ssd_scan/csrc/"
 
 
-def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict) -> list:
+def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict,
+                ssm_train: dict) -> list:
     """The kernels line's two SSD scan entries.  The tensor-core kernel
     (bf16, the main paths): one launch at mamba2-130m's layer shape, one
-    at zamba2-7b's, and a whole prefill of each.  The FFMA kernel (f32
-    only, off the main paths): one launch at each layer shape in f32."""
+    at zamba2-7b's, and a whole prefill of each; its launches on the
+    prefill and train paths.  The FFMA kernel (f32 only, off the main
+    paths): one launch at each layer shape in f32."""
     cfg = get_config(SSM_ARCH)
     layer, layer32 = ssd["layer"], ssd["layer_f32"]
     z16, z32 = ssd["zamba2_layer"], ssd["zamba2_layer_f32"]
@@ -3748,6 +3800,8 @@ def ssd_entries(ssd: dict, mamba2: dict, zamba2: dict) -> list:
                 "plain_prefill_ms": zamba2["bf16_vs_plain"][
                     "plain_prefill_ms"]}
     wgmma_paths = by_path("ssd_scan_wgmma", mamba2=mamba2, zamba2=zamba2)
+    for run in (ssm_train["mamba2"], ssm_train["zamba2"]):
+        wgmma_paths[run["path"]] = run["launches"]["ssd_scan_wgmma"]
     shape = (f"B={SSM_BATCH}, S={PROMPT_LEN}, H={cfg.ssm_heads}, "
              f"P={cfg.ssm_head_dim}, N={cfg.ssm_state}, L={cfg.ssm_chunk}")
     common = {"route": "cuda",
@@ -4562,19 +4616,22 @@ def plain_step_one(trainer, batch) -> dict:
     return out
 
 
-def lm_train_restart(device) -> dict:
-    """tests/test_runtime.py's restart test on the card: the uninterrupted
-    run and the run failing at RESTART_FAIL_AT, recovered from its last
-    checkpoint; losses and final state held bit for bit."""
+def lm_train_restart(device, arch: str = RESTART_ARCH,
+                     seq: int = 16) -> dict:
+    """tests/test_runtime.py's restart test on the card at ``arch``'s smoke
+    width (``seq`` tokens a row): the uninterrupted run and the run failing
+    at RESTART_FAIL_AT, recovered from its last checkpoint; losses and
+    final state held bit for bit."""
     from repro_torch.data import DataConfig
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
-    cfg = get_config(RESTART_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     runs = []
     for fail_at in (set(), {RESTART_FAIL_AT}):
         with tempfile.TemporaryDirectory() as d:
             tr = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
-                                         seq_len=16, global_batch=4, seed=7),
+                                         seq_len=seq, global_batch=4,
+                                         seed=7),
                          TrainerConfig(steps=RESTART_STEPS,
                                        ckpt_every=RESTART_EVERY, ckpt_dir=d,
                                        warmup=2,
@@ -4595,9 +4652,9 @@ def lm_train_restart(device) -> dict:
     differ = [f"{part}/{n}" for part in ("master", "m", "v")
               for n, t in s1[part].items() if not torch.equal(t, s2[part][n])]
     if a != {s: b[s] for s in a} or differ or len(h2) != len(h1) + 1:
-        fail(f"lm_train restart: losses {a} vs {b}, {len(h2)} records, "
+        fail(f"{arch} restart: losses {a} vs {b}, {len(h2)} records, "
              f"differing leaves {differ[:5]}")
-    return {"arch": RESTART_ARCH, "steps": RESTART_STEPS,
+    return {"arch": arch, "seq": seq, "steps": RESTART_STEPS,
             "ckpt_every": RESTART_EVERY, "failed_at": RESTART_FAIL_AT,
             "losses": [a[s] for s in sorted(a)], "records_recovered": len(h2),
             "bit_equal": True, "wall_s": w1, "recovered_wall_s": w2}
@@ -4701,14 +4758,17 @@ def lm_adamw_bytes(params: int) -> int:
     return params * (2 + 3 * 4 * 2 + 2)
 
 
-def flash_bwd_entries(lm_train: dict) -> list:
+def flash_bwd_entries(lm_train: dict, ssm_train: dict) -> list:
     """The kernels line's two backward-kernel entries: one launch each at
-    gemma2-2b's global-layer train shape (the window layer beside it), the
-    plain backward and SDPA's backward (both kernels' work) at that
-    shape."""
+    gemma2-2b's global-layer train shape (the window layer and zamba2-7b's
+    shared attention beside it), the plain backward and SDPA's backward
+    (both kernels' work) at that shape; launches on gemma2's and zamba2's
+    train paths."""
+    zflash = ssm_train["backward_kernels"]["flash_zamba2"]
+    ztrain = ssm_train["zamba2"]
     glob = lm_train["backward_kernels"]["layers"]["global"]
     win = lm_train["backward_kernels"]["layers"]["window"]
-    rows = [glob, win] + lm_train["backward_kernels"]["rows"]
+    rows = [glob, win, zflash] + lm_train["backward_kernels"]["rows"]
     shape = (f"B={glob['b']}, Hq={glob['hq']}, Hkv={glob['hkv']}, "
              f"S={glob['sq']}, D={glob['d']}, causal, soft-cap "
              f"{glob['softcap']}, bf16")
@@ -4723,8 +4783,10 @@ def flash_bwd_entries(lm_train: dict) -> list:
             "function": "the gradient of flash_attention_pallas (the JAX "
                         "package differentiates its route; it has no "
                         "backward kernel)",
-            "launches": lm_train["launches"][kernel],
-            "launches_by_path": {LM_TRAIN_PATH: lm_train["launches"][kernel]},
+            "launches": lm_train["launches"][kernel]
+            + ztrain["launches"][kernel],
+            "launches_by_path": {LM_TRAIN_PATH: lm_train["launches"][kernel],
+                                 ztrain["path"]: ztrain["launches"][kernel]},
             "max_abs_err": max(r[w]["max_abs_err"] for r in rows
                                for w in parts),
             "ms": glob["kernel_ms"][which],
@@ -4735,11 +4797,531 @@ def flash_bwd_entries(lm_train: dict) -> list:
             "library_call": glob["library_call"],
             "window_layer": {"ms": win["kernel_ms"][which],
                              "bound_ms": win["bound_ms"][which]},
+            HYBRID_ARCH: {"ms": zflash["kernel_ms"][which],
+                          "bound_ms": zflash["bound_ms"][which],
+                          "bound_by": zflash["bound_by"][which],
+                          "plain_ms": zflash["plain_ms"],
+                          "library_ms": zflash["library_ms"],
+                          "at": f"B={zflash['b']}, H={zflash['hq']}, "
+                                f"S={zflash['sq']}, D={zflash['d']}, "
+                                f"causal, bf16"},
             "at": f"one launch at the {LM_TRAIN_ARCH} global-layer train "
                   f"shape ({shape}); plain_ms and library_ms: the whole "
                   f"backward (dq and dk/dv) of the plain version and of "
                   f"SDPA (no soft-cap); max_abs_err: the largest "
                   f"{' and '.join(parts)} error over every case"})
+    return out
+
+
+# ------------------------------------------------------------- ssm_train
+SSM_TRAIN_STEPS = 6
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 8, 2048         # 16 chunks of 128
+SSM_TRAIN_PATH = "mamba2-130m-train-8x2048"
+HYBRID_TRAIN_LAYERS = 12                          # 2 groups of 6 of 78
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 4, 1024
+HYBRID_TRAIN_PATH = "zamba2-7b-12L-train-4x1024"
+SSM_TRAIN_SEEDS = (0, 1, 2)                       # step 1 against the plain SSD
+SSM_RESTART_SEQ = 40                              # the smoke's chunk is 16
+# The SSD backward kernels against the plain backward computed in f64
+# (ssd_scan_bwd_ref, autograd through the chunked scan), set before their
+# first card run.  Each gradient (dx, ddt, dA, dB, dC) sums terms of either
+# sign over the chunk and the carried states, as the forward's output does,
+# so its rounding scales with its largest value: max |err| within
+# SSD_TOL·max|ref| of that gradient, and each row (the last dim: P of dx, H
+# of ddt, N of dB and dC, all of dA) within SSD_ROW_TOL of the row's norm —
+# the forward's limits (f32 1e-4 and 1e-3; bf16 1e-2, a gradient rounded
+# once to bf16 lying up to 2^-9 of each value off).  The f32 kernels sum
+# C·B and dy·x in f64, as the f32 forward sums C·B; the smoke's
+# strong-decay case (dt·A near -20 a step) holds dA, which an f32 sum of
+# da's cancelling diagonal would lose (tests/test_torch_ssd_backward.py).
+SSD_BWD_GRADS = ("x", "dt", "A", "B", "C")
+SSM_TRAIN_GROUPS = (("ssd_backward", ("ssd_scan_bwd",)),
+                    ("ssd_forward", ("ssd_scan_kernel",)),
+                    ("flash_backward", ("flash_attention_bwd",)),
+                    ("flash_forward", ("flash_attention_kernel",)),
+                    ("gemm", GEMM_NAMES),
+                    ("elementwise_and_adamw", LM_TRAIN_GROUPS[-1][1]))
+
+
+def ssd_bwd_errors(g, w, dtype, name: str) -> dict:
+    """One kernel gradient ``g`` (as f32) against the f64 plain one ``w``:
+    max |err| within ``SSD_TOL[dtype]·max|w|`` and each row's error (the
+    last dim; dA is one row) within ``SSD_ROW_TOL[dtype]`` of the row's
+    norm.  ``fault`` says what failed, or is None."""
+    g, w = g.double(), w.double()
+    if name == "A":
+        g, w = g[None], w[None]
+    err = (g - w).abs().max().item()
+    atol = SSD_TOL[dtype] * w.abs().max().item()
+    row = ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max() \
+        .item()
+    fault = None
+    if not bool(torch.isfinite(g).all()):
+        fault = f"d{name} not finite"
+    elif not err <= atol:
+        fault = f"d{name}: max |err| {err} over {atol}"
+    elif not row <= SSD_ROW_TOL[dtype]:
+        fault = (f"d{name}: a row's error is {row} of its norm, over "
+                 f"{SSD_ROW_TOL[dtype]}")
+    return {"max_abs_err": err, "atol": atol, "max_row_rel_err": row,
+            "row_rel_tol": SSD_ROW_TOL[dtype],
+            "max_abs_ref": w.abs().max().item(), "fault": fault}
+
+
+def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype) -> dict:
+    """(bytes_ms, operations_ms) on an H100 SXM of each backward kernel —
+    its own inputs read once and its outputs written once, the buffers it
+    shares with the others included — and of the whole gradient (x, dt, A,
+    B, C and dy read, the five gradients written).  Operations at the f32
+    FFMA peak: a state pass 2·B·H·S·N·P; the chunk kernel C·Bᵀ over each
+    chunk's lower triangle once per batch row, and per head dy·xᵀ and the
+    intra-chunk products of dx, dB and dC over it, and three L·N·P state
+    products a chunk; the reduction one add per partial."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nc = -(-s // chunk)
+    lens = [min(chunk, s - s0) for s0 in range(0, s, chunk)]
+    pairs = sum(L * (L + 1) // 2 for L in lens)
+    xs, bs, dts = b * s * h * p * isz, b * s * n * isz, b * s * h * 4
+    states = b * nc * h * n * p * 4
+    parts = 2 * b * s * h * n * 4
+    state_ops = 2.0 * b * h * s * n * p
+    chunk_ops = 2.0 * b * pairs * n + 2.0 * b * h * (
+        pairs * (2 * p + 2 * n) + 3.0 * s * n * p)
+    peak = PEAK[torch.float32]
+
+    def times(nbytes, ops):
+        return nbytes / H100_SXM.hbm_bw * 1e3, ops / peak * 1e3
+    return {
+        "state": times(xs + bs + dts + states, state_ops),
+        "dstate": times(xs + bs + dts + states, state_ops),
+        "chunk": times(3 * xs + 2 * bs + 2 * dts + 2 * states + parts
+                       + b * nc * h * 4, chunk_ops),
+        "reduce": times(parts + b * nc * h * 4 + 2 * bs + h * 4,
+                        parts / 4.0),
+        "gradient": times(3 * xs + 4 * bs + 2 * dts + 2 * h * 4,
+                          2 * state_ops + chunk_ops)}
+
+
+def ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy, chunk, device,
+                      iters: int = 10) -> dict:
+    """Device ms of one launch of each backward kernel alone: the four once
+    in order (so the chunk and reduce kernels read filled buffers), then
+    CUDA events around ``iters`` back-to-back launches of each through its
+    C entry point; these launches are not counted."""
+    _, call = ssd_ops._bwd_call(x, dt, A, bm, cm, dy, chunk)
+    args = call[0]
+    lib = ssd_ops._lib()
+    fns = {name: getattr(lib, entry) for name, entry, _ in
+           ssd_ops.BWD_KERNELS}
+
+    def launch(name):
+        rc = fns[name](*args)
+        if rc != 0:
+            fail(f"SSD backward {name} kernel: launch error {rc}")
+    for name in fns:
+        launch(name)
+    return {name: timed_ms(lambda name=name: launch(name), device, iters)
+            for name in fns}
+
+
+def ssd_bwd_counts() -> tuple:
+    return (ssd_ops.BWD_STATE_LAUNCHES, ssd_ops.BWD_DSTATE_LAUNCHES,
+            ssd_ops.BWD_CHUNK_LAUNCHES, ssd_ops.BWD_REDUCE_LAUNCHES)
+
+
+def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
+                 strong=False, timed=False) -> dict:
+    """The four backward kernels (``ssd_scan_bwd``, impl ``"kernel"``) on
+    one input and output gradient against ``ssd_scan_bwd_ref`` computed in
+    f64: each of the five gradients within :func:`ssd_bwd_errors`' limits;
+    one launch of each kernel; a second call bit-equal to the first.
+    ``strong``: dt·A between -22 and -20 every step.  ``timed``: each
+    kernel's device ms, the four in one call, the plain backward in the
+    working type, and the bounds."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    x, dt, A, bm, cm = ssd_inputs(b, s, h, p, n, dtype, device, gen,
+                                  strided)
+    if strong:
+        dt = 1.0 + 0.1 * torch.rand(dt.shape, generator=gen, device=device)
+        A = torch.full_like(A, -20.0)
+    dy = torch.randn(x.shape, generator=gen, device=device).to(dtype)
+    before = ssd_bwd_counts()
+    got = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
+                               impl="kernel")
+    launched = tuple(a - c for a, c in zip(ssd_bwd_counts(), before))
+    again = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
+                                 impl="kernel")
+    want = ssd_scan_bwd_ref(*(t.double() for t in (x, dt, A, bm, cm, dy)),
+                            min(chunk, s))
+    torch.cuda.synchronize(device)
+    name = (f"ssd_scan_bwd b{b} s{s} h{h} p{p} n{n} chunk{chunk} {dtype}"
+            f"{' strided' if strided else ''}{' strong' if strong else ''}")
+    if launched != (1, 1, 1, 1):
+        fail(f"{name}: (state, dstate, chunk, reduce) launches {launched}")
+    ins = (x, dt, A, bm, cm)
+    row = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
+           "dtype": str(dtype).split(".")[-1], "bc_strided": strided,
+           "strong_decay": strong}
+    for gname, g, g2, w, t in zip(SSD_BWD_GRADS, got, again, want, ins):
+        if g.shape != t.shape or g.dtype != t.dtype:
+            fail(f"{name}: d{gname} {tuple(g.shape)} {g.dtype}")
+        if not torch.equal(g, g2):
+            fail(f"{name}: d{gname} differs between two calls")
+        errs = ssd_bwd_errors(g.float(), w, dtype, gname)
+        fault = errs.pop("fault")
+        if fault is not None:
+            fail(f"{name}: {fault}")
+        row["d" + gname] = errs
+    row["bit_equal_repeat"] = True
+    row["max_abs_err"] = max(row["d" + g]["max_abs_err"]
+                             for g in SSD_BWD_GRADS)
+    del got, again, want
+    if timed:
+        bounds = ssd_bwd_bound_times(b, s, h, p, n, min(chunk, 128), dtype)
+        row["kernel_ms"] = ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy,
+                                             min(chunk, s), device)
+        row["all_kernels_ms"] = timed_ms(lambda: ssd_ops.ssd_scan_bwd(
+            x, dt, A, bm, cm, dy, chunk=chunk, impl="kernel"), device, 5)
+        row["plain_ms"] = timed_ms(lambda: ssd_scan_bwd_ref(
+            x, dt, A, bm, cm, dy, min(chunk, s)), device, 3, warmup=1)
+        row["bound_ms"], row["bound_by"], row["bytes_ms"] = {}, {}, {}
+        for which, (t_bytes, t_ops) in bounds.items():
+            row["bound_ms"][which], row["bound_by"][which] = bound_of(
+                t_bytes, t_ops)
+            row["bytes_ms"][which] = t_bytes
+    return row
+
+
+def ssm_train_bwd_cases(device, gen) -> dict:
+    """The backward kernels at the JAX kernel tests' cases
+    (tests/test_kernels.py:107-139), a ragged S, S < chunk, the default
+    chunk 256 (run at 128), N and P off the tiles, B and C contiguous and
+    strided, strong decay, in both types; then mamba2-130m's and
+    zamba2-7b's layers at their train shapes, bf16 as the models run them
+    and timed, and in f32; and the flash backward at zamba2's shared
+    attention (head dim 112, padded to the kernel's 128 template)."""
+    cases = [(2, 64, 4, 16, 8, 16), (2, 128, 4, 16, 8, 32),
+             (2, 96, 4, 16, 8, 32), (1, 64, 2, 16, 8, 32),
+             (1, 128, 2, 16, 8, 64), (2, 200, 4, 16, 8, 128),
+             (2, 40, 3, 16, 8, 128), (2, 300, 4, 64, 128, 256),
+             (1, 77, 2, 22, 13, 16)]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in cases:
+            rows.append(ssd_bwd_case(*c, dtype, device, gen))
+        rows.append(ssd_bwd_case(2, 260, 4, 64, 128, 128, dtype, device,
+                                 gen, strided=False))
+        rows.append(ssd_bwd_case(2, 256, 4, 64, 128, 128, dtype, device,
+                                 gen, strong=True))
+    for r in rows:
+        emit({"phase": "ssm_train", "ssd_backward": r})
+    layers = {}
+    for arch, batch, seq in ((SSM_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ),
+                             (HYBRID_ARCH, HYBRID_TRAIN_BATCH,
+                              HYBRID_TRAIN_SEQ)):
+        cfg = get_config(arch)
+        dims = (batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                cfg.ssm_chunk)
+        layers[arch] = ssd_bwd_case(*dims, torch.bfloat16, device, gen,
+                                    timed=True)
+        layers[arch + "_f32"] = ssd_bwd_case(*dims, torch.float32, device,
+                                             gen)
+        for key in (arch, arch + "_f32"):
+            emit({"phase": "ssm_train", "at": f"{key} train layer",
+                  "ssd_backward": layers[key]})
+    zcfg = get_config(HYBRID_ARCH)
+    flash = bwd_case(HYBRID_TRAIN_BATCH, zcfg.n_heads, zcfg.n_kv_heads,
+                     HYBRID_TRAIN_SEQ, HYBRID_TRAIN_SEQ, zcfg.head_dim,
+                     zcfg.head_dim, torch.bfloat16,
+                     {"causal": True, "window": 0, "softcap": 0.0}, device,
+                     gen, timed=True)
+    emit({"phase": "ssm_train", "flash_backward_zamba2": flash})
+    return {"rows": rows, "layers": layers, "flash_zamba2": flash}
+
+
+def ssm_train_launches(cfg, steps: int) -> dict:
+    """The counts a train run of ``cfg`` should read: per step one SSD
+    forward (tensor-core kernel) and one launch of each backward kernel a
+    Mamba2 layer, and for the hybrid family one flash forward and one of
+    each flash backward kernel a shared-block application; no cast, copy
+    or other kernel."""
+    n = cfg.n_layers * steps
+    kw = {"ssd_scan": 5 * n, "ssd_scan_wgmma": n, "ssd_scan_bwd": 4 * n,
+          "ssd_scan_bwd_state": n, "ssd_scan_bwd_dstate": n,
+          "ssd_scan_bwd_chunk": n, "ssd_scan_bwd_reduce": n}
+    if cfg.family == "hybrid":
+        a = n_scan_groups(cfg) * steps
+        kw.update(flash_attention=3 * a, flash_attention_wgmma=a,
+                  flash_attention_bwd_dq=a, flash_attention_bwd_dkdv=a)
+    return launches_of(**kw)
+
+
+def ssm_train_run(cfg, batch: int, seq: int, ckpt_dir: str,
+                  via_launcher: bool):
+    """``cfg`` trained for SSM_TRAIN_STEPS AdamW steps on batch x seq, no
+    checkpoint written: through the launcher (``run``; mamba2-130m), or
+    through ``runtime.Trainer`` as ``run`` builds it (the cut zamba2-7b:
+    the launcher takes no depth flag)."""
+    if via_launcher:
+        from repro_torch.launch import train as train_launcher
+        rc, trainer = train_launcher.run([
+            "--arch", cfg.name, "--steps", str(SSM_TRAIN_STEPS),
+            "--batch", str(batch), "--seq", str(seq),
+            "--ckpt-every", "1000", "--ckpt-dir", ckpt_dir])
+        if rc != 0:
+            fail(f"ssm_train: repro_torch.launch.train exited {rc}")
+        return trainer
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, input_mode=cfg.input_mode,
+                      d_model=cfg.d_model)
+    tcfg = TrainerConfig(steps=SSM_TRAIN_STEPS, ckpt_every=1000,
+                         ckpt_dir=ckpt_dir, adamw=AdamWConfig(lr=3e-4))
+    trainer = Trainer(cfg, dcfg, tcfg, device="cuda")
+    trainer.train()
+    return trainer
+
+
+def ssd_step_grads(step, master, batch, impl: str = "auto",
+                   plain_bwd: bool = False) -> dict:
+    """Step 1's loss and gradient norm at ``master`` on ``batch``, the
+    optimizer not applied, with the SSD scan's ``impl``; ``plain_bwd``:
+    the kernels' forward with ``ssd_scan_bwd_ref`` in place of the
+    backward kernels (the same activations, only the gradient's arithmetic
+    differs)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.optim import adamw
+    step.cast_params(master).ssd_impl = impl
+    launch_bwd = ssd_ops._launch_bwd
+    if plain_bwd:
+        ssd_ops._launch_bwd = lambda x, dt, A, bm, cm, dy, chunk: \
+            ssd_scan_bwd_ref(x, dt, A, bm, cm, dy, min(chunk, 128))
+    try:
+        loss, _, grads = step.grads({"master": master}, batch)
+    finally:
+        ssd_ops._launch_bwd = launch_bwd
+        step.model.ssd_impl = "auto"
+    out = {"loss": float(loss), "grad_norm": float(adamw.global_norm(grads))}
+    del grads
+    return out
+
+
+def rel_gap(got: dict, want: dict) -> dict:
+    return {k: abs(got[k] - want[k]) / abs(want[k])
+            for k in ("loss", "grad_norm")}
+
+
+def ssd_step_one(trainer, device) -> list:
+    """Step 1 for each of SSM_TRAIN_SEEDS (weights drawn from the seed,
+    batch number ``seed`` of the data config; seed 0 is the main run's
+    first step).  In bf16, the path's type: on the kernels, on the
+    kernels' forward with the plain backward, and with the plain SSD
+    (``ssd_impl="plain"``).  In f32 (the same config, weights from the
+    same seed: the FFMA forward kernel and the backward kernels in f32):
+    on the kernels and with the plain SSD.  Gated, each within
+    LM_TRAIN_LOSS_RTOL (loss) and LM_TRAIN_GNORM_RTOL (grad norm): the bf16
+    kernels against the plain backward on the same activations, the f32
+    kernels against the plain SSD, and the bf16 loss against the plain
+    SSD's.  Not gated, printed: the bf16 grad norm against the plain
+    SSD's, whose forward rounds y otherwise — this random model's
+    gradient moves by several % when only its bf16 rounding changes
+    (``tools/ssd_train_floor.py``: the plain SSD against the same in f64
+    on the CPU, mamba2-130m, one row of 2048 tokens, 63.91 against
+    58.05)."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_params
+    from repro_torch.runtime import make_train_step
+    from repro_torch.optim import schedule
+    cfg32 = dataclasses.replace(trainer.cfg, dtype="float32")
+    step32 = make_train_step(cfg32, trainer.tcfg.adamw, schedule.constant)
+    out = []
+    trainer.opt_state = None
+    for seed in SSM_TRAIN_SEEDS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = trainer._batch(make_batch(trainer.data_cfg, seed))
+        master = {n: p.detach().float() for n, p in
+                  init_params(trainer.cfg, seed, device=device)
+                  .named_parameters()}
+        got = {"seed": seed,
+               "bf16": {"kernels": ssd_step_grads(trainer._step_fn, master,
+                                                  batch),
+                        "plain_backward": ssd_step_grads(
+                            trainer._step_fn, master, batch,
+                            plain_bwd=True),
+                        "plain": ssd_step_grads(trainer._step_fn, master,
+                                                batch, "plain")}}
+        del master
+        trainer._step_fn.model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        master = dict(init_params(cfg32, seed, device=device)
+                      .named_parameters())
+        master = {n: p.detach() for n, p in master.items()}
+        got["f32"] = {"kernels": ssd_step_grads(step32, master, batch),
+                      "plain": ssd_step_grads(step32, master, batch,
+                                              "plain")}
+        del master, batch
+        step32.model = None
+        b16, f32 = got["bf16"], got["f32"]
+        got["gaps"] = {
+            "bf16_kernels_vs_plain_backward": rel_gap(b16["kernels"],
+                                                      b16["plain_backward"]),
+            "f32_kernels_vs_plain": rel_gap(f32["kernels"], f32["plain"]),
+            "bf16_kernels_vs_plain": rel_gap(b16["kernels"], b16["plain"])}
+        gated = [(what, k, v) for what, gap in got["gaps"].items()
+                 for k, v in gap.items()
+                 if what != "bf16_kernels_vs_plain" or k == "loss"]
+        over = [(what, k, v) for what, k, v in gated
+                if v > (LM_TRAIN_LOSS_RTOL if k == "loss"
+                        else LM_TRAIN_GNORM_RTOL)]
+        if over:
+            fail(f"ssm_train {trainer.cfg.name}: step 1 (seed {seed}) over "
+                 f"rtol {LM_TRAIN_LOSS_RTOL} (loss) / {LM_TRAIN_GNORM_RTOL} "
+                 f"(grad norm): {over}; {got}")
+        out.append(got)
+    return out
+
+
+def ssm_train_path(cfg, batch: int, seq: int, path: str, device,
+                   via_launcher: bool) -> dict:
+    """One train path: the run with every launch count 0 just before and
+    read just after, its gates (launches as predicted, every loss and grad
+    norm finite, step 1 against the plain SSD on 3 seeds), and its
+    readings (ms a step, first step, peak, bounds, a profile of one more
+    step by group)."""
+    from repro_torch.data import make_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        # -- the main path: every launch count is 0 just before, read after
+        reset_launches()
+        trainer = ssm_train_run(cfg, batch, seq, ckpt_dir, via_launcher)
+        launches = read_launches()
+        # -----------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated(device)
+        hist = trainer.history
+        expected = ssm_train_launches(cfg, SSM_TRAIN_STEPS)
+        if launches != expected:
+            fail(f"ssm_train {path}: launches {launches}; expected "
+                 f"{expected}")
+        if len(hist) != SSM_TRAIN_STEPS or not all(
+                math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist):
+            fail(f"ssm_train {path}: history {hist}")
+        walls = [h["wall"] * 1e3 for h in hist]
+        batch7 = trainer._batch(make_batch(trainer.data_cfg,
+                                           SSM_TRAIN_STEPS))
+        profile = device_profile(lambda: trainer._step_fn(trainer.opt_state,
+                                                          batch7),
+                                 SSM_TRAIN_GROUPS)
+        params = sum(t.numel() for t in trainer.opt_state["master"].values())
+        del batch7
+        step_one = ssd_step_one(trainer, device)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens = batch * seq
+    return {"arch": cfg.name, "path": path, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "ssd_heads": cfg.ssm_heads, "ssd_state": cfg.ssm_state,
+            "params": params, "batch": batch, "seq": seq,
+            "steps": SSM_TRAIN_STEPS, "launches": launches,
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": walls,
+            "ms_per_step_median_2_6": statistics.median(walls[1:]),
+            "first_step_ms": walls[0],
+            "max_memory_allocated_gb": peak / 1e9,
+            "bounds_ms": {
+                "products_6ND_bf16": 6.0 * params * tokens
+                / H100_SXM.peak_flops * 1e3,
+                "adamw_bytes": lm_adamw_bytes(params) / H100_SXM.hbm_bw
+                * 1e3},
+            "profile_step": profile,
+            "step1": step_one,
+            "step1_recomputed_equal": step_one[0]["bf16"]["kernels"]["loss"]
+            == hist[0]["loss"],
+            "loss_rtol": LM_TRAIN_LOSS_RTOL,
+            "grad_norm_rtol": LM_TRAIN_GNORM_RTOL}
+
+
+def phase_ssm_train(device, smi) -> dict:
+    gc.collect()
+    torch.cuda.empty_cache()
+    cublas_warm(device)
+    bytes_before = torch.cuda.memory_allocated(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    bwd = ssm_train_bwd_cases(device, gen)
+    mamba2 = ssm_train_path(get_config(SSM_ARCH), SSM_TRAIN_BATCH,
+                            SSM_TRAIN_SEQ, SSM_TRAIN_PATH, device, True)
+    emit({"phase": "ssm_train", **mamba2, "nvidia_smi": smi})
+    zcfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                               n_layers=HYBRID_TRAIN_LAYERS)
+    zamba2 = ssm_train_path(zcfg, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ,
+                            HYBRID_TRAIN_PATH, device, False)
+    emit({"phase": "ssm_train", **zamba2,
+          "full_depth_layers": get_config(HYBRID_ARCH).n_layers,
+          "nvidia_smi": smi})
+    restart = lm_train_restart(device, SSM_ARCH, seq=SSM_RESTART_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "ssm_train", "backward_kernels": bwd,
+           "mamba2": mamba2, "zamba2": zamba2, "restart": restart,
+           "card_bytes_before": bytes_before,
+           "card_bytes_after": torch.cuda.memory_allocated(device),
+           "nvidia_smi": smi}
+    emit({"phase": "ssm_train", "restart": restart,
+          "card_bytes_before": bytes_before,
+          "card_bytes_after": out["card_bytes_after"]})
+    return out
+
+
+def ssd_bwd_entries(ssm_train: dict) -> list:
+    """The kernels line's four SSD backward entries: one launch each at
+    mamba2-130m's train layer (zamba2-7b's beside it), the plain backward
+    at that shape, no library call."""
+    layer = ssm_train["backward_kernels"]["layers"][SSM_ARCH]
+    zlayer = ssm_train["backward_kernels"]["layers"][HYBRID_ARCH]
+    rows = ssm_train["backward_kernels"]["rows"] + list(
+        ssm_train["backward_kernels"]["layers"].values())
+    paths = (ssm_train["mamba2"], ssm_train["zamba2"])
+    shape = (f"B={layer['b']}, S={layer['s']}, H={layer['h']}, "
+             f"P={layer['p']}, N={layer['n']}, L={layer['chunk']}, bf16")
+    out = []
+    for which in ("state", "dstate", "chunk", "reduce"):
+        key = f"ssd_scan_bwd_{which}"
+        by = {p["path"]: p["launches"][key] for p in paths}
+        out.append({
+            "name": f"{key}_kernel", "route": "cuda",
+            "source": SSD_CSRC + "ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:73",
+            "function": "the gradient of ssd_scan_pallas (the JAX package "
+                        "differentiates its jnp route; it has no backward "
+                        "kernel)",
+            "launches": sum(by.values()), "launches_by_path": by,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": layer["kernel_ms"][which],
+            "plain_ms": layer["plain_ms"],
+            "bound_ms": layer["bound_ms"][which],
+            "bound_by": layer["bound_by"][which],
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the "
+                            "SSD scan's gradient",
+            HYBRID_ARCH: {"ms": zlayer["kernel_ms"][which],
+                          "bound_ms": zlayer["bound_ms"][which],
+                          "bound_by": zlayer["bound_by"][which],
+                          "plain_ms": zlayer["plain_ms"]},
+            "gradient_bound_ms": layer["bound_ms"]["gradient"],
+            "at": f"one launch at the {SSM_ARCH} train layer ({shape}); "
+                  f"plain_ms: the whole plain backward (autograd through "
+                  f"the chunked scan) at that shape; bound_ms: this "
+                  f"kernel's own inputs and outputs, its buffers included, "
+                  f"or its operations at the f32 FFMA peak; max_abs_err: "
+                  f"the largest gradient error over every case"})
     return out
 
 
@@ -4771,11 +5353,13 @@ def main() -> int:
     zamba2 = phase_zamba2(device)
     phase_lm_serve(device, smi)
     lm_train = phase_lm_train(device, smi)
+    ssm_train = phase_ssm_train(device, smi)
     emit({"kernels": [*matmul_entries(rows, reduce_rows, skinny, serve,
                                       train, oocore, ckpt, mesh),
                       *flash_entries(flash, gemma2, zamba2),
-                      *flash_bwd_entries(lm_train),
-                      *ssd_entries(ssd, mamba2, zamba2)]})
+                      *flash_bwd_entries(lm_train, ssm_train),
+                      *ssd_entries(ssd, mamba2, zamba2, ssm_train),
+                      *ssd_bwd_entries(ssm_train)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,18 +49,44 @@ with ``ssd_final_state`` (``src/repro/models/layers.py:532-544``), whose
 counterpart :func:`ssd_final_state` stays here as the plain reference
 for the state.
 
+The gradient (the train path).  The kernels write y through ctypes,
+outside autograd.  So a CUDA call whose x, dt, A, B or C requires grad
+(with grad mode on) goes through :class:`_SSDScan`, a
+``torch.autograd.Function``: its forward is the launch above, unchanged
+(a bf16 ``dt`` or ``A`` cast to f32 before it, the cast counted in
+:data:`COPIES` and differentiated by autograd), and it saves x, dt, A, B
+and C; its backward is :func:`ssd_scan_bwd`'s kernel route, the four
+kernels of ``csrc/ssd_scan_bwd.cu`` (f32 or bf16 x, B, C; f32
+accumulation, f64 for C·B and dy·x in f32): ``ssd_scan_bwd_state_kernel``
+(the state entering each chunk), ``ssd_scan_bwd_dstate_kernel`` (the
+cotangent of the state leaving each chunk, a reverse scan),
+``ssd_scan_bwd_chunk_kernel`` (dx, ddt and per-head partials of dB, dC and
+dA) and ``ssd_scan_bwd_reduce_kernel`` (the partials summed).  They
+differentiate ``ssd_scan_pallas``'s function, whatever kernel ran the
+forward; the JAX package has no backward kernel (it differentiates its
+chunked jnp route).  No output is summed with atomics, so two runs are
+bit-equal.  Each gradient comes back in its input's dtype, contiguous.
+With ``return_final_state=True`` under grad, y goes through
+:class:`_SSDScan` and the state comes from the plain
+:func:`ssd_final_state`, as JAX computes it apart.  Without grad the
+launches are those above.  The plain version of the gradient is
+:func:`.ref.ssd_scan_bwd_ref` (autograd through the chunked plain
+version), the CPU route of :func:`ssd_scan_bwd`.  Deviations:
+:func:`ssd_scan_bwd` has no JAX counterpart (JAX takes ``jax.vjp``), and
+the kernels sum each chunk's cumsum of dt·A in f64 and leave out the terms
+of da that cancel exactly, so under strong decay (dt·A near -20 a step)
+their dA lies nearer the exact gradient than the f32 plain version's or
+JAX's.
+
 :func:`ssd_final_state` and :func:`ssd_decode_step` are plain torch, as
 they are jnp in JAX (no Pallas kernel).
 
-The kernels have no backward yet: a CUDA call (``impl="auto"`` or
-``"kernel"``) whose inputs require grad, with grad mode on, raises
-``NotImplementedError`` — the SSD backward kernel comes with mamba2 and
-zamba2 training on the card (``ROADMAP.md`` A7.2c).  On the CPU the plain
-route keeps autograd.
-
-:data:`LAUNCHES` counts every kernel launch, :data:`TC_LAUNCHES` and
-:data:`FFMA_LAUNCHES` those of each kernel, so a run can show that its
-main path went through them.
+:data:`LAUNCHES` counts every kernel launch of the library, forward and
+backward; :data:`TC_LAUNCHES` and :data:`FFMA_LAUNCHES` those of each
+forward kernel, :data:`BWD_LAUNCHES` those of the backward kernels and
+:data:`BWD_STATE_LAUNCHES`, :data:`BWD_DSTATE_LAUNCHES`,
+:data:`BWD_CHUNK_LAUNCHES` and :data:`BWD_REDUCE_LAUNCHES` those of each,
+so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
@@ -69,13 +95,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
+                                              ssd_scan_bwd_ref)
 
-#: kernel launches made by :func:`ssd_scan` in this process: every one,
-#: the tensor-core (bf16) kernel's and the FFMA (f32) kernel's
+#: kernel launches made in this process: every one, the tensor-core (bf16)
+#: kernel's, the FFMA (f32) kernel's, and the backward kernels' (all four,
+#: and each)
 LAUNCHES = 0
 TC_LAUNCHES = 0
 FFMA_LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_STATE_LAUNCHES = 0
+BWD_DSTATE_LAUNCHES = 0
+BWD_CHUNK_LAUNCHES = 0
+BWD_REDUCE_LAUNCHES = 0
 
 #: casts of a bf16 ``dt`` or ``A`` to f32 before a launch
 COPIES = 0
@@ -117,6 +150,11 @@ def _lib() -> ctypes.CDLL:
                            strides, i64, strides, strides, strides, i32, i32,
                            i32, i32, i32, i32, ptr]
             fn.restype = i32
+        for _, entry, _ in BWD_KERNELS:
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.POINTER(ptr), strides,
+                           ctypes.POINTER(i32), ptr]
+            fn.restype = i32
         lib.repro_ssd_error_string.argtypes = [i32]
         lib.repro_ssd_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -142,6 +180,14 @@ def _check(x, dt, A, Bm, Cm) -> None:
                             f"{t.dtype}")
 
 
+def _on_one_card(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} on one CUDA device, got "
+                         f"{', '.join(str(t.device) for t in tensors)}")
+
+
 def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * t.dim())(*t.stride())
 
@@ -160,11 +206,9 @@ def _launch(x, dt, A, Bm, Cm, chunk: int, kernel: str,
     """One launch of the ``"tc"`` (bf16) or ``"ffma"`` (f32) kernel: ``y``,
     or ``(y, h_S)`` with ``final_state``."""
     global LAUNCHES, TC_LAUNCHES, FFMA_LAUNCHES
+    _on_one_card("the SSD scan kernel takes x, dt, A, B, C", x, dt, A, Bm,
+                 Cm)
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in (dt, A, Bm, Cm)):
-        raise ValueError(f"the SSD scan kernel takes x, dt, A, B, C on one "
-                         f"CUDA device, got {x.device}, {dt.device}, "
-                         f"{A.device}, {Bm.device}, {Cm.device}")
     if x.dtype != (torch.bfloat16 if kernel == "tc" else torch.float32):
         takes = "tensor-core SSD kernel takes bf16" if kernel == "tc" \
             else "FFMA SSD kernel takes f32"
@@ -207,6 +251,115 @@ def _launch(x, dt, A, Bm, Cm, chunk: int, kernel: str,
     return (y, hs) if final_state else y
 
 
+#: the backward kernels in launch order: (name, C entry point, counter)
+BWD_KERNELS = (("state", "repro_ssd_bwd_state", "BWD_STATE_LAUNCHES"),
+               ("dstate", "repro_ssd_bwd_dstate", "BWD_DSTATE_LAUNCHES"),
+               ("chunk", "repro_ssd_bwd_chunk", "BWD_CHUNK_LAUNCHES"),
+               ("reduce", "repro_ssd_bwd_reduce", "BWD_REDUCE_LAUNCHES"))
+
+
+def _bwd_call(x, dt, A, Bm, Cm, dy, chunk: int):
+    """The backward kernels' outputs ``(dx, ddt, dA, dB, dC)``, fresh (dt
+    and A f32), and the arguments every C entry point takes, with the
+    buffers they point to — None when there is nothing to launch (an empty
+    input: the gradients are zeros)."""
+    _on_one_card("the SSD backward kernels take x, dt, A, B, C, dy",
+                 x, dt, A, Bm, Cm, dy)
+    dev = x.device
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"the SSD backward kernels take f32 dt and A, got "
+                        f"{dt.dtype}, {A.dtype}")
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"ssd_scan backward: dy {tuple(dy.shape)} must be "
+                         f"{tuple(x.shape)}")
+    b, s, h, p = x.shape
+    n = Bm.shape[2]
+    if n > MAX_STATE or p > MAX_HEAD_DIM:
+        raise ValueError(f"the SSD scan kernels take states up to "
+                         f"{MAX_STATE} and head dims up to {MAX_HEAD_DIM}, "
+                         f"got N={n}, P={p}")
+    chunk = min(chunk, MAX_CHUNK)          # the same scan, other rounding
+    nc = -(-s // chunk)
+    if b > 65535 or h > 65535 or nc > 65535:
+        raise ValueError(f"batch {b}, heads {h} or chunks {nc} exceed the "
+                         f"kernels' grid")
+    dy = dy.to(x.dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = (torch.empty((b, s, h, p), dtype=x.dtype, device=dev),
+            torch.empty((b, s, h), **f32), torch.empty((h,), **f32),
+            torch.empty((b, s, n), dtype=x.dtype, device=dev),
+            torch.empty((b, s, n), dtype=x.dtype, device=dev))
+    if x.numel() == 0 or n == 0:
+        return tuple(t.zero_() for t in outs), None
+    bufs = (torch.empty((b, nc, h, n, p), **f32),         # S_in
+            torch.empty((b, nc, h, n, p), **f32),         # G
+            torch.empty((b, s, h, n), **f32),             # dB a head
+            torch.empty((b, s, h, n), **f32),             # dC a head
+            torch.empty((b, nc, h), **f32))               # dA a chunk
+    dx, ddt, dA, dB, dC = outs
+    ptrs = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in (
+        x, dt, A, Bm, Cm, dy, bufs[0], bufs[1], dx, ddt, bufs[2], bufs[3],
+        bufs[4], dB, dC, dA)))
+    strides = (ctypes.c_longlong * 18)(*x.stride(), *dt.stride(),
+                                       A.stride(0), *Bm.stride(),
+                                       *Cm.stride(), *dy.stride())
+    dims = (ctypes.c_int * 7)(b, s, h, p, n, chunk,
+                              int(x.dtype == torch.bfloat16))
+    # dy and the buffers ride along: the arguments keep them alive
+    args = (ptrs, strides, dims, torch.cuda.current_stream(dev).cuda_stream)
+    return outs, (args, dy, bufs)
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
+    """``(dx, ddt, dA, dB, dC)`` from the four backward kernels, one launch
+    each (dt and A f32)."""
+    global LAUNCHES, BWD_LAUNCHES
+    outs, call = _bwd_call(x, dt, A, Bm, Cm, dy, chunk)
+    if call is None:
+        return outs
+    with torch.cuda.device(x.device):
+        lib = _lib()
+        for name, entry, counter in BWD_KERNELS:
+            rc = getattr(lib, entry)(*call[0])
+            if rc != 0:
+                raise KernelLaunchError(
+                    f"SSD scan backward launch failed ({name} kernel; x "
+                    f"{tuple(x.shape)}, N {Bm.shape[2]}, chunk "
+                    f"{min(chunk, MAX_CHUNK)}, {x.dtype}): CUDA error {rc}: "
+                    f"{lib.repro_ssd_error_string(rc).decode()}")
+            LAUNCHES += 1
+            BWD_LAUNCHES += 1
+            globals()[counter] += 1
+    return outs
+
+
+class _SSDScan(torch.autograd.Function):
+    """The forward kernel (``kernel`` = ``"tc"`` or ``"ffma"``) with the
+    backward kernels as its gradient; dt and A come in f32."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, kernel):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _launch(x, dt, A, Bm, Cm, chunk, kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = _launch_bwd(*ctx.saved_tensors, dy, ctx.chunk)
+        return (*grads, None, None)
+
+
+def _checked(x, dt, A, Bm, Cm, chunk: int, impl: str) -> int:
+    """The chunk a call runs at, ``min(chunk, S)``, after the checks every
+    call makes."""
+    if impl not in ("auto", "kernel", "plain"):
+        raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
+    _check(x, dt, A, Bm, Cm)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    return max(1, min(int(chunk), x.shape[1]))
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
              impl: str = "auto", return_final_state: bool = False):
@@ -214,23 +367,41 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``A (H,)``, ``B/C (B,S,N)`` → ``y (B,S,H,P)`` in ``x.dtype``, in chunks
     of ``min(chunk, S)`` steps (the kernels' at most :data:`MAX_CHUNK`).
     With ``return_final_state``, ``(y, h_S)``: the state after the last
-    step, ``(B,H,N,P)`` f32, from the same launch."""
-    if impl not in ("auto", "kernel", "plain"):
-        raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
-    _check(x, dt, A, Bm, Cm)
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    chunk = max(1, min(int(chunk), x.shape[1]))
+    step, ``(B,H,N,P)`` f32, from the same launch (under grad, from
+    :func:`ssd_final_state`).  Differentiable on every route: a kernel call
+    that needs a gradient runs the backward kernels."""
+    chunk = _checked(x, dt, A, Bm, Cm, chunk, impl)
     where = route(x, dt, A, Bm, Cm, impl)
     if where == "plain":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, return_final_state)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, Bm, Cm)):
-        raise NotImplementedError(
-            "the SSD scan kernels have no backward yet: training through "
-            "the scan on the card (mamba2, zamba2) comes with the SSD "
-            "backward kernel, a later slice (ROADMAP A7.2c)")
+        _on_one_card("the SSD scan kernel takes x, dt, A, B, C", x, dt, A,
+                     Bm, Cm)
+        y = _SSDScan.apply(x, _f32(dt), _f32(A), Bm, Cm, chunk, where)
+        if return_final_state:
+            return y, ssd_final_state(x, dt, A, Bm, Cm)
+        return y
     return _launch(x, dt, A, Bm, Cm, chunk, where, return_final_state)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 256, impl: str = "auto"
+                 ) -> Tuple[torch.Tensor, ...]:
+    """``(dx, ddt, dA, dB, dC)`` of :func:`ssd_scan` at ``x, dt, A, B, C``
+    for the output gradient ``dy``, each in its input's dtype; routed as
+    :func:`ssd_scan` is (the CPU and ``impl="plain"`` take
+    :func:`.ref.ssd_scan_bwd_ref`, a CUDA tensor the four backward
+    kernels)."""
+    chunk = _checked(x, dt, A, Bm, Cm, chunk, impl)
+    if route(x, dt, A, Bm, Cm, impl) == "plain":
+        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, chunk)
+    _on_one_card("the SSD backward kernels take x, dt, A, B, C, dy",
+                 x, dt, A, Bm, Cm, dy)
+    dx, ddt, dA, dB, dC = _launch_bwd(x, _f32(dt), _f32(A), Bm, Cm, dy,
+                                      chunk)
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
 
 
 def ssd_final_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

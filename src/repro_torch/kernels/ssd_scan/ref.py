@@ -22,6 +22,11 @@ rates and ``B/C (B,S,N)`` shared across heads:
   is off by a few % of an output row where a step's decay erases the
   rest of its chunk (dt·A near -20 a step: the row is C_i·B_i·dt_i·x_i)
   and the dot product C_i·B_i of N terms cancels.
+* :func:`ssd_scan_bwd_ref` — the gradient's plain version: autograd through
+  :func:`ssd_chunked_ref`, the CPU route of
+  :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan_bwd`.  Given f64
+  inputs it computes in f64, the exact result ``chip_smoke.py`` holds the
+  backward kernels to.
 """
 from __future__ import annotations
 
@@ -92,3 +97,15 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y.to(x.dtype))
     y = torch.cat(ys, dim=1) if ys else torch.empty_like(x)
     return (y, hstate) if final_state else y
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                     chunk: int) -> Tuple[torch.Tensor, ...]:
+    """``(dx, ddt, dA, dB, dC)`` of :func:`ssd_chunked_ref` at ``x, dt, A,
+    B, C`` for the output gradient ``dy``, each in its input's dtype:
+    autograd through the forward, recomputed here."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        y = ssd_chunked_ref(*leaves, chunk)
+        return torch.autograd.grad(y, leaves, dy.to(y.dtype))

@@ -39,7 +39,13 @@ f32 case through the FFMA kernel, which the launch counters show; B and C
 read in place as slices of one tensor; the final state of the same launch
 against ``ssd_final_state`` and the plain scan's carried state; and
 mamba2-smoke through the kernels against the same model with the plain
-SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  zamba2-7b's
+SSD scan (f32 at 1e-4; bf16 within 0.02·(max|logit| + 1)).  The SSD
+backward kernels (``ssd_scan_bwd``) against the plain backward computed
+in f64 within ``chip_smoke.py``'s limits at the forward's cases, the
+default chunk, strided inputs, strong decay and the two models' layer
+dims, their launch counters, bit-equal repeats and a refused launch;
+``ssd_scan`` under autograd on the card; and one train step of
+mamba2-smoke and zamba2-smoke on the card against the CPU's.  zamba2-7b's
 shapes: the bf16 flash kernel at head dim 112 on the model's transposed
 views (no copy), the bf16 SSD kernel at state 64 with an odd S, and
 zamba2-smoke through both kernels (launches counted; f32 at 1e-4, bf16
@@ -1691,21 +1697,197 @@ def test_flash_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
         assert flash_ops.attention(q, k, v, **kw).grad_fn is None
 
 
+def _ssd_bwd_counts():
+    return (ssd_ops.BWD_STATE_LAUNCHES, ssd_ops.BWD_DSTATE_LAUNCHES,
+            ssd_ops.BWD_CHUNK_LAUNCHES, ssd_ops.BWD_REDUCE_LAUNCHES,
+            ssd_ops.BWD_LAUNCHES)
+
+
+def _ssd_dy(x, seed):
+    r = np.random.default_rng(seed)
+    return torch.tensor(r.standard_normal(tuple(x.shape)),
+                        dtype=torch.float32).to(x.device, x.dtype)
+
+
+def _ssd_bwd_check(x, dt, A, bm, cm, dy, chunk, dtype):
+    """The four backward kernels against the plain backward computed in f64
+    (``ssd_scan_bwd_ref``), each gradient within ``chip_smoke.py``'s
+    limits (``ssd_bwd_errors``: ``SSD_TOL`` of its largest |value|, each
+    row within ``SSD_ROW_TOL`` of its norm); one launch of each kernel; a
+    second call bit-equal (no atomics)."""
+    from _torch_helpers import chip_smoke
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    before = _ssd_bwd_counts()
+    got = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
+                               impl="kernel")
+    assert _ssd_bwd_counts() == tuple(c + 1 for c in before[:4]) + (
+        before[4] + 4,)
+    again = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
+                                 impl="kernel")
+    want = ssd_scan_bwd_ref(*(t.double() for t in (x, dt, A, bm, cm, dy)),
+                            min(chunk, x.shape[1]))
+    torch.cuda.synchronize()
+    for name, g, g2, w, t in zip(("x", "dt", "A", "B", "C"), got, again,
+                                 want, (x, dt, A, bm, cm)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        assert torch.equal(g, g2), name
+        errs = chip_smoke().ssd_bwd_errors(g.float(), w,
+                                           getattr(torch, dtype), name)
+        assert errs["fault"] is None, errs
+    return got
+
+
 @pytest.mark.gpu
-def test_ssd_kernel_route_refuses_grad_on_card(cuda):
-    """The SSD kernels have no backward yet: a CUDA call whose inputs
-    require grad raises and names the later slice; without grad it runs."""
-    x = torch.randn(1, 32, 2, 16, device=cuda)
-    dt = torch.rand(1, 32, 2, device=cuda)
-    a = -torch.rand(2, device=cuda)
-    bc = torch.randn(1, 32, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="A7.2c"):
-        ssd_ops.ssd_scan(x.requires_grad_(True), dt, a, bc, bc, chunk=16)
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 16, 8, 16), (2, 128, 4, 16, 8, 32), (2, 96, 4, 16, 8, 32),
+    (1, 64, 2, 16, 8, 32), (1, 128, 2, 16, 8, 64),
+    (2, 200, 4, 16, 8, 128), (2, 40, 3, 16, 8, 128), (1, 77, 2, 22, 13, 16),
+    (2, 300, 4, 64, 128, 256), (1, 300, 24, 64, 128, 128),
+    (1, 260, 112, 64, 64, 128)],
+    ids=["jax-64/16", "jax-128/32", "jax-96/32", "pallas-64/32",
+         "pallas-128/64", "ragged200/128", "s<chunk", "ragged-odd-dims",
+         "default-chunk-256", "mamba2-layer-s300", "zamba2-layer-s260"])
+def test_ssd_backward_matches_plain_on_card(cuda, dtype, b, s, h, p, n,
+                                            chunk):
+    """The JAX kernel tests' cases (``tests/test_kernels.py:107-139``), a
+    ragged S (200 at chunk 128), S < chunk, N and P off the tiles, the
+    default chunk 256 (run at 128), and mamba2-130m's and zamba2-7b's
+    layer dims at a short S; B and C read in place as slices of one
+    tensor where the model hands them over so."""
+    x, dt, A, bm, cm = _ssd_inputs(b, s, h, p, n, dtype, cuda, seed=20)
+    bc = torch.cat([bm, cm], dim=-1)              # the model's layout
+    _ssd_bwd_check(x, dt, A, bc[..., :n], bc[..., n:], _ssd_dy(x, 21), chunk,
+                   dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+def test_ssd_backward_reads_strided_inputs_on_card(cuda, dtype):
+    """B and C as slices of one (B, S, 2N) tensor, x and dy as transposed
+    views: the same gradients, bit for bit, as from contiguous copies."""
+    x, dt, A, bm, cm = _ssd_inputs(2, 260, 4, 64, 128, dtype, cuda, seed=22)
+    bc = torch.cat([bm, cm], dim=-1)
+    bv, cv = bc[..., :128], bc[..., 128:]
+    xt = x.transpose(0, 1).contiguous().transpose(0, 1)
+    dy = _ssd_dy(x, 23)
+    dyt = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    got = _ssd_bwd_check(xt, dt, A, bv, cv, dyt, 128, dtype)
+    want = ssd_ops.ssd_scan_bwd(x, dt, A, bv.contiguous(), cv.contiguous(),
+                                dy, chunk=128, impl="kernel")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+def test_ssd_backward_strong_decay_on_card(cuda, dtype):
+    """dt·A between -22 and -20 every step: a row of each gradient is its
+    diagonal term, and dA the tiny rest of da (the kernels leave its
+    cancelling diagonal out)."""
+    x, dt, A, bm, cm = _ssd_inputs(2, 256, 4, 64, 128, dtype, cuda, seed=24)
+    r = np.random.default_rng(25)
+    dt = torch.tensor(1.0 + 0.1 * r.random(tuple(dt.shape)),
+                      dtype=torch.float32, device=cuda)
+    A = torch.full_like(A, -20.0)
+    _ssd_bwd_check(x, dt, A, bm, cm, _ssd_dy(x, 26), 128, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
+    """``ssd_scan`` on CUDA inputs that require grad returns an output with
+    a ``grad_fn`` and the forward kernel's numbers; its backward launches
+    each backward kernel once and gives ``ssd_scan_bwd``'s gradients, bit
+    for bit, twice over; a bf16 dt gets its gradient in bf16 through the
+    counted cast; with ``return_final_state`` the state is
+    ``ssd_final_state``'s; without grad, no ``grad_fn``."""
+    x, dt, A, bm, cm = _ssd_inputs(2, 160, 4, 32, 16, dtype, cuda, seed=27)
+    dt16 = dt.bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt16, A, bm, cm)]
+    dy = _ssd_dy(x, 28)
+    before, copies = _ssd_bwd_counts(), ssd_ops.COPIES
+    y = ssd_ops.ssd_scan(*leaves, chunk=64)
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward"
+    assert ssd_ops.COPIES == copies + 1
     with torch.no_grad():
-        assert ssd_ops.ssd_scan(x, dt, a, bc, bc, chunk=16).shape == x.shape
-    with pytest.raises(NotImplementedError, match="A7.2c"):
-        ssd_ops.ssd_scan(x.detach(), dt, a, bc.requires_grad_(True), bc,
-                         chunk=16, impl="kernel")
+        assert torch.equal(y, ssd_ops.ssd_scan(*leaves, chunk=64))
+    g1 = torch.autograd.grad(y, leaves, dy)
+    g2 = torch.autograd.grad(ssd_ops.ssd_scan(*leaves, chunk=64), leaves, dy)
+    torch.cuda.synchronize()
+    assert _ssd_bwd_counts() == tuple(c + 2 for c in before[:4]) + (
+        before[4] + 8,)
+    want = ssd_ops.ssd_scan_bwd(x, dt16, A, bm, cm, dy, chunk=64)
+    for a, b, w, t in zip(g1, g2, want, (x, dt16, A, bm, cm)):
+        assert a.dtype == t.dtype
+        assert torch.equal(a, b) and torch.equal(a, w)
+    y, h = ssd_ops.ssd_scan(*leaves, chunk=64, return_final_state=True)
+    assert y.grad_fn is not None
+    assert torch.equal(h, ssd_ops.ssd_final_state(x, dt16, A, bm, cm))
+    with torch.no_grad():
+        assert ssd_ops.ssd_scan(*leaves, chunk=64).grad_fn is None
+
+
+@pytest.mark.gpu
+def test_ssd_backward_launch_error_on_card(cuda, monkeypatch):
+    """A state the kernels refuse (N = 160, past their 128), let through the
+    wrapper's own check, comes back from the C side as a
+    ``KernelLaunchError`` naming the kernel; nothing is counted."""
+    monkeypatch.setattr(ssd_ops, "MAX_STATE", 256)
+    x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 160, "float32", cuda)
+    before = _ssd_bwd_counts()
+    with pytest.raises(ssd_ops.KernelLaunchError, match="state kernel"):
+        ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 29), chunk=32,
+                             impl="kernel")
+    assert _ssd_bwd_counts() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_ssd_train_step_on_card_matches_cpu(cuda, arch, dtype):
+    """One ``make_train_step`` at the smoke width from the same weights and
+    a batch of 40 tokens a row (the SSD state across two chunk
+    boundaries) on the card (SSD forward and backward kernels; for zamba2
+    the flash kernels too) and on the CPU (plain versions): f32 loss, grad
+    norm and AdamW moments within 1e-4 (relative, and absolute of the
+    leaf's largest; the moments are linear in the gradient and its square,
+    where the master's step divides by √v + eps and moves an element whose
+    gradient lies near eps by rounding alone: ROADMAP C); bf16 loss and
+    grad norm within 5e-2; each backward kernel launched once a Mamba2
+    layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.runtime import make_train_step
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    r = np.random.default_rng(30)
+    batch = {k: torch.tensor(r.integers(0, cfg.vocab_size, (2, 40)))
+             for k in ("tokens", "labels")}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        state = adamw.init(init_params(cfg, 0, device=cuda).to(dev))
+        before = _ssd_bwd_counts()
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), schedule.constant)
+        state, m = step(state, {k: t.to(dev) for k, t in batch.items()})
+        if dev.type == "cuda":
+            assert _ssd_bwd_counts()[:4] == tuple(
+                c + cfg.n_layers for c in before[:4])
+        else:
+            assert _ssd_bwd_counts() == before
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {f"{part} {n}": t.cpu() for part in ("m", "v")
+                     for n, t in state[part].items()}))
+    (loss, gn, moments), (loss_c, gn_c, moments_c) = out
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    assert abs(loss - loss_c) <= tol * abs(loss_c)
+    assert abs(gn - gn_c) <= tol * abs(gn_c)
+    if dtype == "float32":
+        for name, t in moments_c.items():
+            np.testing.assert_allclose(
+                moments[name].numpy(), t.numpy(), rtol=tol,
+                atol=tol * float(t.abs().max()), err_msg=name)
 
 
 @pytest.mark.gpu
