@@ -309,7 +309,9 @@ of those paths against its plain PyTorch version on the card:
    largest |value| and each row within ``SSD_ROW_TOL`` of its norm, one
    launch of each kernel, a second call bit-equal; at the two train
    layers in bf16 each kernel timed alone with CUDA events beside its
-   bound, the four together and the plain backward; the flash backward at
+   bound (the function's own bytes or its operations at the type's peak)
+   and its buffers' bytes, the four together and the plain backward; the
+   flash backward at
    zamba2-7b's shared attention (B 4, S 1024, 32 heads of 112, causal)
    against ``attention_bwd_ref``.  Then mamba2-130m at full width and
    depth (24 layers, d_model 768, vocab 50280, N 128) through
@@ -324,13 +326,16 @@ of those paths against its plain PyTorch version on the card:
    flash forward and one of each flash backward kernel a shared-block
    application, no cast, copy or other kernel; every loss and grad norm
    finite; step 1 recomputed from weight seeds 0, 1 and 2
-   (:func:`ssd_step_one`), each time the loss within
-   ``LM_TRAIN_LOSS_RTOL`` and the grad norm within
-   ``LM_TRAIN_GNORM_RTOL``: in bf16 the kernels against their own forward
-   with the plain backward, in f32 (the same config) the kernels against
-   the plain SSD scan (``ssd_impl="plain"``), and the bf16 loss against
-   the plain SSD's (its grad norm printed beside, not gated: the random
-   model's bf16 rounding alone moves it by several %).  Printed for
+   (:func:`ssd_step_one`): in bf16 each gradient leaf on the kernels
+   within ``SSD_TRAIN_FLOOR_FACTOR`` floors of the plain SSD scan's
+   (``ssd_impl="plain"``), each leaf's floor read in the same run from
+   the plain scan in f64 and in half chunks, and the loss within
+   ``LM_TRAIN_LOSS_RTOL`` of it; the loss and the grad norm within
+   ``LM_TRAIN_LOSS_RTOL`` and ``LM_TRAIN_GNORM_RTOL`` in bf16 against
+   the kernels' own forward with the plain backward, and in f32 (the same
+   config) against the plain SSD (the bf16 grad norm against the plain
+   SSD's printed, not gated: rounding alone moves it by several %).
+   Printed for
    each: ms a step (median of steps 2-6, host clock), the first step, the
    peak ``max_memory_allocated``, the bounds (6·N·tokens at the bf16 peak,
    AdamW's bytes), a profile of one more step by group (SSD backward, SSD
@@ -4833,8 +4838,26 @@ SSM_RESTART_SEQ = 40                              # the smoke's chunk is 16
 # once to bf16 lying up to 2^-9 of each value off).  The f32 kernels sum
 # C·B and dy·x in f64, as the f32 forward sums C·B; the smoke's
 # strong-decay case (dt·A near -20 a step) holds dA, which an f32 sum of
-# da's cancelling diagonal would lose (tests/test_torch_ssd_backward.py).
+# da's cancelling diagonal would lose.
 SSD_BWD_GRADS = ("x", "dt", "A", "B", "C")
+# Step 1 of a bf16 train path on the kernels against the plain SSD
+# (ssd_impl="plain"), leaf by leaf.  These random models amplify the
+# rounding of their bf16 activations: a change of rounding alone moves
+# their gradient leaves by several % to tens of % (JAX's model alike:
+# tests/test_torch_trainer.py::test_bf16_rounding_floor_is_the_models_own),
+# so no fixed limit on the bf16 gradient tells right from wrong.  Each
+# leaf's distance from the plain SSD's gradient (the norm of the
+# difference over the norm) is held within SSD_TRAIN_FLOOR_FACTOR times
+# that leaf's floor, measured in the same run from the same weights and
+# batch: the larger of its distances to two other correct SSDs, the plain
+# scan computed in f64 (y rounded once to bf16) and in chunks of half the
+# model's, and never less than one bf16 rounding (2^-8).  Set before its
+# first card run, from tools/ssd_train_floor.py on the CPU (mamba2-130m, 24
+# layers, one row of 512 tokens, seeds 0-2): three more correct SSDs (f64
+# forward with the f32 backward, chunks of a quarter, f64 in chunks of
+# half) lay at most 1.85 floors from the plain SSD at their worst leaf.
+SSD_TRAIN_FLOOR_FACTOR = 3.0
+BF16_ROUNDING = 2.0 ** -8
 SSM_TRAIN_GROUPS = (("ssd_backward", ("ssd_scan_bwd",)),
                     ("ssd_forward", ("ssd_scan_kernel",)),
                     ("flash_backward", ("flash_attention_bwd",)),
@@ -4869,37 +4892,48 @@ def ssd_bwd_errors(g, w, dtype, name: str) -> dict:
 
 
 def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype) -> dict:
-    """(bytes_ms, operations_ms) on an H100 SXM of each backward kernel —
-    its own inputs read once and its outputs written once, the buffers it
-    shares with the others included — and of the whole gradient (x, dt, A,
-    B, C and dy read, the five gradients written).  Operations at the f32
-    FFMA peak: a state pass 2·B·H·S·N·P; the chunk kernel C·Bᵀ over each
-    chunk's lower triangle once per batch row, and per head dy·xᵀ and the
-    intra-chunk products of dx, dB and dC over it, and three L·N·P state
-    products a chunk; the reduction one add per partial."""
+    """(bytes_ms, operations_ms, buffers_ms) on an H100 SXM of each
+    backward kernel and of the whole gradient.  bytes_ms: the function's
+    own inputs (x, dt, A, B, C, dy) read once and its gradients written
+    once, each counted at the kernel that reads or writes it.  buffers_ms:
+    the bytes of the design's own buffers (each chunk's S_in and G, the
+    per-head partials of dB, dC and dA), written once and read once, which
+    the function does not need: not in the bound, reported beside it for
+    the redesign.  operations_ms at the type's peak: a state pass
+    2·B·H·S·N·P; the chunk kernel C·Bᵀ over each chunk's lower triangle
+    once per batch row, and per head dy·xᵀ and the intra-chunk products of
+    dx, dB and dC over it, and three L·N·P state products a chunk; the
+    reduction the head sums of dB and dC."""
     isz = torch.tensor([], dtype=dtype).element_size()
     nc = -(-s // chunk)
     lens = [min(chunk, s - s0) for s0 in range(0, s, chunk)]
     pairs = sum(L * (L + 1) // 2 for L in lens)
     xs, bs, dts = b * s * h * p * isz, b * s * n * isz, b * s * h * 4
     states = b * nc * h * n * p * 4
-    parts = 2 * b * s * h * n * 4
+    parts = 2 * b * s * h * n * 4 + b * nc * h * 4
     state_ops = 2.0 * b * h * s * n * p
     chunk_ops = 2.0 * b * pairs * n + 2.0 * b * h * (
         pairs * (2 * p + 2 * n) + 3.0 * s * n * p)
-    peak = PEAK[torch.float32]
+    reduce_ops = 2.0 * b * s * h * n
+    peak = PEAK[dtype]
 
-    def times(nbytes, ops):
-        return nbytes / H100_SXM.hbm_bw * 1e3, ops / peak * 1e3
+    def times(nbytes, ops, buffers):
+        return (nbytes / H100_SXM.hbm_bw * 1e3, ops / peak * 1e3,
+                buffers / H100_SXM.hbm_bw * 1e3)
     return {
-        "state": times(xs + bs + dts + states, state_ops),
-        "dstate": times(xs + bs + dts + states, state_ops),
-        "chunk": times(3 * xs + 2 * bs + 2 * dts + 2 * states + parts
-                       + b * nc * h * 4, chunk_ops),
-        "reduce": times(parts + b * nc * h * 4 + 2 * bs + h * 4,
-                        parts / 4.0),
+        # x, B, dt read; S_in written (a buffer)
+        "state": times(xs + bs + dts, state_ops, states),
+        # dy, C, dt read; G written (a buffer)
+        "dstate": times(xs + bs + dts, state_ops, states),
+        # x, dy, dt, B, C read, dx and ddt written; S_in and G read, the
+        # partials written (buffers)
+        "chunk": times(3 * xs + 2 * bs + 2 * dts, chunk_ops,
+                       2 * states + parts),
+        # dB, dC, dA written; the partials read (buffers)
+        "reduce": times(2 * bs + h * 4, reduce_ops, parts),
         "gradient": times(3 * xs + 4 * bs + 2 * dts + 2 * h * 4,
-                          2 * state_ops + chunk_ops)}
+                          2 * state_ops + chunk_ops + reduce_ops,
+                          4 * states + 2 * parts)}
 
 
 def ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy, chunk, device,
@@ -4985,10 +5019,12 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
         row["plain_ms"] = timed_ms(lambda: ssd_scan_bwd_ref(
             x, dt, A, bm, cm, dy, min(chunk, s)), device, 3, warmup=1)
         row["bound_ms"], row["bound_by"], row["bytes_ms"] = {}, {}, {}
-        for which, (t_bytes, t_ops) in bounds.items():
+        row["buffers_ms"] = {}
+        for which, (t_bytes, t_ops, t_buf) in bounds.items():
             row["bound_ms"][which], row["bound_by"][which] = bound_of(
                 t_bytes, t_ops)
             row["bytes_ms"][which] = t_bytes
+            row["buffers_ms"][which] = t_buf
     return row
 
 
@@ -5084,28 +5120,96 @@ def ssm_train_run(cfg, batch: int, seq: int, ckpt_dir: str,
     return trainer
 
 
+class PlainScan(torch.autograd.Function):
+    """The plain chunked scan with its forward computed in ``fwd`` and its
+    backward in ``bwd`` (recomputed from the saved inputs), y and each
+    gradient rounded to its input's type."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, fwd, bwd):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk, ctx.bwd = chunk, bwd
+        return ssd_chunked_ref(*(t.to(fwd) for t in (x, dt, A, Bm, Cm)),
+                               chunk).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+        ins = ctx.saved_tensors
+        grads = ssd_scan_bwd_ref(*(t.to(ctx.bwd) for t in ins),
+                                 dy.to(ctx.bwd), ctx.chunk)
+        return (*(g.to(t.dtype) for g, t in zip(grads, ins)), None, None,
+                None)
+
+
+def scan_variant(variant: str):
+    """A stand-in for the model's ``ssd_scan``, another correct SSD:
+    ``"f64"`` (:class:`PlainScan` in f64 at the model's chunk) or
+    ``"half"`` (the plain scan in chunks of half the model's)."""
+    def scan(x, dt, A, Bm, Cm, chunk=256, impl="auto",
+             return_final_state=False):
+        c = min(chunk, x.shape[1], ssd_ops.MAX_CHUNK)
+        if variant == "f64":
+            return PlainScan.apply(x, dt, A, Bm, Cm, c, torch.float64,
+                                   torch.float64)
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, max(c // 2, 1))
+    return scan
+
+
 def ssd_step_grads(step, master, batch, impl: str = "auto",
-                   plain_bwd: bool = False) -> dict:
-    """Step 1's loss and gradient norm at ``master`` on ``batch``, the
-    optimizer not applied, with the SSD scan's ``impl``; ``plain_bwd``:
-    the kernels' forward with ``ssd_scan_bwd_ref`` in place of the
-    backward kernels (the same activations, only the gradient's arithmetic
-    differs)."""
+                   plain_bwd: bool = False, scan=None) -> tuple:
+    """Step 1's ``({"loss", "grad_norm"}, gradients)`` at ``master`` on
+    ``batch``, the optimizer not applied, with the SSD scan's ``impl``;
+    ``plain_bwd``: the kernels' forward with ``ssd_scan_bwd_ref`` in place
+    of the backward kernels (the same activations, only the gradient's
+    arithmetic differs); ``scan``: a :func:`scan_variant` in place of the
+    model's SSD scan."""
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.models import layers as model_layers
     from repro_torch.optim import adamw
     step.cast_params(master).ssd_impl = impl
-    launch_bwd = ssd_ops._launch_bwd
+    launch_bwd, model_scan = ssd_ops._launch_bwd, model_layers.ssd_scan
     if plain_bwd:
         ssd_ops._launch_bwd = lambda x, dt, A, bm, cm, dy, chunk: \
             ssd_scan_bwd_ref(x, dt, A, bm, cm, dy, min(chunk, 128))
+    if scan is not None:
+        model_layers.ssd_scan = scan
     try:
         loss, _, grads = step.grads({"master": master}, batch)
     finally:
-        ssd_ops._launch_bwd = launch_bwd
+        ssd_ops._launch_bwd, model_layers.ssd_scan = launch_bwd, model_scan
         step.model.ssd_impl = "auto"
-    out = {"loss": float(loss), "grad_norm": float(adamw.global_norm(grads))}
-    del grads
-    return out
+    return ({"loss": float(loss),
+             "grad_norm": float(adamw.global_norm(grads))}, grads)
+
+
+def leaf_dists(grads: dict, ref: dict) -> dict:
+    """Each leaf's distance from ``ref``'s: the norm of the difference over
+    the norm of ``ref``'s leaf."""
+    return {n: float((grads[n].float() - ref[n].float()).norm()
+                     / ref[n].float().norm().clamp_min(1e-30)) for n in ref}
+
+
+def bf16_leaf_gate(step, master, batch) -> tuple:
+    """Step 1 in bf16 with the plain SSD, the two floor witnesses of
+    SSD_TRAIN_FLOOR_FACTOR and the kernels: ``(readings, the kernels' leaf
+    distances from the plain SSD's, each leaf's floor, their ratio, the
+    leaves over SSD_TRAIN_FLOOR_FACTOR)``."""
+    plain, ref = ssd_step_grads(step, master, batch, "plain")
+    out, floor = {"plain": plain}, {}
+    for name in ("f64", "half"):
+        out["plain_" + name], g = ssd_step_grads(step, master, batch,
+                                                 "plain",
+                                                 scan=scan_variant(name))
+        for n, d in leaf_dists(g, ref).items():
+            floor[n] = max(floor.get(n, 0.0), d)
+        del g
+    out["kernels"], g = ssd_step_grads(step, master, batch)
+    dist = leaf_dists(g, ref)
+    del g, ref
+    ratio = {n: dist[n] / max(floor[n], BF16_ROUNDING) for n in dist}
+    over = sorted(n for n in ratio if not ratio[n] <= SSD_TRAIN_FLOOR_FACTOR)
+    return out, dist, floor, ratio, over
 
 
 def rel_gap(got: dict, want: dict) -> dict:
@@ -5113,23 +5217,26 @@ def rel_gap(got: dict, want: dict) -> dict:
             for k in ("loss", "grad_norm")}
 
 
+def top_leaves(values: dict, k: int = 5) -> list:
+    return [[n, values[n]] for n in sorted(values, key=values.get,
+                                           reverse=True)[:k]]
+
+
 def ssd_step_one(trainer, device) -> list:
     """Step 1 for each of SSM_TRAIN_SEEDS (weights drawn from the seed,
     batch number ``seed`` of the data config; seed 0 is the main run's
-    first step).  In bf16, the path's type: on the kernels, on the
-    kernels' forward with the plain backward, and with the plain SSD
-    (``ssd_impl="plain"``).  In f32 (the same config, weights from the
-    same seed: the FFMA forward kernel and the backward kernels in f32):
-    on the kernels and with the plain SSD.  Gated, each within
-    LM_TRAIN_LOSS_RTOL (loss) and LM_TRAIN_GNORM_RTOL (grad norm): the bf16
-    kernels against the plain backward on the same activations, the f32
-    kernels against the plain SSD, and the bf16 loss against the plain
-    SSD's.  Not gated, printed: the bf16 grad norm against the plain
-    SSD's, whose forward rounds y otherwise — this random model's
-    gradient moves by several % when only its bf16 rounding changes
-    (``tools/ssd_train_floor.py``: the plain SSD against the same in f64
-    on the CPU, mamba2-130m, one row of 2048 tokens, 63.91 against
-    58.05)."""
+    first step).  In bf16, the path's type: with the plain SSD
+    (``ssd_impl="plain"``) and its two floor witnesses, on the kernels, and
+    on the kernels' forward with the plain backward.  In f32 (the same
+    config, weights from the same seed: the FFMA forward kernel and the
+    backward kernels in f32): on the kernels and with the plain SSD.
+    Gated: the bf16 kernels' gradient against the plain SSD's leaf by leaf,
+    within SSD_TRAIN_FLOOR_FACTOR of each leaf's floor, and their loss
+    within LM_TRAIN_LOSS_RTOL of it; the bf16 kernels against the plain
+    backward on the same activations, and the f32 kernels against the plain
+    SSD, each within LM_TRAIN_LOSS_RTOL (loss) and LM_TRAIN_GNORM_RTOL
+    (grad norm).  Printed, not gated: the bf16 grad norm against the plain
+    SSD's, which the floor moves by several %."""
     from repro_torch.data import make_batch
     from repro_torch.models import init_params
     from repro_torch.runtime import make_train_step
@@ -5145,35 +5252,52 @@ def ssd_step_one(trainer, device) -> list:
         master = {n: p.detach().float() for n, p in
                   init_params(trainer.cfg, seed, device=device)
                   .named_parameters()}
-        got = {"seed": seed,
-               "bf16": {"kernels": ssd_step_grads(trainer._step_fn, master,
-                                                  batch),
-                        "plain_backward": ssd_step_grads(
-                            trainer._step_fn, master, batch,
-                            plain_bwd=True),
-                        "plain": ssd_step_grads(trainer._step_fn, master,
-                                                batch, "plain")}}
+        b16, dist, floor, ratio, over = bf16_leaf_gate(trainer._step_fn,
+                                                       master, batch)
+        b16["plain_backward"] = ssd_step_grads(trainer._step_fn, master,
+                                               batch, plain_bwd=True)[0]
+        got = {"seed": seed, "bf16": b16,
+               "bf16_leaves": {
+                   "floor_factor": SSD_TRAIN_FLOOR_FACTOR,
+                   "leaves": len(dist),
+                   "kernels_median": statistics.median(dist.values()),
+                   "floor_median": statistics.median(floor.values()),
+                   "nearest_their_limit": [
+                       [n, dist[n], floor[n], ratio[n]] for n, _ in
+                       top_leaves(ratio)],
+                   "floor_moved_most": top_leaves(floor)}}
         del master
         trainer._step_fn.model = None
         gc.collect()
         torch.cuda.empty_cache()
+        if over:
+            fail(f"ssm_train {trainer.cfg.name}: step 1 (seed {seed}) on the "
+                 f"bf16 kernels: {len(over)} gradient leaves beyond "
+                 f"{SSD_TRAIN_FLOOR_FACTOR} floors of the plain SSD's: "
+                 f"{[[n, dist[n], floor[n]] for n in over[:10]]}; {got}")
         master = dict(init_params(cfg32, seed, device=device)
                       .named_parameters())
         master = {n: p.detach() for n, p in master.items()}
-        got["f32"] = {"kernels": ssd_step_grads(step32, master, batch),
+        got["f32"] = {"kernels": ssd_step_grads(step32, master, batch)[0],
                       "plain": ssd_step_grads(step32, master, batch,
-                                              "plain")}
+                                              "plain")[0]}
         del master, batch
         step32.model = None
-        b16, f32 = got["bf16"], got["f32"]
+        f32 = got["f32"]
         got["gaps"] = {
             "bf16_kernels_vs_plain_backward": rel_gap(b16["kernels"],
                                                       b16["plain_backward"]),
             "f32_kernels_vs_plain": rel_gap(f32["kernels"], f32["plain"]),
-            "bf16_kernels_vs_plain": rel_gap(b16["kernels"], b16["plain"])}
+            "bf16_kernels_vs_plain": rel_gap(b16["kernels"], b16["plain"]),
+            "bf16_plain_f64_vs_plain": rel_gap(b16["plain_f64"],
+                                               b16["plain"]),
+            "bf16_plain_half_vs_plain": rel_gap(b16["plain_half"],
+                                                b16["plain"])}
         gated = [(what, k, v) for what, gap in got["gaps"].items()
                  for k, v in gap.items()
-                 if what != "bf16_kernels_vs_plain" or k == "loss"]
+                 if what in ("bf16_kernels_vs_plain_backward",
+                             "f32_kernels_vs_plain")
+                 or (what == "bf16_kernels_vs_plain" and k == "loss")]
         over = [(what, k, v) for what, k, v in gated
                 if v > (LM_TRAIN_LOSS_RTOL if k == "loss"
                         else LM_TRAIN_GNORM_RTOL)]
@@ -5311,17 +5435,24 @@ def ssd_bwd_entries(ssm_train: dict) -> list:
             "library_ms": None,
             "library_call": "none: no single PyTorch call computes the "
                             "SSD scan's gradient",
+            "buffers_ms": layer["buffers_ms"][which],
             HYBRID_ARCH: {"ms": zlayer["kernel_ms"][which],
                           "bound_ms": zlayer["bound_ms"][which],
                           "bound_by": zlayer["bound_by"][which],
+                          "buffers_ms": zlayer["buffers_ms"][which],
                           "plain_ms": zlayer["plain_ms"]},
+            "gradient_ms": layer["all_kernels_ms"],
             "gradient_bound_ms": layer["bound_ms"]["gradient"],
+            "gradient_buffers_ms": layer["buffers_ms"]["gradient"],
             "at": f"one launch at the {SSM_ARCH} train layer ({shape}); "
                   f"plain_ms: the whole plain backward (autograd through "
-                  f"the chunked scan) at that shape; bound_ms: this "
-                  f"kernel's own inputs and outputs, its buffers included, "
-                  f"or its operations at the f32 FFMA peak; max_abs_err: "
-                  f"the largest gradient error over every case"})
+                  f"the chunked scan) at that shape; bound_ms: the "
+                  f"function's own inputs and gradients that this kernel "
+                  f"reads or writes, or its operations at the bf16 peak; "
+                  f"buffers_ms: the design's own buffers (S_in, G, the "
+                  f"per-head partials) at the HBM rate, not in the bound; "
+                  f"max_abs_err: the largest gradient error over every "
+                  f"case"})
     return out
 
 

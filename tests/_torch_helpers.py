@@ -103,3 +103,29 @@ def chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+#: A step-1 gradient element above this (100 × AdamW's eps of 1e-8) takes
+#: the step lr·g/(|g| + eps), which is lr·sign(g) to 1%: f32 rounding of g
+#: cannot move it.  At or below it the step turns g's relative rounding
+#: into up to a quarter of lr.
+G_NEAR_EPS = 1e-6
+
+
+def assert_master_close(got, want, g, lr, tol, what):
+    """Master params after one AdamW step within ``tol`` (relative, and
+    absolute of the leaf's largest) wherever the step's gradient ``g``
+    has |g| > :data:`G_NEAR_EPS`.  An element outside ``tol`` must have
+    |g| ≤ :data:`G_NEAR_EPS` and lie within 2·lr (two steps of at most lr
+    each), and the message lists each such element's |g|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    g = np.abs(np.asarray(g, np.float64))
+    err = np.abs(got - want)
+    off = err > tol * np.abs(want) + tol * max(float(np.abs(want).max()),
+                                               1e-30)
+    listed = ", ".join(f"|g| {a:.3g} err {e:.3g}"
+                       for a, e in zip(g[off][:20], err[off][:20]))
+    assert not np.any(off & (g > G_NEAR_EPS)), \
+        f"{what}: outside {tol} where |g| > {G_NEAR_EPS}: {listed}"
+    assert np.all(err[off] <= 2 * lr), f"{what}: beyond 2·lr: {listed}"
+    return int(off.sum())

@@ -14,14 +14,12 @@ The gradient through ``return_final_state=True`` and through
 ``ssd_final_state``.  A kernel asked for on CPU tensors raises.
 
 The backward kernels run only on a card (``tests/test_torch_kernels_gpu.py``,
-``chip_smoke.py``).  Here, :func:`_kernel_model` repeats their arithmetic
-in plain torch — the state pass, the reverse pass, the chunk terms with the
-cancelling diagonal left out, the sums over heads — and is held against
-the plain gradient in f64; in f32 under strong decay it keeps dA, where
-the form that sums M_kk into both of da's sums does not.  The autograd
-wiring of the kernel route runs with its launches replaced by the plain
-versions, and the smoke's SSD limits, applied to the five gradients,
-catch a dropped state cotangent and a decay 1% off.
+``chip_smoke.py``, which holds them against the plain gradient in f64,
+strong decay included).  Here the autograd wiring of the kernel route runs
+with its launches replaced by the plain versions, and the smoke's SSD
+limits, applied to the five gradients, pass the plain gradient in the
+working type and catch planted faults: chunks cut apart (no state or state
+cotangent carried) and a decay 1% off.
 """
 from unittest import mock
 
@@ -200,159 +198,54 @@ def test_kernel_route_autograd_wiring(final_state):
         assert torch.equal(h, ops.ssd_final_state(*ts))
 
 
-# ------------------------------------------- the kernels' arithmetic in torch
-def _kernel_model(x, dt, A, Bm, Cm, dy, chunk, fault=None):
-    """``(dx, ddt, dA, dB, dC)`` by the arithmetic of
-    ``csrc/ssd_scan_bwd.cu`` in plain torch, in the inputs' dtype (the
-    cumsum of dt·A in f64, each decay's exponent rounded once): the
-    states entering each chunk (state kernel), the cotangents of the states
-    leaving them (dstate kernel), each chunk's terms with M_kk and the
-    j = k = L-1 state term left out of da (chunk kernel), the per-head
-    partials summed (reduce kernel).  ``fault``: ``"both-diagonals"`` (the
-    cancelling terms kept in both of da's sums), ``"no-state-cotangent"``
-    (G = 0) or ``"decay*1.01"``."""
-    b, s, h, p = x.shape
-    ct = x.dtype
-    A = A * (1.01 if fault == "decay*1.01" else 1.0)
-    bounds = [(s0, min(s0 + chunk, s)) for s0 in range(0, s, chunk)]
-
-    def cumsum(sl):                                        # (b, L, h), f64
-        return torch.cumsum(dt[:, sl].double() * A.double(), dim=1)
-
-    def ex(v):                                             # the exponent rounded once
-        return torch.exp(v.to(ct))
-
-    S = torch.zeros(b, h, Bm.shape[-1], p, dtype=ct)
-    sins = []
-    for s0, s1 in bounds:
-        sins.append(S)
-        a = cumsum(slice(s0, s1))
-        w = ex(a[:, -1:] - a) * dt[:, s0:s1]
-        S = ex(a[:, -1])[..., None, None] * S + torch.einsum(
-            "bjh,bjn,bjhp->bhnp", w, Bm[:, s0:s1], x[:, s0:s1])
-    G = torch.zeros_like(S)
-    gs = [None] * len(bounds)
-    for c in range(len(bounds) - 1, -1, -1):
-        s0, s1 = bounds[c]
-        gs[c] = torch.zeros_like(G) if fault == "no-state-cotangent" else G
-        a = cumsum(slice(s0, s1))
-        G = ex(a[:, -1])[..., None, None] * G + torch.einsum(
-            "bih,bin,bihp->bhnp", ex(a), Cm[:, s0:s1], dy[:, s0:s1])
-    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
-    dBp = torch.zeros(b, s, h, Bm.shape[-1], dtype=ct)
-    dCp, dA = torch.zeros_like(dBp), torch.zeros(h, dtype=ct)
-    for c, (s0, s1) in enumerate(bounds):
-        sl, L = slice(s0, s1), s1 - s0
-        a, d = cumsum(sl), dt[:, sl]
-        ea, w = ex(a), ex(a[:, -1:] - a)
-        tri = torch.ones(L, L, dtype=torch.bool).tril()[None, :, :, None]
-        below = torch.ones(L, L, dtype=torch.bool).tril(-1)[None, :, :, None]
-        dec = torch.where(tri, ex(torch.where(
-            tri, a[:, :, None] - a[:, None], 0.0)), 0.0)   # (b, i, j, h)
-        X, DY, Bc, Cc = x[:, sl], dy[:, sl], Bm[:, sl], Cm[:, sl]
-        W2 = dec * torch.einsum("bihp,bjhp->bijh", DY, X)
-        CB = torch.einsum("bin,bjn->bij", Cc, Bc)[..., None]
-        P = CB * W2
-        Pb = P if fault == "both-diagonals" else torch.where(below, P, 0.0)
-        rs = torch.einsum("bijh,bjh->bih", Pb, d)
-        cs = Pb.sum(1)
-        pd = 0.0 if fault == "both-diagonals" else \
-            torch.diagonal(P, dim1=1, dim2=2).permute(0, 2, 1)
-        XG = torch.einsum("bjhp,bhnp->bjhn", X, gs[c])
-        dYS = torch.einsum("bihp,bhnp->bihn", DY, sins[c])
-        bgx = torch.einsum("bjn,bjhn->bjh", Bc, XG)
-        csd = torch.einsum("bin,bihn->bih", Cc, dYS)
-        dBp[:, sl] = d[..., None] * (torch.einsum("bijh,bin->bjhn", W2, Cc)
-                                     + w[..., None] * XG)
-        dCp[:, sl] = torch.einsum("bijh,bjh,bjn->bihn", W2, d, Bc) \
-            + ea[..., None] * dYS
-        dx[:, sl] = d[..., None] * (
-            torch.einsum("bijh,bihp->bjhp", CB * dec, DY)
-            + w[..., None] * torch.einsum("bjn,bhnp->bjhp", Bc, gs[c]))
-        da, wdb = rs - d * cs + ea * csd, w * d * bgx
-        sg = ex(a[:, -1]) * (sins[c] * gs[c]).sum((-1, -2))
-        if fault == "both-diagonals":
-            da = da - wdb
-            da[:, -1] += wdb.sum(1) + sg
-        else:
-            da[:, :-1] -= wdb[:, :-1]
-            da[:, -1] += wdb[:, :-1].sum(1) + sg
-        r = torch.flip(torch.cumsum(torch.flip(da, [1]), 1), [1])
-        ddt[:, sl] = cs + pd + w * bgx + A * r
-        dA = dA + (r * d).sum((0, 1))
-    return dx, ddt, dA, dBp.sum(2), dCp.sum(2)
-
-
-def _f64(ts, tdy):
-    return [t.double() for t in ts], tdy.double()
-
-
-@pytest.mark.parametrize("s,chunk,strong", [
-    (40, 16, False), (100, 32, False), (37, 64, False), (50, 16, True)],
-    ids=["40/16", "ragged100/32", "s<chunk", "strong-decay"])
-def test_kernel_arithmetic_matches_the_plain_gradient(s, chunk, strong):
-    """The kernels' formulas in f64 against autograd through the plain scan
-    in f64, within 1e-12 of each gradient's largest |value| (dA under
-    strong decay within 1e-5: the plain gradient itself sums M_kk into both
-    sides there, and keeps ~1e-16 of a term ~1e9 times dA)."""
-    _, ts = ssd_pair(2, s, 3, 8, 6, seed=8)
-    if strong:                                   # dt·A = -20 every step
-        ts[1], ts[2] = torch.ones_like(ts[1]), torch.full_like(ts[2], -20.0)
-    tdy = torch.from_numpy(normal(rng(9), tuple(ts[0].shape)))
-    ts, tdy = _f64(ts, tdy)
-    got = _kernel_model(*ts, tdy, chunk)
-    want = ssd_scan_bwd_ref(*ts, tdy, chunk)
-    for name, g, w in zip(GRADS, got, want):
-        tol = 1e-5 if strong and name == "A" else 1e-12
-        _close(g, w, tol, f"d{name}")
-
-
-def test_kernel_arithmetic_keeps_da_under_strong_decay_in_f32():
-    """Where dt·A is -20 a step, M_kk is ~5e8 times the rest of da: in f32
-    the kernels' form (the cancelling terms left out) keeps dA within 1e-4
-    of the f64 plain gradient's largest |dA|, the form that sums them into
-    both sides loses it."""
-    _, ts = ssd_pair(2, 50, 3, 8, 6, seed=10)
-    ts[1], ts[2] = torch.ones_like(ts[1]), torch.full_like(ts[2], -20.0)
-    tdy = torch.from_numpy(normal(rng(11), tuple(ts[0].shape)))
-    want = ssd_scan_bwd_ref(*_f64(ts, tdy)[0], tdy.double(), 16)[2]
-    top = float(want.abs().max())
-    good = _kernel_model(*ts, tdy, 16)[2].double()
-    bad = _kernel_model(*ts, tdy, 16, fault="both-diagonals")[2].double()
-    assert float((good - want).abs().max()) <= 1e-4 * top
-    assert float((bad - want).abs().max()) > 1e-2 * top
-
-
 # ---------------------------------------- chip_smoke.py's SSD backward limits
-@pytest.mark.parametrize("dtype", sorted(TOL))
-def test_smoke_limits_pass_the_kernels_arithmetic(dtype):
-    """``chip_smoke.ssd_bwd_errors`` passes the kernels' formulas (in f32,
-    the outputs rounded to the inputs' dtype) against the f64 plain
-    gradient, at a ragged S with two state dims of several slices."""
-    smoke = chip_smoke()
+def _planted(ts, tdy, chunk, fault):
+    """The plain gradient with a fault planted: ``"decay*1.01"`` (A taken
+    1% off) or ``"chunks-cut"`` (each chunk's gradient alone: no state
+    carried into a chunk, no state cotangent carried back)."""
+    x, dt, A, Bm, Cm = ts
+    if fault == "decay*1.01":
+        return ssd_scan_bwd_ref(x, dt, A * 1.01, Bm, Cm, tdy, chunk)
+    parts = [ssd_scan_bwd_ref(*(t[:, s0:s0 + chunk] for t in (x, dt)), A,
+                              *(t[:, s0:s0 + chunk] for t in (Bm, Cm, tdy)),
+                              chunk)
+             for s0 in range(0, x.shape[1], chunk)]
+    dx, ddt, dB, dC = (torch.cat([g[i] for g in parts], 1)
+                       for i in (0, 1, 3, 4))
+    return dx, ddt, sum(g[2] for g in parts), dB, dC
+
+
+def _limit_case(dtype):
     _, ts = ssd_pair(2, 150, 3, 16, 20, dtype, seed=12)
     tdy = torch.from_numpy(normal(rng(13), tuple(ts[0].shape))).to(
         ts[0].dtype)
-    want = ssd_scan_bwd_ref(*_f64(ts, tdy)[0], tdy.double(), 64)
-    got = _kernel_model(*(t.float() for t in ts), tdy.float(), 64)
+    return ts, tdy, ssd_scan_bwd_ref(*(t.double() for t in ts),
+                                     tdy.double(), 64)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_smoke_limits_pass_the_plain_gradient(dtype):
+    """``chip_smoke.ssd_bwd_errors`` passes the plain gradient in the
+    working type (f32 arithmetic, each gradient in its input's dtype)
+    against the same in f64, at a ragged S of three chunks."""
+    smoke = chip_smoke()
+    ts, tdy, want = _limit_case(dtype)
+    got = ssd_scan_bwd_ref(*ts, tdy, 64)
     for name, g, w, t in zip(GRADS, got, want, ts):
-        errs = smoke.ssd_bwd_errors(g.to(t.dtype).float(), w, t.dtype, name)
+        assert g.dtype == t.dtype
+        errs = smoke.ssd_bwd_errors(g.float(), w, t.dtype, name)
         assert errs["fault"] is None, (name, errs)
 
 
-@pytest.mark.parametrize("fault", ["no-state-cotangent", "decay*1.01"])
-def test_smoke_limits_catch_backward_faults(fault):
-    """The same limits fail a backward that drops the state's cotangent
-    (the chunks' gradients cut apart) or takes the decay 1% off, in bf16,
-    the looser type: some gradient leaves its limit."""
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("fault", ["chunks-cut", "decay*1.01"])
+def test_smoke_limits_catch_backward_faults(fault, dtype):
+    """The same limits fail a gradient whose chunks are cut apart (the
+    state and its cotangent not carried) or whose decay is 1% off: some
+    gradient leaves its limit."""
     smoke = chip_smoke()
-    _, ts = ssd_pair(2, 150, 3, 16, 20, "bfloat16", seed=12)
-    tdy = torch.from_numpy(normal(rng(13), tuple(ts[0].shape))).to(
-        ts[0].dtype)
-    want = ssd_scan_bwd_ref(*_f64(ts, tdy)[0], tdy.double(), 64)
-    got = _kernel_model(*(t.float() for t in ts), tdy.float(), 64,
-                        fault=fault)
-    faults = [smoke.ssd_bwd_errors(g.to(t.dtype).float(), w, t.dtype,
-                                   name)["fault"]
+    ts, tdy, want = _limit_case(dtype)
+    got = _planted(ts, tdy, 64, fault)
+    faults = [smoke.ssd_bwd_errors(g.float(), w, t.dtype, name)["fault"]
               for name, g, w, t in zip(GRADS, got, want, ts)]
     assert any(f is not None for f in faults), faults
