@@ -297,8 +297,11 @@ of those paths against its plain PyTorch version on the card:
    the final master params and moments bit-equal to the uninterrupted
    run's;
 17. ssm_train: the earlier phases' memory freed first, as lm_train's.  The
-   four SSD backward kernels (``ssd_scan_bwd_{state,dstate,chunk,reduce}
-   _kernel``, ``csrc/ssd_scan_bwd.cu``) through ``ssd_scan_bwd`` against
+   four SSD backward kernels (``ssd_scan_bwd_{state,dstate,reduce}
+   _kernel`` of ``csrc/ssd_scan_bwd.cu`` and the chunk kernel of the
+   type: ``ssd_scan_bwd_chunk_kernel_wgmma`` of
+   ``csrc/ssd_scan_bwd_wgmma.cu`` in bf16, ``ssd_scan_bwd_chunk_kernel``
+   in f32) through ``ssd_scan_bwd`` against
    ``ssd_scan_bwd_ref`` computed in f64 (autograd through the chunked
    scan), all five gradients, in bf16 and f32: the JAX kernel tests'
    cases, a ragged S (200 at chunk 128), S < chunk, the default chunk 256
@@ -307,11 +310,12 @@ of those paths against its plain PyTorch version on the card:
    H 24, P 64, N 128) and zamba2-7b's (B 4, S 1024, H 112, P 64, N 64)
    layers at their train shapes — each gradient within ``SSD_TOL`` of its
    largest |value| and each row within ``SSD_ROW_TOL`` of its norm, one
-   launch of each kernel, a second call bit-equal; at the two train
-   layers in bf16 each kernel timed alone with CUDA events beside its
-   bound (the function's own bytes or its operations at the type's peak)
-   and its buffers' bytes, the four together and the plain backward; the
-   flash backward at
+   launch of each kernel (bf16: the tensor-core chunk kernel and no FFMA
+   one; f32 the reverse), a second call bit-equal; at the two train
+   layers, in bf16 and in f32, each kernel timed alone with CUDA events
+   beside its bound (the function's own bytes or its operations at the
+   type's peak) and its buffers' bytes, the four together and the plain
+   backward; the flash backward at
    zamba2-7b's shared attention (B 4, S 1024, 32 heads of 112, causal)
    against ``attention_bwd_ref``.  Then mamba2-130m at full width and
    depth (24 layers, d_model 768, vocab 50280, N 128) through
@@ -322,7 +326,8 @@ of those paths against its plain PyTorch version on the card:
    ``runtime.Trainer`` as the launcher builds it, at batch 4 × 1024: each
    6 AdamW steps with every launch count set to 0 just before and read
    just after — per step one SSD forward (tensor-core kernel) and one
-   launch of each backward kernel a Mamba2 layer, for zamba2 also one
+   launch of each backward kernel a Mamba2 layer (the chunk kernel the
+   tensor-core one, the FFMA chunk kernel never), for zamba2 also one
    flash forward and one of each flash backward kernel a shared-block
    application, no cast, copy or other kernel; every loss and grad norm
    finite; step 1 recomputed from weight seeds 0, 1 and 2
@@ -598,12 +603,15 @@ def reset_launches() -> None:
     ssd_ops.COPIES = ssd_ops.BWD_LAUNCHES = 0
     for _, _, counter in ssd_ops.BWD_KERNELS:
         setattr(ssd_ops, counter, 0)
+    for _, counter in ssd_ops.BWD_CHUNK.values():
+        setattr(ssd_ops, counter, 0)
 
 
 def read_launches() -> dict:
     """Every kernel's launch count (``flash_attention`` and ``ssd_scan``
     are the sums of their forward and backward kernels', ``ssd_scan_bwd``
-    of the four SSD backward kernels'), the skinny and narrow matmul
+    of the four SSD backward kernels', ``ssd_scan_bwd_chunk`` of the two
+    chunk kernels' (``_tc`` bf16, ``_ffma`` f32)), the skinny and narrow matmul
     launches that folded a split-K sum, and the copies of operands the
     matmul, flash and SSD ops made."""
     return {"matmul_skinny": mm_ops.SKINNY_LAUNCHES,
@@ -627,6 +635,8 @@ def read_launches() -> dict:
             "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES,
             **{f"ssd_scan_bwd_{name}": getattr(ssd_ops, counter)
                for name, _, counter in ssd_ops.BWD_KERNELS},
+            **{f"ssd_scan_bwd_chunk_{route}": getattr(ssd_ops, counter)
+               for route, (_, counter) in ssd_ops.BWD_CHUNK.items()},
             "ssd_copies": ssd_ops.COPIES}
 
 
@@ -659,7 +669,8 @@ def phase_build() -> None:
                                                    build.SOURCES)))
     for name in build.SOURCES:
         usage = [ln.strip() for ln in build.BUILD_LOGS.get(name, "")
-                 .splitlines() if "registers" in ln or "spill" in ln]
+                 .splitlines() if "registers" in ln or "spill" in ln
+                 or "Performance" in ln]
         emit({"phase": "build", "library": name, "seconds": seconds[name],
               "ptxas": usage})
     hgmma = build.sass_count("flash_attention", "HGMMA")
@@ -4891,26 +4902,28 @@ def ssd_bwd_errors(g, w, dtype, name: str) -> dict:
             "max_abs_ref": w.abs().max().item(), "fault": fault}
 
 
-def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype) -> dict:
+def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype,
+                        parts: int = 0) -> dict:
     """(bytes_ms, operations_ms, buffers_ms) on an H100 SXM of each
     backward kernel and of the whole gradient.  bytes_ms: the function's
     own inputs (x, dt, A, B, C, dy) read once and its gradients written
     once, each counted at the kernel that reads or writes it.  buffers_ms:
     the bytes of the design's own buffers (each chunk's S_in and G, the
-    per-head partials of dB, dC and dA), written once and read once, which
-    the function does not need: not in the bound, reported beside it for
-    the redesign.  operations_ms at the type's peak: a state pass
-    2·B·H·S·N·P; the chunk kernel C·Bᵀ over each chunk's lower triangle
-    once per batch row, and per head dy·xᵀ and the intra-chunk products of
-    dx, dB and dC over it, and three L·N·P state products a chunk; the
-    reduction the head sums of dB and dC."""
+    partials of dB and dC, ``parts`` of them a row — the heads by default,
+    the chunk kernel's head splits on the tensor-core route — and of dA),
+    written once and read once, which the function does not need: not in
+    the bound, reported beside it.  operations_ms at the type's peak: a
+    state pass 2·B·H·S·N·P; the chunk kernel C·Bᵀ over each chunk's lower
+    triangle once per batch row, and per head dy·xᵀ and the intra-chunk
+    products of dx, dB and dC over it, and three L·N·P state products a
+    chunk; the reduction the head sums of dB and dC."""
     isz = torch.tensor([], dtype=dtype).element_size()
     nc = -(-s // chunk)
     lens = [min(chunk, s - s0) for s0 in range(0, s, chunk)]
     pairs = sum(L * (L + 1) // 2 for L in lens)
     xs, bs, dts = b * s * h * p * isz, b * s * n * isz, b * s * h * 4
     states = b * nc * h * n * p * 4
-    parts = 2 * b * s * h * n * 4 + b * nc * h * 4
+    parts = 2 * b * s * (parts or h) * n * 4 + b * nc * h * 4
     state_ops = 2.0 * b * h * s * n * p
     chunk_ops = 2.0 * b * pairs * n + 2.0 * b * h * (
         pairs * (2 * p + 2 * n) + 3.0 * s * n * p)
@@ -4938,15 +4951,14 @@ def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype) -> dict:
 
 def ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy, chunk, device,
                       iters: int = 10) -> dict:
-    """Device ms of one launch of each backward kernel alone: the four once
-    in order (so the chunk and reduce kernels read filled buffers), then
-    CUDA events around ``iters`` back-to-back launches of each through its
-    C entry point; these launches are not counted."""
+    """Device ms of one launch of each backward kernel of the route alone:
+    the four once in order (so the chunk and reduce kernels read filled
+    buffers), then CUDA events around ``iters`` back-to-back launches of
+    each through its C entry point; these launches are not counted."""
     _, call = ssd_ops._bwd_call(x, dt, A, bm, cm, dy, chunk)
-    args = call[0]
+    kernels, args, _ = call
     lib = ssd_ops._lib()
-    fns = {name: getattr(lib, entry) for name, entry, _ in
-           ssd_ops.BWD_KERNELS}
+    fns = {name: getattr(lib, entry) for name, entry, _ in kernels}
 
     def launch(name):
         rc = fns[name](*args)
@@ -4959,8 +4971,10 @@ def ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy, chunk, device,
 
 
 def ssd_bwd_counts() -> tuple:
+    """(state, dstate, chunk, reduce, tensor-core chunk, FFMA chunk)."""
     return (ssd_ops.BWD_STATE_LAUNCHES, ssd_ops.BWD_DSTATE_LAUNCHES,
-            ssd_ops.BWD_CHUNK_LAUNCHES, ssd_ops.BWD_REDUCE_LAUNCHES)
+            ssd_ops.BWD_CHUNK_LAUNCHES, ssd_ops.BWD_REDUCE_LAUNCHES,
+            ssd_ops.BWD_CHUNK_TC_LAUNCHES, ssd_ops.BWD_CHUNK_FFMA_LAUNCHES)
 
 
 def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
@@ -4968,10 +4982,11 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
     """The four backward kernels (``ssd_scan_bwd``, impl ``"kernel"``) on
     one input and output gradient against ``ssd_scan_bwd_ref`` computed in
     f64: each of the five gradients within :func:`ssd_bwd_errors`' limits;
-    one launch of each kernel; a second call bit-equal to the first.
-    ``strong``: dt·A between -22 and -20 every step.  ``timed``: each
-    kernel's device ms, the four in one call, the plain backward in the
-    working type, and the bounds."""
+    one launch of each kernel, the chunk kernel the type's (bf16 the
+    tensor-core one, f32 the FFMA one) and the other none; a second call
+    bit-equal to the first.  ``strong``: dt·A between -22 and -20 every
+    step.  ``timed``: each kernel's device ms, the four in one call, the
+    plain backward in the working type, and the bounds."""
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     x, dt, A, bm, cm = ssd_inputs(b, s, h, p, n, dtype, device, gen,
                                   strided)
@@ -4990,12 +5005,18 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
     torch.cuda.synchronize(device)
     name = (f"ssd_scan_bwd b{b} s{s} h{h} p{p} n{n} chunk{chunk} {dtype}"
             f"{' strided' if strided else ''}{' strong' if strong else ''}")
-    if launched != (1, 1, 1, 1):
-        fail(f"{name}: (state, dstate, chunk, reduce) launches {launched}")
+    route = "tc" if dtype == torch.bfloat16 else "ffma"
+    if launched != (1, 1, 1, 1, *((1, 0) if route == "tc" else (0, 1))):
+        fail(f"{name}: (state, dstate, chunk, reduce, tensor-core chunk, "
+             f"FFMA chunk) launches {launched}")
     ins = (x, dt, A, bm, cm)
+    nc = -(-s // min(chunk, 128))
+    splits = ssd_ops.plan_splits(b, nc, h, torch.cuda.get_device_properties(
+        device).multi_processor_count) if route == "tc" else h
     row = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
            "dtype": str(dtype).split(".")[-1], "bc_strided": strided,
-           "strong_decay": strong}
+           "strong_decay": strong, "chunk_kernel": route,
+           "partial_parts": splits}
     for gname, g, g2, w, t in zip(SSD_BWD_GRADS, got, again, want, ins):
         if g.shape != t.shape or g.dtype != t.dtype:
             fail(f"{name}: d{gname} {tuple(g.shape)} {g.dtype}")
@@ -5011,7 +5032,8 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
                              for g in SSD_BWD_GRADS)
     del got, again, want
     if timed:
-        bounds = ssd_bwd_bound_times(b, s, h, p, n, min(chunk, 128), dtype)
+        bounds = ssd_bwd_bound_times(b, s, h, p, n, min(chunk, 128), dtype,
+                                     splits)
         row["kernel_ms"] = ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy,
                                              min(chunk, s), device)
         row["all_kernels_ms"] = timed_ms(lambda: ssd_ops.ssd_scan_bwd(
@@ -5033,8 +5055,8 @@ def ssm_train_bwd_cases(device, gen) -> dict:
     (tests/test_kernels.py:107-139), a ragged S, S < chunk, the default
     chunk 256 (run at 128), N and P off the tiles, B and C contiguous and
     strided, strong decay, in both types; then mamba2-130m's and
-    zamba2-7b's layers at their train shapes, bf16 as the models run them
-    and timed, and in f32; and the flash backward at zamba2's shared
+    zamba2-7b's layers at their train shapes, in bf16 as the models run
+    them and in f32, each timed; and the flash backward at zamba2's shared
     attention (head dim 112, padded to the kernel's 128 template)."""
     cases = [(2, 64, 4, 16, 8, 16), (2, 128, 4, 16, 8, 32),
              (2, 96, 4, 16, 8, 32), (1, 64, 2, 16, 8, 32),
@@ -5061,7 +5083,7 @@ def ssm_train_bwd_cases(device, gen) -> dict:
         layers[arch] = ssd_bwd_case(*dims, torch.bfloat16, device, gen,
                                     timed=True)
         layers[arch + "_f32"] = ssd_bwd_case(*dims, torch.float32, device,
-                                             gen)
+                                             gen, timed=True)
         for key in (arch, arch + "_f32"):
             emit({"phase": "ssm_train", "at": f"{key} train layer",
                   "ssd_backward": layers[key]})
@@ -5078,13 +5100,14 @@ def ssm_train_bwd_cases(device, gen) -> dict:
 def ssm_train_launches(cfg, steps: int) -> dict:
     """The counts a train run of ``cfg`` should read: per step one SSD
     forward (tensor-core kernel) and one launch of each backward kernel a
-    Mamba2 layer, and for the hybrid family one flash forward and one of
-    each flash backward kernel a shared-block application; no cast, copy
-    or other kernel."""
+    Mamba2 layer (the tensor-core chunk kernel, no FFMA one), and for the
+    hybrid family one flash forward and one of each flash backward kernel
+    a shared-block application; no cast, copy or other kernel."""
     n = cfg.n_layers * steps
     kw = {"ssd_scan": 5 * n, "ssd_scan_wgmma": n, "ssd_scan_bwd": 4 * n,
           "ssd_scan_bwd_state": n, "ssd_scan_bwd_dstate": n,
-          "ssd_scan_bwd_chunk": n, "ssd_scan_bwd_reduce": n}
+          "ssd_scan_bwd_chunk": n, "ssd_scan_bwd_chunk_tc": n,
+          "ssd_scan_bwd_reduce": n}
     if cfg.family == "hybrid":
         a = n_scan_groups(cfg) * steps
         kw.update(flash_attention=3 * a, flash_attention_wgmma=a,
@@ -5405,29 +5428,45 @@ def phase_ssm_train(device, smi) -> dict:
 
 
 def ssd_bwd_entries(ssm_train: dict) -> list:
-    """The kernels line's four SSD backward entries: one launch each at
-    mamba2-130m's train layer (zamba2-7b's beside it), the plain backward
-    at that shape, no library call."""
-    layer = ssm_train["backward_kernels"]["layers"][SSM_ARCH]
-    zlayer = ssm_train["backward_kernels"]["layers"][HYBRID_ARCH]
-    rows = ssm_train["backward_kernels"]["rows"] + list(
-        ssm_train["backward_kernels"]["layers"].values())
+    """The kernels line's five SSD backward entries: one launch each at
+    mamba2-130m's train layer (zamba2-7b's beside it) — in bf16, as the
+    models run it, but for the FFMA chunk kernel, which takes f32 only and
+    is timed at the layers in f32 — the plain backward at that shape and
+    type, no library call."""
+    layers = ssm_train["backward_kernels"]["layers"]
+    rows = ssm_train["backward_kernels"]["rows"] + list(layers.values())
     paths = (ssm_train["mamba2"], ssm_train["zamba2"])
-    shape = (f"B={layer['b']}, S={layer['s']}, H={layer['h']}, "
-             f"P={layer['p']}, N={layer['n']}, L={layer['chunk']}, bf16")
     out = []
-    for which in ("state", "dstate", "chunk", "reduce"):
-        key = f"ssd_scan_bwd_{which}"
-        by = {p["path"]: p["launches"][key] for p in paths}
+    for name, key, src, f32 in (
+            ("ssd_scan_bwd_state_kernel", "state", "ssd_scan_bwd.cu", False),
+            ("ssd_scan_bwd_dstate_kernel", "dstate", "ssd_scan_bwd.cu",
+             False),
+            ("ssd_scan_bwd_chunk_kernel_wgmma", "chunk_tc",
+             "ssd_scan_bwd_wgmma.cu", False),
+            ("ssd_scan_bwd_chunk_kernel", "chunk_ffma", "ssd_scan_bwd.cu",
+             True),
+            ("ssd_scan_bwd_reduce_kernel", "reduce", "ssd_scan_bwd.cu",
+             False)):
+        which = key.split("_")[0]
+        layer = layers[SSM_ARCH + ("_f32" if f32 else "")]
+        zlayer = layers[HYBRID_ARCH + ("_f32" if f32 else "")]
+        mine, of_type = rows, ""
+        if key.startswith("chunk"):
+            of_type = " of its type"
+            mine = [r for r in rows if r["dtype"] == layer["dtype"]]
+        shape = (f"B={layer['b']}, S={layer['s']}, H={layer['h']}, "
+                 f"P={layer['p']}, N={layer['n']}, L={layer['chunk']}, "
+                 f"{layer['dtype']}")
+        by = {p["path"]: p["launches"]["ssd_scan_bwd_" + key]
+              for p in paths}
         out.append({
-            "name": f"{key}_kernel", "route": "cuda",
-            "source": SSD_CSRC + "ssd_scan_bwd.cu",
+            "name": name, "route": "cuda", "source": SSD_CSRC + src,
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:73",
             "function": "the gradient of ssd_scan_pallas (the JAX package "
                         "differentiates its jnp route; it has no backward "
                         "kernel)",
             "launches": sum(by.values()), "launches_by_path": by,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": layer["kernel_ms"][which],
             "plain_ms": layer["plain_ms"],
             "bound_ms": layer["bound_ms"][which],
@@ -5448,11 +5487,12 @@ def ssd_bwd_entries(ssm_train: dict) -> list:
                   f"plain_ms: the whole plain backward (autograd through "
                   f"the chunked scan) at that shape; bound_ms: the "
                   f"function's own inputs and gradients that this kernel "
-                  f"reads or writes, or its operations at the bf16 peak; "
-                  f"buffers_ms: the design's own buffers (S_in, G, the "
-                  f"per-head partials) at the HBM rate, not in the bound; "
-                  f"max_abs_err: the largest gradient error over every "
-                  f"case"})
+                  f"reads or writes, or its operations at the type's "
+                  f"peak; buffers_ms: the design's own buffers (S_in, G, "
+                  f"the partials: per head on the FFMA route, per block "
+                  f"on the tensor-core one) at the HBM rate, not in the "
+                  f"bound; max_abs_err: the largest gradient error over "
+                  f"every case{of_type}"})
     return out
 
 

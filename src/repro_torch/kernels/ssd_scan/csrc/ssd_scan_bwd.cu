@@ -1,6 +1,8 @@
 // Chunked SSD (Mamba2 state-space duality) backward for Hopper (sm_90a):
 // dx, ddt, dA, dB, dC of the forward of ssd_scan.cu / ssd_scan_wgmma.cu, in
-// f32 or bf16 x, B, C, dy (dt and A f32), with f32 accumulation.
+// f32 or bf16 x, B, C, dy (dt and A f32), with f32 accumulation.  The state
+// passes and the reduction here take both types; the chunk kernel here is
+// f32 only (bf16: ssd_scan_bwd_wgmma.cu, on the tensor cores).
 //
 // It differentiates the TPU kernel src/repro/kernels/ssd_scan/kernel.py::
 // ssd_scan_pallas.  The JAX package has no backward kernel: it
@@ -33,7 +35,7 @@
 // products C·B and dy·x are summed in f64 and rounded once, as the f32
 // forward sums C·B (where the decay erases the rest of a chunk, a row of dx
 // is dt_j·(C_j·B_j)·dy_j, and an f32 sum of a dot product that cancels
-// moves it); in bf16 their products are exact in f32 and summed in f32.
+// moves it).
 //
 // Four kernels, launched in this order on one stream:
 // * ssd_scan_bwd_state_kernel: one block per (head, batch).  The forward's
@@ -41,28 +43,31 @@
 //   N, P) f32, the state kept in registers across the chunks.
 // * ssd_scan_bwd_dstate_kernel: one block per (head, batch).  The reverse
 //   pass: it writes each chunk's G, (B, nC, H, N, P) f32.
-// * ssd_scan_bwd_chunk_kernel: one block per (head, chunk, batch).  It holds
+// * ssd_scan_bwd_chunk_kernel (f32; bf16 goes to ssd_scan_bwd_chunk_kernel_wgmma
+//   of ssd_scan_bwd_wgmma.cu): one block per (head, chunk, batch).  It holds
 //   x (transposed), dy and the two L x L matrices W1 = (C·Bᵀ)∘decay and
 //   W2 = decay∘(dy·xᵀ) in shared memory (0 above the diagonal), and walks
 //   the state dim N in slices of 8 columns for B, C, G and S_in, which do
 //   not fit beside them.  It writes dx and ddt, and per-head partials of
 //   dB, dC ((B, S, H, N) f32) and dA ((B, nC, H) f32).
-// * ssd_scan_bwd_reduce_kernel: sums the partials over the heads (dB, dC)
-//   and over batch and chunks (dA) in a fixed order.
+// * ssd_scan_bwd_reduce_kernel: sums the partials of dB and dC over their
+//   parts (the heads after this chunk kernel, the blocks' head splits
+//   after the tensor-core one) and of dA over batch and chunks, in a fixed
+//   order.
 // No atomics: every output is written by one thread and summed in one fixed
 // order, so two runs on the same inputs are bit-equal.
 //
 // What bounds it: at mamba2-130m's train layer (B 8, S 2048, H 24, P 64,
-// N 128, L 128, bf16) the gradient's own inputs and outputs are ~0.17 GB
-// (~0.05 ms at the HBM rate) and its products ~52 GFLOP (~0.78 ms at the
-// f32 FFMA rate), so arithmetic bounds it.  The chunk kernel computes C·Bᵀ
+// N 128, L 128) the gradient's own inputs and outputs are ~0.17 GB (~0.05
+// ms at the HBM rate) and its products ~52 GFLOP (~0.78 ms at the f32 FFMA
+// rate), so in f32 arithmetic bounds it.  The chunk kernel computes C·Bᵀ
 // once per head where the function needs it once per batch row, and all of
 // each L x L product, zeros above the diagonal included; the partials of dB
 // and dC are 2 x 201 MB written and read again, beside the state buffers
 // (2 x 101 MB).  This is the simple form: FFMA on CUDA cores from shared
 // memory, one 256-thread block per SM (220 KB of shared memory in the chunk
-// kernel).  wgmma, TMA and a chunk kernel that serves all heads of a batch
-// row are later work.
+// kernel).  On bf16 it took 7.7 ms at that layer on an H100 and gave way
+// to the tensor-core chunk kernel.
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): the caller owns every allocation and the stream; one call
@@ -95,8 +100,8 @@ struct Params {
   float* g;                      // (B, nC, H, N, P): the cotangent of the state leaving it
   void* dx;                      // (B, S, H, P), x's type
   float* ddt;                    // (B, S, H)
-  float* dbp;                    // (B, S, H, N): dB of each head
-  float* dcp;                    // (B, S, H, N): dC of each head
+  float* dbp;                    // (B, S, parts, N): dB of each head or block
+  float* dcp;                    // (B, S, parts, N): dC of each head or block
   float* dap;                    // (B, nC, H): dA of each (batch, chunk, head)
   void* db;                      // (B, S, N), x's type
   void* dc;                      // (B, S, N), x's type
@@ -107,7 +112,7 @@ struct Params {
   long long b_b, b_s, b_n;
   long long c_b, c_s, c_n;
   long long dy_b, dy_s, dy_h, dy_p;
-  int batch, seqlen, heads, p, n, chunk, nchunks;
+  int batch, seqlen, heads, p, n, chunk, nchunks, parts;
 };
 
 template <typename T>
@@ -169,7 +174,6 @@ __device__ __forceinline__ void chunk_decay(const Params& p, const float* dtg, f
 __device__ __forceinline__ float decay(double x) { return expf(static_cast<float>(x)); }
 
 __device__ __forceinline__ double mad(double a, double b, double c) { return fma(a, b, c); }
-__device__ __forceinline__ float mad(float a, float b, float c) { return fmaf(a, b, c); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -278,10 +282,9 @@ constexpr int SLICE_FLOATS = 3 * ML * NS + 3 * NS * MP;
 constexpr int CHUNK_SMEM_FLOATS = 2 * MP * ML + 2 * ML * ML + SLICE_FLOATS + 11 * ML + 32;
 static_assert(16 * ML <= SLICE_FLOATS, "the column sums' scratch fits in the slice tiles");
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_bwd_chunk_kernel(const Params p) {
-  // the products C·Bᵀ and dy·xᵀ: f64 sums for f32 inputs, f32 for bf16 (exact products)
-  using Acc = typename std::conditional<std::is_same<T, float>::value, double, float>::type;
+  using T = float;
+  using Acc = double;            // the products C·Bᵀ and dy·xᵀ summed in f64
   extern __shared__ __align__(16) float sm[];
   float* XT = sm;                // [MP][ML]  x_j[q] at XT[q*ML + j]
   float* DYs = XT + MP * ML;     // [ML][MP]  dy_i[q]
@@ -616,8 +619,8 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_bwd_chunk_kernel(const Pa
 }
 
 // ----------------------------------------------------------- reduce kernel
-// dB, dC (B, S, N) = the partials summed over the heads in order; dA[h] =
-// the (batch, chunk) partials summed in order.  One thread an output.
+// dB, dC (B, S, N) = the partials summed over their parts in order; dA[h]
+// = the (batch, chunk) partials summed in order.  One thread an output.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) ssd_scan_bwd_reduce_kernel(const Params p) {
   const long long total = static_cast<long long>(p.batch) * p.seqlen * p.n;
@@ -625,12 +628,12 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_bwd_reduce_kernel(const Para
   if (e < total) {
     const long long row = e / p.n;
     const int nn = static_cast<int>(e % p.n);
-    const float* pb = p.dbp + row * p.heads * p.n + nn;
-    const float* pc = p.dcp + row * p.heads * p.n + nn;
+    const float* pb = p.dbp + row * p.parts * p.n + nn;
+    const float* pc = p.dcp + row * p.parts * p.n + nn;
     float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < p.heads; ++h) {
-      sb += pb[h * p.n];
-      sc += pc[h * p.n];
+    for (int k = 0; k < p.parts; ++k) {
+      sb += pb[k * p.n];
+      sc += pc[k * p.n];
     }
     st<T>(p.db, e, sb);
     st<T>(p.dc, e, sc);
@@ -664,10 +667,13 @@ int dispatch(Which which, const Params& p, cudaStream_t stream) {
       return launch(ssd_scan_bwd_state_kernel<T>, state_smem, dim3(p.heads, p.batch), p, stream);
     case DSTATE:
       return launch(ssd_scan_bwd_dstate_kernel<T>, state_smem, dim3(p.heads, p.batch), p, stream);
-    case CHUNK:
-      return launch(ssd_scan_bwd_chunk_kernel<T>,
-                    static_cast<size_t>(CHUNK_SMEM_FLOATS) * sizeof(float),
-                    dim3(p.heads, p.nchunks, p.batch), p, stream);
+    case CHUNK:                  // f32 only: bf16 has ssd_scan_bwd_wgmma.cu's
+      if constexpr (std::is_same<T, float>::value)
+        return launch(ssd_scan_bwd_chunk_kernel,
+                      static_cast<size_t>(CHUNK_SMEM_FLOATS) * sizeof(float),
+                      dim3(p.heads, p.nchunks, p.batch), p, stream);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
     default: {
       const long long outputs = static_cast<long long>(p.batch) * p.seqlen * p.n + p.heads;
       return launch(ssd_scan_bwd_reduce_kernel<T>, 0,
@@ -679,9 +685,11 @@ int dispatch(Which which, const Params& p, cudaStream_t stream) {
 int run(Which which, const void* const* ptrs, const long long* s, const int* dims,
         void* stream) {
   const int batch = dims[0], seqlen = dims[1], heads = dims[2], head_dim = dims[3],
-            state = dims[4], chunk = dims[5], bf16 = dims[6];
+            state = dims[4], chunk = dims[5], bf16 = dims[6], parts = dims[7];
   if (batch < 1 || batch > 65535 || seqlen < 1 || heads < 1 || heads > 65535 ||
-      head_dim < 1 || head_dim > MP || state < 1 || state > MN || chunk < 1 || chunk > ML) {
+      head_dim < 1 || head_dim > MP || state < 1 || state > MN || chunk < 1 || chunk > ML ||
+      (which == REDUCE && (parts < 1 || parts > heads)) ||
+      (which == CHUNK && parts != heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nchunks = (seqlen + chunk - 1) / chunk;
@@ -705,7 +713,7 @@ int run(Which which, const void* const* ptrs, const long long* s, const int* dim
   p.c_b = s[11]; p.c_s = s[12]; p.c_n = s[13];
   p.dy_b = s[14]; p.dy_s = s[15]; p.dy_h = s[16]; p.dy_p = s[17];
   p.batch = batch; p.seqlen = seqlen; p.heads = heads; p.p = head_dim; p.n = state;
-  p.chunk = chunk; p.nchunks = nchunks;
+  p.chunk = chunk; p.nchunks = nchunks; p.parts = parts;
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch<__nv_bfloat16>(which, p, strm) : dispatch<float>(which, p, strm);
 }
@@ -715,16 +723,19 @@ int run(Which which, const void* const* ptrs, const long long* s, const int* dim
 extern "C" {
 
 // Enqueue one of the four backward kernels on `stream`; launch them in the
-// order state, dstate, chunk, reduce on one stream.  `ptrs` holds 16 device
+// order state, dstate, chunk (f32 here; bf16 repro_ssd_bwd_chunk_tc of
+// ssd_scan_bwd_wgmma.cu), reduce on one stream.  `ptrs` holds 16 device
 // pointers: x, dt, A, B, C, dy (the inputs: x, B, C, dy f32 or bf16 by
 // dims[6], dt and A f32), then f32 sin and g ((B, nC, H, N, P) each, nC =
 // ceil(S / chunk)), dx (B, S, H, P) in x's type, f32 ddt (B, S, H), f32 dbp
-// and dcp (B, S, H, N), f32 dap (B, nC, H), db and dc (B, S, N) in x's type
-// and f32 da (H,) — the outputs and buffers contiguous.  `strides` holds
-// the 18 element strides of the inputs: x (4), dt (3), A (1), B (3), C (3),
-// dy (4).  `dims`: batch, seqlen, heads, head_dim, state, chunk, bf16.
-// Requires 1 <= chunk <= 128, 1 <= state <= 128, 1 <= head_dim <= 64,
-// 1 <= batch, heads < 65536, nC < 65536.  Returns cudaGetLastError() of the
+// and dcp (B, S, parts, N), f32 dap (B, nC, H), db and dc (B, S, N) in x's
+// type and f32 da (H,) — the outputs and buffers contiguous.  `strides`
+// holds the 18 element strides of the inputs: x (4), dt (3), A (1), B (3),
+// C (3), dy (4).  `dims`: batch, seqlen, heads, head_dim, state, chunk,
+// bf16, parts (the partials' parts: heads for this chunk kernel, the
+// splits for the tensor-core one).  Requires 1 <= chunk <= 128,
+// 1 <= state <= 128, 1 <= head_dim <= 64, 1 <= batch, heads < 65536,
+// nC < 65536, 1 <= parts <= heads (the state passes ignore it).  Returns cudaGetLastError() of the
 // launch as an int (0 = launched); faults during the run surface at the
 // next synchronize.
 int repro_ssd_bwd_state(const void* const* ptrs, const long long* strides, const int* dims,

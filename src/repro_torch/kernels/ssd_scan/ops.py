@@ -55,13 +55,18 @@ outside autograd.  So a CUDA call whose x, dt, A, B or C requires grad
 ``torch.autograd.Function``: its forward is the launch above, unchanged
 (a bf16 ``dt`` or ``A`` cast to f32 before it, the cast counted in
 :data:`COPIES` and differentiated by autograd), and it saves x, dt, A, B
-and C; its backward is :func:`ssd_scan_bwd`'s kernel route, the four
-kernels of ``csrc/ssd_scan_bwd.cu`` (f32 or bf16 x, B, C; f32
-accumulation, f64 for C·B and dy·x in f32): ``ssd_scan_bwd_state_kernel``
-(the state entering each chunk), ``ssd_scan_bwd_dstate_kernel`` (the
-cotangent of the state leaving each chunk, a reverse scan),
-``ssd_scan_bwd_chunk_kernel`` (dx, ddt and per-head partials of dB, dC and
-dA) and ``ssd_scan_bwd_reduce_kernel`` (the partials summed).  They
+and C; its backward is :func:`ssd_scan_bwd`'s kernel route, four
+kernels (f32 accumulation): ``ssd_scan_bwd_state_kernel`` (the state
+entering each chunk) and ``ssd_scan_bwd_dstate_kernel`` (the cotangent of
+the state leaving each chunk, a reverse scan) of ``csrc/ssd_scan_bwd.cu``,
+f32 or bf16; a chunk kernel (dx, ddt and partials of dB, dC and dA) routed
+by the type of x, B and C as the forward is — bf16 to
+``ssd_scan_bwd_chunk_kernel_wgmma`` (``csrc/ssd_scan_bwd_wgmma.cu``: every
+product on ``wgmma``, C·Bᵀ once per block, the f32 operands in three bf16
+terms, dB and dC summed over the heads a block serves, partials of
+``(B, S, splits, N)`` with ``splits`` from :func:`plan_splits`), f32 to
+``ssd_scan_bwd_chunk_kernel`` (FFMA, C·B and dy·x summed in f64, per-head
+partials); and ``ssd_scan_bwd_reduce_kernel`` (the partials summed).  They
 differentiate ``ssd_scan_pallas``'s function, whatever kernel ran the
 forward; the JAX package has no backward kernel (it differentiates its
 chunked jnp route).  No output is summed with atomics, so two runs are
@@ -85,8 +90,10 @@ they are jnp in JAX (no Pallas kernel).
 backward; :data:`TC_LAUNCHES` and :data:`FFMA_LAUNCHES` those of each
 forward kernel, :data:`BWD_LAUNCHES` those of the backward kernels and
 :data:`BWD_STATE_LAUNCHES`, :data:`BWD_DSTATE_LAUNCHES`,
-:data:`BWD_CHUNK_LAUNCHES` and :data:`BWD_REDUCE_LAUNCHES` those of each,
-so a run can show that its main path went through them.
+:data:`BWD_CHUNK_LAUNCHES` (either chunk kernel) and
+:data:`BWD_REDUCE_LAUNCHES` those of each, :data:`BWD_CHUNK_TC_LAUNCHES`
+and :data:`BWD_CHUNK_FFMA_LAUNCHES` those of each chunk kernel, so a run
+can show that its main path went through them.
 """
 from __future__ import annotations
 
@@ -99,8 +106,8 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
                                               ssd_scan_bwd_ref)
 
 #: kernel launches made in this process: every one, the tensor-core (bf16)
-#: kernel's, the FFMA (f32) kernel's, and the backward kernels' (all four,
-#: and each)
+#: kernel's, the FFMA (f32) kernel's, the backward kernels' (all four, and
+#: each; the chunk kernels together and each)
 LAUNCHES = 0
 TC_LAUNCHES = 0
 FFMA_LAUNCHES = 0
@@ -108,6 +115,8 @@ BWD_LAUNCHES = 0
 BWD_STATE_LAUNCHES = 0
 BWD_DSTATE_LAUNCHES = 0
 BWD_CHUNK_LAUNCHES = 0
+BWD_CHUNK_TC_LAUNCHES = 0
+BWD_CHUNK_FFMA_LAUNCHES = 0
 BWD_REDUCE_LAUNCHES = 0
 
 #: casts of a bf16 ``dt`` or ``A`` to f32 before a launch
@@ -150,7 +159,7 @@ def _lib() -> ctypes.CDLL:
                            strides, i64, strides, strides, strides, i32, i32,
                            i32, i32, i32, i32, ptr]
             fn.restype = i32
-        for _, entry, _ in BWD_KERNELS:
+        for entry in {e for k in BWD_CHUNK for _, e, _ in bwd_kernels(k)}:
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.POINTER(ptr), strides,
                            ctypes.POINTER(i32), ptr]
@@ -228,7 +237,7 @@ def _launch(x, dt, A, Bm, Cm, chunk: int, kernel: str,
         if final_state else None
     if y.numel() == 0:
         return (y, hs) if final_state else y
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     with torch.cuda.device(dev):
         lib = _lib()
         args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -251,18 +260,71 @@ def _launch(x, dt, A, Bm, Cm, chunk: int, kernel: str,
     return (y, hs) if final_state else y
 
 
-#: the backward kernels in launch order: (name, C entry point, counter)
+#: the backward kernels in launch order: (name, C entry point, counter);
+#: the chunk kernel's entry point and own counter go by route
+#: (:data:`BWD_CHUNK`), and :data:`BWD_CHUNK_LAUNCHES` counts both
 BWD_KERNELS = (("state", "repro_ssd_bwd_state", "BWD_STATE_LAUNCHES"),
                ("dstate", "repro_ssd_bwd_dstate", "BWD_DSTATE_LAUNCHES"),
                ("chunk", "repro_ssd_bwd_chunk", "BWD_CHUNK_LAUNCHES"),
                ("reduce", "repro_ssd_bwd_reduce", "BWD_REDUCE_LAUNCHES"))
+#: each route's chunk kernel: (C entry point, its own counter)
+BWD_CHUNK = {"tc": ("repro_ssd_bwd_chunk_tc", "BWD_CHUNK_TC_LAUNCHES"),
+             "ffma": ("repro_ssd_bwd_chunk", "BWD_CHUNK_FFMA_LAUNCHES")}
+
+
+def bwd_kernels(kernel: str) -> tuple:
+    """The backward kernels the ``"tc"`` (bf16) or ``"ffma"`` (f32) route
+    launches, in order: ``(name, C entry point, counter)``."""
+    state, dstate, _, reduce = BWD_KERNELS
+    return state, dstate, ("chunk", *BWD_CHUNK[kernel]), reduce
+
+
+def plan_splits(batch: int, nchunks: int, heads: int, sms: int) -> int:
+    """How many blocks share the heads of one (batch row, chunk) in the
+    tensor-core chunk kernel: of the splits that leave no block empty, the
+    fewest with the least ``waves × heads a block`` (one block an SM), so
+    the grid fills the card at a few heads and one block keeps every head
+    where there are blocks enough: 1 at mamba2-130m's train layer (8 × 16
+    (batch, chunk) blocks on 132 SMs), 4 at zamba2-7b's (4 × 8)."""
+    best = None
+    for splits in range(1, heads + 1):
+        per = -(-heads // splits)
+        if -(-heads // per) != splits:
+            continue
+        cost = -(-(batch * nchunks * splits) // sms) * per
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
+def _bwd_buffers(x: torch.Tensor, n: int, nchunks: int, parts: int):
+    """The backward kernels' buffers: each chunk's S_in and G ``(B, nC, H,
+    N, P)``, the partials of dB and dC ``(B, S, parts, N)`` and of dA
+    ``(B, nC, H)``, all f32 on x's device."""
+    b, s, h, p = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((b, nchunks, h, n, p), **f32),     # S_in
+            torch.empty((b, nchunks, h, n, p), **f32),     # G
+            torch.empty((b, s, parts, n), **f32),          # dB a part
+            torch.empty((b, s, parts, n), **f32),          # dC a part
+            torch.empty((b, nchunks, h), **f32))           # dA a chunk
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _bwd_call(x, dt, A, Bm, Cm, dy, chunk: int):
     """The backward kernels' outputs ``(dx, ddt, dA, dB, dC)``, fresh (dt
-    and A f32), and the arguments every C entry point takes, with the
-    buffers they point to — None when there is nothing to launch (an empty
-    input: the gradients are zeros)."""
+    and A f32), and the launches: ``(kernels, arguments, buffers)`` with
+    the route's kernels (:func:`bwd_kernels`: bf16 the tensor-core chunk
+    kernel, f32 the FFMA one) and the arguments every C entry point takes,
+    the buffers they point to riding along — None when there is nothing to
+    launch (an empty input: the gradients are zeros)."""
     _on_one_card("the SSD backward kernels take x, dt, A, B, C, dy",
                  x, dt, A, Bm, Cm, dy)
     dev = x.device
@@ -291,11 +353,9 @@ def _bwd_call(x, dt, A, Bm, Cm, dy, chunk: int):
             torch.empty((b, s, n), dtype=x.dtype, device=dev))
     if x.numel() == 0 or n == 0:
         return tuple(t.zero_() for t in outs), None
-    bufs = (torch.empty((b, nc, h, n, p), **f32),         # S_in
-            torch.empty((b, nc, h, n, p), **f32),         # G
-            torch.empty((b, s, h, n), **f32),             # dB a head
-            torch.empty((b, s, h, n), **f32),             # dC a head
-            torch.empty((b, nc, h), **f32))               # dA a chunk
+    kernel = "tc" if x.dtype == torch.bfloat16 else "ffma"
+    parts = plan_splits(b, nc, h, _sms(dev)) if kernel == "tc" else h
+    bufs = _bwd_buffers(x, n, nc, parts)
     dx, ddt, dA, dB, dC = outs
     ptrs = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in (
         x, dt, A, Bm, Cm, dy, bufs[0], bufs[1], dx, ddt, bufs[2], bufs[3],
@@ -303,32 +363,35 @@ def _bwd_call(x, dt, A, Bm, Cm, dy, chunk: int):
     strides = (ctypes.c_longlong * 18)(*x.stride(), *dt.stride(),
                                        A.stride(0), *Bm.stride(),
                                        *Cm.stride(), *dy.stride())
-    dims = (ctypes.c_int * 7)(b, s, h, p, n, chunk,
-                              int(x.dtype == torch.bfloat16))
-    # dy and the buffers ride along: the arguments keep them alive
-    args = (ptrs, strides, dims, torch.cuda.current_stream(dev).cuda_stream)
-    return outs, (args, dy, bufs)
+    dims = (ctypes.c_int * 8)(b, s, h, p, n, chunk,
+                              int(x.dtype == torch.bfloat16), parts)
+    args = (ptrs, strides, dims, _stream(dev))
+    # dy and the buffers ride along: the call keeps them alive
+    return outs, (bwd_kernels(kernel), args, (dy, bufs))
 
 
 def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
-    """``(dx, ddt, dA, dB, dC)`` from the four backward kernels, one launch
-    each (dt and A f32)."""
-    global LAUNCHES, BWD_LAUNCHES
+    """``(dx, ddt, dA, dB, dC)`` from the four backward kernels of the
+    route, one launch each (dt and A f32)."""
+    global LAUNCHES, BWD_LAUNCHES, BWD_CHUNK_LAUNCHES
     outs, call = _bwd_call(x, dt, A, Bm, Cm, dy, chunk)
     if call is None:
         return outs
+    kernels, args, _ = call
     with torch.cuda.device(x.device):
         lib = _lib()
-        for name, entry, counter in BWD_KERNELS:
-            rc = getattr(lib, entry)(*call[0])
+        for name, entry, counter in kernels:
+            rc = getattr(lib, entry)(*args)
             if rc != 0:
                 raise KernelLaunchError(
-                    f"SSD scan backward launch failed ({name} kernel; x "
-                    f"{tuple(x.shape)}, N {Bm.shape[2]}, chunk "
+                    f"SSD scan backward launch failed ({name} kernel, "
+                    f"{entry}; x {tuple(x.shape)}, N {Bm.shape[2]}, chunk "
                     f"{min(chunk, MAX_CHUNK)}, {x.dtype}): CUDA error {rc}: "
                     f"{lib.repro_ssd_error_string(rc).decode()}")
             LAUNCHES += 1
             BWD_LAUNCHES += 1
+            if name == "chunk":
+                BWD_CHUNK_LAUNCHES += 1
             globals()[counter] += 1
     return outs
 
@@ -392,8 +455,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """``(dx, ddt, dA, dB, dC)`` of :func:`ssd_scan` at ``x, dt, A, B, C``
     for the output gradient ``dy``, each in its input's dtype; routed as
     :func:`ssd_scan` is (the CPU and ``impl="plain"`` take
-    :func:`.ref.ssd_scan_bwd_ref`, a CUDA tensor the four backward
-    kernels)."""
+    :func:`.ref.ssd_scan_bwd_ref`, a CUDA tensor the four backward kernels,
+    the chunk kernel by type: bf16 the tensor-core one, f32 the FFMA
+    one)."""
     chunk = _checked(x, dt, A, Bm, Cm, chunk, impl)
     if route(x, dt, A, Bm, Cm, impl) == "plain":
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, chunk)

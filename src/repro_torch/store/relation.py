@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tra import RelType, TensorRelation
+from repro_torch.device import DeviceLike, resolve_device
 
 DEFAULT_BLOCK_BYTES = 64 * 1024 * 1024
 
@@ -213,13 +214,15 @@ class HostRelation:
     def to_numpy(self) -> np.ndarray:
         return self.to_tensor().numpy()
 
-    def to_relation(self, device="cpu") -> TensorRelation:
-        """Materialize the whole relation on ``device``: each block copied
-        into its place in one device tensor (asynchronous from page-locked
-        blocks, on the current stream)."""
+    def to_relation(self, device: DeviceLike = "cuda") -> TensorRelation:
+        """Materialize the whole relation on ``device`` (the card by
+        default, as JAX's puts it on the default device; without a card
+        the default raises, and ``device="cpu"`` keeps it on the host):
+        each block copied into its place in one device tensor
+        (asynchronous from page-locked blocks, on the current stream)."""
         if not self.complete:
             self.to_tensor()                # raises: incomplete
-        device = torch.device(device)
+        device = resolve_device(device)
         data = torch.empty(self.shape, dtype=self.rtype.dtype, device=device)
         for off, view in self.blocks_in(0, self.nkeys):
             copy_into(data, self.split_dim, off, view)

@@ -1703,6 +1703,17 @@ def _ssd_bwd_counts():
             ssd_ops.BWD_LAUNCHES)
 
 
+def _ssd_chunk_counts():
+    """(tensor-core chunk kernel, FFMA chunk kernel) launches."""
+    return ssd_ops.BWD_CHUNK_TC_LAUNCHES, ssd_ops.BWD_CHUNK_FFMA_LAUNCHES
+
+
+def _ssd_chunk_step(dtype, calls=1):
+    """The chunk kernels' launches ``calls`` backward calls of ``dtype``
+    make: bf16 the tensor-core one, f32 the FFMA one."""
+    return (calls, 0) if dtype in ("bfloat16", torch.bfloat16) else (0, calls)
+
+
 def _ssd_dy(x, seed):
     r = np.random.default_rng(seed)
     return torch.tensor(r.standard_normal(tuple(x.shape)),
@@ -1713,15 +1724,18 @@ def _ssd_bwd_check(x, dt, A, bm, cm, dy, chunk, dtype):
     """The four backward kernels against the plain backward computed in f64
     (``ssd_scan_bwd_ref``), each gradient within ``chip_smoke.py``'s
     limits (``ssd_bwd_errors``: ``SSD_TOL`` of its largest |value|, each
-    row within ``SSD_ROW_TOL`` of its norm); one launch of each kernel; a
-    second call bit-equal (no atomics)."""
+    row within ``SSD_ROW_TOL`` of its norm); one launch of each kernel,
+    the chunk kernel the type's (bf16 the tensor-core one, f32 the FFMA
+    one) and the other none; a second call bit-equal (no atomics)."""
     from _torch_helpers import chip_smoke
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
-    before = _ssd_bwd_counts()
+    before, chunks = _ssd_bwd_counts(), _ssd_chunk_counts()
     got = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
                                impl="kernel")
     assert _ssd_bwd_counts() == tuple(c + 1 for c in before[:4]) + (
         before[4] + 4,)
+    assert _ssd_chunk_counts() == tuple(
+        c + d for c, d in zip(chunks, _ssd_chunk_step(dtype)))
     again = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
                                  impl="kernel")
     want = ssd_scan_bwd_ref(*(t.double() for t in (x, dt, A, bm, cm, dy)),
@@ -1807,6 +1821,7 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
     leaves = [t.clone().requires_grad_(True) for t in (x, dt16, A, bm, cm)]
     dy = _ssd_dy(x, 28)
     before, copies = _ssd_bwd_counts(), ssd_ops.COPIES
+    chunks = _ssd_chunk_counts()
     y = ssd_ops.ssd_scan(*leaves, chunk=64)
     assert type(y.grad_fn).__name__ == "_SSDScanBackward"
     assert ssd_ops.COPIES == copies + 1
@@ -1817,6 +1832,8 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
     torch.cuda.synchronize()
     assert _ssd_bwd_counts() == tuple(c + 2 for c in before[:4]) + (
         before[4] + 8,)
+    assert _ssd_chunk_counts() == tuple(
+        c + d for c, d in zip(chunks, _ssd_chunk_step(dtype, 2)))
     want = ssd_ops.ssd_scan_bwd(x, dt16, A, bm, cm, dy, chunk=64)
     for a, b, w, t in zip(g1, g2, want, (x, dt16, A, bm, cm)):
         assert a.dtype == t.dtype
@@ -1832,7 +1849,10 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
 def test_ssd_backward_launch_error_on_card(cuda, monkeypatch):
     """A state the kernels refuse (N = 160, past their 128), let through the
     wrapper's own check, comes back from the C side as a
-    ``KernelLaunchError`` naming the kernel; nothing is counted."""
+    ``KernelLaunchError`` naming the kernel; nothing is counted.  The
+    tensor-core chunk kernel's entry point refuses a head split past the
+    heads (the state passes before it take the call): its error names it,
+    and neither chunk kernel is counted."""
     monkeypatch.setattr(ssd_ops, "MAX_STATE", 256)
     x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 160, "float32", cuda)
     before = _ssd_bwd_counts()
@@ -1840,6 +1860,15 @@ def test_ssd_backward_launch_error_on_card(cuda, monkeypatch):
         ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 29), chunk=32,
                              impl="kernel")
     assert _ssd_bwd_counts() == before
+    x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 16, "bfloat16", cuda)
+    monkeypatch.setattr(ssd_ops, "plan_splits", lambda b, nc, h, sms: h + 1)
+    before, chunks = _ssd_bwd_counts(), _ssd_chunk_counts()
+    with pytest.raises(ssd_ops.KernelLaunchError,
+                       match="chunk kernel, repro_ssd_bwd_chunk_tc"):
+        ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 30), chunk=32,
+                             impl="kernel")
+    assert _ssd_bwd_counts()[2:4] == before[2:4]
+    assert _ssd_chunk_counts() == chunks
 
 
 @pytest.mark.gpu
@@ -1855,7 +1884,7 @@ def test_ssd_train_step_on_card_matches_cpu(cuda, arch, dtype):
     gradient is not near AdamW's eps (``assert_master_close``: there the
     step divides by √v + eps and rounding alone moves it; ROADMAP C); bf16
     loss and grad norm within 5e-2; each backward kernel launched once a
-    Mamba2 layer."""
+    Mamba2 layer, the chunk kernel the type's."""
     import dataclasses
     from _torch_helpers import assert_master_close
     from repro_torch.configs import get_config
@@ -1870,12 +1899,14 @@ def test_ssd_train_step_on_card_matches_cpu(cuda, arch, dtype):
     out = []
     for dev in (cuda, torch.device("cpu")):
         state = adamw.init(init_params(cfg, 0, device=cuda).to(dev))
-        before = _ssd_bwd_counts()
+        before, chunks = _ssd_bwd_counts(), _ssd_chunk_counts()
         step = make_train_step(cfg, acfg, schedule.constant)
         state, m = step(state, {k: t.to(dev) for k, t in batch.items()})
         if dev.type == "cuda":
             assert _ssd_bwd_counts()[:4] == tuple(
                 c + cfg.n_layers for c in before[:4])
+            assert _ssd_chunk_counts() == tuple(c + d for c, d in zip(
+                chunks, _ssd_chunk_step(dtype, cfg.n_layers)))
         else:
             assert _ssd_bwd_counts() == before
         out.append((float(m["loss"]), float(m["grad_norm"]),

@@ -219,6 +219,21 @@ def test_host_relation_accepted_by_engine_run(executor):
                                rtol=1e-5)
 
 
+def test_host_relation_to_relation_defaults_to_the_card(monkeypatch):
+    """``HostRelation.to_relation()`` puts the relation on the card, as
+    JAX's puts it on the default device: without a card the default
+    raises (no silent CPU fallback); ``device="cpu"`` keeps it on the
+    host, at the stored values."""
+    ta = _pair(3, (4, 2), (4, 4))[1]
+    hr = tstore.RelationStore().put("A", ta)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hr.to_relation()
+    got = hr.to_relation(device="cpu")
+    assert got.data.device.type == "cpu"
+    np.testing.assert_array_equal(as_np(got), as_np(ta))
+
+
 def test_host_relation_type_mismatch_rejected():
     store = tstore.RelationStore()
     wrong = store.put("A", _pair(5, (2, 3), (4, 4))[1])
