@@ -4923,7 +4923,7 @@ def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype,
     pairs = sum(L * (L + 1) // 2 for L in lens)
     xs, bs, dts = b * s * h * p * isz, b * s * n * isz, b * s * h * 4
     states = b * nc * h * n * p * 4
-    parts = 2 * b * s * (parts or h) * n * 4 + b * nc * h * 4
+    partials = 2 * b * s * (parts or h) * n * 4 + b * nc * h * 4
     state_ops = 2.0 * b * h * s * n * p
     chunk_ops = 2.0 * b * pairs * n + 2.0 * b * h * (
         pairs * (2 * p + 2 * n) + 3.0 * s * n * p)
@@ -4941,12 +4941,12 @@ def ssd_bwd_bound_times(b, s, h, p, n, chunk, dtype,
         # x, dy, dt, B, C read, dx and ddt written; S_in and G read, the
         # partials written (buffers)
         "chunk": times(3 * xs + 2 * bs + 2 * dts, chunk_ops,
-                       2 * states + parts),
+                       2 * states + partials),
         # dB, dC, dA written; the partials read (buffers)
-        "reduce": times(2 * bs + h * 4, reduce_ops, parts),
+        "reduce": times(2 * bs + h * 4, reduce_ops, partials),
         "gradient": times(3 * xs + 4 * bs + 2 * dts + 2 * h * 4,
                           2 * state_ops + chunk_ops + reduce_ops,
-                          4 * states + 2 * parts)}
+                          4 * states + 2 * partials)}
 
 
 def ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy, chunk, device,
