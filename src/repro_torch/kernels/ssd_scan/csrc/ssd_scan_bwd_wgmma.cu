@@ -25,6 +25,10 @@
 // whole), 0.14 ms at the peak.  The FFMA kernel took 7.7 ms there: f32 FFMA
 // for bf16 work, C·Bᵀ once per head, the L x L products over the whole
 // square, N walked in slices of 8, and 2 x 201 MB of per-head partials.
+// This one took 0.99 ms on an H100 (700 W; chip_smoke.py), 20x the bound:
+// by tools/ssd_bwd_phase_profile.py the loads at each head's start and
+// the decays' elementwise work take most of it, the products under a
+// fifth; an asynchronous pipeline across heads is later work.
 //
 // Design:
 // * Every product on wgmma (m64nNk16, bf16 operands, f32 accumulators):
@@ -88,10 +92,11 @@
 //   128-byte swizzle the wgmma descriptors read; a layout off 16 bytes is
 //   loaded element by element.  S_in and G (f32) are read by the threads,
 //   split and stored into the same swizzle.  No tensor map, and no mbarrier
-//   that could wait forever.  No prefetch of the next head: later work.
+//   that could wait forever.  The next head's tiles are only warmed in L2:
+//   shared memory has no room to stage them at N 128.
 // Shared memory at N 128: C, B 2 x 32 KB, x, dy 2 x 16 KB, the state's
-// three terms 48 KB, C·Bᵀ 66 KB, a and the vectors 5 KB: 217 KB, one
-// block an SM.  At N <= 64 the state tile is 64 rows (152 KB).
+// three terms 48 KB, C·Bᵀ 66 KB, a and the vectors 4 KB: 214 KB, one
+// block an SM.  At N <= 64 the state tile is 64 rows (158 KB).
 //
 // Plain C interface (built with nvcc into the ssd_scan library, loaded with
 // ctypes): the caller owns every allocation and the stream; one call
