@@ -297,11 +297,13 @@ of those paths against its plain PyTorch version on the card:
    the final master params and moments bit-equal to the uninterrupted
    run's;
 17. ssm_train: the earlier phases' memory freed first, as lm_train's.  The
-   four SSD backward kernels (``ssd_scan_bwd_{state,dstate,reduce}
-   _kernel`` of ``csrc/ssd_scan_bwd.cu`` and the chunk kernel of the
-   type: ``ssd_scan_bwd_chunk_kernel_wgmma`` of
-   ``csrc/ssd_scan_bwd_wgmma.cu`` in bf16, ``ssd_scan_bwd_chunk_kernel``
-   in f32) through ``ssd_scan_bwd`` against
+   four SSD backward kernels (the state passes and the chunk kernel of
+   the type — bf16: ``ssd_scan_bwd_{state,dstate}_kernel_wgmma`` of
+   ``csrc/ssd_scan_bwd_state_wgmma.cu`` and
+   ``ssd_scan_bwd_chunk_kernel_wgmma`` of ``csrc/ssd_scan_bwd_wgmma.cu``;
+   f32: ``ssd_scan_bwd_{state,dstate,chunk}_kernel`` of
+   ``csrc/ssd_scan_bwd.cu`` — and ``ssd_scan_bwd_reduce_kernel`` of
+   ``csrc/ssd_scan_bwd.cu``) through ``ssd_scan_bwd`` against
    ``ssd_scan_bwd_ref`` computed in f64 (autograd through the chunked
    scan), all five gradients, in bf16 and f32: the JAX kernel tests'
    cases, a ragged S (200 at chunk 128), S < chunk, the default chunk 256
@@ -310,8 +312,10 @@ of those paths against its plain PyTorch version on the card:
    H 24, P 64, N 128) and zamba2-7b's (B 4, S 1024, H 112, P 64, N 64)
    layers at their train shapes — each gradient within ``SSD_TOL`` of its
    largest |value| and each row within ``SSD_ROW_TOL`` of its norm, one
-   launch of each kernel (bf16: the tensor-core chunk kernel and no FFMA
-   one; f32 the reverse), a second call bit-equal; at the two train
+   launch of each kernel (bf16: the tensor-core state passes and chunk
+   kernel and no FFMA one; f32 the reverse), a second call bit-equal, and
+   the state passes' S_in and G buffers against ``ssd_bwd_states_ref`` in
+   f64 (:func:`ssd_bwd_state_buffers`: the f32 limits); at the two train
    layers, in bf16 and in f32, each kernel timed alone with CUDA events
    beside its bound (the function's own bytes or its operations at the
    type's peak) and its buffers' bytes, the four together and the plain
@@ -326,8 +330,9 @@ of those paths against its plain PyTorch version on the card:
    ``runtime.Trainer`` as the launcher builds it, at batch 4 × 1024: each
    6 AdamW steps with every launch count set to 0 just before and read
    just after — per step one SSD forward (tensor-core kernel) and one
-   launch of each backward kernel a Mamba2 layer (the chunk kernel the
-   tensor-core one, the FFMA chunk kernel never), for zamba2 also one
+   launch of each backward kernel a Mamba2 layer (the state passes and
+   the chunk kernel the tensor-core ones, the FFMA ones never), for
+   zamba2 also one
    flash forward and one of each flash backward kernel a shared-block
    application, no cast, copy or other kernel; every loss and grad norm
    finite; step 1 recomputed from weight seeds 0, 1 and 2
@@ -601,17 +606,19 @@ def reset_launches() -> None:
     flash_ops.TC_LAUNCHES = flash_ops.FFMA_LAUNCHES = flash_ops.COPIES = 0
     ssd_ops.LAUNCHES = ssd_ops.TC_LAUNCHES = ssd_ops.FFMA_LAUNCHES = 0
     ssd_ops.COPIES = ssd_ops.BWD_LAUNCHES = 0
-    for _, _, counter in ssd_ops.BWD_KERNELS:
+    for _, counter in ssd_ops.BWD_KERNELS:
         setattr(ssd_ops, counter, 0)
-    for _, counter in ssd_ops.BWD_CHUNK.values():
-        setattr(ssd_ops, counter, 0)
+    for routes in ssd_ops.BWD_ROUTED.values():
+        for _, counter in routes.values():
+            setattr(ssd_ops, counter, 0)
 
 
 def read_launches() -> dict:
     """Every kernel's launch count (``flash_attention`` and ``ssd_scan``
     are the sums of their forward and backward kernels', ``ssd_scan_bwd``
-    of the four SSD backward kernels', ``ssd_scan_bwd_chunk`` of the two
-    chunk kernels' (``_tc`` bf16, ``_ffma`` f32)), the skinny and narrow matmul
+    of the four SSD backward kernels', ``ssd_scan_bwd_state``,
+    ``_dstate`` and ``_chunk`` of each one's two routes' (``_tc`` bf16,
+    ``_ffma`` f32)), the skinny and narrow matmul
     launches that folded a split-K sum, and the copies of operands the
     matmul, flash and SSD ops made."""
     return {"matmul_skinny": mm_ops.SKINNY_LAUNCHES,
@@ -634,9 +641,10 @@ def read_launches() -> dict:
             "ssd_scan_ffma": ssd_ops.FFMA_LAUNCHES,
             "ssd_scan_bwd": ssd_ops.BWD_LAUNCHES,
             **{f"ssd_scan_bwd_{name}": getattr(ssd_ops, counter)
-               for name, _, counter in ssd_ops.BWD_KERNELS},
-            **{f"ssd_scan_bwd_chunk_{route}": getattr(ssd_ops, counter)
-               for route, (_, counter) in ssd_ops.BWD_CHUNK.items()},
+               for name, counter in ssd_ops.BWD_KERNELS},
+            **{f"ssd_scan_bwd_{name}_{route}": getattr(ssd_ops, counter)
+               for name, routes in ssd_ops.BWD_ROUTED.items()
+               for route, (_, counter) in routes.items()},
             "ssd_copies": ssd_ops.COPIES}
 
 
@@ -4878,10 +4886,12 @@ SSM_TRAIN_GROUPS = (("ssd_backward", ("ssd_scan_bwd",)),
 
 
 def ssd_bwd_errors(g, w, dtype, name: str) -> dict:
-    """One kernel gradient ``g`` (as f32) against the f64 plain one ``w``:
-    max |err| within ``SSD_TOL[dtype]·max|w|`` and each row's error (the
-    last dim; dA is one row) within ``SSD_ROW_TOL[dtype]`` of the row's
-    norm.  ``fault`` says what failed, or is None."""
+    """One kernel gradient or buffer ``g`` (as f32) against the f64 plain
+    one ``w``: max |err| within ``SSD_TOL[dtype]·max|w|`` and each row's
+    error (the last dim; dA is one row) within ``SSD_ROW_TOL[dtype]`` of
+    the row's norm.  ``fault`` says what failed (d<name> for a gradient of
+    ``SSD_BWD_GRADS``, else ``name``), or is None."""
+    what = f"d{name}" if name in SSD_BWD_GRADS else name
     g, w = g.double(), w.double()
     if name == "A":
         g, w = g[None], w[None]
@@ -4891,11 +4901,11 @@ def ssd_bwd_errors(g, w, dtype, name: str) -> dict:
         .item()
     fault = None
     if not bool(torch.isfinite(g).all()):
-        fault = f"d{name} not finite"
+        fault = f"{what} not finite"
     elif not err <= atol:
-        fault = f"d{name}: max |err| {err} over {atol}"
+        fault = f"{what}: max |err| {err} over {atol}"
     elif not row <= SSD_ROW_TOL[dtype]:
-        fault = (f"d{name}: a row's error is {row} of its norm, over "
+        fault = (f"{what}: a row's error is {row} of its norm, over "
                  f"{SSD_ROW_TOL[dtype]}")
     return {"max_abs_err": err, "atol": atol, "max_row_rel_err": row,
             "row_rel_tol": SSD_ROW_TOL[dtype],
@@ -4971,10 +4981,58 @@ def ssd_bwd_kernel_ms(x, dt, A, bm, cm, dy, chunk, device,
 
 
 def ssd_bwd_counts() -> tuple:
-    """(state, dstate, chunk, reduce, tensor-core chunk, FFMA chunk)."""
+    """(state, dstate, chunk, reduce; the tensor-core state, dstate and
+    chunk kernels; the FFMA state, dstate and chunk kernels)."""
     return (ssd_ops.BWD_STATE_LAUNCHES, ssd_ops.BWD_DSTATE_LAUNCHES,
             ssd_ops.BWD_CHUNK_LAUNCHES, ssd_ops.BWD_REDUCE_LAUNCHES,
-            ssd_ops.BWD_CHUNK_TC_LAUNCHES, ssd_ops.BWD_CHUNK_FFMA_LAUNCHES)
+            ssd_ops.BWD_STATE_TC_LAUNCHES, ssd_ops.BWD_DSTATE_TC_LAUNCHES,
+            ssd_ops.BWD_CHUNK_TC_LAUNCHES, ssd_ops.BWD_STATE_FFMA_LAUNCHES,
+            ssd_ops.BWD_DSTATE_FFMA_LAUNCHES,
+            ssd_ops.BWD_CHUNK_FFMA_LAUNCHES)
+
+
+SSD_BWD_ROUTE_LAUNCHES = {"tc": (1, 1, 1, 1, 1, 1, 1, 0, 0, 0),
+                          "ffma": (1, 1, 1, 1, 0, 0, 0, 1, 1, 1)}
+
+
+def ssd_bwd_state_buffers(x, dt, A, bm, cm, dy, chunk) -> tuple:
+    """The route's two state passes alone, launched through
+    ``ssd_ops._bwd_call``'s entry points as :func:`ssd_bwd_kernel_ms`
+    launches them (not counted), and held against ``ssd_bwd_states_ref``
+    computed in f64; fails nothing.  Returns ``(rcs, (S_in, G), errs)``:
+    each entry point's launch code, each chunk's S_in and G buffers,
+    ``(B, nC, H, N, P)`` f32, and for each :func:`ssd_bwd_errors` at the
+    f32 limits on both routes — max |err| within ``SSD_TOL[f32]`` = 1e-4
+    of the buffer's largest |value|, each row (P values) within
+    ``SSD_ROW_TOL[f32]`` = 1e-3 of its norm, every value finite: the
+    buffers are f32 on both routes, and the tensor-core passes'
+    three-term x̃ and dỹ are exact to ~2^-24, as f32."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_states_ref
+    c = min(chunk, x.shape[1], ssd_ops.MAX_CHUNK)
+    _, call = ssd_ops._bwd_call(x, dt, A, bm, cm, dy, c)
+    kernels, args, (_, bufs) = call
+    lib = ssd_ops._lib()
+    rcs = {entry: getattr(lib, entry)(*args) for _, entry, _ in kernels[:2]}
+    want = ssd_bwd_states_ref(*(t.double() for t in (x, dt, A, bm, cm, dy)),
+                              c)
+    torch.cuda.synchronize(x.device)
+    errs = {key: ssd_bwd_errors(got, w, torch.float32, key)
+            for key, got, w in zip(("S_in", "G"), bufs[:2], want)}
+    return rcs, tuple(bufs[:2]), errs
+
+
+def ssd_bwd_state_errors(x, dt, A, bm, cm, dy, chunk, name) -> dict:
+    """:func:`ssd_bwd_state_buffers`' errors of the S_in and G buffers;
+    fails on a launch error or a fault."""
+    rcs, _, errs = ssd_bwd_state_buffers(x, dt, A, bm, cm, dy, chunk)
+    for entry, rc in rcs.items():
+        if rc != 0:
+            fail(f"{name}: {entry}: launch error {rc}")
+    for key, e in errs.items():
+        if e["fault"] is not None:
+            fail(f"{name}: {e['fault']}")
+        del e["fault"]
+    return errs
 
 
 def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
@@ -4982,12 +5040,16 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
     """The four backward kernels (``ssd_scan_bwd``, impl ``"kernel"``) on
     one input and output gradient against ``ssd_scan_bwd_ref`` computed in
     f64: each of the five gradients within :func:`ssd_bwd_errors`' limits;
-    one launch of each kernel, the chunk kernel the type's (bf16 the
-    tensor-core one, f32 the FFMA one) and the other none; a second call
-    bit-equal to the first.  ``strong``: dt·A between -22 and -20 every
-    step.  ``timed``: each kernel's device ms, the four in one call, the
-    plain backward in the working type, and the bounds."""
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    one launch of each kernel, the state passes and the chunk kernel the
+    type's (bf16 the tensor-core ones, f32 the FFMA ones) and the other
+    route's none; a second call bit-equal to the first; the S_in and G
+    buffers of the state passes within :func:`ssd_bwd_state_buffers`'
+    limits.  ``strong``: dt·A between -22 and -20 every step.  ``timed``:
+    each kernel's device ms, the four in one call, the plain backward in
+    the working type (and its two state passes alone,
+    ``ssd_bwd_states_ref``), and the bounds."""
+    from repro_torch.kernels.ssd_scan.ref import (ssd_bwd_states_ref,
+                                                  ssd_scan_bwd_ref)
     x, dt, A, bm, cm = ssd_inputs(b, s, h, p, n, dtype, device, gen,
                                   strided)
     if strong:
@@ -5006,9 +5068,10 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
     name = (f"ssd_scan_bwd b{b} s{s} h{h} p{p} n{n} chunk{chunk} {dtype}"
             f"{' strided' if strided else ''}{' strong' if strong else ''}")
     route = "tc" if dtype == torch.bfloat16 else "ffma"
-    if launched != (1, 1, 1, 1, *((1, 0) if route == "tc" else (0, 1))):
-        fail(f"{name}: (state, dstate, chunk, reduce, tensor-core chunk, "
-             f"FFMA chunk) launches {launched}")
+    if launched != SSD_BWD_ROUTE_LAUNCHES[route]:
+        fail(f"{name}: (state, dstate, chunk, reduce, tensor-core state, "
+             f"dstate, chunk, FFMA state, dstate, chunk) launches "
+             f"{launched}")
     ins = (x, dt, A, bm, cm)
     nc = -(-s // min(chunk, 128))
     splits = ssd_ops.plan_splits(b, nc, h, torch.cuda.get_device_properties(
@@ -5031,6 +5094,7 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
     row["max_abs_err"] = max(row["d" + g]["max_abs_err"]
                              for g in SSD_BWD_GRADS)
     del got, again, want
+    row["states"] = ssd_bwd_state_errors(x, dt, A, bm, cm, dy, chunk, name)
     if timed:
         bounds = ssd_bwd_bound_times(b, s, h, p, n, min(chunk, 128), dtype,
                                      splits)
@@ -5040,6 +5104,8 @@ def ssd_bwd_case(b, s, h, p, n, chunk, dtype, device, gen, strided=True,
             x, dt, A, bm, cm, dy, chunk=chunk, impl="kernel"), device, 5)
         row["plain_ms"] = timed_ms(lambda: ssd_scan_bwd_ref(
             x, dt, A, bm, cm, dy, min(chunk, s)), device, 3, warmup=1)
+        row["states_plain_ms"] = timed_ms(lambda: ssd_bwd_states_ref(
+            x, dt, A, bm, cm, dy, min(chunk, s, 128)), device, 3, warmup=1)
         row["bound_ms"], row["bound_by"], row["bytes_ms"] = {}, {}, {}
         row["buffers_ms"] = {}
         for which, (t_bytes, t_ops, t_buf) in bounds.items():
@@ -5100,13 +5166,15 @@ def ssm_train_bwd_cases(device, gen) -> dict:
 def ssm_train_launches(cfg, steps: int) -> dict:
     """The counts a train run of ``cfg`` should read: per step one SSD
     forward (tensor-core kernel) and one launch of each backward kernel a
-    Mamba2 layer (the tensor-core chunk kernel, no FFMA one), and for the
-    hybrid family one flash forward and one of each flash backward kernel
-    a shared-block application; no cast, copy or other kernel."""
+    Mamba2 layer (the tensor-core state passes and chunk kernel, no FFMA
+    one), and for the hybrid family one flash forward and one of each
+    flash backward kernel a shared-block application; no cast, copy or
+    other kernel."""
     n = cfg.n_layers * steps
     kw = {"ssd_scan": 5 * n, "ssd_scan_wgmma": n, "ssd_scan_bwd": 4 * n,
           "ssd_scan_bwd_state": n, "ssd_scan_bwd_dstate": n,
-          "ssd_scan_bwd_chunk": n, "ssd_scan_bwd_chunk_tc": n,
+          "ssd_scan_bwd_chunk": n, "ssd_scan_bwd_state_tc": n,
+          "ssd_scan_bwd_dstate_tc": n, "ssd_scan_bwd_chunk_tc": n,
           "ssd_scan_bwd_reduce": n}
     if cfg.family == "hybrid":
         a = n_scan_groups(cfg) * steps
@@ -5428,19 +5496,28 @@ def phase_ssm_train(device, smi) -> dict:
 
 
 def ssd_bwd_entries(ssm_train: dict) -> list:
-    """The kernels line's five SSD backward entries: one launch each at
+    """The kernels line's seven SSD backward entries: one launch each at
     mamba2-130m's train layer (zamba2-7b's beside it) — in bf16, as the
-    models run it, but for the FFMA chunk kernel, which takes f32 only and
-    is timed at the layers in f32 — the plain backward at that shape and
-    type, no library call."""
+    models run it, but for the FFMA state passes and chunk kernel, which
+    take f32 only and are timed at the layers in f32 — the plain backward
+    at that shape and type (for a state pass ``ssd_bwd_states_ref``, both
+    passes), no library call.  A state pass's ``max_abs_err`` is its
+    buffer's (S_in or G) largest error over every case of its type, a
+    chunk kernel's the largest gradient error over every case of its type,
+    the reduction's over every case."""
     layers = ssm_train["backward_kernels"]["layers"]
     rows = ssm_train["backward_kernels"]["rows"] + list(layers.values())
     paths = (ssm_train["mamba2"], ssm_train["zamba2"])
     out = []
     for name, key, src, f32 in (
-            ("ssd_scan_bwd_state_kernel", "state", "ssd_scan_bwd.cu", False),
-            ("ssd_scan_bwd_dstate_kernel", "dstate", "ssd_scan_bwd.cu",
-             False),
+            ("ssd_scan_bwd_state_kernel_wgmma", "state_tc",
+             "ssd_scan_bwd_state_wgmma.cu", False),
+            ("ssd_scan_bwd_dstate_kernel_wgmma", "dstate_tc",
+             "ssd_scan_bwd_state_wgmma.cu", False),
+            ("ssd_scan_bwd_state_kernel", "state_ffma", "ssd_scan_bwd.cu",
+             True),
+            ("ssd_scan_bwd_dstate_kernel", "dstate_ffma", "ssd_scan_bwd.cu",
+             True),
             ("ssd_scan_bwd_chunk_kernel_wgmma", "chunk_tc",
              "ssd_scan_bwd_wgmma.cu", False),
             ("ssd_scan_bwd_chunk_kernel", "chunk_ffma", "ssd_scan_bwd.cu",
@@ -5451,9 +5528,20 @@ def ssd_bwd_entries(ssm_train: dict) -> list:
         layer = layers[SSM_ARCH + ("_f32" if f32 else "")]
         zlayer = layers[HYBRID_ARCH + ("_f32" if f32 else "")]
         mine, of_type = rows, ""
-        if key.startswith("chunk"):
+        if "_" in key:
             of_type = " of its type"
             mine = [r for r in rows if r["dtype"] == layer["dtype"]]
+        plain, plain_what = "plain_ms", ("the whole plain backward "
+                                         "(autograd through the chunked "
+                                         "scan)")
+        if which == "chunk" or which == "reduce":
+            err, of_what = max(r["max_abs_err"] for r in mine), "gradient"
+        else:
+            buf = "S_in" if which == "state" else "G"
+            err = max(r["states"][buf]["max_abs_err"] for r in mine)
+            of_what = f"{buf} buffer"
+            plain = "states_plain_ms"
+            plain_what = "ssd_bwd_states_ref, both state passes,"
         shape = (f"B={layer['b']}, S={layer['s']}, H={layer['h']}, "
                  f"P={layer['p']}, N={layer['n']}, L={layer['chunk']}, "
                  f"{layer['dtype']}")
@@ -5466,9 +5554,9 @@ def ssd_bwd_entries(ssm_train: dict) -> list:
                         "differentiates its jnp route; it has no backward "
                         "kernel)",
             "launches": sum(by.values()), "launches_by_path": by,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": err,
             "ms": layer["kernel_ms"][which],
-            "plain_ms": layer["plain_ms"],
+            "plain_ms": layer[plain],
             "bound_ms": layer["bound_ms"][which],
             "bound_by": layer["bound_by"][which],
             "library_ms": None,
@@ -5479,19 +5567,18 @@ def ssd_bwd_entries(ssm_train: dict) -> list:
                           "bound_ms": zlayer["bound_ms"][which],
                           "bound_by": zlayer["bound_by"][which],
                           "buffers_ms": zlayer["buffers_ms"][which],
-                          "plain_ms": zlayer["plain_ms"]},
+                          "plain_ms": zlayer[plain]},
             "gradient_ms": layer["all_kernels_ms"],
             "gradient_bound_ms": layer["bound_ms"]["gradient"],
             "gradient_buffers_ms": layer["buffers_ms"]["gradient"],
             "at": f"one launch at the {SSM_ARCH} train layer ({shape}); "
-                  f"plain_ms: the whole plain backward (autograd through "
-                  f"the chunked scan) at that shape; bound_ms: the "
+                  f"plain_ms: {plain_what} at that shape; bound_ms: the "
                   f"function's own inputs and gradients that this kernel "
                   f"reads or writes, or its operations at the type's "
                   f"peak; buffers_ms: the design's own buffers (S_in, G, "
                   f"the partials: per head on the FFMA route, per block "
                   f"on the tensor-core one) at the HBM rate, not in the "
-                  f"bound; max_abs_err: the largest gradient error over "
+                  f"bound; max_abs_err: the largest {of_what} error over "
                   f"every case{of_type}"})
     return out
 

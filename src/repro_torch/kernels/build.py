@@ -42,7 +42,8 @@ SOURCES: Dict[str, Tuple[Path, ...]] = {
     "ssd_scan": (_ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",
                  _ROOT / "ssd_scan" / "csrc" / "ssd_scan_wgmma.cu",
                  _ROOT / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
-                 _ROOT / "ssd_scan" / "csrc" / "ssd_scan_bwd_wgmma.cu"),
+                 _ROOT / "ssd_scan" / "csrc" / "ssd_scan_bwd_wgmma.cu",
+                 _ROOT / "ssd_scan" / "csrc" / "ssd_scan_bwd_state_wgmma.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

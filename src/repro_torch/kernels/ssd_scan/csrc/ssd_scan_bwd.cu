@@ -1,8 +1,9 @@
 // Chunked SSD (Mamba2 state-space duality) backward for Hopper (sm_90a):
 // dx, ddt, dA, dB, dC of the forward of ssd_scan.cu / ssd_scan_wgmma.cu, in
-// f32 or bf16 x, B, C, dy (dt and A f32), with f32 accumulation.  The state
-// passes and the reduction here take both types; the chunk kernel here is
-// f32 only (bf16: ssd_scan_bwd_wgmma.cu, on the tensor cores).
+// f32 or bf16 x, B, C, dy (dt and A f32), with f32 accumulation.  The
+// reduction here takes both types; the state passes and the chunk kernel
+// here are f32 only (bf16 goes to the tensor cores: the state passes to
+// ssd_scan_bwd_state_wgmma.cu, the chunk kernel to ssd_scan_bwd_wgmma.cu).
 //
 // It differentiates the TPU kernel src/repro/kernels/ssd_scan/kernel.py::
 // ssd_scan_pallas.  The JAX package has no backward kernel: it
@@ -38,11 +39,17 @@
 // moves it).
 //
 // Four kernels, launched in this order on one stream:
-// * ssd_scan_bwd_state_kernel: one block per (head, batch).  The forward's
-//   state pass at chunk granularity: it writes each chunk's S_in, (B, nC, H,
-//   N, P) f32, the state kept in registers across the chunks.
-// * ssd_scan_bwd_dstate_kernel: one block per (head, batch).  The reverse
-//   pass: it writes each chunk's G, (B, nC, H, N, P) f32.
+// * ssd_scan_bwd_state_kernel (f32; bf16 goes to
+//   ssd_scan_bwd_state_kernel_wgmma of ssd_scan_bwd_state_wgmma.cu): one
+//   block per (head, batch).  The forward's state pass at chunk
+//   granularity: it writes each chunk's S_in, (B, nC, H, N, P) f32, the
+//   state kept in registers across the chunks.
+// * ssd_scan_bwd_dstate_kernel (f32; bf16 goes to
+//   ssd_scan_bwd_dstate_kernel_wgmma of the same file): one block per (head,
+//   batch).  The reverse pass: it writes each chunk's G, (B, nC, H, N, P)
+//   f32.  On bf16 at mamba2-130m's train layer the two took 0.767 and 0.766
+//   ms on an H100 (700 W), ~46x the bytes they need, and gave way to the
+//   tensor-core passes.
 // * ssd_scan_bwd_chunk_kernel (f32; bf16 goes to ssd_scan_bwd_chunk_kernel_wgmma
 //   of ssd_scan_bwd_wgmma.cu): one block per (head, chunk, batch).  It holds
 //   x (transposed), dy and the two L x L matrices W1 = (C·Bᵀ)∘decay and
@@ -121,10 +128,6 @@ template <>
 __device__ __forceinline__ float ld<float>(const void* base, long long off) {
   return static_cast<const float*>(base)[off];
 }
-template <>
-__device__ __forceinline__ float ld<__nv_bfloat16>(const void* base, long long off) {
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[off]);
-}
 
 template <typename T>
 __device__ __forceinline__ void st(void* base, long long off, float v);
@@ -189,8 +192,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // S[ng + 16r][4pg + q] (r < 8, q < 4) in registers.
 constexpr int STATE_SMEM_FLOATS = ML * MN + ML * MP + 4 * ML;
 
-template <typename T, bool REV>
+template <bool REV>
 __device__ __forceinline__ void state_pass(const Params& p) {
+  using T = float;
   extern __shared__ __align__(16) float sm[];
   float* U = sm;                 // [ML][MN]  coefficient · B_j (or C_i)
   float* V = U + ML * MN;        // [ML][MP]  x_j (or dy_i)
@@ -265,14 +269,12 @@ __device__ __forceinline__ void state_pass(const Params& p) {
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_bwd_state_kernel(const Params p) {
-  state_pass<T, false>(p);
+  state_pass<false>(p);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) ssd_scan_bwd_dstate_kernel(const Params p) {
-  state_pass<T, true>(p);
+  state_pass<true>(p);
 }
 
 // ------------------------------------------------------------ chunk kernel
@@ -662,13 +664,20 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, cudaStream_t 
 template <typename T>
 int dispatch(Which which, const Params& p, cudaStream_t stream) {
   const size_t state_smem = static_cast<size_t>(STATE_SMEM_FLOATS) * sizeof(float);
-  switch (which) {
-    case STATE:
-      return launch(ssd_scan_bwd_state_kernel<T>, state_smem, dim3(p.heads, p.batch), p, stream);
+  constexpr bool f32 = std::is_same<T, float>::value;
+  switch (which) {               // f32 only but the reduction: bf16 has the tensor-core
+    case STATE:                  // kernels of ssd_scan_bwd_state_wgmma.cu and
+      if constexpr (f32)         // ssd_scan_bwd_wgmma.cu
+        return launch(ssd_scan_bwd_state_kernel, state_smem, dim3(p.heads, p.batch), p, stream);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
     case DSTATE:
-      return launch(ssd_scan_bwd_dstate_kernel<T>, state_smem, dim3(p.heads, p.batch), p, stream);
-    case CHUNK:                  // f32 only: bf16 has ssd_scan_bwd_wgmma.cu's
-      if constexpr (std::is_same<T, float>::value)
+      if constexpr (f32)
+        return launch(ssd_scan_bwd_dstate_kernel, state_smem, dim3(p.heads, p.batch), p, stream);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
+    case CHUNK:
+      if constexpr (f32)
         return launch(ssd_scan_bwd_chunk_kernel,
                       static_cast<size_t>(CHUNK_SMEM_FLOATS) * sizeof(float),
                       dim3(p.heads, p.nchunks, p.batch), p, stream);
@@ -723,8 +732,10 @@ int run(Which which, const void* const* ptrs, const long long* s, const int* dim
 extern "C" {
 
 // Enqueue one of the four backward kernels on `stream`; launch them in the
-// order state, dstate, chunk (f32 here; bf16 repro_ssd_bwd_chunk_tc of
-// ssd_scan_bwd_wgmma.cu), reduce on one stream.  `ptrs` holds 16 device
+// order state, dstate, chunk, reduce on one stream (the first three f32
+// here; bf16 repro_ssd_bwd_state_tc and repro_ssd_bwd_dstate_tc of
+// ssd_scan_bwd_state_wgmma.cu and repro_ssd_bwd_chunk_tc of
+// ssd_scan_bwd_wgmma.cu).  `ptrs` holds 16 device
 // pointers: x, dt, A, B, C, dy (the inputs: x, B, C, dy f32 or bf16 by
 // dims[6], dt and A f32), then f32 sin and g ((B, nC, H, N, P) each, nC =
 // ceil(S / chunk)), dx (B, S, H, P) in x's type, f32 ddt (B, S, H), f32 dbp

@@ -56,17 +56,24 @@ outside autograd.  So a CUDA call whose x, dt, A, B or C requires grad
 (a bf16 ``dt`` or ``A`` cast to f32 before it, the cast counted in
 :data:`COPIES` and differentiated by autograd), and it saves x, dt, A, B
 and C; its backward is :func:`ssd_scan_bwd`'s kernel route, four
-kernels (f32 accumulation): ``ssd_scan_bwd_state_kernel`` (the state
-entering each chunk) and ``ssd_scan_bwd_dstate_kernel`` (the cotangent of
-the state leaving each chunk, a reverse scan) of ``csrc/ssd_scan_bwd.cu``,
-f32 or bf16; a chunk kernel (dx, ddt and partials of dB, dC and dA) routed
-by the type of x, B and C as the forward is — bf16 to
+kernels (f32 accumulation), the first three routed by the type of x, B
+and C as the forward is: a state pass (the state entering each chunk) and
+a reverse state pass (the cotangent of the state leaving each chunk) —
+bf16 to ``ssd_scan_bwd_state_kernel_wgmma`` and
+``ssd_scan_bwd_dstate_kernel_wgmma`` (``csrc/ssd_scan_bwd_state_wgmma.cu``:
+each chunk's state product on ``wgmma``, the decay-scaled x or dy in three
+bf16 terms, the state in f32 registers, the next chunk's tiles copied
+while this one computes), f32 to the FFMA ``ssd_scan_bwd_state_kernel``
+and ``ssd_scan_bwd_dstate_kernel`` (``csrc/ssd_scan_bwd.cu``); a chunk
+kernel (dx, ddt and partials of dB, dC and dA) — bf16 to
 ``ssd_scan_bwd_chunk_kernel_wgmma`` (``csrc/ssd_scan_bwd_wgmma.cu``: every
 product on ``wgmma``, C·Bᵀ once per block, the f32 operands in three bf16
 terms, dB and dC summed over the heads a block serves, partials of
 ``(B, S, splits, N)`` with ``splits`` from :func:`plan_splits`), f32 to
 ``ssd_scan_bwd_chunk_kernel`` (FFMA, C·B and dy·x summed in f64, per-head
-partials); and ``ssd_scan_bwd_reduce_kernel`` (the partials summed).  They
+partials); and ``ssd_scan_bwd_reduce_kernel`` (the partials summed).
+Both routes write the same S_in and G buffers, ``(B, nC, H, N, P)`` f32,
+whose plain version is :func:`.ref.ssd_bwd_states_ref`.  They
 differentiate ``ssd_scan_pallas``'s function, whatever kernel ran the
 forward; the JAX package has no backward kernel (it differentiates its
 chunked jnp route).  No output is summed with atomics, so two runs are
@@ -90,10 +97,12 @@ they are jnp in JAX (no Pallas kernel).
 backward; :data:`TC_LAUNCHES` and :data:`FFMA_LAUNCHES` those of each
 forward kernel, :data:`BWD_LAUNCHES` those of the backward kernels and
 :data:`BWD_STATE_LAUNCHES`, :data:`BWD_DSTATE_LAUNCHES`,
-:data:`BWD_CHUNK_LAUNCHES` (either chunk kernel) and
-:data:`BWD_REDUCE_LAUNCHES` those of each, :data:`BWD_CHUNK_TC_LAUNCHES`
-and :data:`BWD_CHUNK_FFMA_LAUNCHES` those of each chunk kernel, so a run
-can show that its main path went through them.
+:data:`BWD_CHUNK_LAUNCHES` and :data:`BWD_REDUCE_LAUNCHES` those of each
+(the first three on either route), and
+``BWD_{STATE,DSTATE,CHUNK}_TC_LAUNCHES`` and
+``BWD_{STATE,DSTATE,CHUNK}_FFMA_LAUNCHES`` those of each route's kernel
+(:data:`BWD_ROUTED`), so a run can show that its main path went through
+them.
 """
 from __future__ import annotations
 
@@ -107,7 +116,7 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
 
 #: kernel launches made in this process: every one, the tensor-core (bf16)
 #: kernel's, the FFMA (f32) kernel's, the backward kernels' (all four, and
-#: each; the chunk kernels together and each)
+#: each on either route; each route's state passes and chunk kernel)
 LAUNCHES = 0
 TC_LAUNCHES = 0
 FFMA_LAUNCHES = 0
@@ -115,9 +124,13 @@ BWD_LAUNCHES = 0
 BWD_STATE_LAUNCHES = 0
 BWD_DSTATE_LAUNCHES = 0
 BWD_CHUNK_LAUNCHES = 0
+BWD_REDUCE_LAUNCHES = 0
+BWD_STATE_TC_LAUNCHES = 0
+BWD_STATE_FFMA_LAUNCHES = 0
+BWD_DSTATE_TC_LAUNCHES = 0
+BWD_DSTATE_FFMA_LAUNCHES = 0
 BWD_CHUNK_TC_LAUNCHES = 0
 BWD_CHUNK_FFMA_LAUNCHES = 0
-BWD_REDUCE_LAUNCHES = 0
 
 #: casts of a bf16 ``dt`` or ``A`` to f32 before a launch
 COPIES = 0
@@ -159,7 +172,8 @@ def _lib() -> ctypes.CDLL:
                            strides, i64, strides, strides, strides, i32, i32,
                            i32, i32, i32, i32, ptr]
             fn.restype = i32
-        for entry in {e for k in BWD_CHUNK for _, e, _ in bwd_kernels(k)}:
+        for entry in {e for k in ("tc", "ffma")
+                      for _, e, _ in bwd_kernels(k)}:
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.POINTER(ptr), strides,
                            ctypes.POINTER(i32), ptr]
@@ -260,23 +274,38 @@ def _launch(x, dt, A, Bm, Cm, chunk: int, kernel: str,
     return (y, hs) if final_state else y
 
 
-#: the backward kernels in launch order: (name, C entry point, counter);
-#: the chunk kernel's entry point and own counter go by route
-#: (:data:`BWD_CHUNK`), and :data:`BWD_CHUNK_LAUNCHES` counts both
-BWD_KERNELS = (("state", "repro_ssd_bwd_state", "BWD_STATE_LAUNCHES"),
-               ("dstate", "repro_ssd_bwd_dstate", "BWD_DSTATE_LAUNCHES"),
-               ("chunk", "repro_ssd_bwd_chunk", "BWD_CHUNK_LAUNCHES"),
-               ("reduce", "repro_ssd_bwd_reduce", "BWD_REDUCE_LAUNCHES"))
-#: each route's chunk kernel: (C entry point, its own counter)
-BWD_CHUNK = {"tc": ("repro_ssd_bwd_chunk_tc", "BWD_CHUNK_TC_LAUNCHES"),
-             "ffma": ("repro_ssd_bwd_chunk", "BWD_CHUNK_FFMA_LAUNCHES")}
+#: the backward kernels in launch order: (name, the counter of either
+#: route's kernel)
+BWD_KERNELS = (("state", "BWD_STATE_LAUNCHES"),
+               ("dstate", "BWD_DSTATE_LAUNCHES"),
+               ("chunk", "BWD_CHUNK_LAUNCHES"),
+               ("reduce", "BWD_REDUCE_LAUNCHES"))
+#: the kernels each route has its own of: {name: {route: (C entry point,
+#: its own counter)}}; the reduction takes both types
+BWD_ROUTED = {
+    "state": {"tc": ("repro_ssd_bwd_state_tc", "BWD_STATE_TC_LAUNCHES"),
+              "ffma": ("repro_ssd_bwd_state", "BWD_STATE_FFMA_LAUNCHES")},
+    "dstate": {"tc": ("repro_ssd_bwd_dstate_tc", "BWD_DSTATE_TC_LAUNCHES"),
+               "ffma": ("repro_ssd_bwd_dstate",
+                        "BWD_DSTATE_FFMA_LAUNCHES")},
+    "chunk": {"tc": ("repro_ssd_bwd_chunk_tc", "BWD_CHUNK_TC_LAUNCHES"),
+              "ffma": ("repro_ssd_bwd_chunk", "BWD_CHUNK_FFMA_LAUNCHES")}}
+BWD_REDUCE = "repro_ssd_bwd_reduce"
 
 
 def bwd_kernels(kernel: str) -> tuple:
     """The backward kernels the ``"tc"`` (bf16) or ``"ffma"`` (f32) route
-    launches, in order: ``(name, C entry point, counter)``."""
-    state, dstate, _, reduce = BWD_KERNELS
-    return state, dstate, ("chunk", *BWD_CHUNK[kernel]), reduce
+    launches, in order: ``(name, C entry point, counters)``, the counters
+    the kernel's of either route and, where the routes differ, its
+    own."""
+    out = []
+    for name, total in BWD_KERNELS:
+        if name in BWD_ROUTED:
+            entry, own = BWD_ROUTED[name][kernel]
+            out.append((name, entry, (total, own)))
+        else:
+            out.append((name, BWD_REDUCE, (total,)))
+    return tuple(out)
 
 
 def plan_splits(batch: int, nchunks: int, heads: int, sms: int) -> int:
@@ -321,10 +350,11 @@ def _stream(dev: torch.device) -> int:
 def _bwd_call(x, dt, A, Bm, Cm, dy, chunk: int):
     """The backward kernels' outputs ``(dx, ddt, dA, dB, dC)``, fresh (dt
     and A f32), and the launches: ``(kernels, arguments, buffers)`` with
-    the route's kernels (:func:`bwd_kernels`: bf16 the tensor-core chunk
-    kernel, f32 the FFMA one) and the arguments every C entry point takes,
-    the buffers they point to riding along — None when there is nothing to
-    launch (an empty input: the gradients are zeros)."""
+    the route's kernels (:func:`bwd_kernels`: bf16 the tensor-core state
+    passes and chunk kernel, f32 the FFMA ones) and the arguments every C
+    entry point takes, the buffers they point to riding along — None when
+    there is nothing to launch (an empty input: the gradients are zeros).
+    The buffers are ``(S_in, G, the partials of dB, of dC, of dA)``."""
     _on_one_card("the SSD backward kernels take x, dt, A, B, C, dy",
                  x, dt, A, Bm, Cm, dy)
     dev = x.device
@@ -373,14 +403,14 @@ def _bwd_call(x, dt, A, Bm, Cm, dy, chunk: int):
 def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
     """``(dx, ddt, dA, dB, dC)`` from the four backward kernels of the
     route, one launch each (dt and A f32)."""
-    global LAUNCHES, BWD_LAUNCHES, BWD_CHUNK_LAUNCHES
+    global LAUNCHES, BWD_LAUNCHES
     outs, call = _bwd_call(x, dt, A, Bm, Cm, dy, chunk)
     if call is None:
         return outs
     kernels, args, _ = call
     with torch.cuda.device(x.device):
         lib = _lib()
-        for name, entry, counter in kernels:
+        for name, entry, counters in kernels:
             rc = getattr(lib, entry)(*args)
             if rc != 0:
                 raise KernelLaunchError(
@@ -390,9 +420,8 @@ def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
                     f"{lib.repro_ssd_error_string(rc).decode()}")
             LAUNCHES += 1
             BWD_LAUNCHES += 1
-            if name == "chunk":
-                BWD_CHUNK_LAUNCHES += 1
-            globals()[counter] += 1
+            for counter in counters:
+                globals()[counter] += 1
     return outs
 
 
@@ -456,8 +485,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for the output gradient ``dy``, each in its input's dtype; routed as
     :func:`ssd_scan` is (the CPU and ``impl="plain"`` take
     :func:`.ref.ssd_scan_bwd_ref`, a CUDA tensor the four backward kernels,
-    the chunk kernel by type: bf16 the tensor-core one, f32 the FFMA
-    one)."""
+    the state passes and the chunk kernel by type: bf16 the tensor-core
+    ones, f32 the FFMA ones)."""
     chunk = _checked(x, dt, A, Bm, Cm, chunk, impl)
     if route(x, dt, A, Bm, Cm, impl) == "plain":
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, chunk)

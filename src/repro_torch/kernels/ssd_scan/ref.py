@@ -27,6 +27,11 @@ rates and ``B/C (B,S,N)`` shared across heads:
   :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan_bwd`.  Given f64
   inputs it computes in f64, the exact result ``chip_smoke.py`` holds the
   backward kernels to.
+* :func:`ssd_bwd_states_ref` — the plain version of the backward's two
+  state passes: each chunk's entering state S_in and the cotangent G of
+  its leaving state, in the kernels' ``(B, nC, H, N, P)`` layout.  Tests
+  and ``chip_smoke.py`` hold the kernels' buffers to it; the main path
+  never calls it.
 """
 from __future__ import annotations
 
@@ -109,3 +114,36 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
         y = ssd_chunked_ref(*leaves, chunk)
         return torch.autograd.grad(y, leaves, dy.to(y.dtype))
+
+
+def ssd_bwd_states_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                       chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(S_in, G)``, each ``(B, nC, H, N, P)`` in f32 (f64 from f64
+    inputs), nC = ceil(S / chunk): S_in of chunk c the state entering it
+    (0 for the first), carried as :func:`ssd_chunked_ref` carries it; G of
+    chunk c the cotangent of the state leaving it for the output gradient
+    ``dy`` (0 for the last), G(c-1) = exp(a_{L-1})·G(c) + Σ_i exp(a_i)·C_i
+    ⊗ dy_i over chunk c, with a = cumsum(dt·A) from the chunk's start."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    ct = torch.promote_types(x.dtype, torch.float32)
+    Af = A.to(ct)
+    spans = [slice(s0, min(s0 + chunk, s)) for s0 in range(0, s, chunk)]
+    a_of = [torch.cumsum(dt[:, sl].to(ct) * Af, dim=1) for sl in spans]
+    state = torch.zeros((b, h, n, p), dtype=ct, device=x.device)
+    s_in = []
+    for sl, a in zip(spans, a_of):
+        s_in.append(state)
+        w = torch.exp(a[:, -1:] - a) * dt[:, sl].to(ct)          # (b,L,h)
+        state = state * torch.exp(a[:, -1])[..., None, None] + torch.einsum(
+            "bjn,bjhp->bhnp", Bm[:, sl].to(ct), x[:, sl].to(ct) * w[..., None])
+    cot = torch.zeros((b, h, n, p), dtype=ct, device=x.device)
+    g = [cot] * len(spans)
+    for k in reversed(range(len(spans))):
+        g[k] = cot
+        sl, a = spans[k], a_of[k]
+        cot = cot * torch.exp(a[:, -1])[..., None, None] + torch.einsum(
+            "bin,bihp->bhnp", Cm[:, sl].to(ct),
+            dy[:, sl].to(ct) * torch.exp(a)[..., None])
+    return torch.stack(s_in, dim=1), torch.stack(g, dim=1)

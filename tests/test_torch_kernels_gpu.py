@@ -1703,15 +1703,19 @@ def _ssd_bwd_counts():
             ssd_ops.BWD_LAUNCHES)
 
 
-def _ssd_chunk_counts():
-    """(tensor-core chunk kernel, FFMA chunk kernel) launches."""
-    return ssd_ops.BWD_CHUNK_TC_LAUNCHES, ssd_ops.BWD_CHUNK_FFMA_LAUNCHES
+def _ssd_route_counts():
+    """Launches of each route's kernels: (tensor-core state, dstate, chunk
+    kernel, FFMA state, dstate, chunk kernel)."""
+    return (ssd_ops.BWD_STATE_TC_LAUNCHES, ssd_ops.BWD_DSTATE_TC_LAUNCHES,
+            ssd_ops.BWD_CHUNK_TC_LAUNCHES, ssd_ops.BWD_STATE_FFMA_LAUNCHES,
+            ssd_ops.BWD_DSTATE_FFMA_LAUNCHES, ssd_ops.BWD_CHUNK_FFMA_LAUNCHES)
 
 
-def _ssd_chunk_step(dtype, calls=1):
-    """The chunk kernels' launches ``calls`` backward calls of ``dtype``
-    make: bf16 the tensor-core one, f32 the FFMA one."""
-    return (calls, 0) if dtype in ("bfloat16", torch.bfloat16) else (0, calls)
+def _ssd_route_step(dtype, calls=1):
+    """The route counts ``calls`` backward calls of ``dtype`` add: bf16 to
+    the tensor-core state passes and chunk kernel, f32 to the FFMA ones."""
+    tc = dtype in ("bfloat16", torch.bfloat16)
+    return (calls,) * 3 + (0,) * 3 if tc else (0,) * 3 + (calls,) * 3
 
 
 def _ssd_dy(x, seed):
@@ -1725,17 +1729,18 @@ def _ssd_bwd_check(x, dt, A, bm, cm, dy, chunk, dtype):
     (``ssd_scan_bwd_ref``), each gradient within ``chip_smoke.py``'s
     limits (``ssd_bwd_errors``: ``SSD_TOL`` of its largest |value|, each
     row within ``SSD_ROW_TOL`` of its norm); one launch of each kernel,
-    the chunk kernel the type's (bf16 the tensor-core one, f32 the FFMA
-    one) and the other none; a second call bit-equal (no atomics)."""
+    the state passes and the chunk kernel the type's (bf16 the
+    tensor-core ones, f32 the FFMA ones) and the other route's none; a
+    second call bit-equal (no atomics)."""
     from _torch_helpers import chip_smoke
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
-    before, chunks = _ssd_bwd_counts(), _ssd_chunk_counts()
+    before, routes = _ssd_bwd_counts(), _ssd_route_counts()
     got = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
                                impl="kernel")
     assert _ssd_bwd_counts() == tuple(c + 1 for c in before[:4]) + (
         before[4] + 4,)
-    assert _ssd_chunk_counts() == tuple(
-        c + d for c, d in zip(chunks, _ssd_chunk_step(dtype)))
+    assert _ssd_route_counts() == tuple(
+        c + d for c, d in zip(routes, _ssd_route_step(dtype)))
     again = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk,
                                  impl="kernel")
     want = ssd_scan_bwd_ref(*(t.double() for t in (x, dt, A, bm, cm, dy)),
@@ -1821,7 +1826,7 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
     leaves = [t.clone().requires_grad_(True) for t in (x, dt16, A, bm, cm)]
     dy = _ssd_dy(x, 28)
     before, copies = _ssd_bwd_counts(), ssd_ops.COPIES
-    chunks = _ssd_chunk_counts()
+    routes = _ssd_route_counts()
     y = ssd_ops.ssd_scan(*leaves, chunk=64)
     assert type(y.grad_fn).__name__ == "_SSDScanBackward"
     assert ssd_ops.COPIES == copies + 1
@@ -1832,8 +1837,8 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
     torch.cuda.synchronize()
     assert _ssd_bwd_counts() == tuple(c + 2 for c in before[:4]) + (
         before[4] + 8,)
-    assert _ssd_chunk_counts() == tuple(
-        c + d for c, d in zip(chunks, _ssd_chunk_step(dtype, 2)))
+    assert _ssd_route_counts() == tuple(
+        c + d for c, d in zip(routes, _ssd_route_step(dtype, 2)))
     want = ssd_ops.ssd_scan_bwd(x, dt16, A, bm, cm, dy, chunk=64)
     for a, b, w, t in zip(g1, g2, want, (x, dt16, A, bm, cm)):
         assert a.dtype == t.dtype
@@ -1845,30 +1850,137 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
         assert ssd_ops.ssd_scan(*leaves, chunk=64).grad_fn is None
 
 
+class _OneEntryLaunched:
+    """The kernel library with one entry point replaced by a call that
+    launches nothing and returns 0."""
+
+    def __init__(self, lib, entry):
+        self._lib, self._entry = lib, entry
+
+    def __getattr__(self, name):
+        if name == self._entry:
+            return lambda *args: 0
+        return getattr(self._lib, name)
+
+
 @pytest.mark.gpu
 def test_ssd_backward_launch_error_on_card(cuda, monkeypatch):
     """A state the kernels refuse (N = 160, past their 128), let through the
     wrapper's own check, comes back from the C side as a
-    ``KernelLaunchError`` naming the kernel; nothing is counted.  The
-    tensor-core chunk kernel's entry point refuses a head split past the
-    heads (the state passes before it take the call): its error names it,
-    and neither chunk kernel is counted."""
+    ``KernelLaunchError`` naming the kernel and its entry point, nothing
+    counted: in f32 the FFMA state pass, in bf16 the tensor-core one
+    (``repro_ssd_bwd_state_tc``), and with that one taken as launched the
+    tensor-core reverse pass (``repro_ssd_bwd_dstate_tc``), only the state
+    pass counted.  The tensor-core chunk kernel's entry point refuses a head
+    split past the heads (the state passes before it take the call): its
+    error names it, and no chunk kernel is counted.  The FFMA state passes
+    refuse bf16 and the tensor-core ones f32 (``dims[6]``)."""
     monkeypatch.setattr(ssd_ops, "MAX_STATE", 256)
     x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 160, "float32", cuda)
     before = _ssd_bwd_counts()
-    with pytest.raises(ssd_ops.KernelLaunchError, match="state kernel"):
+    with pytest.raises(ssd_ops.KernelLaunchError,
+                       match="state kernel, repro_ssd_bwd_state;"):
         ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 29), chunk=32,
                              impl="kernel")
     assert _ssd_bwd_counts() == before
+    x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 160, "bfloat16", cuda)
+    before, routes = _ssd_bwd_counts(), _ssd_route_counts()
+    with pytest.raises(ssd_ops.KernelLaunchError,
+                       match="state kernel, repro_ssd_bwd_state_tc;"):
+        ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 29), chunk=32,
+                             impl="kernel")
+    assert (_ssd_bwd_counts(), _ssd_route_counts()) == (before, routes)
+    real_lib = ssd_ops._lib()
+    monkeypatch.setattr(ssd_ops, "_lib", lambda: _OneEntryLaunched(
+        real_lib, "repro_ssd_bwd_state_tc"))
+    with pytest.raises(ssd_ops.KernelLaunchError,
+                       match="dstate kernel, repro_ssd_bwd_dstate_tc;"):
+        ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 29), chunk=32,
+                             impl="kernel")
+    assert _ssd_bwd_counts() == (before[0] + 1, *before[1:4],
+                                 before[4] + 1)
+    assert _ssd_route_counts() == (routes[0] + 1, *routes[1:])
+    monkeypatch.setattr(ssd_ops, "_lib", lambda: real_lib)
     x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 16, "bfloat16", cuda)
     monkeypatch.setattr(ssd_ops, "plan_splits", lambda b, nc, h, sms: h + 1)
-    before, chunks = _ssd_bwd_counts(), _ssd_chunk_counts()
+    before, routes = _ssd_bwd_counts(), _ssd_route_counts()
     with pytest.raises(ssd_ops.KernelLaunchError,
                        match="chunk kernel, repro_ssd_bwd_chunk_tc"):
         ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, _ssd_dy(x, 30), chunk=32,
                              impl="kernel")
     assert _ssd_bwd_counts()[2:4] == before[2:4]
-    assert _ssd_chunk_counts() == chunks
+    assert _ssd_route_counts() == (routes[0] + 1, routes[1] + 1,
+                                   *routes[2:])
+    for dtype, entries in (("bfloat16", ("repro_ssd_bwd_state",
+                                         "repro_ssd_bwd_dstate")),
+                           ("float32", ("repro_ssd_bwd_state_tc",
+                                        "repro_ssd_bwd_dstate_tc"))):
+        x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 16, 16, dtype, cuda)
+        _, (_, args, _) = ssd_ops._bwd_call(x, dt, A, bm, cm,
+                                            _ssd_dy(x, 31), 32)
+        for entry in entries:
+            assert getattr(real_lib, entry)(*args) != 0, (dtype, entry)
+    torch.cuda.synchronize()
+
+
+SSD_STATE_CASES = [(2, 200, 4, 16, 8, 128), (2, 40, 3, 16, 8, 128),
+                   (1, 77, 2, 22, 13, 16), (2, 300, 4, 64, 128, 256),
+                   (1, 300, 24, 64, 128, 128), (1, 260, 112, 64, 64, 128),
+                   (8, 2048, 24, 64, 128, 128), (4, 1024, 112, 64, 64, 128)]
+SSD_STATE_IDS = ["ragged200/128", "s<chunk-odd-heads", "ragged-odd-dims",
+                 "default-chunk-256", "mamba2-layer-s300",
+                 "zamba2-layer-s260", "mamba2-train-layer",
+                 "zamba2-train-layer"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(SSD_TOL))
+@pytest.mark.parametrize("layout", ["bc-slices", "strided", "strong-decay"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_STATE_CASES,
+                         ids=SSD_STATE_IDS)
+def test_ssd_backward_state_buffers_match_plain_on_card(cuda, dtype, layout,
+                                                        b, s, h, p, n, chunk):
+    """The state passes of the type (bf16 the tensor-core ones, f32 the
+    FFMA ones) write each chunk's S_in and G, ``(B, nC, H, N, P)`` f32,
+    within ``chip_smoke.ssd_bwd_state_buffers``' limits of
+    ``ssd_bwd_states_ref`` in f64 (``ssd_bwd_errors`` at the f32 limits: 1e-4
+    of the largest |value|, each row within 1e-3 of its norm), each entry
+    point of the type launched with no error, bit-equal
+    on a second launch, the first chunk's S_in and the last chunk's G
+    exactly 0: at a ragged S, S < chunk with an odd head count, N 13 and
+    P 22, the default chunk 256 (run at 128), and mamba2-130m's and
+    zamba2-7b's layers at a short S and at their train shapes; B and C as
+    slices of one (B, S, 2N) tensor, or also x and dy as strided views, or
+    under strong decay (dt·A between -22 and -20 every step)."""
+    from _torch_helpers import chip_smoke
+    smoke = chip_smoke()
+    x, dt, A, bm, cm = _ssd_inputs(b, s, h, p, n, dtype, cuda, seed=40)
+    dy = _ssd_dy(x, 41)
+    bc = torch.cat([bm, cm], dim=-1)
+    bm, cm = bc[..., :n], bc[..., n:]
+    if layout == "strided":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+        dy = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    elif layout == "strong-decay":
+        r = np.random.default_rng(42)
+        dt = torch.tensor(1.0 + 0.1 * r.random(tuple(dt.shape)),
+                          dtype=torch.float32, device=cuda)
+        A = torch.full_like(A, -20.0)
+    c = min(chunk, s, ssd_ops.MAX_CHUNK)
+    before = (_ssd_bwd_counts(), _ssd_route_counts())
+    rcs, got, errs = smoke.ssd_bwd_state_buffers(x, dt, A, bm, cm, dy, chunk)
+    rcs2, again, _ = smoke.ssd_bwd_state_buffers(x, dt, A, bm, cm, dy, chunk)
+    assert (_ssd_bwd_counts(), _ssd_route_counts()) == before
+    want_entries = {"float32": ("repro_ssd_bwd_state", "repro_ssd_bwd_dstate"),
+                    "bfloat16": ("repro_ssd_bwd_state_tc",
+                                 "repro_ssd_bwd_dstate_tc")}[dtype]
+    assert tuple(rcs) == want_entries and set(rcs.values()) == {0}, rcs
+    assert rcs2 == rcs
+    assert not got[0][:, 0].any() and not got[1][:, -1].any()
+    for key, g, g2 in zip(("S_in", "G"), got, again):
+        assert g.shape == (b, -(-s // c), h, n, p), key
+        assert torch.equal(g, g2), key
+        assert errs[key]["fault"] is None, errs
 
 
 @pytest.mark.gpu
@@ -1884,7 +1996,7 @@ def test_ssd_train_step_on_card_matches_cpu(cuda, arch, dtype):
     gradient is not near AdamW's eps (``assert_master_close``: there the
     step divides by √v + eps and rounding alone moves it; ROADMAP C); bf16
     loss and grad norm within 5e-2; each backward kernel launched once a
-    Mamba2 layer, the chunk kernel the type's."""
+    Mamba2 layer, the state passes and the chunk kernel the type's."""
     import dataclasses
     from _torch_helpers import assert_master_close
     from repro_torch.configs import get_config
@@ -1899,14 +2011,14 @@ def test_ssd_train_step_on_card_matches_cpu(cuda, arch, dtype):
     out = []
     for dev in (cuda, torch.device("cpu")):
         state = adamw.init(init_params(cfg, 0, device=cuda).to(dev))
-        before, chunks = _ssd_bwd_counts(), _ssd_chunk_counts()
+        before, routes = _ssd_bwd_counts(), _ssd_route_counts()
         step = make_train_step(cfg, acfg, schedule.constant)
         state, m = step(state, {k: t.to(dev) for k, t in batch.items()})
         if dev.type == "cuda":
             assert _ssd_bwd_counts()[:4] == tuple(
                 c + cfg.n_layers for c in before[:4])
-            assert _ssd_chunk_counts() == tuple(c + d for c, d in zip(
-                chunks, _ssd_chunk_step(dtype, cfg.n_layers)))
+            assert _ssd_route_counts() == tuple(c + d for c, d in zip(
+                routes, _ssd_route_step(dtype, cfg.n_layers)))
         else:
             assert _ssd_bwd_counts() == before
         out.append((float(m["loss"]), float(m["grad_norm"]),

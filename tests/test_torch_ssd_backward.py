@@ -11,7 +11,10 @@ ragged S and S < chunk: f32 within 1e-4, bf16 within 5e-2 (JAX's own
 limits there), relative and absolute of the leaf's largest |gradient|.
 The gradient through ``return_final_state=True`` and through
 ``ssd_final_state`` is held against ``jax.vjp`` of JAX's
-``ssd_final_state``.  A kernel asked for on CPU tensors raises.
+``ssd_final_state``.  The state passes' plain version
+(``ref.ssd_bwd_states_ref``) is held against JAX's jitted
+``ssd_final_state`` on each chunk's prefix (S_in) and against the
+per-step sum that defines G.  A kernel asked for on CPU tensors raises.
 
 The backward kernels run only on a card (``tests/test_torch_kernels_gpu.py``,
 ``chip_smoke.py``, which holds them against the plain gradient in f64,
@@ -36,7 +39,7 @@ from repro.kernels.ssd_scan.ops import (  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_chunked_ref, ssd_scan_bwd_ref)
+    ssd_bwd_states_ref, ssd_chunked_ref, ssd_scan_bwd_ref)
 from _torch_helpers import as_np, chip_smoke, normal, rng, ssd_pair  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -136,6 +139,47 @@ def test_final_state_gradients_match_jax(s, chunk):
     for name, g, w, gh, wh in zip(GRADS, got, want, got_h, want_h):
         _close(g, w, 1e-4, f"d{name}")
         _close(gh, wh, 1e-4, f"d{name} (final state)")
+
+
+def test_state_buffers_match_jax_final_state_and_per_step_sum():
+    """``ssd_bwd_states_ref`` at a ragged S of four chunks, on the same
+    numpy inputs as JAX: each chunk's S_in against JAX's jitted
+    ``ssd_final_state`` on the prefix before the chunk (both (B, H, N, P);
+    0 for the first chunk), within 1e-5 of the largest |value| in f32; each
+    chunk's G against Σ_{i past chunk c} exp(a_i − a_end)·C_i ⊗ dy_i, a_end
+    the cumsum of dt·A at the chunk's last step, summed step by step in f64
+    (numpy): the f32 G within 1e-5 of its largest |value|, the f64 one
+    within 1e-12 (0 for the last chunk, exactly)."""
+    b, s, h, p, n, chunk = 2, 100, 3, 16, 8, 32
+    js, ts = ssd_pair(b, s, h, p, n, seed=14)
+    dy = normal(rng(15), (b, s, h, p))
+    sin, g = ssd_bwd_states_ref(*ts, torch.from_numpy(dy), chunk)
+    g64 = ssd_bwd_states_ref(*(t.double() for t in ts),
+                             torch.from_numpy(dy).double(), chunk)[1]
+    nc = -(-s // chunk)
+    assert sin.shape == g.shape == (b, nc, h, n, p)
+    assert sin.dtype == g.dtype == torch.float32
+    assert not sin[:, 0].any() and not g[:, -1].any()
+    for c in range(1, nc):
+        x, dt = (a[:, :c * chunk] for a in js[:2])
+        bm, cm = (a[:, :c * chunk] for a in js[3:])
+        want = np.asarray(jax_final_state(x, dt, js[2], bm, cm))
+        np.testing.assert_allclose(sin[:, c].numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=f"S_in of chunk {c}")
+    dt, A, cm = (np.asarray(a, np.float64) for a in (js[1], js[2], js[4]))
+    a = np.cumsum(dt * A, axis=1)                              # (b, s, h)
+    for c in range(nc):
+        end = min((c + 1) * chunk, s) - 1
+        want = np.zeros((b, h, n, p))
+        for i in range(end + 1, s):
+            w = np.exp(a[:, i] - a[:, end])                      # (b, h)
+            want += np.einsum("bn,bh,bhp->bhnp", cm[:, i], w, dy[:, i])
+        scale = max(np.abs(want).max(), 1e-30)
+        np.testing.assert_allclose(g[:, c].numpy(), want, rtol=0,
+                                   atol=1e-5 * scale, err_msg=f"G {c}")
+        np.testing.assert_allclose(g64[:, c].numpy(), want, rtol=0,
+                                   atol=1e-12 * scale, err_msg=f"G {c}")
 
 
 def test_kernel_impl_on_cpu_raises_and_counts_nothing():

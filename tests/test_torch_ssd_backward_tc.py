@@ -1,15 +1,19 @@
-"""The SSD backward's route by type and the tensor-core chunk kernel's
+"""The SSD backward's route by type and the tensor-core kernels'
 arithmetic (``repro_torch.kernels.ssd_scan``), on the CPU.
 
-A CUDA backward sends its chunk kernel by the type of x, B and C: bf16 to
+A CUDA backward sends its state passes and its chunk kernel by the type of
+x, B and C: bf16 to ``ssd_scan_bwd_{state,dstate}_kernel_wgmma``
+(``csrc/ssd_scan_bwd_state_wgmma.cu``) and
 ``ssd_scan_bwd_chunk_kernel_wgmma`` (``csrc/ssd_scan_bwd_wgmma.cu``), f32
-to the FFMA ``ssd_scan_bwd_chunk_kernel`` (``csrc/ssd_scan_bwd.cu``).
-Here the route runs against a stub library that records the calls: which
-entry points, the partials' parts, the buffers and the counters.  A
-plain-torch model of the tensor-core kernel's rounding (not of its
-tiling) shows why its f32 operands enter ``wgmma`` as three bf16 terms.
-The kernels themselves run only on a card
-(``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
+to the FFMA ``ssd_scan_bwd_{state,dstate,chunk}_kernel``
+(``csrc/ssd_scan_bwd.cu``).  Here the route runs against a stub library
+that records the calls: which entry points, the partials' parts, the
+buffers and the counters.  Plain-torch models of the tensor-core kernels'
+rounding (not of their tiling) show why their f32 operands enter
+``wgmma`` as three bf16 terms: the chunk kernel's against the plain
+backward, the state passes' S_in and G buffers against
+``ssd_bwd_states_ref``, both in f64.  The kernels themselves run only on
+a card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
 """
 import contextlib
 import functools
@@ -22,11 +26,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_bwd_states_ref, ssd_scan_bwd_ref)
 from _torch_helpers import chip_smoke  # noqa: E402
 
 COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "BWD_STATE_LAUNCHES",
             "BWD_DSTATE_LAUNCHES", "BWD_CHUNK_LAUNCHES",
+            "BWD_STATE_TC_LAUNCHES", "BWD_STATE_FFMA_LAUNCHES",
+            "BWD_DSTATE_TC_LAUNCHES", "BWD_DSTATE_FFMA_LAUNCHES",
             "BWD_CHUNK_TC_LAUNCHES", "BWD_CHUNK_FFMA_LAUNCHES",
             "BWD_REDUCE_LAUNCHES", "COPIES")
 
@@ -87,11 +94,12 @@ def _stubbed(sms=132):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_chunk_kernel_goes_by_dtype(dtype):
     """Under autograd on the kernel route: the forward kernel of the type,
-    then the four backward kernels in order with the chunk kernel of the
-    type — bf16 the tensor-core entry point with its counter, f32 the FFMA
-    one — ``BWD_CHUNK_LAUNCHES`` counting either; the partials' parts
-    passed in ``dims[7]`` are the blocks' head splits (bf16) or the heads
-    (f32)."""
+    then the four backward kernels in order with the state passes and the
+    chunk kernel of the type — bf16 the tensor-core entry points with
+    their counters, f32 the FFMA ones — ``BWD_STATE_LAUNCHES``,
+    ``BWD_DSTATE_LAUNCHES`` and ``BWD_CHUNK_LAUNCHES`` counting either
+    route; the partials' parts passed in ``dims[7]`` are the blocks' head
+    splits (bf16) or the heads (f32)."""
     b, s, h, p, n, chunk = 2, 100, 6, 16, 8, 32
     x, dt, A, bm, cm, dy = _inputs(b, s, h, p, n, dtype)
     tc = dtype == torch.bfloat16
@@ -101,10 +109,11 @@ def test_backward_chunk_kernel_goes_by_dtype(dtype):
         y = ops.ssd_scan(*leaves, chunk=chunk, impl="kernel")
         torch.autograd.grad(y, leaves, dy)
     entries = [e for e, _ in lib.calls]
-    chunk_entry = "repro_ssd_bwd_chunk_tc" if tc else "repro_ssd_bwd_chunk"
+    own = "_tc" if tc else ""
     assert entries == ["repro_ssd_scan_tc" if tc else "repro_ssd_scan",
-                       "repro_ssd_bwd_state", "repro_ssd_bwd_dstate",
-                       chunk_entry, "repro_ssd_bwd_reduce"]
+                       "repro_ssd_bwd_state" + own,
+                       "repro_ssd_bwd_dstate" + own,
+                       "repro_ssd_bwd_chunk" + own, "repro_ssd_bwd_reduce"]
     nc = -(-s // chunk)
     parts = ops.plan_splits(b, nc, h, 16) if tc else h
     assert parts == (2 if tc else 6)             # 8 (batch, chunk) blocks
@@ -113,6 +122,10 @@ def test_backward_chunk_kernel_goes_by_dtype(dtype):
     got = {c: v - before[c] for c, v in _counts().items()}
     assert got == {"LAUNCHES": 5, "BWD_LAUNCHES": 4, "BWD_STATE_LAUNCHES": 1,
                    "BWD_DSTATE_LAUNCHES": 1, "BWD_CHUNK_LAUNCHES": 1,
+                   "BWD_STATE_TC_LAUNCHES": int(tc),
+                   "BWD_STATE_FFMA_LAUNCHES": int(not tc),
+                   "BWD_DSTATE_TC_LAUNCHES": int(tc),
+                   "BWD_DSTATE_FFMA_LAUNCHES": int(not tc),
                    "BWD_CHUNK_TC_LAUNCHES": int(tc),
                    "BWD_CHUNK_FFMA_LAUNCHES": int(not tc),
                    "BWD_REDUCE_LAUNCHES": 1, "COPIES": 0}
@@ -144,8 +157,8 @@ def test_each_route_allocates_its_own_partials(dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_backward_on_cpu_raises_and_counts_nothing(dtype):
     """No fallback: ``impl="kernel"`` on CPU tensors raises before any
-    launch, cast or buffer, and no counter moves — the two chunk kernels'
-    included."""
+    launch, cast or buffer, and no counter moves — each route's state
+    passes' and chunk kernel's included."""
     x, dt, A, bm, cm, dy = _inputs(1, 40, 2, 16, 8, dtype, seed=2)
     before = _counts()
     with pytest.raises(ValueError, match="CUDA device"):
@@ -316,3 +329,102 @@ def test_three_bf16_terms_keep_the_backward_at_f32_precision(terms, which):
         assert not any(near)
     if terms == 1 and which == "strong-decay":
         assert faults[0] is None and None not in faults[1:], faults
+
+
+# ------------------------------- the tensor-core state passes' arithmetic
+def _tc_state_arithmetic(x, dt, A, Bm, Cm, dy, chunk, terms):
+    """``(S_in, G)``, ``(B, nC, H, N, P)``, with
+    ``csrc/ssd_scan_bwd_state_wgmma.cu``'s rounding in plain torch: a =
+    cumsum(dt·A) in f64 from each chunk's start, each coefficient exp of an
+    f64 difference rounded once to f32 (times dt_j forward, exp(a_i) in
+    reverse); x̃ = coefficient·x (dỹ = coefficient·dy) rounded once to f32
+    and taken as ``terms`` bf16 terms (``None``: whole, the FFMA passes'
+    f32 arithmetic, the f32 floor); each chunk's product with the exact
+    B (C) summed in f32 into a fresh u, then the state exp(a_{L-1})·S + u
+    in f32.  Products of bf16 values are exact in f32, as on the tensor
+    cores; the order of the f32 sums is torch's."""
+    xf, yf, bf, cf, dtf = (t.float() for t in (x, dy, Bm, Cm, dt))
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    spans = [slice(s0, min(s0 + chunk, s)) for s0 in range(0, s, chunk)]
+    a_of = [torch.cumsum(dtf[:, sl].double() * A.double(), 1)
+            for sl in spans]
+
+    def product(u, v):                       # Σ_j u_j ⊗ v_j over the chunk
+        parts = [v] if terms is None else _split(v, terms)
+        return sum(torch.einsum("bjn,bjhp->bhnp", u, t) for t in parts)
+
+    S, sin = torch.zeros((b, h, n, p)), []
+    for sl, a in zip(spans, a_of):
+        sin.append(S)
+        coef = torch.exp((a[:, -1:] - a).float()) * dtf[:, sl]
+        S = S * torch.exp(a[:, -1].float())[..., None, None] + product(
+            bf[:, sl], xf[:, sl] * coef[..., None])
+    G, gs = torch.zeros((b, h, n, p)), [None] * len(spans)
+    for k in reversed(range(len(spans))):
+        gs[k] = G
+        sl, a = spans[k], a_of[k]
+        G = G * torch.exp(a[:, -1].float())[..., None, None] + product(
+            cf[:, sl], yf[:, sl] * torch.exp(a.float())[..., None])
+    return torch.stack(sin, 1), torch.stack(gs, 1)
+
+
+def _state_kernel_terms() -> int:
+    src = (pathlib.Path(ops.__file__).parent / "csrc" /
+           "ssd_scan_bwd_state_wgmma.cu").read_text()
+    return int(re.search(r"constexpr int TERMS = (\d+);", src).group(1))
+
+
+@functools.lru_cache(maxsize=3)
+def _state_case(which):
+    """Inputs at mamba2-130m's train-layer widths (H 24, P 64, N 128),
+    zamba2-7b's (H 112, P 64, N 64), each cut to one batch row of three
+    chunks of 128, or the smoke's strong-decay case (dt·A between -22 and
+    -20 every step); ``ssd_bwd_states_ref`` in f64, and the FFMA passes'
+    f32 arithmetic's distance from it (the floor) for S_in and G."""
+    if which == "strong-decay":
+        x, dt, A, bm, cm, dy = _inputs(2, 256, 4, 64, 128, torch.bfloat16,
+                                       seed=3)
+        gen = torch.Generator().manual_seed(4)
+        dt = 1.0 + 0.1 * torch.rand(dt.shape, generator=gen)
+        A = torch.full_like(A, -20.0)
+    elif which == "mamba2-layer":
+        x, dt, A, bm, cm, dy = _inputs(1, 384, 24, 64, 128, torch.bfloat16,
+                                       seed=5)
+    else:
+        x, dt, A, bm, cm, dy = _inputs(1, 384, 112, 64, 64, torch.bfloat16,
+                                       seed=6)
+    ins = (x, dt, A, bm, cm, dy)
+    want = ssd_bwd_states_ref(*(t.double() for t in ins), 128)
+    f32 = _tc_state_arithmetic(*ins, 128, None)
+    return ins, want, [_dist(g, w) for g, w in zip(f32, want)]
+
+
+@pytest.mark.parametrize("which", ["mamba2-layer", "zamba2-layer",
+                                   "strong-decay"])
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_three_bf16_terms_keep_the_state_passes_at_f32_precision(terms,
+                                                                 which):
+    """Why the tensor-core state passes feed x̃ and dỹ to ``wgmma`` as three
+    bf16 terms.  The model of their rounding must lie no further from
+    ``ssd_bwd_states_ref`` in f64 than twice the FFMA passes' f32
+    arithmetic does (S_in and G: norm of the difference over the norm), and
+    within ``chip_smoke.py``'s limits for the buffers
+    (``ssd_bwd_state_buffers``: ``ssd_bwd_errors`` at the f32 limits, 1e-4
+    of the largest |value|, each row within 1e-3 of its norm); with fewer
+    terms it lies further, and with one term the buffers fail those
+    limits."""
+    assert _state_kernel_terms() == 3
+    smoke = chip_smoke()
+    ins, want, floor = _state_case(which)
+    got = _tc_state_arithmetic(*ins, 128, terms)
+    dist = [_dist(g, w) for g, w in zip(got, want)]
+    faults = [smoke.ssd_bwd_errors(g, w, torch.float32, key)["fault"]
+              for key, g, w in zip(("S_in", "G"), got, want)]
+    if terms == 3:
+        assert all(d <= 2.0 * f for d, f in zip(dist, floor)), (dist, floor)
+        assert faults == [None, None], faults
+    else:
+        assert all(d > 2.0 * f for d, f in zip(dist, floor)), (dist, floor)
+    if terms == 1:
+        assert None not in faults, faults
