@@ -264,8 +264,10 @@ of those paths against its plain PyTorch version on the card:
    and the time of that copy and of the state snapshot, the chaos run's
    counters and extra wall time, and the card's name and power limit;
 16. lm_train: first the earlier phases' memory is freed and the card's
-   allocated bytes printed before and after the phase.  The two flash
-   backward kernels (``flash_attention_bwd_dq_kernel``,
+   allocated bytes printed before and after the phase.  The flash
+   backward's kernels (a dQ kernel by :func:`flash_ops.bwd_route`: bf16 up
+   to 128 padded columns ``flash_attention_bwd_dq_kernel_wgmma``, else
+   ``flash_attention_bwd_dq_kernel``; then
    ``flash_attention_bwd_dkdv_kernel``) against ``attention_bwd_ref``
    (autograd through the plain attention) at gemma2-2b's train shapes (B 8,
    S 128, Hq 8, Hkv 4, D 256, soft-cap 50: the window-4096 and the global
@@ -274,14 +276,17 @@ of those paths against its plain PyTorch version on the card:
    case (B 1, S 2048, window 1024), a ragged S (200), GQA 4:1 and two f32
    cases: dq, dk and dv each within the forward's limits (``FLASH_TOL``
    elementwise, ``ROW_REL_TOL`` a row: bf16 1e-2, f32 1e-4), one launch of
-   each kernel.  Then gemma2-2b at full width (26 layers, d_model 2304,
+   the routed dQ kernel and of the dK/dV kernel, and the dQ kernel's row
+   statistics (LSE, D) within the f32 limits of ``attention_bwd_stats_ref``.
+   Then gemma2-2b at full width (26 layers, d_model 2304,
    vocab 256000, tied embedding, random weights from seed 0) trained
    through ``repro_torch.launch.train`` (``run``: ``main``'s code, which
    also returns the trainer) for ``LM_TRAIN_STEPS`` steps of AdamW at
    batch 8 × 128 tokens (the launcher's defaults; no checkpoint written),
    with every launch count set to 0 just before and read just after: per
-   step 26 launches of the tensor-core flash kernel and 26 of each backward
-   kernel, none of the FFMA kernels or the SSD scan, no copy; every loss
+   step 26 launches of the tensor-core flash kernel, 26 of the FFMA dQ
+   kernel (head dim 256) and 26 of the dK/dV kernel, none of the
+   tensor-core dQ kernel, the FFMA forward or the SSD scan, no copy; every loss
    and grad norm finite; step 1 recomputed from the same seed and batch
    with the kernels and with the plain attention (``attn_impl="plain"``),
    the kernel run's loss within ``LM_TRAIN_LOSS_RTOL`` and its grad norm
@@ -321,7 +326,9 @@ of those paths against its plain PyTorch version on the card:
    type's peak) and its buffers' bytes, the four together and the plain
    backward; the flash backward at
    zamba2-7b's shared attention (B 4, S 1024, 32 heads of 112, causal)
-   against ``attention_bwd_ref``.  Then mamba2-130m at full width and
+   against ``attention_bwd_ref`` (the tensor-core dQ kernel, its LSE and D
+   against ``attention_bwd_stats_ref``; timed beside the FFMA dQ kernel).
+   Then mamba2-130m at full width and
    depth (24 layers, d_model 768, vocab 50280, N 128) through
    ``repro_torch.launch.train``'s ``run`` at batch 8 × 2048 (16 chunks a
    row), and zamba2-7b at full width cut to 12 Mamba2 layers (2 groups
@@ -333,8 +340,8 @@ of those paths against its plain PyTorch version on the card:
    launch of each backward kernel a Mamba2 layer (the state passes and
    the chunk kernel the tensor-core ones, the FFMA ones never), for
    zamba2 also one
-   flash forward and one of each flash backward kernel a shared-block
-   application, no cast, copy or other kernel; every loss and grad norm
+   flash forward, one tensor-core dQ launch (no FFMA one) and one dK/dV
+   launch a shared-block application, no cast, copy or other kernel; every loss and grad norm
    finite; step 1 recomputed from weight seeds 0, 1 and 2
    (:func:`ssd_step_one`): in bf16 each gradient leaf on the kernels
    within ``SSD_TRAIN_FLOOR_FACTOR`` floors of the plain SSD scan's
@@ -390,7 +397,7 @@ from repro_torch.core.plan import FusedJoinAgg, postorder  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_bwd_ref, attention_ref)
+    attention_bwd_ref, attention_bwd_stats_ref, attention_ref)
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import (matmul_ref,  # noqa: E402
                                             splitk_reduce_ref,
@@ -434,6 +441,12 @@ ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # plain-torch model of the kernel's arithmetic, P in one or two bf16 terms
 # fails this and three pass (tests/test_torch_flash_attention.py).
 FLASH_ROUNDING_FACTOR = 2.0
+# The tensor-core dQ kernel's dS enters dQ += dS·K in the fewest bf16 terms
+# that keep its dq within this share of each bf16 limit (FLASH_TOL
+# elementwise, ROW_REL_TOL a row) on every case it runs; one term fewer
+# passes the limits themselves but not this share
+# (tests/test_torch_flash_backward_tc.py), so the card holds it too.
+BWD_TC_DQ_SHARE = 0.5
 SSM_ARCH = "mamba2-130m"
 SSM_BATCH = 8                    # x PROMPT_LEN tokens, GEN decode steps
 # An SSD output sums terms of either sign over the chunk and the carried
@@ -600,6 +613,7 @@ def tolerance(k: int, dtype) -> tuple:
 def reset_launches() -> None:
     mm_ops.LAUNCHES = mm_ops.REDUCE_LAUNCHES = flash_ops.LAUNCHES = 0
     flash_ops.BWD_DQ_LAUNCHES = flash_ops.BWD_DKDV_LAUNCHES = 0
+    flash_ops.BWD_DQ_TC_LAUNCHES = flash_ops.BWD_DQ_FFMA_LAUNCHES = 0
     mm_ops.SKINNY_LAUNCHES = mm_ops.FOLDS = mm_ops.COPIES = 0
     mm_ops.TC_LAUNCHES = mm_ops.SPLIT_LAUNCHES = 0
     mm_ops.NARROW_LAUNCHES = mm_ops.NARROW_FOLDS = 0
@@ -615,7 +629,9 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel's launch count (``flash_attention`` and ``ssd_scan``
-    are the sums of their forward and backward kernels', ``ssd_scan_bwd``
+    are the sums of their forward and backward kernels',
+    ``flash_attention_bwd_dq`` of the two dQ kernels' (``_tc``, ``_ffma``),
+    ``ssd_scan_bwd``
     of the four SSD backward kernels', ``ssd_scan_bwd_state``,
     ``_dstate`` and ``_chunk`` of each one's two routes' (``_tc`` bf16,
     ``_ffma`` f32)), the skinny and narrow matmul
@@ -634,6 +650,8 @@ def read_launches() -> dict:
             "flash_attention_wgmma": flash_ops.TC_LAUNCHES,
             "flash_attention_ffma": flash_ops.FFMA_LAUNCHES,
             "flash_attention_bwd_dq": flash_ops.BWD_DQ_LAUNCHES,
+            "flash_attention_bwd_dq_tc": flash_ops.BWD_DQ_TC_LAUNCHES,
+            "flash_attention_bwd_dq_ffma": flash_ops.BWD_DQ_FFMA_LAUNCHES,
             "flash_attention_bwd_dkdv": flash_ops.BWD_DKDV_LAUNCHES,
             "flash_copies": flash_ops.COPIES,
             "ssd_scan": ssd_ops.LAUNCHES,
@@ -669,7 +687,8 @@ def phase_device(device) -> str:
 def phase_build() -> None:
     """Every kernel library at once, each source by its own ``nvcc``, all
     in parallel; then the ``HGMMA`` counts of the flash, SSD and matmul
-    libraries and the ``UTMALDG`` count of the matmul library."""
+    libraries and of the tensor-core dQ kernel alone, and the ``UTMALDG``
+    count of the matmul library."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SOURCES)) as pool:
@@ -682,14 +701,21 @@ def phase_build() -> None:
         emit({"phase": "build", "library": name, "seconds": seconds[name],
               "ptxas": usage})
     hgmma = build.sass_count("flash_attention", "HGMMA")
+    dq_hgmma = build.sass_count("flash_attention", "HGMMA",
+                                "flash_attention_bwd_dq_kernel_wgmma")
     ssd_hgmma = build.sass_count("ssd_scan", "HGMMA")
     utmaldg = build.sass_count("matmul", "UTMALDG")
     mm_hgmma = build.sass_count("matmul", "HGMMA")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "flash_attention_hgmma": hgmma, "ssd_scan_hgmma": ssd_hgmma,
+          "flash_attention_hgmma": hgmma,
+          "flash_attention_bwd_dq_wgmma_hgmma": dq_hgmma,
+          "ssd_scan_hgmma": ssd_hgmma,
           "matmul_hgmma": mm_hgmma, "matmul_utmaldg": utmaldg})
     if hgmma == 0:
         fail("build: no HGMMA instruction in the flash library's SASS")
+    if dq_hgmma == 0:
+        fail("build: no HGMMA instruction in flash_attention_bwd_dq_kernel_"
+             "wgmma's SASS")
     if ssd_hgmma == 0:
         fail("build: no HGMMA instruction in the SSD library's SASS")
     if utmaldg == 0:
@@ -4491,20 +4517,49 @@ def bwd_bound_times(b, hq, hkv, sq, skv, d, dv, dtype, causal,
 def bwd_kernel_ms(q, k, v, do, kw, device, iters: int = 20) -> dict:
     """Device ms of one launch of each backward kernel alone: CUDA events
     around ``iters`` back-to-back launches through its C entry point (the
-    dq kernel first, so the dk/dv kernel reads its statistics); these
-    launches are not counted."""
+    routed dQ kernel first, so the dk/dv kernel reads its statistics; where
+    that is the tensor-core kernel, ``dq_ffma`` times the FFMA dQ kernel
+    beside it); these launches are not counted."""
+    routed = flash_ops.bwd_route(q, k, v)
     _, call = flash_ops._bwd_call(q, k, v, do, kw["causal"], kw["window"],
-                                  kw["softcap"], q.shape[3] ** -0.5)
-    args = call[0]
+                                  kw["softcap"], q.shape[3] ** -0.5, routed)
     lib = flash_ops._lib()
+    kernels = [("dq", getattr(lib, call.dq_entry), call.dq_args),
+               ("dkdv", lib.repro_flash_attention_bwd_dkdv, call.dkdv_args)]
+    if routed == "tc":
+        kernels.append(("dq_ffma", lib.repro_flash_attention_bwd_dq,
+                        call.dkdv_args))
     out = {}
-    for which, fn in (("dq", lib.repro_flash_attention_bwd_dq),
-                      ("dkdv", lib.repro_flash_attention_bwd_dkdv)):
-        def launch(fn=fn, which=which):
+    for which, fn, args in kernels:
+        def launch(fn=fn, which=which, args=args):
             rc = fn(*args)
             if rc != 0:
                 fail(f"backward {which} kernel: launch error {rc}")
         out[which] = timed_ms(launch, device, iters)
+    return out
+
+
+def bwd_stats_errors(q, k, v, do, kw, routed: str) -> dict:
+    """One uncounted launch of the ``routed`` dQ kernel: its row statistics
+    (LSE, D) against ``attention_bwd_stats_ref`` on the same inputs, each
+    within :func:`flash_errors`' f32 limits (``FLASH_TOL`` elementwise,
+    ``ROW_REL_TOL`` along Sq), and LSE +inf exactly where a row has no
+    unmasked key.  ``fault`` says what failed, or is None."""
+    _, call = flash_ops._bwd_call(q, k, v, do, kw["causal"], kw["window"],
+                                  kw["softcap"], q.shape[3] ** -0.5, routed)
+    rc = getattr(flash_ops._lib(), call.dq_entry)(*call.dq_args)
+    if rc != 0:
+        fail(f"backward dq {routed} kernel: launch error {rc}")
+    lse, delta = call.keep[:2]
+    want_lse, want_delta = attention_bwd_stats_ref(q, k, v, do, **kw)
+    seen = torch.isfinite(want_lse)
+    out = {name: flash_errors(g, w, torch.float32) for name, g, w in (
+        ("lse", lse.where(seen, 0.0), want_lse.where(seen, 0.0)),
+        ("delta", delta, want_delta))}
+    out["fault"] = next((f"{name}: {out[name]['fault']}" for name in
+                         ("lse", "delta") if out[name]["fault"]), None)
+    if not bool((lse[~seen] == float("inf")).all()):
+        out["fault"] = "lse: a row with no unmasked key is not +inf"
     return out
 
 
@@ -4523,30 +4578,41 @@ def sdpa_backward_ms(q, k, v, do, device) -> float:
 
 def bwd_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
              timed=False) -> dict:
-    """The two backward kernels against ``attention_bwd_ref`` (autograd
+    """The backward kernels against ``attention_bwd_ref`` (autograd
     through the plain attention) on one input and output gradient: dq, dk
     and dv each within :func:`flash_errors`' limits (the forward's:
     elementwise ``FLASH_TOL``, each row within ``ROW_REL_TOL`` of its
-    norm, but the dq rows of queries that see one key); one launch of each
-    kernel.  ``timed``: each kernel's device ms (:func:`bwd_kernel_ms`),
+    norm, but the dq rows of queries that see one key); one launch of the
+    dQ kernel :func:`flash_ops.bwd_route` names (and none of the other)
+    and of the dK/dV kernel; the dQ kernel's statistics
+    (:func:`bwd_stats_errors`); the tensor-core dQ kernel's dq within
+    ``BWD_TC_DQ_SHARE`` of each limit.  ``timed``: each kernel's device ms
+    (:func:`bwd_kernel_ms`),
     the plain backward's ms, the bounds, and SDPA's backward at the same
     shapes without soft-cap or window."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
     q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, dv)
     do = rnd(b, hq, sq, dv)
-    before = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+    routed = flash_ops.bwd_route(q, k, v)
+
+    def counts():
+        return (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DQ_TC_LAUNCHES,
+                flash_ops.BWD_DQ_FFMA_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+    before = counts()
     got = flash_ops.attention_bwd(q, k, v, do, impl="kernel", **kw)
-    launched = (flash_ops.BWD_DQ_LAUNCHES - before[0],
-                flash_ops.BWD_DKDV_LAUNCHES - before[1])
+    launched = tuple(a - c for a, c in zip(counts(), before))
     want = attention_bwd_ref(q, k, v, do, **kw)
     torch.cuda.synchronize(device)
     name = (f"attention backward b{b} h{hq}/{hkv} s{sq}/{skv} d{d}/{dv} "
             f"{dtype} {kw}")
-    if launched != (1, 1):
-        fail(f"{name}: (dq, dkdv) launches {launched}")
+    expect = (1, int(routed == "tc"), int(routed == "ffma"), 1)
+    if launched != expect:
+        fail(f"{name}: (dq, dq tc, dq ffma, dkdv) launches {launched}, "
+             f"expected {expect} (dq route {routed})")
     row = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "skv": skv, "d": d,
-           "dv": dv, "dtype": str(dtype).split(".")[-1], **kw}
+           "dv": dv, "dtype": str(dtype).split(".")[-1], **kw,
+           "dq_route": routed}
     # a query that sees one key has dq = 0 exactly (a softmax over one
     # element has no derivative): both sides hold rounding noise there, so
     # those rows are held elementwise only
@@ -4561,9 +4627,22 @@ def bwd_case(b, hq, hkv, sq, skv, d, dv, dtype, kw, device, gen,
         if fault is not None:
             fail(f"{name}: {which}: {fault}")
         row[which] = {**errs, "max_abs_ref": w.float().abs().max().item()}
+        if which == "dq" and routed == "tc":
+            tol = FLASH_TOL[dtype]
+            shares = {"elementwise": ((g.float() - w.float()).abs() / (
+                tol + tol * w.float().abs())).max().item(),
+                "row": errs["max_row_rel_err"] / ROW_REL_TOL[dtype]}
+            row[which]["share_of_limit"] = shares
+            if max(shares.values()) > BWD_TC_DQ_SHARE:
+                fail(f"{name}: dq tc kernel takes {shares} of its limits, "
+                     f"over {BWD_TC_DQ_SHARE}: its dS terms are too few")
     row["max_abs_err"] = max(row[w]["max_abs_err"] for w in ("dq", "dk",
                                                              "dv"))
     del got, want
+    row["stats"] = bwd_stats_errors(q, k, v, do, kw, routed)
+    if row["stats"]["fault"] is not None:
+        fail(f"{name}: dq {routed} kernel's statistics: "
+             f"{row['stats']['fault']}")
     if timed:
         bounds = bwd_bound_times(b, hq, hkv, sq, skv, d, dv, dtype,
                                  kw["causal"], kw["window"])
@@ -4707,6 +4786,7 @@ def phase_lm_train(device, smi) -> dict:
         expected = launches_of(flash_attention=3 * n,
                                flash_attention_wgmma=n,
                                flash_attention_bwd_dq=n,
+                               flash_attention_bwd_dq_ffma=n,
                                flash_attention_bwd_dkdv=n)
         if launches != expected:
             fail(f"lm_train: launches {launches}; expected {expected}")
@@ -4783,11 +4863,14 @@ def lm_adamw_bytes(params: int) -> int:
 
 
 def flash_bwd_entries(lm_train: dict, ssm_train: dict) -> list:
-    """The kernels line's two backward-kernel entries: one launch each at
-    gemma2-2b's global-layer train shape (the window layer and zamba2-7b's
-    shared attention beside it), the plain backward and SDPA's backward
-    (both kernels' work) at that shape; launches on gemma2's and zamba2's
-    train paths."""
+    """The kernels line's three backward-kernel entries.  The FFMA dQ and
+    the dK/dV kernel: one launch each at gemma2-2b's global-layer train
+    shape (the window layer and zamba2-7b's shared attention beside it),
+    the plain backward and SDPA's backward (both kernels' work) at that
+    shape.  The tensor-core dQ kernel: one launch at zamba2-7b's shared
+    attention, the FFMA dQ kernel's time there beside it, the plain and
+    SDPA's backward at that shape.  Launches on gemma2's and zamba2's
+    train paths; each kernel's ``max_abs_err`` over the cases it ran."""
     zflash = ssm_train["backward_kernels"]["flash_zamba2"]
     ztrain = ssm_train["zamba2"]
     glob = lm_train["backward_kernels"]["layers"]["global"]
@@ -4796,10 +4879,21 @@ def flash_bwd_entries(lm_train: dict, ssm_train: dict) -> list:
     shape = (f"B={glob['b']}, Hq={glob['hq']}, Hkv={glob['hkv']}, "
              f"S={glob['sq']}, D={glob['d']}, causal, soft-cap "
              f"{glob['softcap']}, bf16")
+    zshape = (f"B={zflash['b']}, H={zflash['hq']}, S={zflash['sq']}, "
+              f"D={zflash['d']}, causal, bf16")
+
+    def by_path(counter):
+        return {LM_TRAIN_PATH: lm_train["launches"][counter],
+                ztrain["path"]: ztrain["launches"][counter]}
     out = []
-    for which, kernel in (("dq", "flash_attention_bwd_dq"),
-                          ("dkdv", "flash_attention_bwd_dkdv")):
+    for which, kernel, counter in (
+            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd_dq_ffma"),
+            ("dkdv", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dkdv")):
         parts = ("dq",) if which == "dq" else ("dk", "dv")
+        mine = [r for r in rows if which == "dkdv"
+                or r["dq_route"] == "ffma"]
+        zms = zflash["kernel_ms"]["dq_ffma" if which == "dq" else which]
         out.append({
             "name": f"{kernel}_kernel", "route": "cuda",
             "source": FLASH_CSRC + "flash_attention_bwd.cu",
@@ -4807,11 +4901,9 @@ def flash_bwd_entries(lm_train: dict, ssm_train: dict) -> list:
             "function": "the gradient of flash_attention_pallas (the JAX "
                         "package differentiates its route; it has no "
                         "backward kernel)",
-            "launches": lm_train["launches"][kernel]
-            + ztrain["launches"][kernel],
-            "launches_by_path": {LM_TRAIN_PATH: lm_train["launches"][kernel],
-                                 ztrain["path"]: ztrain["launches"][kernel]},
-            "max_abs_err": max(r[w]["max_abs_err"] for r in rows
+            "launches": sum(by_path(counter).values()),
+            "launches_by_path": by_path(counter),
+            "max_abs_err": max(r[w]["max_abs_err"] for r in mine
                                for w in parts),
             "ms": glob["kernel_ms"][which],
             "plain_ms": glob["plain_ms"],
@@ -4821,19 +4913,52 @@ def flash_bwd_entries(lm_train: dict, ssm_train: dict) -> list:
             "library_call": glob["library_call"],
             "window_layer": {"ms": win["kernel_ms"][which],
                              "bound_ms": win["bound_ms"][which]},
-            HYBRID_ARCH: {"ms": zflash["kernel_ms"][which],
+            HYBRID_ARCH: {"ms": zms,
+                          "on_path": which == "dkdv",
                           "bound_ms": zflash["bound_ms"][which],
                           "bound_by": zflash["bound_by"][which],
                           "plain_ms": zflash["plain_ms"],
                           "library_ms": zflash["library_ms"],
-                          "at": f"B={zflash['b']}, H={zflash['hq']}, "
-                                f"S={zflash['sq']}, D={zflash['d']}, "
-                                f"causal, bf16"},
+                          "at": zshape},
             "at": f"one launch at the {LM_TRAIN_ARCH} global-layer train "
                   f"shape ({shape}); plain_ms and library_ms: the whole "
                   f"backward (dq and dk/dv) of the plain version and of "
                   f"SDPA (no soft-cap); max_abs_err: the largest "
-                  f"{' and '.join(parts)} error over every case"})
+                  f"{' and '.join(parts)} error over every case it ran"})
+    tc_rows = [r for r in rows if r["dq_route"] == "tc"]
+    out.append({
+        "name": "flash_attention_bwd_dq_kernel_wgmma", "route": "cuda",
+        "source": FLASH_CSRC + "flash_attention_bwd_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+        "function": "dQ and the row statistics of the gradient of "
+                    "flash_attention_pallas, bf16 up to 128 padded columns "
+                    "(the JAX package differentiates its route; it has no "
+                    "backward kernel)",
+        "launches": sum(by_path("flash_attention_bwd_dq_tc").values()),
+        "launches_by_path": by_path("flash_attention_bwd_dq_tc"),
+        "max_abs_err": max(r["dq"]["max_abs_err"] for r in tc_rows),
+        "max_row_rel_err": max(r["dq"]["max_row_rel_err"] for r in tc_rows),
+        "stats_max_abs_err": {w: max(r["stats"][w]["max_abs_err"]
+                                     for r in tc_rows)
+                              for w in ("lse", "delta")},
+        "ds_terms": flash_ops._lib().repro_flash_bwd_dq_tc_ds_terms(),
+        "dq_share_of_limit": {w: max(r["dq"]["share_of_limit"][w]
+                                     for r in tc_rows)
+                              for w in ("elementwise", "row")},
+        "ms": zflash["kernel_ms"]["dq"],
+        "ffma_dq_ms": zflash["kernel_ms"]["dq_ffma"],
+        "dkdv_ms": zflash["kernel_ms"]["dkdv"],
+        "both_kernels_ms": zflash["both_kernels_ms"],
+        "plain_ms": zflash["plain_ms"],
+        "bound_ms": zflash["bound_ms"]["dq"],
+        "bound_by": zflash["bound_by"]["dq"],
+        "library_ms": zflash["library_ms"],
+        "library_call": zflash["library_call"],
+        "at": f"one launch at the {HYBRID_ARCH} shared attention's train "
+              f"shape ({zshape}); ffma_dq_ms: the FFMA dQ kernel there; "
+              f"plain_ms and library_ms: the whole backward (dq and dk/dv) "
+              f"of the plain version and of SDPA; max_abs_err: the largest "
+              f"dq error over every case it ran"})
     return out
 
 
@@ -5167,9 +5292,9 @@ def ssm_train_launches(cfg, steps: int) -> dict:
     """The counts a train run of ``cfg`` should read: per step one SSD
     forward (tensor-core kernel) and one launch of each backward kernel a
     Mamba2 layer (the tensor-core state passes and chunk kernel, no FFMA
-    one), and for the hybrid family one flash forward and one of each
-    flash backward kernel a shared-block application; no cast, copy or
-    other kernel."""
+    one), and for the hybrid family one flash forward, one tensor-core dQ
+    launch (head dim 112, none of the FFMA dQ kernel) and one dK/dV launch
+    a shared-block application; no cast, copy or other kernel."""
     n = cfg.n_layers * steps
     kw = {"ssd_scan": 5 * n, "ssd_scan_wgmma": n, "ssd_scan_bwd": 4 * n,
           "ssd_scan_bwd_state": n, "ssd_scan_bwd_dstate": n,
@@ -5179,7 +5304,8 @@ def ssm_train_launches(cfg, steps: int) -> dict:
     if cfg.family == "hybrid":
         a = n_scan_groups(cfg) * steps
         kw.update(flash_attention=3 * a, flash_attention_wgmma=a,
-                  flash_attention_bwd_dq=a, flash_attention_bwd_dkdv=a)
+                  flash_attention_bwd_dq=a, flash_attention_bwd_dq_tc=a,
+                  flash_attention_bwd_dkdv=a)
     return launches_of(**kw)
 
 

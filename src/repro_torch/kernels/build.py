@@ -38,7 +38,8 @@ SOURCES: Dict[str, Tuple[Path, ...]] = {
     "flash_attention": (
         _ROOT / "flash_attention" / "csrc" / "flash_attention.cu",
         _ROOT / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
-        _ROOT / "flash_attention" / "csrc" / "flash_attention_bwd.cu"),
+        _ROOT / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
+        _ROOT / "flash_attention" / "csrc" / "flash_attention_bwd_wgmma.cu"),
     "ssd_scan": (_ROOT / "ssd_scan" / "csrc" / "ssd_scan.cu",
                  _ROOT / "ssd_scan" / "csrc" / "ssd_scan_wgmma.cu",
                  _ROOT / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
@@ -127,15 +128,22 @@ def build(name: str) -> float:
     return time.perf_counter() - t0
 
 
-def sass_count(name: str, opcode: str) -> int:
+def sass_count(name: str, opcode: str, function: str = "") -> int:
     """How many instructions of ``opcode`` (e.g. ``HGMMA``) the built
-    library's SASS holds (``cuobjdump -sass``, of the CUDA toolkit)."""
+    library's SASS holds (``cuobjdump -sass``, of the CUDA toolkit); with
+    ``function``, only in the kernels whose (mangled) names contain it."""
     tool = Path(_nvcc()).with_name("cuobjdump")
     proc = _run([str(tool), "-sass", str(library_path(name))])
     if proc.returncode != 0:
         raise KernelBuildError(f"cuobjdump failed on {name}:\n{proc.stdout}")
     word = re.compile(rf"\b{re.escape(opcode)}\b")
-    return sum(bool(word.search(line)) for line in proc.stdout.splitlines())
+    count, inside = 0, not function
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            inside = function in line.split("Function :", 1)[1]
+        elif inside and word.search(line):
+            count += 1
+    return count
 
 
 def load(name: str) -> ctypes.CDLL:

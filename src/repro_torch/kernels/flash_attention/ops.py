@@ -19,8 +19,7 @@ A CUDA call goes by dtype (:func:`route`), never by shape:
   held to f32's precision and the kernel meets the limits the FFMA kernel
   met; ``chip_smoke.py`` holds it to at most twice the plain f32 version's
   count of outputs off the exact ones.  It reads q, k, v through 4-D
-  tensor maps (:func:`tma_plan`):
-  TMA needs the last dim contiguous, 16-byte-aligned base addresses and
+  tensor maps (:func:`_mapped`, from :func:`tma_map`): TMA needs the last dim contiguous, 16-byte-aligned base addresses and
   strides that are multiples of 16 bytes.  The model's ``transpose(1, 2)``
   views meet this; any other bf16 layout is first copied into one that
   does (:data:`COPIES` counts those copies).
@@ -47,23 +46,36 @@ ctypes, outside autograd.  So a CUDA call whose q, k or v requires grad
 (with grad mode on) goes through :class:`_FlashAttention`, a
 ``torch.autograd.Function``: its forward is the launch above, unchanged,
 and it saves q, k and v; its backward is :func:`attention_bwd`, which
-launches the two kernels of ``csrc/flash_attention_bwd.cu`` (bf16 and f32
-inputs, f32 accumulation): ``flash_attention_bwd_dq_kernel`` (dQ, and
-each row's log-sum-exp and D = rowsum(P ⊙ dP)) and then
-``flash_attention_bwd_dkdv_kernel`` (dK, dV).  They need no forward
-output: D is summed from P and dP in f32, where a bf16 output would move
-it (the kernel's header says by how much).
+launches a dQ kernel (dQ, and each row's log-sum-exp and
+D = rowsum(P ⊙ dP)) and then ``flash_attention_bwd_dkdv_kernel`` of
+``csrc/flash_attention_bwd.cu`` (dK, dV, from those statistics).  Unlike
+the forward, the backward routes its dQ kernel by shape as well as type
+(:func:`bwd_route`): bf16 with a padded head dim of at most 128
+(:data:`BWD_TC_MAX_DIM`; zamba2-7b's 112) → ``csrc/flash_attention_bwd_
+wgmma.cu`` (``flash_attention_bwd_dq_kernel_wgmma``: ``wgmma`` for S, dP
+and dQ += dS·K, dS in two bf16 terms, q, k, v and dO read through tensor
+maps as the forward reads q, k, v); f32, and bf16 at 192 or 256 columns
+(gemma2-2b's 256) → the FFMA ``flash_attention_bwd_dq_kernel``.  The
+tensor-core kernel is built for 64 and 128 columns, where dQ's f32
+accumulator takes 32 or 64 registers a thread; at 256 it would take 128
+beside the 96 of S, dP and dS, at the edge of 255, and at gemma2's train
+shapes (S 128) the FFMA pair already beats SDPA's backward.  No kernel
+needs a forward output: D is summed from P and dP in f32, where a bf16
+output would move it (``flash_attention_bwd.cu``'s header says by how
+much).
 They replace no TPU kernel — the JAX package differentiates its forward's
 route — and give the gradient of the same function: GQA by ratio, scale,
 soft-cap, causal and window masks, ragged lengths.  No output element is
 summed with atomics, so two runs are bit-equal.  The gradients come back
 in the input dtype, as a ``(B, S, H, D)`` buffer's ``(B, H, S, D)`` view.
 The plain version is :func:`.ref.attention_bwd_ref` (autograd through
-:func:`.ref.attention_ref`), the CPU route of :func:`attention_bwd`.
+:func:`.ref.attention_ref`), the CPU route of :func:`attention_bwd`;
+:func:`.ref.attention_bwd_stats_ref` is that of the statistics.
 
 :data:`LAUNCHES` counts every kernel launch of the library, forward and
 backward; :data:`TC_LAUNCHES`, :data:`FFMA_LAUNCHES`,
-:data:`BWD_DQ_LAUNCHES` and :data:`BWD_DKDV_LAUNCHES` those of each
+:data:`BWD_DQ_LAUNCHES` (both dQ kernels), :data:`BWD_DQ_TC_LAUNCHES`,
+:data:`BWD_DQ_FFMA_LAUNCHES` and :data:`BWD_DKDV_LAUNCHES` those of each
 kernel, so a run can show that its main path went through them.
 """
 from __future__ import annotations
@@ -78,11 +90,14 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                       attention_ref)
 
 #: kernel launches made in this process: every one, the tensor-core (bf16)
-#: kernel's, the FFMA (f32) kernel's and the two backward kernels'
+#: kernel's, the FFMA (f32) kernel's, both dQ kernels', each dQ kernel's
+#: (tensor-core, FFMA) and the dK/dV kernel's
 LAUNCHES = 0
 TC_LAUNCHES = 0
 FFMA_LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
+BWD_DQ_TC_LAUNCHES = 0
+BWD_DQ_FFMA_LAUNCHES = 0
 BWD_DKDV_LAUNCHES = 0
 
 #: copies of a bf16 q, k or v that TMA cannot read in place
@@ -90,6 +105,9 @@ COPIES = 0
 
 #: largest q/k and v head dim the kernels take
 MAX_HEAD_DIM = 256
+
+#: largest padded head dim (:func:`padded_dim`) of the tensor-core dQ kernel
+BWD_TC_MAX_DIM = 128
 
 #: the tensor-core kernel's tiles: a TMA box is 64 bf16 columns (one
 #: 128-byte swizzle row) by 128 query rows or 64 keys
@@ -139,6 +157,19 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return "tc" if q.dtype == torch.bfloat16 else "ffma"
 
 
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              impl: str = "auto") -> str:
+    """Where :func:`attention_bwd` sends dQ: :func:`route`'s answer, but
+    ``"ffma"`` (the FFMA dQ kernel) for a bf16 call whose
+    :func:`padded_dim` is over :data:`BWD_TC_MAX_DIM` (192 or 256
+    columns).  ``"tc"`` is the tensor-core dQ kernel.  dK and dV always
+    come from the FFMA dK/dV kernel."""
+    where = route(q, k, v, impl)
+    if where == "tc" and padded_dim(q.shape[3], v.shape[3]) > BWD_TC_MAX_DIM:
+        return "ffma"
+    return where
+
+
 def padded_dim(d: int, dv: int) -> int:
     """The tensor-core kernel's head dim in shared memory: ``max(d, dv)``
     rounded up to a multiple of 64 (64, 128, 192 or 256); TMA fills the
@@ -177,16 +208,6 @@ def tma_map(shape, strides, data_ptr: int, rows: int,
     box[1 + order.index("s")] = rows
     perm = (1 + order.index("s")) | (1 + order.index("h")) << 2
     return TmaMap(tuple(dims), tuple(byte_strides), tuple(box), perm)
-
-
-def tma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
-    """The tensor-core kernel's host-side plan of one call: the padded
-    head dim ``dp`` and each of q, k, v's :class:`TmaMap`, None for a
-    tensor that needs a copy first (:func:`tma_copy`)."""
-    return {"dp": padded_dim(q.shape[3], v.shape[3]),
-            **{name: tma_map(t.shape, t.stride(), t.data_ptr(), rows)
-               for name, t, rows in (("q", q, Q_ROWS), ("k", k, KV_ROWS),
-                                     ("v", v, KV_ROWS))}}
 
 
 def tma_copy(t: torch.Tensor) -> torch.Tensor:
@@ -229,6 +250,12 @@ def _lib() -> ctypes.CDLL:
             fn.restype = i32
         lib.repro_flash_bwd_error_string.argtypes = [i32]
         lib.repro_flash_bwd_error_string.restype = ctypes.c_char_p
+        lib.repro_flash_attention_bwd_dq_tc.argtypes = [
+            ptr, ptr, ptr, ptr, spec, spec, spec, spec, ptr, strides, ptr,
+            ptr] + [i32] * 10 + [ctypes.c_float, ctypes.c_float, ptr]
+        lib.repro_flash_attention_bwd_dq_tc.restype = i32
+        lib.repro_flash_bwd_dq_tc_ds_terms.argtypes = []
+        lib.repro_flash_bwd_dq_tc_ds_terms.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -254,25 +281,28 @@ def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 4)(*t.stride())
 
 
-def _run_tc(lib, q, k, v, out, causal, window, softcap, scale, stream):
+def _mapped(t: torch.Tensor, rows: int):
+    """``t`` as TMA reads it — itself, or a counted copy
+    (:func:`tma_copy`) when its layout has no tensor map — and that
+    map's :class:`_MapSpec`."""
     global COPIES
-    plan = tma_plan(q, k, v)
-    maps = []
-    for name, t, rows in (("q", q, Q_ROWS), ("k", k, KV_ROWS),
-                          ("v", v, KV_ROWS)):
-        m = plan[name]
-        if m is None:                      # a layout TMA cannot read
-            t = tma_copy(t)
-            COPIES += 1
-            m = tma_map(t.shape, t.stride(), t.data_ptr(), rows)
-        maps.append((t, m.spec()))
-    (q, qm), (k, km), (v, vm) = maps
+    m = tma_map(t.shape, t.stride(), t.data_ptr(), rows)
+    if m is None:                          # a layout TMA cannot read
+        t = tma_copy(t)
+        COPIES += 1
+        m = tma_map(t.shape, t.stride(), t.data_ptr(), rows)
+    return t, m.spec()
+
+
+def _run_tc(lib, q, k, v, out, causal, window, softcap, scale, stream):
+    (q, qm), (k, km), (v, vm) = (_mapped(t, rows) for t, rows in (
+        (q, Q_ROWS), (k, KV_ROWS), (v, KV_ROWS)))
     b, hq, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     rc = lib.repro_flash_attention_tc(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.byref(qm), ctypes.byref(km), ctypes.byref(vm), _strides(out),
-        b, hq, hkv, sq, skv, d, dv, plan["dp"], int(causal), window,
+        b, hq, hkv, sq, skv, d, dv, padded_dim(d, dv), int(causal), window,
         float(softcap), float(scale), stream)
     return rc, lib.repro_flash_tc_error_string
 
@@ -342,16 +372,38 @@ def _heads_view(b: int, h: int, s: int, d: int, like: torch.Tensor
                        device=like.device).transpose(1, 2)
 
 
-def _bwd_call(q, k, v, do, causal: bool, window: int, softcap: float,
-              scale: float):
-    """The backward kernels' outputs ``(dq, dk, dv)``, fresh, and the
-    arguments both C entry points take — None when there is nothing to
-    launch (no query or no key: the gradients are zeros)."""
+def _on_one_card(q, k, v, do) -> None:
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, do)):
         raise ValueError(f"the flash attention backward kernels take q, k, "
                          f"v, do on one CUDA device, got {q.device}, "
                          f"{k.device}, {v.device}, {do.device}")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+@dataclass(frozen=True)
+class _BwdCall:
+    """One backward call's launches: the routed dQ kernel's entry point
+    and arguments, then the dK/dV kernel's arguments; ``keep`` holds what
+    the pointers in them point to (the statistics, a cast or copied
+    operand)."""
+    dq_entry: str
+    dq_args: tuple
+    dkdv_args: tuple
+    keep: tuple
+
+
+def _bwd_call(q, k, v, do, causal: bool, window: int, softcap: float,
+              scale: float, dq_kernel: str):
+    """The backward kernels' outputs ``(dq, dk, dv)``, fresh, and the
+    :class:`_BwdCall` that fills them, with ``dq_kernel`` (``"tc"`` or
+    ``"ffma"``, :func:`bwd_route`) for dQ — None when there is nothing to
+    launch (no query or no key: the gradients are zeros)."""
+    dev = q.device
+    _on_one_card(q, k, v, do)
     b, hq, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     if tuple(do.shape) != (b, hq, sq, dv):
@@ -362,6 +414,11 @@ def _bwd_call(q, k, v, do, causal: bool, window: int, softcap: float,
                          f"{MAX_HEAD_DIM}, got d={d}, dv={dv}")
     if b > 65535 or hq > 65535:
         raise ValueError(f"batch {b} or heads {hq} exceed the kernel's grid")
+    if dq_kernel == "tc" and (q.dtype != torch.bfloat16
+                              or padded_dim(d, dv) > BWD_TC_MAX_DIM):
+        raise ValueError(f"the tensor-core dQ kernel takes bf16 with a "
+                         f"padded head dim up to {BWD_TC_MAX_DIM}, got "
+                         f"{q.dtype}, d={d}, dv={dv}")
     do = do.to(q.dtype)
     outs = (_heads_view(b, hq, sq, d, q), _heads_view(b, hkv, skv, d, q),
             _heads_view(b, hkv, skv, dv, q))
@@ -372,39 +429,62 @@ def _bwd_call(q, k, v, do, causal: bool, window: int, softcap: float,
     tensors = (q, k, v, do, *outs)
     strides = (ctypes.c_longlong * 28)(*(s for t in tensors
                                          for s in t.stride()))
-    # lse and delta ride along: the arguments keep them alive
+    stream = _stream(dev)
+    window = _window(window, sq, skv)
     args = (*(t.data_ptr() for t in tensors), lse.data_ptr(),
             delta.data_ptr(), strides, b, hq, hkv, sq, skv, d, dv,
-            int(q.dtype == torch.bfloat16), int(causal),
-            _window(window, sq, skv), float(softcap), float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
-    return outs, (args, lse, delta, do)
+            int(q.dtype == torch.bfloat16), int(causal), window,
+            float(softcap), float(scale), stream)
+    keep = (lse, delta, do)
+    if dq_kernel == "ffma":
+        return outs, _BwdCall("repro_flash_attention_bwd_dq", args, args,
+                              keep)
+    mapped = [_mapped(t, rows) for t, rows in (
+        (q, Q_ROWS), (k, KV_ROWS), (v, KV_ROWS), (do, Q_ROWS))]
+    tc_args = (*(t.data_ptr() for t, _ in mapped),
+               *(ctypes.byref(m) for _, m in mapped), outs[0].data_ptr(),
+               _strides(outs[0]), lse.data_ptr(), delta.data_ptr(), b, hq,
+               hkv, sq, skv, d, dv, padded_dim(d, dv), int(causal), window,
+               float(softcap), float(scale), stream)
+    return outs, _BwdCall("repro_flash_attention_bwd_dq_tc", tc_args, args,
+                          keep + tuple(t for t, _ in mapped))
 
 
 def _launch_bwd(q, k, v, do, causal: bool, window: int, softcap: float,
-                scale: float):
-    """dq, dk, dv from the two backward kernels, one launch each."""
-    global LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKDV_LAUNCHES
-    outs, call = _bwd_call(q, k, v, do, causal, window, softcap, scale)
+                scale: float, dq_kernel: str):
+    """dq, dk, dv from two launches: the ``dq_kernel`` dQ kernel, then the
+    dK/dV kernel."""
+    global LAUNCHES, BWD_DQ_LAUNCHES, BWD_DQ_TC_LAUNCHES, \
+        BWD_DQ_FFMA_LAUNCHES, BWD_DKDV_LAUNCHES
+    outs, call = _bwd_call(q, k, v, do, causal, window, softcap, scale,
+                           dq_kernel)
     if call is None:
         return outs
-    args = call[0]
     with torch.cuda.device(q.device):
         lib = _lib()
-        for name, fn in (("dq", lib.repro_flash_attention_bwd_dq),
-                         ("dkdv", lib.repro_flash_attention_bwd_dkdv)):
+        dq_errors = (lib.repro_flash_tc_error_string if dq_kernel == "tc"
+                     else lib.repro_flash_bwd_error_string)
+        for name, fn, args, errors in (
+                (f"dq {dq_kernel}", getattr(lib, call.dq_entry),
+                 call.dq_args, dq_errors),
+                ("dkdv", lib.repro_flash_attention_bwd_dkdv, call.dkdv_args,
+                 lib.repro_flash_bwd_error_string)):
             rc = fn(*args)
             if rc != 0:
                 raise KernelLaunchError(
                     f"flash attention backward launch failed ({name} "
                     f"kernel; q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                     f"{tuple(v.shape)}, {q.dtype}): error {rc}: "
-                    f"{lib.repro_flash_bwd_error_string(rc).decode()}")
+                    f"{errors(rc).decode()}")
             LAUNCHES += 1
-            if name == "dq":
-                BWD_DQ_LAUNCHES += 1
-            else:
+            if name == "dkdv":
                 BWD_DKDV_LAUNCHES += 1
+                continue
+            BWD_DQ_LAUNCHES += 1
+            if dq_kernel == "tc":
+                BWD_DQ_TC_LAUNCHES += 1
+            else:
+                BWD_DQ_FFMA_LAUNCHES += 1
     return outs
 
 
@@ -420,7 +500,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        dq, dk, dv = _launch_bwd(*ctx.saved_tensors, do, *ctx.settings)
+        q, k, v = ctx.saved_tensors
+        dq_kernel = bwd_route(q, k, v, impl="kernel")
+        dq, dk, dv = _launch_bwd(q, k, v, do, *ctx.settings, dq_kernel)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -454,12 +536,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of :func:`attention` at ``q, k, v`` for the output
     gradient ``do``; routed as :func:`attention` is (the CPU and
     ``impl="plain"`` take :func:`.ref.attention_bwd_ref`, a CUDA tensor the
-    two backward kernels)."""
+    dQ kernel :func:`bwd_route` names and then the dK/dV kernel)."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
     _check(q, k, v)
     scale = scale if scale is not None else q.shape[3] ** -0.5
-    if route(q, k, v, impl) == "plain":
+    where = bwd_route(q, k, v, impl)
+    if where == "plain":
         return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
                                  softcap=softcap, scale=scale)
-    return _launch_bwd(q, k, v, do, causal, window, softcap, scale)
+    return _launch_bwd(q, k, v, do, causal, window, softcap, scale, where)

@@ -20,7 +20,9 @@ another: unblocked, the plain version would not fit beside the model on an
 the CPU's matrix product takes another kernel for so few rows.
 
 :func:`attention_bwd_ref` is the plain version of the backward kernels:
-autograd through :func:`attention_ref`.
+autograd through :func:`attention_ref`.  :func:`attention_bwd_stats_ref`
+is the plain version of the row statistics (LSE, D) the dQ kernels write
+for the dK/dV kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +30,32 @@ import torch
 
 #: the largest f32 score block (bytes) the plain version builds at once
 SCORE_BLOCK_BYTES = 1 << 30
+
+
+def _block_rows(b: int, hq: int, skv: int) -> int:
+    """The most multiples of 64 query rows whose f32 scores
+    :data:`SCORE_BLOCK_BYTES` holds, at least 64."""
+    fit = SCORE_BLOCK_BYTES // max(1, b * hq * skv * 4)
+    return max(64, fit // 64 * 64)
+
+
+def _masked_scores(q, kf, r0: int, r1: int, causal: bool, window: int,
+                   softcap: float, scale: float) -> torch.Tensor:
+    """The f32 scores of query rows ``[r0, r1)`` against every key of
+    ``kf`` (f32, one head a query head): scale, then the soft-cap, then
+    the mask (-inf)."""
+    sq, skv = q.shape[2], kf.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(), kf) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(r0, r1, device=q.device)[:, None] + (skv - sq)
+    cols = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((r1 - r0, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (rows >= cols)
+    if window > 0:
+        mask = mask & (rows - cols < window)
+    return s.masked_fill(~mask, float("-inf"))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -38,28 +66,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rows go in blocks of the most multiples of 64 rows whose scores
     :data:`SCORE_BLOCK_BYTES` holds, at least 64."""
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    group = hq // hkv
+    group = hq // k.shape[1]
     scale = scale if scale is not None else d ** -0.5
-    fit = SCORE_BLOCK_BYTES // max(1, b * hq * skv * 4)
-    block_rows = max(64, fit // 64 * 64)
+    block_rows = _block_rows(b, hq, k.shape[2])
     kf = k.repeat_interleave(group, dim=1).float()
     vf = v.repeat_interleave(group, dim=1).float()
-    cols = torch.arange(skv, device=q.device)[None, :]
     out = torch.empty((b, hq, sq, v.shape[3]), dtype=q.dtype, device=q.device)
     for r0 in range(0, sq, block_rows):
         r1 = min(sq, r0 + block_rows)
-        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(), kf) \
-            * scale
-        if softcap > 0.0:
-            s = softcap * torch.tanh(s / softcap)
-        rows = torch.arange(r0, r1, device=q.device)[:, None] + (skv - sq)
-        mask = torch.ones((r1 - r0, skv), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (rows >= cols)
-        if window > 0:
-            mask = mask & (rows - cols < window)
-        s = s.masked_fill(~mask, float("-inf"))
+        s = _masked_scores(q, kf, r0, r1, causal, window, softcap, scale)
         p = torch.softmax(s, dim=-1)
         del s
         p = torch.nan_to_num(p, nan=0.0)
@@ -79,3 +94,34 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = attention_ref(*leaves, causal=causal, window=window,
                             softcap=softcap, scale=scale)
         return torch.autograd.grad(out, leaves, do.to(out.dtype))
+
+
+def attention_bwd_stats_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, scale: float | None = None
+                            ) -> tuple:
+    """The row statistics the dQ kernels write, ``(lse, delta)``, each f32
+    ``(B, Hq, Sq)``: LSE = log Σ exp(s) over a row's unmasked keys (+inf
+    for a row with none) and D = Σ P ⊙ dP with P = exp(s − LSE) and
+    dP = dO·Vᵀ, both in f32 from the inputs' values — not from the
+    forward's output.  Query rows go in :func:`attention_ref`'s blocks."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    block_rows = _block_rows(b, hq, k.shape[2])
+    for r0 in range(0, sq, block_rows):
+        r1 = min(sq, r0 + block_rows)
+        s = _masked_scores(q, kf, r0, r1, causal, window, softcap, scale)
+        m = torch.logsumexp(s, dim=-1)
+        m = m.masked_fill(m == float("-inf"), float("inf"))
+        p = torch.exp(s - m[..., None])
+        del s
+        dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, r0:r1].float(), vf)
+        lse[:, :, r0:r1] = m
+        delta[:, :, r0:r1] = (p * dp).sum(dim=-1)
+    return lse, delta

@@ -219,9 +219,10 @@ def test_tma_map_reads_the_models_views_in_place():
         torch.zeros(1, 50, 8, 192, dtype=torch.bfloat16),
         torch.zeros(1, 50, 4, 192, dtype=torch.bfloat16),
         torch.zeros(1, 50, 4, 128, dtype=torch.bfloat16)))
-    plan = ops.tma_plan(qv, kv, vv)
-    assert plan["dp"] == 192
-    assert all(plan[n] is not None for n in "qkv")
+    assert ops.padded_dim(qv.shape[3], vv.shape[3]) == 192
+    assert all(ops.tma_map(t.shape, t.stride(), t.data_ptr(), rows)
+               is not None for t, rows in ((qv, ops.Q_ROWS), (kv, ops.KV_ROWS),
+                                           (vv, ops.KV_ROWS)))
 
 
 def test_tma_map_refuses_what_tma_cannot_read():

@@ -1597,6 +1597,13 @@ def _single_key_rows(sq, skv, causal, window):
     return hi - lo + 1 <= 1
 
 
+def _bwd_counts():
+    """(dQ launches, of them the tensor-core kernel's, the FFMA kernel's,
+    dK/dV launches)."""
+    return (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DQ_TC_LAUNCHES,
+            flash_ops.BWD_DQ_FFMA_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+
+
 def _bwd_check(q, k, v, dtype, seed=1, **kw):
     """The two backward kernels against ``attention_bwd_ref`` (autograd
     through ``attention_ref``) for an output gradient drawn from ``seed``:
@@ -1605,17 +1612,20 @@ def _bwd_check(q, k, v, dtype, seed=1, **kw):
     ``BWD_ROW_TOL`` (the forward's row limit: f32 1e-4, bf16 1e-2) of its
     norm — but the dq rows of queries that see one key, whose exact
     gradient is 0 and which both sides fill with rounding noise: those are
-    held elementwise only; one launch of each kernel."""
+    held elementwise only; one launch of each kernel, the dQ kernel the
+    one ``bwd_route`` names (bf16 up to 128 padded columns the tensor-core
+    kernel, else the FFMA one) and none of the other."""
     r = np.random.default_rng(seed)
     shape = (*q.shape[:3], v.shape[3])
     do = torch.tensor(r.standard_normal(shape),
                       dtype=torch.float32).to(q.device, q.dtype)
-    before = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+    tc = flash_ops.bwd_route(q, k, v) == "tc"
+    before = _bwd_counts()
     got = flash_ops.attention_bwd(q, k, v, do, impl="kernel", **kw)
     want = attention_bwd_ref(q, k, v, do, **kw)
     torch.cuda.synchronize()
-    assert (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
+    assert _bwd_counts() == (before[0] + 1, before[1] + int(tc),
+                             before[2] + int(not tc), before[3] + 1)
     tol = FLASH_TOL[dtype]
     keep = torch.from_numpy(~_single_key_rows(
         q.shape[2], k.shape[2], kw["causal"], kw["window"])).to(q.device)
@@ -1695,6 +1705,81 @@ def test_flash_autograd_on_card_runs_the_backward_kernels(cuda, dtype):
         assert torch.equal(a, b) and torch.equal(a, w)
     with torch.no_grad():
         assert flash_ops.attention(q, k, v, **kw).grad_fn is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,tc", [("bfloat16", 64, True),
+                                        ("bfloat16", 112, True),
+                                        ("bfloat16", 256, False),
+                                        ("float32", 64, False),
+                                        ("float32", 112, False)])
+def test_flash_backward_dq_route_on_card(cuda, dtype, d, tc):
+    """bf16 at head dims 64 and 112 launches the tensor-core dQ kernel,
+    bf16 at 256 and f32 the FFMA one; either within the limits."""
+    q, k, v = _qkv(1, 4, 2, 160, 160, d, d, dtype, cuda)
+    before = _bwd_counts()
+    _bwd_check(q, k, v, dtype, causal=True, window=0, softcap=0.0)
+    moved = tuple(a - b for a, b in zip(_bwd_counts(), before))
+    assert moved == (1, int(tc), int(not tc), 1)
+
+
+@pytest.mark.gpu
+def test_flash_backward_zamba2_train_layer_on_card(cuda):
+    """zamba2-7b's shared attention at its train shape (B 4, 32 heads of
+    112, S 1024, causal) on the tensor-core dQ kernel."""
+    q, k, v = _qkv(4, 32, 32, 1024, 1024, 112, 112, "bfloat16", cuda)
+    _bwd_check(q, k, v, "bfloat16", causal=True, window=0, softcap=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,hq,hkv,sq,skv,d,dv,kw", [
+    ("bfloat16", 2, 4, 2, 200, 200, 64, 64, dict(causal=True, window=0,
+                                                 softcap=0.0)),
+    ("bfloat16", 1, 4, 4, 300, 300, 112, 112, dict(causal=True, window=100,
+                                                   softcap=30.0)),
+    ("bfloat16", 2, 4, 4, 300, 100, 64, 40, dict(causal=True, window=0,
+                                                 softcap=0.0)),
+    ("bfloat16", 2, 4, 4, 96, 96, 64, 64, dict(causal=False, window=0,
+                                               softcap=0.0)),
+    ("bfloat16", 2, 8, 4, 128, 128, 256, 256, dict(causal=True, window=0,
+                                                   softcap=50.0)),
+    ("float32", 2, 4, 2, 200, 200, 64, 64, dict(causal=True, window=32,
+                                                softcap=20.0))])
+def test_flash_backward_dq_statistics_match_plain_on_card(cuda, dtype, b, hq,
+                                                          hkv, sq, skv, d,
+                                                          dv, kw):
+    """The routed dQ kernel's LSE and D against ``attention_bwd_stats_ref``
+    within the f32 limits (``chip_smoke.bwd_stats_errors``), LSE +inf for
+    the rows with no key (Sq > Skv, causal)."""
+    from _torch_helpers import chip_smoke
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, dv, dtype, cuda)
+    do = _qkv(b, hq, hkv, sq, skv, dv, dv, dtype, cuda, seed=2)[0]
+    routed = flash_ops.bwd_route(q, k, v)
+    errs = chip_smoke().bwd_stats_errors(q, k, v, do, kw, routed)
+    torch.cuda.synchronize()
+    assert errs["fault"] is None, errs
+
+
+@pytest.mark.gpu
+def test_flash_backward_tc_dq_is_bit_equal_and_reads_model_views(cuda):
+    """The model's transposed views of q, k, v and dO go to the
+    tensor-core dQ kernel as they are (no copy), and two runs give the
+    same bits (no atomics)."""
+    b, h, s, d = 2, 8, 300, 112
+    q, k, v, do = (torch.randn(b, s, h * d, device=cuda).to(torch.bfloat16)
+                   .view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    kw = dict(causal=True, window=0, softcap=0.0)
+    before = (flash_ops.COPIES, flash_ops.BWD_DQ_TC_LAUNCHES)
+    one = flash_ops.attention_bwd(q, k, v, do, impl="kernel", **kw)
+    two = flash_ops.attention_bwd(q, k, v, do, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    assert (flash_ops.COPIES, flash_ops.BWD_DQ_TC_LAUNCHES) == (
+        before[0], before[1] + 2)
+    for a, c in zip(one, two):
+        assert torch.equal(a, c)
+    want = attention_bwd_ref(q, k, v, do, **kw)[0].float()
+    row = (one[0].float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(row[:, :, 1:].max()) <= BWD_ROW_TOL["bfloat16"]
 
 
 def _ssd_bwd_counts():

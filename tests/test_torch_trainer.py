@@ -761,6 +761,7 @@ FB_CASES = [
     (1, 2, 1, 50, 50, 16, 8, True, 12, 5.0),
     (1, 2, 2, 33, 90, 8, 8, False, 20, 0.0),
     (1, 2, 2, 100, 100, 8, 8, True, 33, 10.0),
+    (1, 4, 4, 96, 96, 112, 112, True, 0, 0.0),    # zamba2-7b's head dim
 ]
 FB_IDS = [f"b{c[0]}h{c[1]}/{c[2]}s{c[3]}/{c[4]}d{c[5]}/{c[6]}"
           f"{'c' if c[7] else 'n'}w{c[8]}cap{c[9]:g}" for c in FB_CASES]
